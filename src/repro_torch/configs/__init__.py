@@ -1,0 +1,18 @@
+"""Architecture registry of the port (``ARCHS[name]``).
+
+Holds the architectures the port runs so far: the dense decoder family.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.config import ModelConfig
+from repro_torch.configs.qwen2_0_5b import CONFIG as qwen2_0_5b
+
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [qwen2_0_5b]}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCHS)}")
+    return ARCHS[arch]

@@ -1,0 +1,109 @@
+"""LoRA parameter trees + FibecFed masking helpers (port of ``repro.lora``).
+
+The LoRA tree keeps the JAX package's stacked layout, which GAL masks,
+neuron masks, optimizer state and comm accounting all follow:
+``{"layers": {"wq"|"wk"|"wv"|"wo": {"a": (L, d_in, r), "b": (L, r, d_out)}}}``.
+
+FibecFed works on this tree at two granularities:
+
+* **GAL (layer) masks**: one 0/1 value per logical layer, as broadcastable
+  ``(L, 1, 1)`` leaves. GAL layers' LoRA is globally aggregated, the rest
+  stays client-local (paper §4.3.1).
+* **Neuron masks**: 0/1 over the output dimension of each target, expanded
+  to full leaf shape. Frozen neurons mask the columns of LoRA ``b``; ``a``
+  stays trainable (paper §4.3.2).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+
+
+def _attn_dims(cfg: ModelConfig) -> Dict[str, tuple]:
+    hd = cfg.resolved_head_dim
+    return {
+        "wq": (cfg.d_model, cfg.num_heads * hd),
+        "wk": (cfg.d_model, cfg.num_kv_heads * hd),
+        "wv": (cfg.d_model, cfg.num_kv_heads * hd),
+        "wo": (cfg.num_heads * hd, cfg.d_model),
+    }
+
+
+def init_lora(generator: torch.Generator, cfg: ModelConfig, device) -> Dict[str, Any]:
+    """``a ~ N(0, 1)/r``, ``b = 0``, f32, stacked over layers (dense family).
+
+    The draws come from ``generator`` (a ``torch.Generator`` on ``device``);
+    they are not the JAX package's ``jax.random`` draws.
+    """
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"LoRA trees for family {cfg.family!r} are not ported yet "
+            "(ROADMAP.md, Queue A item 12)"
+        )
+    rank, L = cfg.lora_rank, cfg.num_layers
+    out = {}
+    for t, (d_in, d_out) in sorted(_attn_dims(cfg).items()):
+        a = torch.randn((L, d_in, rank), generator=generator, device=device) / rank
+        out[t] = {"a": a, "b": torch.zeros((L, rank, d_out), device=device)}
+    return {"layers": out}
+
+
+def lora_num_logical_layers(cfg: ModelConfig) -> int:
+    if cfg.family in ("encdec", "audio"):
+        return cfg.encoder_layers + cfg.num_layers
+    if cfg.family == "hybrid":
+        return cfg.num_layers + 1  # + the shared attention block
+    return cfg.num_layers
+
+
+def _group_offsets(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Top-level LoRA group -> (layer offset, n_layers | 0 for unstacked)."""
+    if cfg.family in ("encdec", "audio"):
+        return {"encoder": (0, cfg.encoder_layers), "decoder": (cfg.encoder_layers, cfg.num_layers)}
+    if cfg.family == "hybrid":
+        return {"mamba": (0, cfg.num_layers), "shared": (cfg.num_layers, 0)}
+    return {"layers": (0, cfg.num_layers)}
+
+
+def gal_mask_tree(cfg: ModelConfig, lora, gal_layers) -> Any:
+    """``gal_layers``: bool (num_logical_layers,). Returns f32 {0., 1.} masks
+    matching ``lora``, broadcastable ``(L, 1, 1)`` for stacked leaves."""
+    gal = np.asarray(gal_layers, np.float32)
+    out = {}
+    for group, (offset, n) in _group_offsets(cfg).items():
+        g = {}
+        for t, ab in lora[group].items():
+            g[t] = {}
+            for name, leaf in ab.items():
+                if n:
+                    seg = gal[offset : offset + n].reshape((n,) + (1,) * (leaf.dim() - 1))
+                else:
+                    seg = gal[offset]
+                g[t][name] = torch.as_tensor(seg, dtype=torch.float32, device=leaf.device)
+        out[group] = g
+    return out
+
+
+def neuron_mask_tree(cfg: ModelConfig, lora, neuron_masks: Dict[str, Any]) -> Any:
+    """Full-shape per-leaf update masks from per-target neuron keep-masks.
+
+    ``neuron_masks``: ``{group: {target: keep (L, d_out) or (d_out,)}}``. The
+    mask multiplies LoRA ``b`` columns; ``a`` is always trainable (1.0).
+    """
+    del cfg  # the tree structure alone decides the layout
+    out = {}
+    for group, targets in lora.items():
+        g = {}
+        for t, ab in targets.items():
+            keep = neuron_masks[group][t].to(torch.float32)
+            bmask = keep[:, None, :] if ab["b"].dim() == 3 else keep[None, :]
+            g[t] = {
+                "a": torch.ones_like(ab["a"], dtype=torch.float32),
+                "b": (bmask * torch.ones_like(ab["b"], dtype=torch.float32)).contiguous(),
+            }
+        out[group] = g
+    return out

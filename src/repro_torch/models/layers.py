@@ -1,0 +1,88 @@
+"""Shared building blocks: initializers, norms, RoPE, linears with LoRA.
+
+Port of ``repro.models.layers``. All modules are plain functions over dicts
+of tensors. A "linear" is ``{"w": (in, out)[, "b": (out,)]}``; stacked layers
+carry a leading layer axis on every leaf. Initializers draw from an explicit
+``torch.Generator`` on the target device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def init_stacked_dense(gen: torch.Generator, n: int, d_in: int, d_out: int, dtype, device) -> torch.Tensor:
+    """N(0, 1/d_in) weights drawn in f32, cast to ``dtype``."""
+    w = torch.randn((n, d_in, d_out), generator=gen, device=device) / math.sqrt(d_in)
+    return w.to(dtype)
+
+
+def init_embed(gen: torch.Generator, vocab: int, d: int, dtype, device) -> torch.Tensor:
+    return (torch.randn((vocab, d), generator=gen, device=device) * 0.02).to(dtype)
+
+
+def linear(x: torch.Tensor, p, lora=None, lora_scale: float = 1.0) -> torch.Tensor:
+    """``x @ w (+ b)`` with an optional LoRA delta ``(x @ a) @ b * scale``.
+
+    x: (..., d_in). p: {"w": (d_in, d_out)[, "b"]}. lora: {"a": (d_in, r),
+    "b": (r, d_out)} or None; its leaves are cast to ``x``'s dtype.
+    """
+    y = x @ p["w"]
+    if lora is not None:
+        z = x @ lora["a"].to(x.dtype)
+        y = y + lora_scale * (z @ lora["b"].to(x.dtype))
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm computed in f32, cast back to ``x``'s dtype."""
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32)).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm computed in f32, cast back to ``x``'s dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
+
+
+def rope_frequencies(rotary_dims: int, theta: float, device) -> torch.Tensor:
+    """Inverse frequencies for the rotated sub-dimension, f32 (rotary_dims//2,)."""
+    exponent = torch.arange(0, rotary_dims, 2, dtype=torch.float32, device=device) / rotary_dims
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0,
+               mode: str = "full") -> torch.Tensor:
+    """Rotary embedding. x: (..., seq, heads, head_dim); positions
+    broadcastable to (..., seq). ``"full"`` rotates the whole head_dim,
+    ``"2d"`` (ChatGLM) its first half, ``"none"`` is the identity."""
+    if mode == "none":
+        return x
+    head_dim = x.shape[-1]
+    rotary_dims = head_dim if mode == "full" else head_dim // 2
+    inv_freq = rope_frequencies(rotary_dims, theta, x.device)
+    angles = positions[..., None].to(torch.float32) * inv_freq  # (..., S, rd/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, rd/2)
+    sin = torch.sin(angles)[..., None, :]
+    xr = x[..., :rotary_dims].to(torch.float32)
+    x1, x2 = torch.chunk(xr, 2, dim=-1)
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if rotary_dims == head_dim:
+        return rotated.to(x.dtype)
+    return torch.cat([rotated.to(x.dtype), x[..., rotary_dims:]], dim=-1)
+
+
+def soft_cap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return logits
+    return cap * torch.tanh(logits / cap)

@@ -1,0 +1,51 @@
+"""Model interface of the port (dense family).
+
+``build_model(cfg)`` returns a :class:`ModelFns` bundle:
+
+- ``init_params(generator, device)``: frozen base model;
+- ``init_lora(generator, device)``: trainable LoRA tree (see repro_torch.lora);
+- ``forward(params, lora, batch)`` -> (logits (B, S, V), aux_loss);
+- ``forward_probe(params, lora, batch, embed_noise=None)`` -> (logits, aux,
+  layer_norms (L, B)), the FibecFed GAL sensitivity probe.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.config import ModelConfig
+from repro_torch.lora import init_lora as _init_lora_tree
+from repro_torch.models import transformer as _tf
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelFns:
+    cfg: ModelConfig
+    init_params: Callable[..., Any]
+    init_lora: Callable[..., Any]
+    forward: Callable[..., Any]
+    forward_probe: Callable[..., Any]
+
+
+def build_model(cfg: ModelConfig) -> ModelFns:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue A item 12)"
+        )
+
+    def forward(params, lora, batch):
+        return _tf.decoder_forward(params, lora["layers"], batch["tokens"], cfg)
+
+    def forward_probe(params, lora, batch, embed_noise=None):
+        return _tf.decoder_forward(
+            params, lora["layers"], batch["tokens"], cfg,
+            embed_noise=embed_noise, collect_layer_norms=True,
+        )
+
+    return ModelFns(
+        cfg=cfg,
+        init_params=lambda gen, device: _tf.init_decoder(gen, cfg, device),
+        init_lora=lambda gen, device: _init_lora_tree(gen, cfg, device),
+        forward=forward,
+        forward_probe=forward_probe,
+    )

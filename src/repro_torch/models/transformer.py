@@ -1,0 +1,156 @@
+"""Dense decoder-only transformer (port of the dense branch of
+``repro.models.transformer``).
+
+Per-layer weights are stacked on a leading layer axis, as in the JAX
+package, and the layer loop is a Python loop over those slices. LoRA trees
+mirror the stacked layout. Supported knobs: GQA, QKV bias, qk-norm, RoPE,
+parallel residual, RMS/layer norm, SwiGLU/GELU MLP, sliding-window
+attention, logit soft-cap, tied embeddings. Decode caches are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    apply_rope,
+    init_embed,
+    init_stacked_dense,
+    layer_norm,
+    linear,
+    rms_norm,
+    soft_cap,
+)
+from repro_torch.models.mlp import apply_mlp, init_mlp
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def init_decoder(gen: torch.Generator, cfg: ModelConfig, device) -> Dict[str, Any]:
+    """Frozen base weights drawn from ``gen`` (a generator on ``device``)."""
+    dtype = torch_dtype(cfg.dtype)
+    hd = cfg.resolved_head_dim
+    H, KVH, D, L = cfg.num_heads, cfg.num_kv_heads, cfg.d_model, cfg.num_layers
+    layers: Dict[str, Any] = {
+        "wq": init_stacked_dense(gen, L, D, H * hd, dtype, device),
+        "wk": init_stacked_dense(gen, L, D, KVH * hd, dtype, device),
+        "wv": init_stacked_dense(gen, L, D, KVH * hd, dtype, device),
+        "wo": init_stacked_dense(gen, L, H * hd, D, dtype, device),
+    }
+    if cfg.qkv_bias:
+        layers["bq"] = torch.zeros((L, H * hd), dtype=dtype, device=device)
+        layers["bk"] = torch.zeros((L, KVH * hd), dtype=dtype, device=device)
+        layers["bv"] = torch.zeros((L, KVH * hd), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        layers["q_norm_w"] = torch.ones((L, hd), dtype=dtype, device=device)
+        layers["k_norm_w"] = torch.ones((L, hd), dtype=dtype, device=device)
+    for name in ("attn_norm", "mlp_norm"):
+        layers[f"{name}_w"] = torch.ones((L, D), dtype=dtype, device=device)
+        if cfg.norm == "layernorm":
+            layers[f"{name}_b"] = torch.zeros((L, D), dtype=dtype, device=device)
+    layers.update(init_mlp(gen, L, D, cfg.d_ff, cfg.mlp, dtype, device))
+    params = {
+        "embed": init_embed(gen, cfg.vocab_size, D, dtype, device),
+        "layers": layers,
+        "final_norm_w": torch.ones((D,), dtype=dtype, device=device),
+    }
+    if cfg.norm == "layernorm":
+        params["final_norm_b"] = torch.zeros((D,), dtype=dtype, device=device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_stacked_dense(gen, 1, D, cfg.vocab_size, dtype, device)[0]
+    return params
+
+
+def _norm(h, p, name, kind):
+    if kind == "layernorm":
+        return layer_norm(h, p[f"{name}_w"], p[f"{name}_b"])
+    return rms_norm(h, p[f"{name}_w"])
+
+
+def _project_qkv(x, p, lora, cfg: ModelConfig, lora_scale):
+    hd = cfg.resolved_head_dim
+    lget = (lambda k: lora.get(k) if lora else None)
+
+    def proj(w, b):
+        return linear(x, {"w": p[w], **({"b": p[b]} if b in p else {})}, lget(w), lora_scale)
+
+    B, S = x.shape[0], x.shape[1]
+    q = proj("wq", "bq").reshape(B, S, cfg.num_heads, hd)
+    k = proj("wk", "bk").reshape(B, S, cfg.num_kv_heads, hd)
+    v = proj("wv", "bv").reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm_w"])
+        k = rms_norm(k, p["k_norm_w"])
+    return q, k, v
+
+
+def attention_sublayer(x, p, lora, cfg: ModelConfig, positions, *, lora_scale: float,
+                       causal: bool = True):
+    q, k, v = _project_qkv(x, p, lora, cfg, lora_scale)
+    q = apply_rope(q, positions, theta=cfg.rope_theta, mode=cfg.rope)
+    k = apply_rope(k, positions, theta=cfg.rope_theta, mode=cfg.rope)
+    o = attn.blockwise_attention(
+        q, k, v, causal=causal, window=cfg.attention_window,
+        score_dtype=torch_dtype(cfg.attn_score_dtype),
+    )
+    B, S = x.shape[0], x.shape[1]
+    o = o.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
+    return linear(o, {"w": p["wo"]}, lora.get("wo") if lora else None, lora_scale)
+
+
+def decoder_layer(h, p, lora, cfg: ModelConfig, positions, *, lora_scale, causal=True):
+    """One transformer block over one layer's slices. Returns ``h``."""
+    x = _norm(h, p, "attn_norm", cfg.norm)
+    attn_out = attention_sublayer(x, p, lora, cfg, positions, lora_scale=lora_scale, causal=causal)
+    if cfg.parallel_residual:
+        return h + attn_out + apply_mlp(x, p, cfg.mlp, lora, lora_scale)
+    h = h + attn_out
+    x2 = _norm(h, p, "mlp_norm", cfg.norm)
+    return h + apply_mlp(x2, p, cfg.mlp, lora, lora_scale)
+
+
+def _lm_logits(h, params, cfg: ModelConfig):
+    if cfg.norm == "layernorm":
+        h = layer_norm(h, params["final_norm_w"], params["final_norm_b"])
+    else:
+        h = rms_norm(h, params["final_norm_w"])
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return soft_cap(h @ w.to(h.dtype), cfg.logit_soft_cap)
+
+
+def decoder_forward(params, lora, tokens: torch.Tensor, cfg: ModelConfig, *,
+                    lora_scale: Optional[float] = None,
+                    embed_noise: Optional[torch.Tensor] = None,
+                    collect_layer_norms: bool = False):
+    """Training/eval forward. Returns ``(logits (B, S, V), aux_loss)``.
+
+    ``embed_noise`` (B, S, D) is added to the embedding output (the FibecFed
+    GAL-sensitivity probe, paper Eq. 6-9). With ``collect_layer_norms`` the
+    per-layer per-sample Frobenius norms of the hidden states come back as a
+    third output (num_layers, B).
+    """
+    lora_scale = lora_scale if lora_scale is not None else cfg.lora_alpha / cfg.lora_rank
+    h = torch.nn.functional.embedding(tokens, params["embed"])
+    if embed_noise is not None:
+        h = h + embed_noise.to(h.dtype)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    layer_params = params["layers"]
+    norms = []
+    for i in range(cfg.num_layers):
+        p_slice = {k: v[i] for k, v in layer_params.items()}
+        lora_slice = {t: {n: x[i] for n, x in ab.items()} for t, ab in lora.items()}
+        h = decoder_layer(h, p_slice, lora_slice, cfg, positions, lora_scale=lora_scale)
+        if collect_layer_norms:
+            norms.append(torch.sqrt(torch.sum(torch.square(h.to(torch.float32)), dim=(1, 2))))
+    logits = _lm_logits(h, params, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if collect_layer_norms:
+        return logits, aux, torch.stack(norms)
+    return logits, aux

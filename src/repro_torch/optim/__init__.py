@@ -1,0 +1,7 @@
+from repro_torch.optim.optimizers import (
+    adamw_init,
+    adamw_update,
+    make_optimizer,
+    sgd_init,
+    sgd_update,
+)

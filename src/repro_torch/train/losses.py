@@ -1,0 +1,53 @@
+"""Loss functions (f32 softmax cross-entropy whatever the model dtype)."""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.model_api import ModelFns
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-element cross entropy. logits (..., V), targets (...) int."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.to(torch.int64)[..., None])[..., 0]
+    return logz - gold
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, text_offset: int = 0) -> torch.Tensor:
+    """Mean next-token CE over the text region starting at ``text_offset``."""
+    pred = logits[:, text_offset : text_offset + tokens.shape[1] - 1]
+    return torch.mean(_xent(pred, tokens[:, 1:]))
+
+
+def label_token_loss(logits: torch.Tensor, label_tokens: torch.Tensor) -> torch.Tensor:
+    """CE of the next token after the sequence against a class-label token,
+    the prompt-style classification objective of the paper's LLM runs."""
+    return torch.mean(_xent(logits[:, -1], label_tokens))
+
+
+def make_logits_loss(cfg: ModelConfig) -> Callable:
+    """``loss(logits, batch)``, used by the GAL probe (gradient w.r.t. noise)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+    def fn(logits, batch: Dict[str, Any]):
+        if "label_token" in batch:
+            return label_token_loss(logits, batch["label_token"])
+        return lm_loss(logits, batch["tokens"])
+
+    return fn
+
+
+def make_loss_fn(model: ModelFns) -> Callable:
+    """``(params, lora, batch) -> scalar``: the forward plus its loss."""
+    logits_loss = make_logits_loss(model.cfg)
+
+    def loss_fn(params, lora, batch: Dict[str, Any]):
+        logits, aux = model.forward(params, lora, batch)
+        return logits_loss(logits, batch) + aux
+
+    return loss_fn

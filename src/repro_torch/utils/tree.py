@@ -1,0 +1,73 @@
+"""Nested-dict tree utilities over tensors (the port's pytrees).
+
+Trees are nested ``dict``s whose leaves are tensors (or any non-dict value).
+Every traversal visits keys in sorted order, which is the leaf order of
+``jax.tree.leaves`` on the same dict, so sums over leaves and leaf lists
+line up with the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator, List, Mapping, Tuple
+
+import torch
+
+
+def tree_items(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``('a/b/c', leaf)`` pairs in sorted-key order."""
+    if isinstance(tree, Mapping):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], f"{prefix}/{k}" if prefix else str(k))
+    else:
+        yield prefix, tree
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """Map ``fn`` over the leaves of ``tree`` and same-structured ``rest``."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_map_with_path_str(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") -> Any:
+    """tree_map where ``fn`` receives a '/'-joined key path string."""
+    if isinstance(tree, Mapping):
+        return {
+            k: tree_map_with_path_str(fn, tree[k], f"{prefix}/{k}" if prefix else str(k))
+            for k in sorted(tree)
+        }
+    return fn(prefix, tree)
+
+
+def tree_unzip(tree: Any, n: int) -> Tuple[Any, ...]:
+    """Split a tree of n-tuples into n trees."""
+    return tuple(tree_map(lambda t, i=i: t[i], tree) for i in range(n))
+
+
+def tree_size(tree: Any) -> int:
+    """Total number of elements."""
+    return sum(int(x.numel()) for x in tree_leaves(tree))
+
+
+def tree_bytes(tree: Any) -> int:
+    """Total bytes, from each leaf's own dtype."""
+    return sum(int(x.numel()) * x.element_size() for x in tree_leaves(tree))
+
+
+def tree_zeros_like(tree: Any) -> Any:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_clone(tree: Any) -> Any:
+    return tree_map(torch.clone, tree)
+
+
+def tree_add(a: Any, b: Any) -> Any:
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree: Any, s) -> Any:
+    return tree_map(lambda x: x * s, tree)

@@ -1,0 +1,112 @@
+"""The port stands alone, and runs on the card unless told otherwise.
+
+``src/repro_torch``, its scripts, ``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` import neither JAX nor the JAX package (``repro``), not
+even its modules that need no JAX: they run where only PyTorch is. A runner built
+without ``device=`` refuses to start when there is no CUDA device, rather
+than falling back to the CPU; unported engines and options raise.
+"""
+import dataclasses
+import pathlib
+import re
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)|from\s+repro(\.|\s)(?!_torch))",
+    re.MULTILINE,
+)
+
+
+def _port_files():
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+            + sorted((ROOT / "scripts").glob("torch_*.py"))
+            + [ROOT / "tests" / "test_torch_cuda.py", ROOT / "chip_smoke.py"])
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = _port_files()
+    assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
+    offenders = [
+        f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+        for f in files
+        for m in FORBIDDEN.finditer(f.read_text())
+    ]
+    assert offenders == []
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    for bad in ("import jax", "import jax.numpy as jnp", "from jax import grad",
+                "from repro.core import fibecfed", "import repro", "from repro import x"):
+        assert FORBIDDEN.search(bad), bad
+    for ok in ("import repro_torch", "from repro_torch.core import fibecfed", "import jaxlib_like"):
+        assert not FORBIDDEN.search(ok), ok
+
+
+def _world():
+    from repro_torch.config import FibecFedConfig, ModelConfig
+    from repro_torch.data import dirichlet_partition, make_keyword_task
+    from repro_torch.models import build_model
+    from repro_torch.train import make_loss_fn
+
+    cfg = ModelConfig(name="t", family="dense", num_layers=1, d_model=16, num_heads=2,
+                      num_kv_heads=1, d_ff=32, vocab_size=240, dtype="float32", lora_rank=2)
+    task = make_keyword_task(n_samples=12, seq_len=6, vocab_size=240, seed=0)
+    parts = dirichlet_partition(task.data["label"], 2, 1.0, seed=0)
+    data = [{k: v[i] for k, v in task.data.items() if k != "label"} for i in parts]
+    model = build_model(cfg)
+    fl = FibecFedConfig(num_devices=2, devices_per_round=2, batch_size=4, fim_warmup_epochs=1)
+    return model, make_loss_fn(model), fl, data
+
+
+def test_runner_without_device_needs_cuda(monkeypatch):
+    from repro_torch.federated import make_runner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, loss_fn, fl, data = _world()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_runner("fibecfed", model, loss_fn, fl, data)
+    runner = make_runner("fibecfed", model, loss_fn, fl, data, device="cpu")
+    assert runner.device.type == "cpu"
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [{"engine": "vectorized"}, {"engine": "sharded"}, {"engine": "async"},
+     {"compression": object()}, {"store": object()}, {"hierarchy": 2},
+     {"client_ranks": [1, 2]}, {"telemetry": object()}, {"mesh": object()}],
+)
+def test_unported_engines_and_options_raise(kw):
+    from repro_torch.federated import make_runner
+
+    model, loss_fn, fl, data = _world()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_runner("fibecfed", model, loss_fn, fl, data, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("field", ["gal_fraction", "sparse_ratio"])
+def test_lossless_criteria_raise(field):
+    from repro_torch.federated import make_runner
+
+    model, loss_fn, fl, data = _world()
+    fl = dataclasses.replace(fl, **{field: None})
+    with pytest.raises(NotImplementedError, match="lossless"):
+        make_runner("fibecfed", model, loss_fn, fl, data, device="cpu")
+
+
+def test_port_runs_end_to_end_on_cpu():
+    """A whole init + round + evaluation on its own seeded torch init."""
+    from repro_torch.federated import make_runner, run_experiment
+
+    model, loss_fn, fl, data = _world()
+    runner = make_runner("fibecfed", model, loss_fn, fl, data, optimizer="adamw",
+                         fused_optimizer=True, device="cpu", seed=3)
+    out = run_experiment(runner, data[0], rounds=2, eval_every=1)
+    assert len(out["history"]) == 2 and np.isfinite(out["history"][-1]["loss"])
+    assert 0.0 <= out["final_accuracy"] <= 1.0
+    assert out["total_comm_bytes"] == 2 * out["total_upload_bytes"] > 0
