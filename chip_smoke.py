@@ -1,29 +1,44 @@
 #!/usr/bin/env python3
-"""Build the PyTorch/CUDA port's kernels and drive its main path on one card.
+"""Build the PyTorch/CUDA port's kernels and drive its main paths on one card.
 
 Run from the repository root with ``python3 chip_smoke.py``. It needs a CUDA
 device and exits non-zero without one, or if any phase fails:
 
 1. device: the card's name and power limit;
-2. build: compile the hand-written CUDA kernels from ``src/repro_torch``;
+2. build: compile the hand-written CUDA sources from ``src/repro_torch``, one
+   ``nvcc`` per source, all started together;
 3. kernels against their plain PyTorch versions, on the card, at every LoRA
-   leaf shape of full qwen2-0.5b, and their times over the whole LoRA tree;
-4. the slice at full width: FibecFed (adamw, fused kernels, loop engine) for
-   2 rounds and FedAvg+LoRA (sgd, fused) for 1 round on qwen2-0.5b (24
-   layers, d 896, vocab 151936, bf16, seeded torch init), with the kernels'
-   launch counts read around this phase only;
-5. the same FibecFed round unfused, which must agree with the fused one
-   (loss rel 1e-6, global LoRA atol 1e-6: the same arithmetic in the same
-   order);
-6. one JSON line listing the kernels; last, the ok line.
+   leaf shape of full qwen2-0.5b: masked AdamW/SGD (B1/B2) per client and
+   stacked over 4 clients with one row of scalars each, and fake compression
+   (B3) in every mode, f32 and bf16, with a short last group and stacked;
+   then their times in the main paths' configurations (B3's kernel alone
+   and with its wrapper's threshold sort);
+4. the loop engine at full width: FibecFed (adamw, fused kernels) for 2
+   rounds and FedAvg+LoRA (sgd, fused) for 1 round on qwen2-0.5b (24
+   layers, d 896, vocab 151936, bf16, seeded torch init);
+5. the JAX package's default path: ``make_runner("fibecfed", ...)`` with no
+   ``engine=`` (the vectorized engine), adamw, fused, init and 2 rounds;
+   its Fisher difficulty scores held to the loop engine's, batch by batch;
+6. compressed uploads (top-k 0.1, int8 values, error feedback) with
+   per-client ranks, random_select/sgd (fused), 1 round on each engine from
+   the same seed: equal comm bytes, equal to the wire format recomputed from the GAL mask and ranks,
+   global updates that agree, low-rank clients' beyond-rank components
+   untouched;
+7. the FibecFed loop round of phase 4 unfused, which must agree with the
+   fused one (loss rel 1e-6, global LoRA atol 1e-6: the same arithmetic in
+   the same order);
+8. one JSON line listing the kernels; last, the ok line.
 
-Float32 matmuls run in full f32 (TF32 off for matmuls and cuDNN alike).
+Each path of phases 4-6 is driven with the kernels' launch counts set to 0
+just before it and read just after. Float32 matmuls run in full f32 (TF32
+off for matmuls and cuDNN alike).
 """
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -32,19 +47,89 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 LEAF_SHAPES = {"a": (24, 896, 8), "b_q_o": (24, 8, 896), "b_k_v": (24, 8, 128)}
-KERNELS = {
+K = 4  # the cohort: clients stacked on the vectorized engine's leading axis
+MU_SOURCE = "src/repro_torch/kernels/csrc/masked_update.cu"
+CP_SOURCE = "src/repro_torch/kernels/csrc/compress.cu"
+KERNELS = {  # name -> what it ports, its source, and its work per element
     "masked_adamw_update": dict(
-        replaces="src/repro/kernels/masked_update.py:75",
+        replaces="src/repro/kernels/masked_update.py:156", source=MU_SOURCE,
         bytes_per_elem=32,  # p, g, m, v, mask read; p, m, v written (f32)
         flops_per_elem=14,
     ),
+    "masked_adamw_update_stacked": dict(
+        replaces="src/repro/kernels/masked_update.py:156", source=MU_SOURCE,
+        bytes_per_elem=32, flops_per_elem=14,
+    ),
     "masked_sgd_update": dict(
-        replaces="src/repro/kernels/masked_update.py:55",
+        replaces="src/repro/kernels/masked_update.py:133", source=MU_SOURCE,
         bytes_per_elem=12,  # p, g read; p written (f32, no momentum, no mask)
         flops_per_elem=2,
     ),
+    "masked_sgd_update_stacked": dict(
+        replaces="src/repro/kernels/masked_update.py:133", source=MU_SOURCE,
+        bytes_per_elem=16,  # p, g, mask read; p written (the rank-masked path)
+        flops_per_elem=2,
+    ),
+    "fake_compress": dict(
+        replaces="src/repro/kernels/compress.py:56", source=CP_SOURCE,
+        bytes_per_elem=12,  # x read; y, residual written (f32)
+        # top-k, per-leaf scale: multiply, round, two clamps, multiply, abs,
+        # compare, select, subtract
+        flops_per_elem=9,
+    ),
 }
-SOURCE = "src/repro_torch/kernels/csrc/masked_update.cu"
+COMPRESSION = dict(mode="topk", topk_ratio=0.1, topk_values="int8", error_feedback=True)
+RANKS = [8, 8, 4, 4, 8, 8, 2, 8]
+# Phase 5 holds the vectorized engine's Fisher difficulty scores to the loop
+# engine's, client by client. The engines run the bf16 model as GEMMs of
+# other shapes (batched under the vmap over clients), so each layer's
+# outputs may round one bf16 ulp (2^-8) apart; over 24 layers the gradients
+# drift about sqrt(24)·2^-8 = 0.019 apart, and a score, a sum of squared
+# gradients, twice that: 0.038, held at 0.05. A padded sample counted or a
+# real one dropped moves a 4-sample batch's score by its share, ~0.25.
+# Where the engines order two batches differently, the loop engine's scores
+# of the pair must lie within twice the largest gap: a near-tie.
+DIFFICULTY_RTOL = 0.05
+# Phase 6 compares the two engines, so it takes a preset whose curriculum
+# and GAL decisions cannot differ between them: random difficulty (the same
+# host draws) and every layer global, no Fisher scores or FIM masks, which
+# the bf16 forward can tip at a near-tie (phase 5 shows where).
+PHASE6_BASELINE = "random_select"
+# The two engines' compressed rounds differ by (a) the bf16 forward, which
+# runs as GEMMs of another shape under the vmap over clients and so moves
+# gradients in their last bf16 bits; (b) top-k, which then flips entries
+# near its threshold, each by at most a kept value; (c) the loop engine's
+# value-form merge, which rounds g0 + y to the ulp of g0. With U a leaf's
+# largest global update on the loop engine, an entry agrees when it is
+# within 1e-2·U + 4 ulp(g0); at most 2% of a leaf's entries may disagree
+# (top-k flips), and none by more than 2·U. Round losses: rel 1e-2.
+ENGINE_AGREE_FRAC = 0.02
+ENGINE_LOSS_RTOL = 1e-2
+
+
+def engine_disagreement(g_loop, g_vec, g0):
+    """(fraction of entries that disagree, max |diff| / U) of one leaf."""
+    u = (g_loop - g0).abs().max()
+    diff = (g_vec - g_loop).abs()
+    bad = diff > 1e-2 * u + 4 * torch.finfo(torch.float32).eps * g0.abs()
+    return bad.float().mean().item(), (diff.max() / u).item()
+
+
+def difficulty_gap(loop_scores, vec_scores):
+    """Per-batch difficulty of the two engines, client by client: the largest
+    relative gap between them, the number of batch pairs whose order they
+    swap, and the largest relative spread of a swapped pair's loop scores."""
+    gap, swaps, spread = 0.0, 0, 0.0
+    for dl, dv in zip(loop_scores, vec_scores):
+        dl, dv = np.asarray(dl, np.float64), np.asarray(dv, np.float64)
+        mag = np.maximum(np.abs(dl), 1e-30)
+        gap = max(gap, float(np.max(np.abs(dv - dl) / mag)))
+        swapped = np.sign(dl[:, None] - dl[None, :]) != np.sign(dv[:, None] - dv[None, :])
+        swaps += int(np.sum(np.triu(swapped, 1)))
+        if swapped.any():
+            pair = np.abs(dl[:, None] - dl[None, :]) / np.maximum(mag[:, None], mag[None, :])
+            spread = max(spread, float(pair[swapped].max()))
+    return gap, swaps, spread
 
 
 def log(*args):
@@ -81,9 +166,17 @@ def check_update(out, plain, old, frozen, what):
     return err.max().item()
 
 
+def check_equal(out, plain, what):
+    """The same operations in the same order: bit for bit. Returns 0.0."""
+    if out.dtype != plain.dtype or not torch.equal(out, plain):
+        err = (out.float() - plain.float()).abs().max().item()
+        raise AssertionError(f"{what}: differs from the plain version (max abs err {err})")
+    return 0.0
+
+
 def phase_kernels(ops, ref, gen):
-    """Phase 3: each kernel against its plain version at the main-path shapes."""
-    errs = {name: 0.0 for name in KERNELS}
+    """Phase 3a: B1/B2 per client against their plain versions."""
+    errs = {"masked_adamw_update": 0.0, "masked_sgd_update": 0.0}
     lr = 1e-3
     for shape_name, shape in LEAF_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
@@ -120,64 +213,206 @@ def phase_kernels(ops, ref, gen):
                             e = max(e, check_update(new_st["mu"]["w"], pmu, m, frozen, f"sgd mu {what}"))
                         errs["masked_sgd_update"] = max(errs["masked_sgd_update"], e)
     torch.cuda.synchronize()
-    log("kernel vs plain: all leaf shapes, f32/bf16, mask on/off, active 0/1, momentum 0/0.9 agree;",
+    log("B1/B2 vs plain: all leaf shapes, f32/bf16, mask on/off, active 0/1, momentum 0/0.9 agree;",
         "max abs err", errs)
     return errs
 
 
-def lora_tree(gen, kind):
-    """A full-width qwen2-0.5b LoRA-shaped tree of random f32 leaves."""
+def phase_stacked_kernels(ops, ref, gen):
+    """Phase 3b: B1/B2 over K stacked clients, one row of scalars each (mixed
+    active, different Adam step counts), against their plain versions."""
+    active = torch.tensor([1.0, 0.0, 1.0, 1.0], device="cuda")
+    t = torch.tensor([0, 3, 7, 1], dtype=torch.int32, device="cuda")
+    lr_t = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
+    for shape_name, shape in LEAF_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            s = (K,) + shape
+            p, g = (torch.randn(s, generator=gen, device="cuda").to(dtype) for _ in range(2))
+            m = torch.randn(s, generator=gen, device="cuda") * 0.1
+            v = torch.rand(s, generator=gen, device="cuda") * 0.1
+            mask = (torch.rand(s, generator=gen, device="cuda") < 0.5).float()
+            rows = lambda x: x.reshape((K,) + (1,) * len(shape))  # noqa: E731
+            what = f"stacked {shape_name} {dtype}"
+            new_p, st = ops.masked_adamw_update({"w": g}, {"m": {"w": m}, "v": {"w": v}, "t": t},
+                                                {"w": p}, lr_t, {"w": mask}, active)
+            t2, mhat, vhat = ops.adam_step_scales(t, active, 0.9, 0.999)
+            if st["t"].tolist() != [1, 3, 8, 2] or not torch.equal(st["t"], t2):
+                raise AssertionError(f"{what}: Adam step counters {st['t'].tolist()}")
+            want = ref.masked_adamw_update_ref(p, g, m, v, mask, lr_t, rows(mhat), rows(vhat), active=rows(active))
+            for out, w, n in zip((new_p["w"], st["m"]["w"], st["v"]["w"]), want, "pmv"):
+                check_equal(out, w, f"adamw {n} {what}")
+            check_equal(new_p["w"][1], p[1], f"adamw inactive client {what}")
+            for momentum in (0.0, 0.9):
+                new_p, st = ops.masked_sgd_update({"w": g}, {"mu": {"w": m}} if momentum else {}, {"w": p},
+                                                  lr_t, {"w": mask}, active, momentum=momentum)
+                wp, wmu = ref.masked_sgd_update_ref(p, g, m if momentum else None, mask, lr_t,
+                                                    momentum=momentum, active=rows(active))
+                check_equal(new_p["w"], wp, f"sgd({momentum}) p {what}")
+                if momentum:
+                    check_equal(st["mu"]["w"], wmu, f"sgd mu {what}")
+    torch.cuda.synchronize()
+    log(f"B1/B2 stacked over {K} clients vs plain: all leaf shapes, f32/bf16, mixed active, "
+        "per-client step counters, momentum 0/0.9: bit for bit")
+    return {"masked_adamw_update_stacked": 0.0, "masked_sgd_update_stacked": 0.0}
+
+
+def plain_fake_compress(ops, ref, tree_map, delta, residual, mask, *, qmax, topk_ratio, use_thresh,
+                        stacked=False):
+    """``ops.fake_compress`` step by step with the plain version in place of
+    the kernel (the same threshold and scale rows)."""
+
+    def one(d, r, mk):
+        x2, thresh, scale = ops.compress_rows(d, r, mk, qmax=qmax, topk_ratio=topk_ratio,
+                                              use_thresh=use_thresh, stacked=stacked)
+        y, res = ref.fake_compress_ref(x2, thresh, scale, qmax=qmax, use_thresh=use_thresh,
+                                       per_leaf_scale=use_thresh and qmax > 0)
+        return y.reshape(d.shape), res.reshape(d.shape)
+
+    none = tree_map(lambda _: None, delta)
+    return tree_map(one, delta, none if residual is None else residual, none if mask is None else mask)
+
+
+def phase_compress_kernel(ops, ref, gen, tree_map):
+    """Phase 3c: B3 against its plain version: every LoRA leaf shape, a
+    shape whose size is not a multiple of the 128-value group, and K
+    stacked clients; f32 and bf16; int8, int4, top-k/int8, top-k/float;
+    with and without a residual."""
+    modes = {"int8": (127, 1.0, False), "int4": (7, 1.0, False),
+             "topk/int8": (127, 0.1, True), "topk/float": (0, 0.1, True)}
+    shapes = ([(s, False) for s in LEAF_SHAPES.values()] + [((K,) + s, True) for s in LEAF_SHAPES.values()]
+              + [((24, 7, 131), False), ((K, 24, 7, 131), True)])
+    n_checked = 0
+    for shape, stacked in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            d = (torch.randn(shape, generator=gen, device="cuda") * 1e-2).to(dtype)
+            r = (torch.randn(shape, generator=gen, device="cuda") * 1e-3).to(dtype)
+            d.view(-1)[:256] = 0.0  # all-zero groups: a safe scale of zero
+            gal = (torch.rand(shape[1 if stacked else 0], 1, 1, generator=gen, device="cuda") < 0.75).float()
+            per_client = (torch.rand(shape, generator=gen, device="cuda") < 0.5).float()
+            for mode, (qmax, ratio, use_thresh) in modes.items():
+                for res in (None, {"w": r}):
+                    for mk in ((gal, per_client) if stacked else (gal,)):
+                        kw = dict(qmax=qmax, topk_ratio=ratio, use_thresh=use_thresh, stacked=stacked)
+                        y, rr = ops.fake_compress({"w": d}, res, {"w": mk}, **kw)
+                        wy, wr = plain_fake_compress(ops, ref, tree_map, {"w": d}, res, {"w": mk}, **kw)["w"]
+                        what = f"{shape} {dtype} {mode} residual={res is not None} mask={tuple(mk.shape)}"
+                        check_equal(y["w"], wy, f"fake_compress y {what}")
+                        check_equal(rr["w"], wr, f"fake_compress residual {what}")
+                        n_checked += 1
+    torch.cuda.synchronize()
+    log(f"B3 vs plain: {n_checked} cases (leaf shapes, a short last group, {K} stacked clients; "
+        "f32/bf16; int8, int4, top-k int8/float; residual on/off): bit for bit")
+    return {"fake_compress": 0.0}
+
+
+def lora_tree(kind, lead=()):
+    """A full-width qwen2-0.5b LoRA-shaped tree, with optional leading axes."""
     shapes = {"wq": ("a", "b_q_o"), "wk": ("a", "b_k_v"), "wv": ("a", "b_k_v"), "wo": ("a", "b_q_o")}
-    out = {}
-    for t, (sa, sb) in shapes.items():
-        out[t] = {"a": kind(LEAF_SHAPES[sa]), "b": kind(LEAF_SHAPES[sb])}
-    return {"layers": out}
+    return {"layers": {t: {"a": kind(lead + LEAF_SHAPES[sa]), "b": kind(lead + LEAF_SHAPES[sb])}
+                       for t, (sa, sb) in shapes.items()}}
 
 
-def phase_timing(ops, ref, gen, tree_leaves, tree_map):
-    """Kernel, plain-version and library times of one optimizer step over
-    the whole LoRA tree, in the main path's configuration."""
+def bound(name, n_elems):
+    spec = KERNELS[name]
+    bytes_s = n_elems * spec["bytes_per_elem"] / HBM_BYTES_PER_S
+    flops_s = n_elems * spec["flops_per_elem"] / F32_FLOPS_PER_S
+    return dict(bound_ms=max(bytes_s, flops_s) * 1e3, bound_by="bytes" if bytes_s >= flops_s else "operations")
+
+
+def phase_timing(ops, ref, compress, gen, tree_leaves, tree_map):
+    """Kernel, plain-version and library times in the main paths'
+    configurations: one optimizer step over the whole LoRA tree per client
+    (loop engine) and over K stacked clients (vectorized engine), and one
+    compressed upload of K stacked clients' trees: B3's kernel and plain
+    version alone on the prepared rows, and its wrapper, which also adds
+    the residual and sorts each leaf for the threshold."""
     randn = lambda s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
-    params, grads = lora_tree(gen, randn), lora_tree(gen, randn)
-    n = sum(x.numel() for x in tree_leaves(params))
     lr = 4e-4
-    # B1 as fibecfed runs it: f32, every leaf masked (a: ones, b: neuron mask)
-    mask = tree_map(lambda x: (torch.rand(x.shape, generator=gen, device="cuda") < 0.5).float(), params)
-    for ab in mask["layers"].values():
-        ab["a"].fill_(1.0)
-    st = {"m": tree_map(lambda x: x * 0.01, grads), "v": tree_map(lambda x: x * x * 1e-3, grads),
-          "t": torch.tensor(3, dtype=torch.int32, device="cuda")}
+    lr_t = torch.tensor(lr, dtype=torch.float32, device="cuda")
+    times = {}
+    for lead, suffix in (((), ""), ((K,), "_stacked")):
+        params, grads = lora_tree(randn, lead), lora_tree(randn, lead)
+        n = sum(x.numel() for x in tree_leaves(params))
+        # B1 as fibecfed runs it: f32, every leaf masked (a: ones, b: neuron mask)
+        mask = tree_map(lambda x: (torch.rand(x.shape, generator=gen, device="cuda") < 0.5).float(), params)
+        for ab in mask["layers"].values():
+            ab["a"].fill_(1.0)
+        t0 = torch.full(lead, 3, dtype=torch.int32, device="cuda")
+        active = torch.ones(lead, device="cuda") if lead else None
+        st = {"m": tree_map(lambda x: x * 0.01, grads), "v": tree_map(lambda x: x * x * 1e-3, grads), "t": t0}
+        rows = ops.per_client
 
-    def plain_adamw():
-        t, mhat, vhat = ops.adam_step_scales(st["t"], None, 0.9, 0.999)
-        lr_t = torch.tensor(lr, dtype=torch.float32, device="cuda")
-        return tree_map(lambda p, g, m, v, mk: ref.masked_adamw_update_ref(p, g, m, v, mk, lr_t, mhat, vhat),
-                        params, grads, st["m"], st["v"], mask)
+        def plain_adamw():
+            _, mhat, vhat = ops.adam_step_scales(st["t"], active, 0.9, 0.999)
+            return tree_map(lambda p, g, m, v, mk: ref.masked_adamw_update_ref(
+                p, g, m, v, mk, lr_t, rows(mhat, p), rows(vhat, p), active=rows(active, p)),
+                params, grads, st["m"], st["v"], mask)
 
-    def plain_sgd():
-        lr_t = torch.tensor(lr, dtype=torch.float32, device="cuda")
-        return tree_map(lambda p, g: ref.masked_sgd_update_ref(p, g, None, None, lr_t), params, grads)
+        # B2: dense per client (fedavg_lora), rank-masked when stacked
+        sgd_mask = mask if lead else None
 
-    p_list, g_list = tree_leaves(params), tree_leaves(grads)
-    times = {
-        "masked_adamw_update": dict(
-            ms=cuda_ms(lambda: ops.masked_adamw_update(grads, st, params, lr, mask)),
+        def plain_sgd():
+            return tree_map(lambda p, g, mk: ref.masked_sgd_update_ref(p, g, None, mk, lr_t, active=rows(active, p)),
+                            params, grads, sgd_mask if sgd_mask is not None else tree_map(lambda _: None, params))
+
+        p_list, g_list, mk_list = tree_leaves(params), tree_leaves(grads), tree_leaves(mask)
+        times["masked_adamw_update" + suffix] = dict(
+            ms=cuda_ms(lambda: ops.masked_adamw_update(grads, st, params, lr_t, mask, active)),
             plain_ms=cuda_ms(plain_adamw),
             # no single PyTorch call computes a masked AdamW step
-            library_ms=None,
-        ),
-        "masked_sgd_update": dict(
-            ms=cuda_ms(lambda: ops.masked_sgd_update(grads, {}, params, lr)),
+            library_ms=None, **bound("masked_adamw_update" + suffix, n),
+        )
+        times["masked_sgd_update" + suffix] = dict(
+            ms=cuda_ms(lambda: ops.masked_sgd_update(grads, {}, params, lr_t, sgd_mask, active)),
             plain_ms=cuda_ms(plain_sgd),
-            library_ms=cuda_ms(lambda: torch._foreach_add(p_list, g_list, alpha=-lr)),
-        ),
-    }
-    for name, spec in KERNELS.items():
-        bytes_s = n * spec["bytes_per_elem"] / HBM_BYTES_PER_S
-        flops_s = n * spec["flops_per_elem"] / F32_FLOPS_PER_S
-        times[name]["bound_ms"] = max(bytes_s, flops_s) * 1e3
-        times[name]["bound_by"] = "bytes" if bytes_s >= flops_s else "operations"
-    log(f"one optimizer step over the LoRA tree ({n} elements, 8 leaves):", json.dumps(times))
+            # one foreach call: p - lr·g unmasked, p - lr·g·mask with the
+            # stacked path's binary mask (every client active)
+            library_ms=cuda_ms(lambda: torch._foreach_addcmul(p_list, g_list, mk_list, value=-lr)) if lead
+            else cuda_ms(lambda: torch._foreach_add(p_list, g_list, alpha=-lr)),
+            **bound("masked_sgd_update" + suffix, n),
+        )
+        log(f"one optimizer step over {'%d stacked' % lead[0] if lead else 'one'} LoRA tree(s) "
+            f"({n} elements, 8 leaves)")
+
+    # B3 as the vectorized compressed round calls it: K stacked clients'
+    # GAL deltas, their residuals and their per-client count masks
+    delta = lora_tree(lambda s: randn(s) * 1e-3, (K,))
+    res = lora_tree(lambda s: randn(s) * 1e-4, (K,))
+    cmask = tree_map(lambda x: (torch.rand(x.shape, generator=gen, device="cuda") < 0.75).float(), delta)
+    n = sum(x.numel() for x in tree_leaves(delta))
+    kw = dict(qmax=127, topk_ratio=0.1, use_thresh=True, stacked=True)
+    rows = [ops.compress_rows(d, r, mk, **kw) for d, r, mk in
+            zip(tree_leaves(delta), tree_leaves(res), tree_leaves(cmask))]
+    tables = [torch.stack([thresh, scale], dim=1).contiguous() for _, thresh, scale in rows]
+    outs = [(torch.empty_like(x2), torch.empty_like(x2)) for x2, _, _ in rows]
+
+    def kernel_only():
+        for (x2, _, _), scal, (y, r) in zip(rows, tables, outs):
+            compress.fake_compress_launch(y, r, x2, scal, qmax=127, use_thresh=True, per_leaf_scale=True)
+
+    def plain_only():
+        return [ref.fake_compress_ref(x2, thresh, scale, qmax=127, use_thresh=True, per_leaf_scale=True)
+                for x2, thresh, scale in rows]
+
+    kernel_only()
+    for (y, r), (wy, wr) in zip(outs, plain_only()):
+        check_equal(y, wy, "fake_compress y (timed rows)")
+        check_equal(r, wr, "fake_compress residual (timed rows)")
+    times["fake_compress"] = dict(
+        ms=cuda_ms(kernel_only), plain_ms=cuda_ms(plain_only),
+        wrapper_ms=cuda_ms(lambda: ops.fake_compress(delta, res, cmask, **kw)),
+        plain_wrapper_ms=cuda_ms(lambda: plain_fake_compress(ops, ref, tree_map, delta, res, cmask, **kw)),
+        # no single PyTorch call thresholds, fake-quantizes and keeps the
+        # residual (torch.fake_quantize_per_tensor_affine does the middle step)
+        library_ms=None, **bound("fake_compress", n),
+    )
+    one = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in delta["layers"].items()}
+    one_res = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in res["layers"].items()}
+    gal = tree_map(lambda x: torch.ones((x.shape[0], 1, 1), device="cuda"), one)
+    single_ms = cuda_ms(lambda: ops.fake_compress(one, one_res, gal, qmax=127, topk_ratio=0.1, use_thresh=True))
+    log(f"one compressed upload of {K} stacked clients ({n} elements, 8 leaves); "
+        f"of one client as the loop engine calls it: {single_ms:.4f} ms")
+    log("kernel times:", json.dumps(times))
     return times
 
 
@@ -187,13 +422,30 @@ def keyword_world(vocab_size, data_mod, fl):
     return [{k: v[i] for k, v in task.data.items() if k != "label"} for i in parts]
 
 
-def expected_comm_bytes(cfg, gal_layers, k):
-    """Pull + push of the GAL layers' f32 LoRA values, per round."""
+def leaf_values_per_layer(cfg):
+    """Values of each LoRA leaf in one layer, in the tree's leaf order."""
     hd, r, d = cfg.resolved_head_dim, cfg.lora_rank, cfg.d_model
-    per_layer = sum(d_in * r + r * d_out for d_in, d_out in (
-        (d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd), (d, cfg.num_kv_heads * hd),
-        (cfg.num_heads * hd, d)))
-    return 2 * int(np.sum(gal_layers)) * per_layer * 4 * k
+    dims = {"wk": (d, cfg.num_kv_heads * hd), "wo": (cfg.num_heads * hd, d),
+            "wq": (d, cfg.num_heads * hd), "wv": (d, cfg.num_kv_heads * hd)}
+    return [n for d_in, d_out in dims.values() for n in (d_in * r, r * d_out)]
+
+
+def expected_comm_bytes(cfg, gal_layers, chosen, compression=None, ranks=None):
+    """(total, upload) wire bytes of a round, from the GAL mask: each chosen
+    client pulls its rank's share of the GAL layers' f32 LoRA values raw and
+    pushes them in the configured wire format."""
+    from repro_torch.federated.compress import leaf_upload_bytes
+
+    total = up = 0
+    n_gal = int(np.sum(gal_layers))
+    for ci in chosen:
+        rank = cfg.lora_rank if ranks is None else ranks[ci]
+        for per_layer in leaf_values_per_layer(cfg):
+            n = n_gal * per_layer * rank // cfg.lora_rank
+            u = leaf_upload_bytes(n, 4, compression)
+            total += 4 * n + u
+            up += u
+    return total, up
 
 
 def timed(fn):
@@ -204,6 +456,34 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+class Launches:
+    """The kernels' launch counts over one path: zeroed on entry, read on exit."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.fns = {"masked_adamw_update": ops.masked_adamw_update,
+                    "masked_sgd_update": ops.masked_sgd_update,
+                    "fake_compress": ops.fake_compress}
+
+    def __enter__(self):
+        for fn in self.fns.values():
+            fn.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.counts = {name: fn.launches for name, fn in self.fns.items()}
+        return False
+
+
+def check_round(runner, cfg, stats, t, compression=None, ranks=None):
+    if not math.isfinite(stats["loss"]):
+        raise AssertionError(f"round {t} loss is not finite")
+    want = expected_comm_bytes(cfg, runner.gal_layers, runner.last_round_info["chosen"], compression, ranks)
+    got = (runner.comm_bytes_per_round[-1], runner.comm_upload_bytes_per_round[-1])
+    if got != want or not all(isinstance(b, int) for b in got):
+        raise AssertionError(f"comm bytes {got} != {want} recomputed from the GAL mask")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -212,14 +492,15 @@ def main() -> int:
     from repro_torch import data as data_mod
     from repro_torch.config import FibecFedConfig
     from repro_torch.configs import ARCHS
-    from repro_torch.federated import make_runner
-    from repro_torch.kernels import build, masked_update, ops, ref
+    from repro_torch.federated import CompressionConfig, make_runner
+    from repro_torch.kernels import build, compress, masked_update, ops, ref
     from repro_torch.models import build_model
     from repro_torch.train import make_loss_fn
     from repro_torch.utils.tree import tree_clone, tree_leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # --- 1. device ---
     smi = subprocess.run(
@@ -229,73 +510,146 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log("device:", kind, "|", smi, "| torch", torch.__version__, "cuda", torch.version.cuda)
 
-    # --- 2. build ---
+    # --- 2. build: one nvcc per source, all at once ---
     t0 = time.perf_counter()
-    _, report = build.compile_cuda(masked_update.SOURCE)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        reports = list(pool.map(lambda m: build.compile_cuda(m.SOURCE)[1], (masked_update, compress)))
     masked_update.library()
+    compress.library()
     log(f"build: {time.perf_counter() - t0:.2f} s")
-    log("\n".join(line for line in report.splitlines() if "Used" in line))
+    log("\n".join(line for report in reports for line in report.splitlines() if "Used" in line))
 
-    # --- 3. kernels against their plain versions ---
+    # --- 3. kernels against their plain versions, and their times ---
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels(ops, ref, gen)
-    times = phase_timing(ops, ref, gen, tree_leaves, tree_map)
+    errs.update(phase_stacked_kernels(ops, ref, gen))
+    errs.update(phase_compress_kernel(ops, ref, gen, tree_map))
+    times = phase_timing(ops, ref, compress, gen, tree_leaves, tree_map)
 
-    # --- 4. the slice at full width ---
     cfg = ARCHS["qwen2-0.5b"]
     model = build_model(cfg)
     loss_fn = make_loss_fn(model)
     fl = FibecFedConfig(num_devices=8, devices_per_round=4, rounds=2, batch_size=4)
     clients = keyword_world(cfg.vocab_size, data_mod, fl)
     log("clients' samples:", [len(c["tokens"]) for c in clients])
-    ops.masked_adamw_update.launches = 0
-    ops.masked_sgd_update.launches = 0
+    launches = {name: 0 for name in KERNELS}
+
+    # --- 4. the loop engine at full width ---
     torch.cuda.reset_peak_memory_stats()
-    runner = make_runner("fibecfed", model, loss_fn, fl, clients, optimizer="adamw",
-                         fused_optimizer=True, engine="loop", seed=0)
-    _, init_s = timed(runner.init_phase)
-    log(f"fibecfed init_phase: {init_s:.2f} s; gal layers {np.flatnonzero(runner.gal_layers).tolist()}")
-    fib_steps, fib_hist = 0, []
-    for t in range(fl.rounds):
-        stats, secs = timed(lambda: runner.run_round(t))
-        fib_hist.append(stats)
-        fib_steps += int(runner.last_round_info["client_steps"].sum())
-        log(f"fibecfed round {t}: {secs:.2f} s, {json.dumps(stats)}")
-        if not math.isfinite(stats["loss"]):
-            raise AssertionError(f"round {t} loss is not finite")
-        want = expected_comm_bytes(cfg, runner.gal_layers, fl.devices_per_round)
-        if runner.comm_bytes_per_round[t] != want or not isinstance(runner.comm_bytes_per_round[t], int):
-            raise AssertionError(f"comm bytes {runner.comm_bytes_per_round[t]} != {want}")
-        if t == 0:
-            round0 = (stats["loss"], tree_clone(runner.global_lora))
+    with Launches(ops) as fib_run:
+        runner = make_runner("fibecfed", model, loss_fn, fl, clients, optimizer="adamw",
+                             fused_optimizer=True, engine="loop", seed=0)
+        _, init_s = timed(runner.init_phase)
+        log(f"loop fibecfed init_phase: {init_s:.2f} s; gal layers {np.flatnonzero(runner.gal_layers).tolist()}")
+        fib_steps = 0
+        for t in range(fl.rounds):
+            stats, secs = timed(lambda: runner.run_round(t))
+            fib_steps += int(runner.last_round_info["client_steps"].sum())
+            log(f"loop fibecfed round {t}: {secs:.2f} s, {json.dumps(stats)}")
+            check_round(runner, cfg, stats, t)
+            if t == 0:
+                round0 = (stats["loss"], tree_clone(runner.global_lora))
     fused_decisions = ([c.order.copy() for c in runner.clients], runner.gal_layers.copy())
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log(f"fibecfed peak device memory: {peak_gib:.2f} GiB")
+    loop_difficulty = [c.difficulty.copy() for c in runner.clients]
+    log(f"loop fibecfed peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del runner
 
-    fed = make_runner("fedavg_lora", model, loss_fn, fl, clients, optimizer="sgd",
-                      fused_optimizer=True, engine="loop", seed=0)
-    _, fed_init_s = timed(fed.init_phase)
-    stats, secs = timed(lambda: fed.run_round(0))
-    log(f"fedavg_lora init_phase: {fed_init_s:.2f} s; round 0: {secs:.2f} s, {json.dumps(stats)}")
-    if not math.isfinite(stats["loss"]):
-        raise AssertionError("fedavg_lora loss is not finite")
-    if fed.comm_bytes_per_round[0] != expected_comm_bytes(cfg, np.ones(cfg.num_layers), fl.devices_per_round):
-        raise AssertionError(f"fedavg_lora comm bytes {fed.comm_bytes_per_round[0]}")
+    with Launches(ops) as fed_run:
+        fed = make_runner("fedavg_lora", model, loss_fn, fl, clients, optimizer="sgd",
+                          fused_optimizer=True, engine="loop", seed=0)
+        _, fed_init_s = timed(fed.init_phase)
+        stats, secs = timed(lambda: fed.run_round(0))
+    log(f"loop fedavg_lora init_phase: {fed_init_s:.2f} s; round 0: {secs:.2f} s, {json.dumps(stats)}")
+    check_round(fed, cfg, stats, 0)
     fed_steps = int(fed.last_round_info["client_steps"].sum())
     del fed
-    launches = {
-        "masked_adamw_update": ops.masked_adamw_update.launches,
-        "masked_sgd_update": ops.masked_sgd_update.launches,
-    }
-    n_leaves = 8
-    log("launches on the main path:", launches, "steps:", {"fibecfed": fib_steps, "fedavg_lora": fed_steps})
-    if launches["masked_adamw_update"] != n_leaves * fib_steps or fib_steps == 0:
-        raise AssertionError("the fibecfed run did not go through the AdamW kernel once per leaf and step")
-    if launches["masked_sgd_update"] != n_leaves * fed_steps or fed_steps == 0:
-        raise AssertionError("the fedavg_lora run did not go through the SGD kernel once per leaf and step")
+    log("launches, loop paths:", {"fibecfed": fib_run.counts, "fedavg_lora": fed_run.counts},
+        "steps:", {"fibecfed": fib_steps, "fedavg_lora": fed_steps})
+    if fib_run.counts != {"masked_adamw_update": 8 * fib_steps, "masked_sgd_update": 0, "fake_compress": 0} \
+            or fib_steps == 0:
+        raise AssertionError("the loop fibecfed run did not go through the AdamW kernel once per leaf and step")
+    if fed_run.counts != {"masked_adamw_update": 0, "masked_sgd_update": 8 * fed_steps, "fake_compress": 0} \
+            or fed_steps == 0:
+        raise AssertionError("the loop fedavg_lora run did not go through the SGD kernel once per leaf and step")
+    launches["masked_adamw_update"] += fib_run.counts["masked_adamw_update"]
+    launches["masked_sgd_update"] += fed_run.counts["masked_sgd_update"]
 
-    # --- 5. fused against unfused, in situ ---
+    # --- 5. the default path: the vectorized engine ---
+    torch.cuda.reset_peak_memory_stats()
+    with Launches(ops) as vec_run:
+        vec = make_runner("fibecfed", model, loss_fn, fl, clients, optimizer="adamw",
+                          fused_optimizer=True, seed=0)
+        if vec.engine != "vectorized":
+            raise AssertionError(f"the default engine is {vec.engine!r}")
+        _, vec_init_s = timed(vec.init_phase)
+        log(f"vectorized fibecfed init_phase: {vec_init_s:.2f} s; "
+            f"gal layers {np.flatnonzero(vec.gal_layers).tolist()}")
+        gap, swaps, spread = difficulty_gap(loop_difficulty, [c.difficulty for c in vec.clients])
+        log(f"vectorized vs loop Fisher difficulty per batch: largest relative gap {gap:.4g} "
+            f"(limit {DIFFICULTY_RTOL}); {swaps} batch pairs ordered differently, their loop "
+            f"scores at most {spread:.4g} apart (relative)")
+        if gap > DIFFICULTY_RTOL or spread > 2 * gap:
+            raise AssertionError("the vectorized difficulty scores disagree with the loop engine's")
+        vec_steps = 0
+        for t in range(fl.rounds):
+            stats, secs = timed(lambda: vec.run_round(t))
+            vec_steps += int(stats["padded_steps"])
+            log(f"vectorized fibecfed round {t}: {secs:.2f} s, {json.dumps(stats)}")
+            check_round(vec, cfg, stats, t)
+    same = all(np.array_equal(a, c.order) for a, c in zip(fused_decisions[0], vec.clients))
+    log(f"vectorized curriculum orders equal to the loop engine's: {same}; GAL layers equal: "
+        f"{np.array_equal(fused_decisions[1], vec.gal_layers)}")
+    log(f"vectorized fibecfed peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {vec_run.counts} over {vec_steps} padded steps")
+    if vec_run.counts != {"masked_adamw_update": 8 * vec_steps, "masked_sgd_update": 0, "fake_compress": 0}:
+        raise AssertionError("the vectorized run did not launch the AdamW kernel once per leaf and step")
+    launches["masked_adamw_update_stacked"] += vec_run.counts["masked_adamw_update"]
+    del vec
+
+    # --- 6. compressed uploads and per-client ranks, on both engines ---
+    comp = CompressionConfig(**COMPRESSION)
+    runs = {}
+    for engine in ("loop", "vectorized"):
+        with Launches(ops) as run:
+            r = make_runner(PHASE6_BASELINE, model, loss_fn, fl, clients, optimizer="sgd", fused_optimizer=True,
+                            engine=engine, compression=comp, client_ranks=RANKS, seed=0)
+            _, c_init_s = timed(r.init_phase)
+            stats, secs = timed(lambda: r.run_round(0))
+        log(f"{engine} compressed+ranks: init {c_init_s:.2f} s, round 0 {secs:.2f} s, {json.dumps(stats)}; "
+            f"launches {run.counts}; comm bytes {r.comm_bytes_per_round}, upload {r.comm_upload_bytes_per_round}")
+        check_round(r, cfg, stats, 0, comp, RANKS)
+        chosen = r.last_round_info["chosen"]
+        steps = int(stats["padded_steps"]) if engine == "vectorized" else int(r.last_round_info["client_steps"].sum())
+        uploads = 1 if engine == "vectorized" else len(chosen)
+        if run.counts != {"masked_adamw_update": 0, "masked_sgd_update": 8 * steps, "fake_compress": 8 * uploads}:
+            raise AssertionError(f"the {engine} compressed run did not go through its kernels: {run.counts}")
+        launches["masked_sgd_update" + ("_stacked" if engine == "vectorized" else "")] += run.counts["masked_sgd_update"]
+        launches["fake_compress"] += run.counts["fake_compress"]
+        # low-rank clients' beyond-rank components never moved: after one
+        # round from the initial global, they hold their initial values
+        for ci in chosen:
+            rank = RANKS[ci]
+            for name, ab in r.clients[ci].lora["layers"].items():
+                a0, b0 = r._init_lora["layers"][name]["a"], r._init_lora["layers"][name]["b"]
+                if not (torch.equal(ab["a"][..., rank:], a0[..., rank:])
+                        and torch.equal(ab["b"][:, rank:], b0[:, rank:])):
+                    raise AssertionError(f"{engine}: client {ci} (rank {rank}) moved beyond its rank in {name}")
+        runs[engine] = (r, stats)
+    (rl, sl), (rv, sv) = runs["loop"], runs["vectorized"]
+    np.testing.assert_array_equal(rl.last_round_info["chosen"], rv.last_round_info["chosen"])
+    if (rl.comm_bytes_per_round, rl.comm_upload_bytes_per_round) != \
+            (rv.comm_bytes_per_round, rv.comm_upload_bytes_per_round):
+        raise AssertionError("the engines' comm bytes differ")
+    loss_rel = abs(sv["loss"] - sl["loss"]) / abs(sl["loss"])
+    dis = [engine_disagreement(gl, gv, g0) for gl, gv, g0 in
+           zip(tree_leaves(rl.global_lora), tree_leaves(rv.global_lora), tree_leaves(rl._init_lora))]
+    log(f"loop vs vectorized compressed+ranks round: loss rel {loss_rel:.3g}; per leaf "
+        f"(fraction disagreeing, max diff / largest update): {[(round(f, 6), round(m, 6)) for f, m in dis]}")
+    if loss_rel > ENGINE_LOSS_RTOL or max(f for f, _ in dis) > ENGINE_AGREE_FRAC or max(m for _, m in dis) > 2.0:
+        raise AssertionError("the engines' compressed rounds disagree")
+    del rl, rv, runs
+
+    # --- 7. fused against unfused, in situ ---
     plain = make_runner("fibecfed", model, loss_fn, fl, clients, optimizer="adamw",
                         fused_optimizer=False, engine="loop", seed=0)
     plain.init_phase()
@@ -306,7 +660,7 @@ def main() -> int:
     rel = abs(stats["loss"] - round0[0]) / abs(round0[0])
     lora_err = max((a - b).abs().max().item()
                    for a, b in zip(tree_leaves(plain.global_lora), tree_leaves(round0[1])))
-    log(f"fused vs unfused round 0: loss {round0[0]} vs {stats['loss']} (rel {rel:.3g}); "
+    log(f"fused vs unfused loop round 0: loss {round0[0]} vs {stats['loss']} (rel {rel:.3g}); "
         f"global LoRA max abs diff {lora_err:.3g}")
     # the unfused update does the kernel's arithmetic in the same order, so
     # the two runs agree to float noise or a kernel is at fault
@@ -314,12 +668,15 @@ def main() -> int:
         raise AssertionError("fused and unfused runs disagree")
     del plain
 
-    # --- 6. kernel list, card, ok ---
+    # --- 8. kernel list, card, ok ---
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"a kernel was launched no time on the main paths: {launches}")
     kernels = [
-        dict(name=name, route="cuda", source=SOURCE, replaces=spec["replaces"],
+        dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
              launches=launches[name], max_abs_err=errs[name], **times[name])
         for name, spec in KERNELS.items()
     ]
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

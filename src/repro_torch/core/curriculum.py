@@ -1,6 +1,6 @@
 """Curriculum data selection (paper §4.2, Appendix C, Formulas 18-22).
 
-A numpy copy of ``repro.core.curriculum`` (the loop engine's part).
+A numpy copy of ``repro.core.curriculum``.
 Batches are sorted ascending by Fisher difficulty; round t uses the first
 ``B_k^t = clip(β + (1-β)·f(t)/(αT), β, 1) · n_batches`` of them. Strategies:
 linear f(t)=t (paper's choice), sqrt, quadratic, exp (App. G.7), plus
@@ -13,6 +13,8 @@ import math
 from typing import Optional
 
 import numpy as np
+
+from repro_torch.data.pipeline import bucket_size
 
 STRATEGIES = ("linear", "sqrt", "quadratic", "exp", "none", "random")
 
@@ -70,3 +72,26 @@ def selected_batch_ids(
     """Formula 19: batches with rank j < B_k^t are selected for round t."""
     count = num_selected_batches(schedule, t, len(order))
     return order[:count]
+
+
+def step_plan(schedule: CurriculumSchedule, t: int, orders, local_epochs: int = 1):
+    """Padded per-client step schedule of the vectorized engine.
+
+    ``orders`` are the chosen clients' curriculum orders (ragged). Returns
+    ``(batch_idx (k, S) int32, step_valid (k, S) f32)`` with
+    ``S = local_epochs · bucket_size(max selected)``: step ``s`` of client
+    ``i`` trains on batch ``batch_idx[i, s]`` iff ``step_valid[i, s]``,
+    replaying the loop engine's epoch-major traversal of
+    :func:`selected_batch_ids`. Padded steps keep index 0 and are no-ops.
+    """
+    sels = [selected_batch_ids(schedule, t, o) for o in orders]
+    padded = bucket_size(max(len(s) for s in sels))
+    k, S = len(sels), local_epochs * padded
+    batch_idx = np.zeros((k, S), np.int32)
+    step_valid = np.zeros((k, S), np.float32)
+    for i, sel in enumerate(sels):
+        for e in range(local_epochs):
+            lo = e * padded
+            batch_idx[i, lo : lo + len(sel)] = sel
+            step_valid[i, lo : lo + len(sel)] = 1.0
+    return batch_idx, step_valid

@@ -1,5 +1,5 @@
 """FibecFed, Algorithm 1 end to end, on host-simulated FL clients (port of
-``repro.core.fibecfed``, loop engine).
+``repro.core.fibecfed``, its single-device engines).
 
 Initialization phase (Alg. 1 lines 1-10):
   * per-device Fisher difficulty score per batch (Formulas 16-17), ascending
@@ -12,8 +12,17 @@ Tuning phase (lines 11-19): sample the cohort, merge the global GAL weights
 into each client's LoRA, curriculum-select batches, run masked local
 SGD/AdamW, FedAvg the GAL part on the server with exact comm accounting.
 
-The engine is the JAX package's ``"loop"`` engine, its semantic spec: one
-training step per (client, batch) and host-side merge and FedAvg. Host
+Two interchangeable round engines (``engine=``), as in the JAX package:
+
+* ``"vectorized"`` (default): client LoRA, optimizer state and masks are
+  stacked along a leading client axis and each round trains the whole
+  cohort per step (:mod:`repro_torch.core.engine`); the init phase scores
+  all clients' batches and runs the FIM warmup over the stack.
+* ``"loop"``: the semantic spec, one training step per (client, batch) and
+  host-side merge and FedAvg.
+
+Both take ``compression=`` (a simulated compressed upload with error
+feedback, kernel B3) and ``client_ranks=`` (per-client LoRA ranks). Host
 randomness (cohorts, ``random`` difficulty, ``gal_mode="random"``) comes from
 ``np.random.default_rng(seed)`` drawn in the JAX package's order, so the two
 make the same decisions. The port runs on the card unless ``device`` says
@@ -31,18 +40,20 @@ from torch.func import grad_and_value
 from repro_torch.config import FibecFedConfig
 from repro_torch.convert import lora_from_numpy, params_from_numpy
 from repro_torch.core import curriculum as curr
+from repro_torch.core import engine as eng
 from repro_torch.core import fisher as fish
 from repro_torch.core import gal as galmod
 from repro_torch.core import sparse as sparsemod
 from repro_torch.core.curriculum import CurriculumSchedule
-from repro_torch.data.pipeline import gather_batch, make_batches
-from repro_torch.lora import gal_mask_tree, neuron_mask_tree
+from repro_torch.data.pipeline import gather_batch, make_batches, stack_clients
+from repro_torch.kernels import ops as kops
+from repro_torch.lora import gal_mask_tree, neuron_mask_tree, rank_mask_tree
 from repro_torch.models.model_api import ModelFns
 from repro_torch.optim import make_optimizer
 from repro_torch.train.losses import make_logits_loss
 from repro_torch.utils.tree import tree_clone, tree_leaves, tree_map
 
-ENGINES = ("loop",)
+ENGINES = ("vectorized", "loop")
 
 # options of the JAX runner that the port does not run yet, and the
 # ROADMAP.md item that brings each
@@ -50,14 +61,11 @@ _UNPORTED = {
     "mesh": "Queue A item 13 (sharded engine)",
     "scenario": "Queue A item 9 (async engine)",
     "async_cfg": "Queue A item 9 (async engine)",
-    "compression": "Queue A item 8 (compressed uploads)",
-    "client_ranks": "Queue A item 8 (per-client ranks)",
     "store": "Queue A item 10 (client stores)",
     "hierarchy": "Queue A item 9 (edge aggregation)",
     "telemetry": "Queue A item 15 (telemetry)",
 }
 _ENGINE_ITEMS = {
-    "vectorized": "Queue A item 7",
     "sharded": "Queue A item 13",
     "async": "Queue A item 9",
 }
@@ -98,12 +106,29 @@ class ClientState:
     n: int
     batches: List[np.ndarray]
     order: np.ndarray  # curriculum order over batches
-    lora: Any
-    opt_state: Any
+    opt_state: Any  # the loop engine's; the vectorized engine stacks it
     fim: Any = None  # momentum diag-FIM
     neuron_mask: Any = None  # update-mask tree (or None = dense)
     difficulty: Optional[np.ndarray] = None
     layer_scores: Optional[np.ndarray] = None
+    # compression error-feedback residual (loop engine; the vectorized
+    # engine keeps one stacked residual tree on the runner)
+    ef_residual: Any = None
+    # a LoRA tree of its own (loop engine) or a view into the vectorized
+    # engine's stacked tree, taken only when read
+    _lora: Any = None
+    _lora_view: Optional[Callable[[], Any]] = None
+
+    @property
+    def lora(self) -> Any:
+        if self._lora_view is not None:
+            return self._lora_view()
+        return self._lora
+
+    @lora.setter
+    def lora(self, value: Any) -> None:
+        self._lora = value
+        self._lora_view = None
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -119,6 +144,15 @@ def _generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed * 1_000_003 + stream)
 
 
+def _stack_copies(tree, n: int):
+    """``n`` copies of every leaf, stacked on a new leading axis."""
+    return tree_map(lambda x: x[None].expand(n, *x.shape).clone(), tree)
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
 class FibecFed:
     def __init__(
         self,
@@ -132,7 +166,7 @@ class FibecFed:
         difficulty_metric: str = "fisher",
         gal_mode: str = "importance",
         sparse_update: bool = True,
-        engine: str = "loop",
+        engine: str = "vectorized",
         mesh: Any = None,
         scenario: Any = None,
         async_cfg: Any = None,
@@ -158,8 +192,7 @@ class FibecFed:
             ``torch.Generator``s seeded from ``seed``.
         """
         check_ported(
-            engine, fl, mesh=mesh, scenario=scenario, async_cfg=async_cfg,
-            compression=compression, client_ranks=client_ranks, store=store,
+            engine, fl, mesh=mesh, scenario=scenario, async_cfg=async_cfg, store=store,
             hierarchy=hierarchy, telemetry=telemetry,
         )
         self.device = resolve_device(device)
@@ -193,6 +226,28 @@ class FibecFed:
             alpha=fl.alpha_full_data,
             total_rounds=fl.rounds,
         )
+
+        # --- compressed uploads + per-client ranks; lazy import: the
+        # federated package's init imports this module ---
+        from repro_torch.federated.compress import CompressionConfig
+
+        if compression is not None and not isinstance(compression, CompressionConfig):
+            raise TypeError(f"compression must be a CompressionConfig, got {type(compression)!r}")
+        # mode="none" normalizes to None: the uncompressed paths, exactly
+        self.compression = compression if compression is not None and compression.enabled else None
+        self.client_ranks = None
+        if client_ranks is not None:
+            ranks = np.asarray(client_ranks, np.int64)
+            if ranks.shape != (len(client_data),):
+                raise ValueError("client_ranks needs exactly one rank per client")
+            if np.any(ranks < 1) or np.any(ranks > self.cfg.lora_rank):
+                raise ValueError(f"client_ranks must lie in [1, {self.cfg.lora_rank}]")
+            if not np.all(ranks == self.cfg.lora_rank):  # full ranks: an exact no-op
+                self.client_ranks = ranks
+        self._rank_mask_cache: Dict[int, Any] = {}
+        self._comp_mask_cache: Dict[int, Any] = {}
+
+        vectorized = engine == "vectorized"
         self.clients: List[ClientState] = []
         for cd in client_data:
             n = len(next(iter(cd.values())))
@@ -201,15 +256,31 @@ class FibecFed:
                 n=n,
                 batches=make_batches(n, fl.batch_size),
                 order=np.arange(max(1, (n + fl.batch_size - 1) // fl.batch_size)),
-                lora=tree_clone(lora0),
-                opt_state=self.opt_init(lora0),
+                _lora=None if vectorized else tree_clone(lora0),
+                opt_state=None if vectorized else self.opt_init(lora0),
             ))
+        if vectorized:
+            C = len(self.clients)
+            stack = stack_clients(client_data, fl.batch_size)
+            self._stack_data = to_device(stack.data, self.device)
+            self._sample_valid = torch.as_tensor(stack.sample_valid, device=self.device)
+            self._stacked_lora = _stack_copies(lora0, C)
+            self._stacked_opt = _stack_copies(self.opt_init(lora0), C)
+            self._stacked_mask = None  # built in init_phase
+            # compression state, built in init_phase when enabled: stacked
+            # error-feedback residuals and per-client top-k count masks
+            self._stacked_residual = None
+            self._stacked_comp_mask = None
+            for ci, client in enumerate(self.clients):
+                client._lora_view = lambda ci=ci: tree_map(lambda x: x[ci], self._stacked_lora)
 
         self.gal_layers: Optional[np.ndarray] = None  # bool (L_logical,)
         self._gal_mask_tree = None
         self._gal_leaf_cache: Optional[List[tuple]] = None
+        self._comm_bytes_cache: Dict[Optional[int], tuple] = {}
         # bytes accounting (paper §5.6): LoRA params down + up per round,
-        # wire itemsize per leaf
+        # wire itemsize per leaf; the upload-only series isolates the
+        # compressed push (the pull is always raw)
         self.comm_bytes_per_round: List[int] = []
         self.comm_upload_bytes_per_round: List[int] = []
         self.last_round_info: Optional[Dict[str, np.ndarray]] = None
@@ -261,6 +332,16 @@ class FibecFed:
 
     def _compute_difficulty(self) -> None:
         """Lines 2-5: per-batch difficulty + ascending curriculum order."""
+        if self.engine == "vectorized" and self.difficulty_metric in ("fisher", "loss"):
+            # every client's batches, each client scored with its own LoRA
+            # (a re-init after training rounds must see the trained LoRA)
+            diff = eng.build_difficulty_fn(self.loss_fn, self.difficulty_metric)
+            scores = diff(self.params, self._stacked_lora, self._stack_data, self._sample_valid)
+            scores = scores.cpu().numpy()
+            for ci, client in enumerate(self.clients):
+                client.difficulty = scores[ci, : len(client.batches)]
+                client.order = curr.order_batches(client.difficulty, self.schedule.strategy)
+            return
         for client in self.clients:
             client.difficulty = self._batch_difficulty(client)
             client.order = curr.order_batches(client.difficulty, self.schedule.strategy)
@@ -280,6 +361,24 @@ class FibecFed:
     def _select_local_masks(self) -> None:
         """Lines 8-10: momentum-FIM warmup → per-client neuron keep-masks."""
         fl = self.fl
+        if self.engine == "vectorized":
+            warm_idx = torch.as_tensor(np.asarray([
+                [int(c.order[min(e, len(c.order) - 1)]) for e in range(fl.fim_warmup_epochs)]
+                for c in self.clients
+            ], np.int64), device=self.device)
+            rows = torch.arange(len(self.clients), device=self.device)[:, None]
+            wdata = {k: v[rows, warm_idx] for k, v in self._stack_data.items()}
+            warm = eng.build_fim_warmup_fn(self.loss_fn, fl.fim_momentum)
+            fims = warm(self.params, self._stacked_lora, wdata, self._sample_valid[rows, warm_idx])
+            keep = sparsemod.select_neuron_masks(sparsemod.neuron_importance(fims), fl.sparse_ratio)
+            self._stacked_mask = _stack([
+                neuron_mask_tree(self.cfg, self._init_lora, tree_map(lambda x, ci=ci: x[ci], keep))
+                for ci in range(len(self.clients))
+            ])
+            for ci, client in enumerate(self.clients):
+                client.fim = tree_map(lambda x: x[ci], fims)
+                client.neuron_mask = tree_map(lambda x: x[ci], self._stacked_mask)
+            return
         for client in self.clients:
             fim = None
             for e in range(fl.fim_warmup_epochs):
@@ -318,9 +417,66 @@ class FibecFed:
         self.gal_layers = self._select_layers(global_scores, n_star)
         self._gal_mask_tree = gal_mask_tree(self.cfg, self.global_lora, self.gal_layers)
         self._gal_leaf_cache = None
+        self._comm_bytes_cache = {}
+        self._comp_mask_cache = {}
         # --- local update parameter selection (lines 8-10) ---
         if self.sparse_update:
             self._select_local_masks()
+        # --- per-client ranks: fold the keep-masks into the update masks ---
+        if self.client_ranks is not None:
+            self._fold_rank_masks()
+        # --- compression state: the residuals live on the GAL support, so
+        # a re-init resets them; the top-k count masks likewise ---
+        self._reset_compression_state()
+
+    def _rank_mask(self, rank: int) -> Any:
+        if rank not in self._rank_mask_cache:
+            self._rank_mask_cache[rank] = rank_mask_tree(self._init_lora, rank)
+        return self._rank_mask_cache[rank]
+
+    def _comp_mask(self, ci: int) -> Any:
+        """Top-k count mask of client ``ci``: GAL support × rank keep-mask
+        (the fraction is taken of the values the client can send). Cached
+        per distinct rank."""
+        rank = int(self.client_ranks[ci])
+        if rank not in self._comp_mask_cache:
+            self._comp_mask_cache[rank] = tree_map(lambda m, r: m * r, self._gal_mask_tree,
+                                                   self._rank_mask(rank))
+        return self._comp_mask_cache[rank]
+
+    def _fold_rank_masks(self) -> None:
+        """Fold per-client rank keep-masks into the update masks. A rank-r_i
+        client's beyond-rank components stay frozen at the pulled values, so
+        its delta there is exactly zero and the masked FedAvg aggregates
+        rank-heterogeneous updates into the full server rank. Idempotent
+        (binary masks), so a repeated ``init_phase`` is safe."""
+        per_client = [self._rank_mask(int(r)) for r in self.client_ranks]
+        if self.engine == "vectorized":
+            stacked = _stack(per_client)
+            self._stacked_mask = (stacked if self._stacked_mask is None
+                                  else tree_map(torch.mul, self._stacked_mask, stacked))
+            for ci, client in enumerate(self.clients):
+                client.neuron_mask = tree_map(lambda x: x[ci], self._stacked_mask)
+            return
+        for client, rm in zip(self.clients, per_client):
+            client.neuron_mask = rm if client.neuron_mask is None else tree_map(
+                torch.mul, client.neuron_mask, rm)
+
+    def _reset_compression_state(self) -> None:
+        """Zero the error-feedback residuals and (re)build the stacked top-k
+        count masks."""
+        comp = self.compression
+        if comp is None:
+            return
+        if self.engine == "vectorized":
+            if comp.error_feedback:
+                self._stacked_residual = tree_map(torch.zeros_like, self._stacked_lora)
+            if comp.use_thresh and self.client_ranks is not None:
+                self._stacked_comp_mask = _stack([self._comp_mask(ci) for ci in range(len(self.clients))])
+            return
+        if comp.error_feedback:
+            for client in self.clients:
+                client.ef_residual = tree_map(torch.zeros_like, self._init_lora)
 
     # ------------------------------------------------------------------
     # tuning phase (Alg. 1 lines 11-19)
@@ -346,16 +502,67 @@ class FibecFed:
             ]
         return self._gal_leaf_cache
 
-    def _client_upload_bytes(self) -> int:
-        """Push wire bytes of one client: the unmasked GAL values, raw. The
-        pull ships the same values the other way."""
-        return sum(n * itemsize for n, itemsize in self._gal_leaf_values())
+    def _client_comm_bytes(self, ci: int) -> tuple:
+        """(down, up) wire bytes of client ``ci`` in one round: the pull
+        ships the client's rank projection of the unmasked GAL values raw,
+        the push the compressed payload (values + scales + top-k indices)
+        under ``self.compression``. Cached per distinct rank."""
+        from repro_torch.federated.compress import leaf_upload_bytes
+
+        rank = None if self.client_ranks is None else int(self.client_ranks[ci])
+        if rank not in self._comm_bytes_cache:
+            R = self.cfg.lora_rank
+            down = up = 0
+            for n, itemsize in self._gal_leaf_values():
+                # the rank axis is a full dimension of every LoRA leaf, so
+                # the rank projection is exact integer arithmetic
+                n_r = n if rank is None else (n * rank) // R
+                down += n_r * itemsize
+                up += leaf_upload_bytes(n_r, itemsize, self.compression)
+            self._comm_bytes_cache[rank] = (down, up)
+        return self._comm_bytes_cache[rank]
+
+    def _gal_bytes(self, chosen) -> tuple:
+        """The round's comm bytes over the cohort: (total, upload only)."""
+        pairs = [self._client_comm_bytes(int(ci)) for ci in chosen]
+        return sum(d + u for d, u in pairs), sum(u for _, u in pairs)
+
+    def _record_comm(self, chosen) -> None:
+        total, up = self._gal_bytes(chosen)
+        self.comm_bytes_per_round.append(total)
+        self.comm_upload_bytes_per_round.append(up)
+
+    def _compress_client(self, ci: int, client: ClientState, pulled: Any):
+        """The compressed upload of one client (loop engine): fake-quantize
+        the masked GAL delta plus the carried residual, keep the new
+        residual, and return the reconstructed delta the server receives.
+        The quantizer maps 0 to 0, so it stays on the GAL support."""
+        comp = self.compression
+        delta = tree_map(lambda nl, g, mm: (nl - g) * mm, client.lora, pulled, self._gal_mask_tree)
+        cm = None
+        if comp.use_thresh:
+            cm = self._comp_mask(ci) if self.client_ranks is not None else self._gal_mask_tree
+        y, new_res = kops.fake_compress(
+            delta, client.ef_residual if comp.error_feedback else None, cm,
+            qmax=comp.qmax, topk_ratio=comp.topk_ratio, use_thresh=comp.use_thresh,
+        )
+        if comp.error_feedback:
+            client.ef_residual = new_res
+        return y
 
     def run_round(self, t: int, lr: Optional[float] = None) -> Dict[str, float]:
+        if self.engine == "vectorized":
+            return self._run_round_vectorized(t, lr)
+        return self._run_round_loop(t, lr)
+
+    def _run_round_loop(self, t: int, lr: Optional[float] = None) -> Dict[str, float]:
         fl = self.fl
         lr = fl.learning_rate if lr is None else lr
         k = min(fl.devices_per_round, len(self.clients))
         chosen = self.rng.choice(len(self.clients), k, replace=False)
+        # the pulled global the cohort trains against (only reassigned after
+        # the FedAvg below), for the compressed delta
+        g0 = self.global_lora
         losses, updates, weights, sel_counts = [], [], [], []
         for ci in chosen:
             client = self.clients[ci]
@@ -369,7 +576,13 @@ class FibecFed:
                         client.lora, client.opt_state, batch, lr, client.neuron_mask
                     )
                     losses.append(loss.detach())
-            updates.append(client.lora)
+            if self.compression is not None:
+                y = self._compress_client(int(ci), client, g0)
+                # value-form payload: the weighted GAL average of g0 + y_i
+                # is the delta merge g0 + Σ w_i y_i
+                updates.append(tree_map(lambda g, yy: (g + yy).to(g.dtype), g0, y))
+            else:
+                updates.append(client.lora)
             weights.append(client.n)
         self.last_round_info = {
             "chosen": np.asarray(chosen),
@@ -389,15 +602,62 @@ class FibecFed:
             return (mask * acc + (1.0 - mask) * g_old).to(g_old.dtype)
 
         self.global_lora = tree_map(agg, self.global_lora, self._gal_mask_tree, *updates)
-
-        up = self._client_upload_bytes() * len(chosen)
-        self.comm_bytes_per_round.append(2 * up)
-        self.comm_upload_bytes_per_round.append(up)
+        self._record_comm(chosen)
         host_losses = [float(x) for x in losses]
         return {
             "loss": float(np.mean(host_losses)) if host_losses else float("nan"),
             "selected_batches": float(np.mean(sel_counts)),
             "comm_bytes": float(self.comm_bytes_per_round[-1]),
+        }
+
+    def _compress_static(self) -> Optional[Dict[str, Any]]:
+        c = self.compression
+        if c is None:
+            return None
+        return {
+            "qmax": c.qmax,
+            "topk_ratio": c.topk_ratio,
+            "use_thresh": c.use_thresh,
+            "error_feedback": c.error_feedback,
+            "has_comp_mask": self._stacked_comp_mask is not None,
+        }
+
+    def _run_round_vectorized(self, t: int, lr: Optional[float] = None) -> Dict[str, float]:
+        fl = self.fl
+        lr = fl.learning_rate if lr is None else lr
+        k = min(fl.devices_per_round, len(self.clients))
+        chosen = self.rng.choice(len(self.clients), k, replace=False)
+        orders = [self.clients[ci].order for ci in chosen]
+        batch_idx, step_valid = curr.step_plan(self.schedule, t, orders, fl.local_epochs)
+        w = np.asarray([self.clients[ci].n for ci in chosen], np.float64)
+        w = (w / w.sum()).astype(np.float32)
+
+        round_fn = eng.build_round_fn(self.loss_fn, self.opt_update,
+                                      use_neuron_mask=self._stacked_mask is not None,
+                                      compress=self._compress_static())
+        dev = self.device
+        self.global_lora, losses = round_fn(
+            self.params, self.global_lora, self._stacked_lora, self._stacked_opt,
+            self._stacked_mask, self._gal_mask_tree, self._stack_data, self._sample_valid,
+            torch.as_tensor(chosen, dtype=torch.int64, device=dev),
+            torch.as_tensor(batch_idx, dtype=torch.int64, device=dev),
+            torch.as_tensor(step_valid, device=dev), torch.as_tensor(w, device=dev), lr,
+            self._stacked_residual, self._stacked_comp_mask,
+        )
+        losses = losses.cpu().numpy()  # (S, k)
+        valid = step_valid.T
+        self.last_round_info = {
+            "chosen": np.asarray(chosen),
+            "client_steps": step_valid.sum(axis=1).astype(np.int64),
+        }
+        self._record_comm(chosen)
+        return {
+            "loss": float(np.sum(losses * valid) / max(np.sum(valid), 1.0)),
+            "selected_batches": float(np.mean(
+                [len(curr.selected_batch_ids(self.schedule, t, o)) for o in orders])),
+            "comm_bytes": float(self.comm_bytes_per_round[-1]),
+            # the round's padded step count (power-of-two bucketed)
+            "padded_steps": float(batch_idx.shape[1]),
         }
 
     # ------------------------------------------------------------------

@@ -36,17 +36,37 @@ def per_sample_fisher_scores(loss_fn: Callable[..., torch.Tensor], params, lora,
     return vmap(one)(_singleton_batches(batch))
 
 
-def fim_diag(loss_fn, params, lora, batch) -> Any:
+def batch_fisher_scores(loss_fn, params, lora, batches, sample_mask) -> torch.Tensor:
+    """Difficulty score per *batch* (Formula 17): the sum of its members'
+    scores. ``batches`` leaves carry leading (n_batches, batch_size) axes;
+    ``sample_mask`` (n_batches, batch_size) zeroes padding samples, so padded
+    batches score as their ragged originals. One batch at a time, as the
+    JAX package's ``lax.map``: the per-sample logits of every batch at once
+    would not fit at full vocabulary."""
+    n_batches = sample_mask.shape[0]
+    return torch.stack([
+        torch.sum(per_sample_fisher_scores(loss_fn, params, lora, {k: v[j] for k, v in batches.items()})
+                  * sample_mask[j])
+        for j in range(n_batches)
+    ])
+
+
+def fim_diag(loss_fn, params, lora, batch, sample_mask=None) -> Any:
     """Empirical average diagonal FIM over a batch (per-leaf tree): the mean
-    of per-sample squared gradients, NOT the square of the mean gradient."""
+    of per-sample squared gradients, NOT the square of the mean gradient.
+    ``sample_mask`` (batch_size,) restricts the mean to valid samples."""
 
     def one(sample):
         g = grad(lambda lo: loss_fn(params, lo, sample))(lora)
         return tree_map(lambda x: torch.square(x.to(torch.float32)), g)
 
     sq = vmap(one)(_singleton_batches(batch))
-    n = tree_leaves(batch)[0].shape[0]
-    return tree_map(lambda x: torch.sum(x, dim=0) / n, sq)
+    if sample_mask is None:
+        n = tree_leaves(batch)[0].shape[0]
+        return tree_map(lambda x: torch.sum(x, dim=0) / n, sq)
+    m = sample_mask.to(torch.float32)
+    n = torch.clamp(torch.sum(m), min=1.0)
+    return tree_map(lambda x: torch.sum(x * m.reshape((-1,) + (1,) * (x.dim() - 1)), dim=0) / n, sq)
 
 
 def fim_momentum_update(fim_prev, fim_new, momentum: float):

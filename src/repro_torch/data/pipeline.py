@@ -1,9 +1,26 @@
-"""Host-side batching utilities of the loop engine (numpy only)."""
+"""Host-side batching utilities (numpy only; a copy of the parts of
+``repro.data.pipeline`` that the port's engines use).
+
+Besides the per-batch index helpers of the loop engine, this module builds
+the *padded fixed-shape* client stack of the vectorized engine: every
+client's dataset is cut into ``batch_size`` batches, padded to a common
+``(n_batches_max, batch_size)`` grid, and stacked along a leading client
+axis. Padding slots point at sample 0 and carry a zero ``sample_valid``
+mask, so masked reductions reproduce the ragged originals exactly.
+"""
 from __future__ import annotations
 
-from typing import Dict, List
+import dataclasses
+from typing import Dict, List, Sequence
 
 import numpy as np
+
+
+def bucket_size(n: int) -> int:
+    """Round a padded step count up to the next power of two (>= 1), so the
+    curriculum ramp needs few distinct round shapes; the extra padded steps
+    are exact no-ops."""
+    return 1 << max(0, int(n) - 1).bit_length()
 
 
 def make_batches(n: int, batch_size: int) -> List[np.ndarray]:
@@ -15,3 +32,61 @@ def make_batches(n: int, batch_size: int) -> List[np.ndarray]:
 
 def gather_batch(data: Dict[str, np.ndarray], idx: np.ndarray) -> Dict[str, np.ndarray]:
     return {k: v[idx] for k, v in data.items()}
+
+
+def pad_batches(batches: List[np.ndarray], batch_size: int) -> tuple:
+    """(n_batches, batch_size) sample ids + f32 valid mask for one client.
+    Ragged final batches are padded with sample id 0, masked out."""
+    nb = max(1, len(batches))
+    ids = np.zeros((nb, batch_size), np.int32)
+    valid = np.zeros((nb, batch_size), np.float32)
+    for j, b in enumerate(batches):
+        ids[j, : len(b)] = b
+        valid[j, : len(b)] = 1.0
+    return ids, valid
+
+
+@dataclasses.dataclass
+class ClientStack:
+    """All clients' data on one padded (C, NB, B, ...) grid.
+
+    ``data`` holds the gathered feature arrays; ``sample_valid`` is the f32
+    validity mask; ``n_batches``/``n_samples`` are the true sizes (padding
+    batches beyond ``n_batches[c]`` are entirely invalid).
+    """
+
+    data: Dict[str, np.ndarray]
+    sample_valid: np.ndarray  # (C, NB, B) f32
+    n_batches: np.ndarray  # (C,) int
+    n_samples: np.ndarray  # (C,) int
+
+
+def stack_clients(client_data: Sequence[Dict[str, np.ndarray]], batch_size: int) -> ClientStack:
+    """The padded fixed-shape stack of the whole population. Padding batch
+    rows repeat the client's first batch and are entirely invalid."""
+    per_client = []
+    for cd in client_data:
+        n = len(next(iter(cd.values())))
+        ids, valid = pad_batches(make_batches(n, batch_size), batch_size)
+        per_client.append((cd, n, ids, valid))
+    if not per_client:
+        raise ValueError("stack_clients needs at least one client")
+    nb_max = max(ids.shape[0] for _, _, ids, _ in per_client)
+    data = {}
+    for k in per_client[0][0]:
+        stacked = []
+        for cd, _, ids, _ in per_client:
+            g = cd[k][ids.reshape(-1)].reshape(ids.shape + cd[k].shape[1:])
+            if ids.shape[0] < nb_max:
+                g = np.concatenate([g, np.repeat(g[:1], nb_max - ids.shape[0], axis=0)], axis=0)
+            stacked.append(g)
+        data[k] = np.stack(stacked)
+    valid = np.zeros((len(per_client), nb_max, batch_size), np.float32)
+    for c, (_, _, _, v) in enumerate(per_client):
+        valid[c, : v.shape[0]] = v
+    return ClientStack(
+        data=data,
+        sample_valid=valid,
+        n_batches=np.asarray([ids.shape[0] for _, _, ids, _ in per_client]),
+        n_samples=np.asarray([n for _, n, _, _ in per_client]),
+    )

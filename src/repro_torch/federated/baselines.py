@@ -42,14 +42,18 @@ BASELINES: Dict[str, Dict[str, Any]] = {
 
 def make_runner(name: str, model: ModelFns, loss_fn: Callable, fl: FibecFedConfig,
                 client_data: Sequence[Dict[str, np.ndarray]], *, seed: int = 0,
-                optimizer: str = "sgd", fused_optimizer=False, engine: str = "loop",
-                **kw) -> FibecFed:
+                optimizer: str = "sgd", fused_optimizer=False, engine: str = "vectorized",
+                compression: Any = None, client_ranks: Any = None, **kw) -> FibecFed:
     """Build a :class:`FibecFed` runner from a named baseline preset.
 
-    ``kw`` goes to ``FibecFed`` as it is: ``device``, ``init_params``,
-    ``init_lora``, and the JAX runner's options not ported yet (which raise).
-    Returns an un-initialized runner: call ``init_phase()`` once, then
-    ``run_round(t)`` per round (or drive it with :func:`run_experiment`).
+    ``engine`` is ``"vectorized"`` (default) or ``"loop"``; ``compression``
+    a :class:`repro_torch.federated.CompressionConfig` (``None`` is an exact
+    no-op); ``client_ranks`` one LoRA rank per client (``None``: full rank
+    everywhere). ``kw`` goes to ``FibecFed`` as it is: ``device``,
+    ``init_params``, ``init_lora``, and the JAX runner's options not ported
+    yet (which raise). Returns an un-initialized runner: call
+    ``init_phase()`` once, then ``run_round(t)`` per round (or drive it with
+    :func:`run_experiment`).
     """
     preset = dict(BASELINES[name])
     curriculum = preset.pop("curriculum", None)
@@ -57,7 +61,8 @@ def make_runner(name: str, model: ModelFns, loss_fn: Callable, fl: FibecFedConfi
         fl = dataclasses.replace(fl, curriculum=curriculum)
     return FibecFed(
         model, loss_fn, fl, client_data, seed=seed, optimizer=optimizer,
-        fused_optimizer=fused_optimizer, engine=engine, **kw, **preset,
+        fused_optimizer=fused_optimizer, engine=engine, compression=compression,
+        client_ranks=client_ranks, **kw, **preset,
     )
 
 

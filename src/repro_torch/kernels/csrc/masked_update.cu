@@ -25,6 +25,10 @@
 //
 // The traced scalars ride in a 4-float device row [lr, active, m̂s, v̂s], as
 // in the TPU kernel's SMEM row, so the host never waits on the step counter.
+// A leaf may stack k clients along its leading axis (the vectorized engine's
+// stacked client state): the row table is then (k, 4), one row per client,
+// and element i reads the row of client i / (n / k). This is what JAX's vmap
+// of the TPU kernel gives each client; one launch covers all k clients.
 // The arithmetic follows the plain PyTorch version term by term; build with
 // -fmad=false so that no multiply-add is contracted and the two agree.
 //
@@ -62,15 +66,16 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename P, bool HAS_MASK, bool HAS_WD>
 __global__ void adamw_kernel(P* p_out, const P* p, const P* g, float* m_out, const float* m,
                              float* v_out, const float* v, const float* mask,
-                             const float* scal, int64_t n, float b1, float omb1,
-                             float b2, float omb2, float eps, float wd) {
-  const float lr = scal[0];
-  const bool active = scal[1] != 0.0f;
-  const float mhs = scal[2];
-  const float vhs = scal[3];
-  const float lr_wd = lr * wd;
+                             const float* scal, int64_t n, int64_t per_client, float b1,
+                             float omb1, float b2, float omb2, float eps, float wd) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const float* row = scal + 4 * (i / per_client);
+    const float lr = row[0];
+    const bool active = row[1] != 0.0f;
+    const float mhs = row[2];
+    const float vhs = row[3];
+    const float lr_wd = lr * wd;
     const P p_raw = p[i];
     const float m_raw = m[i];
     const float v_raw = v[i];
@@ -97,11 +102,12 @@ __global__ void adamw_kernel(P* p_out, const P* p, const P* g, float* m_out, con
 template <typename P, bool HAS_MASK, bool HAS_MOM>
 __global__ void sgd_kernel(P* p_out, const P* p, const P* g, float* mu_out, const float* mu,
                            const float* mask, const float* scal, int64_t n,
-                           float momentum) {
-  const float lr = scal[0];
-  const bool active = scal[1] != 0.0f;
+                           int64_t per_client, float momentum) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const float* row = scal + 4 * (i / per_client);
+    const float lr = row[0];
+    const bool active = row[1] != 0.0f;
     const P p_raw = p[i];
     bool eff = active;
     if (HAS_MASK) eff = eff && (mask[i] != 0.0f);
@@ -129,12 +135,12 @@ inline int blocks_for(int64_t n) {
 template <typename P>
 void launch_adamw(void* p_out, const void* p, const void* g, float* m_out, const float* m,
                   float* v_out, const float* v, const float* mask, const float* scal,
-                  int64_t n, float b1, float omb1, float b2, float omb2, float eps,
-                  float wd, cudaStream_t stream) {
+                  int64_t n, int64_t per_client, float b1, float omb1, float b2, float omb2,
+                  float eps, float wd, cudaStream_t stream) {
   const int blocks = blocks_for(n);
-#define REPRO_ADAMW_ARGS                                                          \
-  (P*)p_out, (const P*)p, (const P*)g, m_out, m, v_out, v, mask, scal, n, b1, omb1, \
-      b2, omb2, eps, wd
+#define REPRO_ADAMW_ARGS                                                                 \
+  (P*)p_out, (const P*)p, (const P*)g, m_out, m, v_out, v, mask, scal, n, per_client, b1, \
+      omb1, b2, omb2, eps, wd
   if (mask != nullptr) {
     if (wd != 0.0f)
       adamw_kernel<P, true, true><<<blocks, kThreads, 0, stream>>>(REPRO_ADAMW_ARGS);
@@ -151,11 +157,11 @@ void launch_adamw(void* p_out, const void* p, const void* g, float* m_out, const
 
 template <typename P>
 void launch_sgd(void* p_out, const void* p, const void* g, float* mu_out, const float* mu,
-                const float* mask, const float* scal, int64_t n, float momentum,
-                cudaStream_t stream) {
+                const float* mask, const float* scal, int64_t n, int64_t per_client,
+                float momentum, cudaStream_t stream) {
   const int blocks = blocks_for(n);
 #define REPRO_SGD_ARGS \
-  (P*)p_out, (const P*)p, (const P*)g, mu_out, mu, mask, scal, n, momentum
+  (P*)p_out, (const P*)p, (const P*)g, mu_out, mu, mask, scal, n, per_client, momentum
   const bool has_mom = mu != nullptr;
   if (mask != nullptr) {
     if (has_mom)
@@ -176,12 +182,14 @@ void launch_sgd(void* p_out, const void* p, const void* g, float* mu_out, const 
 extern "C" {
 
 // dtype codes for p (and g): 0 = float32, 1 = bfloat16. m, v and the mask are
-// float32; mask may be null (dense update).
+// float32; mask may be null (dense update). scal is a (clients, 4) f32 table;
+// n must split evenly into clients.
 int repro_masked_adamw(void* p_out, const void* p, const void* g, void* m_out,
                        const void* m, void* v_out, const void* v, const void* mask,
-                       const void* scal, int64_t n, int p_dtype, float b1, float omb1,
-                       float b2, float omb2, float eps, float wd, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+                       const void* scal, int64_t n, int64_t clients, int p_dtype, float b1,
+                       float omb1, float b2, float omb2, float eps, float wd, void* stream) {
+  if (n <= 0 || clients <= 0 || n % clients != 0) return (int)cudaErrorInvalidValue;
+  const int64_t pc = n / clients;
   cudaStream_t s = (cudaStream_t)stream;
   float* mo = (float*)m_out;
   float* vo = (float*)v_out;
@@ -190,9 +198,9 @@ int repro_masked_adamw(void* p_out, const void* p, const void* g, void* m_out,
   const float* mk = (const float*)mask;
   const float* sc = (const float*)scal;
   if (p_dtype == 0)
-    launch_adamw<float>(p_out, p, g, mo, mi, vo, vi, mk, sc, n, b1, omb1, b2, omb2, eps, wd, s);
+    launch_adamw<float>(p_out, p, g, mo, mi, vo, vi, mk, sc, n, pc, b1, omb1, b2, omb2, eps, wd, s);
   else if (p_dtype == 1)
-    launch_adamw<__nv_bfloat16>(p_out, p, g, mo, mi, vo, vi, mk, sc, n, b1, omb1, b2, omb2, eps, wd, s);
+    launch_adamw<__nv_bfloat16>(p_out, p, g, mo, mi, vo, vi, mk, sc, n, pc, b1, omb1, b2, omb2, eps, wd, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -201,17 +209,18 @@ int repro_masked_adamw(void* p_out, const void* p, const void* g, void* m_out,
 // mu/mu_out (float32) null: no momentum.
 int repro_masked_sgd(void* p_out, const void* p, const void* g, void* mu_out,
                      const void* mu, const void* mask, const void* scal, int64_t n,
-                     int p_dtype, float momentum, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+                     int64_t clients, int p_dtype, float momentum, void* stream) {
+  if (n <= 0 || clients <= 0 || n % clients != 0) return (int)cudaErrorInvalidValue;
+  const int64_t pc = n / clients;
   cudaStream_t s = (cudaStream_t)stream;
   float* muo = (float*)mu_out;
   const float* mui = (const float*)mu;
   const float* mk = (const float*)mask;
   const float* sc = (const float*)scal;
   if (p_dtype == 0)
-    launch_sgd<float>(p_out, p, g, muo, mui, mk, sc, n, momentum, s);
+    launch_sgd<float>(p_out, p, g, muo, mui, mk, sc, n, pc, momentum, s);
   else if (p_dtype == 1)
-    launch_sgd<__nv_bfloat16>(p_out, p, g, muo, mui, mk, sc, n, momentum, s);
+    launch_sgd<__nv_bfloat16>(p_out, p, g, muo, mui, mk, sc, n, pc, momentum, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

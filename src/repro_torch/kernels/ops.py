@@ -6,13 +6,16 @@ if it cannot launch), a CPU tensor to the plain version in
 :mod:`repro_torch.kernels.ref`. Each wrapper carries a ``launches`` count,
 raised by one for every kernel launch and by nothing else.
 
-The updates are functional: new tensors come back and the inputs are left
-as they were, on both devices.
+The wrappers are functional: new tensors come back and the inputs are left
+as they were, on both devices. Each takes stacked clients (the vectorized
+engine's state, k clients on every leaf's leading axis) as well as single
+trees, and then launches once per leaf for all k clients.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import compress as _cp
 from repro_torch.kernels import masked_update as _mu
 from repro_torch.kernels import ref as _ref
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unzip
@@ -55,6 +58,19 @@ def adam_step_scales(t, active, b1: float, b2: float):
     return t, 1.0 / (1.0 - b1 ** tf), 1.0 / (1.0 - b2 ** tf)
 
 
+def per_client(x, leaf):
+    """A per-client (k,) tensor shaped to broadcast over a stacked leaf;
+    anything else as it is."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1:
+        return x.reshape((-1,) + (1,) * (leaf.dim() - 1))
+    return x
+
+
+def _scal_table(*cols) -> torch.Tensor:
+    """The kernels' contiguous f32 (k, 4) table from scalar or (k,) columns."""
+    return torch.stack(torch.broadcast_tensors(*cols), dim=-1).reshape(-1, 4).contiguous()
+
+
 def _masks(mask, params):
     return mask if mask is not None else tree_map(lambda _: None, params)
 
@@ -65,12 +81,13 @@ def masked_sgd_update(grads, state, params, lr, mask=None, active=None, *, momen
     Same signature and frozen-moment semantics as
     :func:`repro_torch.optim.optimizers.sgd_update`: entries with
     ``mask == 0``, and every entry when ``active == 0``, keep parameter AND
-    momentum bit for bit.
+    momentum bit for bit. An ``active`` of shape (k,) means every leaf
+    stacks k clients on its leading axis, each with its own predicate.
     """
     device = tree_leaves(params)[0].device
     lr_t = as_f32(lr, device)
     zero = as_f32(0.0, device)
-    scal = torch.stack([lr_t, _active_f32(active, device), zero, zero])
+    scal = _scal_table(lr_t, _active_f32(active, device), zero, zero)
 
     def one(p, g, mu, mk):
         if _on_cuda(p):
@@ -81,7 +98,7 @@ def masked_sgd_update(grads, state, params, lr, mask=None, active=None, *, momen
             masked_sgd_update.launches += 1
             return p_out, mu_out
         return _ref.masked_sgd_update_ref(p, g, mu if momentum else None, mk, lr_t,
-                                          momentum=momentum, active=active)
+                                          momentum=momentum, active=per_client(active, p))
 
     mus = state["mu"] if momentum else tree_map(lambda _: None, params)
     new_params, new_mu = tree_unzip(tree_map(one, params, grads, mus, _masks(mask, params)), 2)
@@ -98,11 +115,13 @@ def masked_adamw_update(grads, state, params, lr, mask=None, active=None, *,
     frozen entries hold parameter, ``m`` and ``v`` bit for bit, and the step
     counter ``t`` advances only on active steps. The bias-correction scales
     are computed from ``t`` once, on the device, and shared by every leaf.
+    Stacked clients carry ``active`` and ``t`` of shape (k,): one step
+    counter and one row of scalars per client.
     """
     t, mhat, vhat = adam_step_scales(state["t"], active, b1, b2)
     device = t.device
     lr_t = as_f32(lr, device)
-    scal = torch.stack([lr_t, _active_f32(active, device), mhat, vhat])
+    scal = _scal_table(lr_t, _active_f32(active, device), mhat, vhat)
 
     def one(p, g, m, v, mk):
         if _on_cuda(p):
@@ -111,13 +130,94 @@ def masked_adamw_update(grads, state, params, lr, mask=None, active=None, *,
                              b1=b1, b2=b2, eps=eps, wd=wd)
             masked_adamw_update.launches += 1
             return p_out, m_out, v_out
-        return _ref.masked_adamw_update_ref(p, g, m, v, mk, lr_t, mhat, vhat,
-                                            b1=b1, b2=b2, eps=eps, wd=wd, active=active)
+        return _ref.masked_adamw_update_ref(p, g, m, v, mk, lr_t, per_client(mhat, p),
+                                            per_client(vhat, p), b1=b1, b2=b2, eps=eps, wd=wd,
+                                            active=per_client(active, p))
 
     outs = tree_map(one, params, grads, state["m"], state["v"], _masks(mask, params))
     new_params, m, v = tree_unzip(outs, 3)
     return new_params, {"m": m, "v": v, "t": t}
 
 
+def topk_rows(x2, mk, *, per_client_mask: bool, qmax: int, topk_ratio: float):
+    """Per-client top-k threshold and per-leaf scale of ``x2`` (k, m): keep
+    ``max(1, ceil(ratio · active))`` values, ``active`` counting the values
+    under the mask's nonzero entries (a mask leaf may be broadcastable, each
+    entry covering ``m // mask.numel()`` values of a client; a
+    ``per_client_mask`` stacks one mask per client). The product runs in
+    f32, as the JAX package computes it."""
+    k, m = x2.shape
+    flat = torch.abs(x2).to(torch.float32)
+    if mk is None:
+        active = torch.full((k,), float(m), device=x2.device)
+    elif per_client_mask:
+        active = torch.sum((mk != 0).reshape(k, -1), dim=1).to(torch.float32) * (m // (mk.numel() // k))
+    else:
+        active = (torch.sum(mk != 0).to(torch.float32) * (m // mk.numel())).expand(k)
+    kk = torch.clamp(torch.ceil(topk_ratio * active), min=1.0).to(torch.int64)
+    idx = torch.clamp(m - kk, 0, m - 1)
+    thresh = torch.gather(torch.sort(flat, dim=1).values, 1, idx[:, None])[:, 0]
+    scale = torch.amax(flat, dim=1) * _ref.inv_qmax(qmax) if qmax else torch.zeros(k, device=x2.device)
+    return thresh, scale
+
+
+def compress_rows(d, r, mk, *, qmax: int, topk_ratio: float, use_thresh: bool, stacked: bool):
+    """The steps of :func:`fake_compress` before the kernel, for one leaf:
+    ``x = d + r`` flattened to ``x2`` (k, m), k the stacked clients (1 when
+    not ``stacked``), and each client's threshold and scale
+    (:func:`topk_rows`; zeros without top-k). Returns ``(x2, thresh, scale)``,
+    the kernel's input and its row ``[thresh, scale]`` per client."""
+    x = d if r is None else d + r.to(d.dtype)
+    k = d.shape[0] if stacked else 1
+    x2 = x.reshape(k, -1).contiguous()
+    if not use_thresh:
+        zeros = torch.zeros(k, device=x2.device)
+        return x2, zeros, zeros
+    per_client_mask = stacked and mk is not None and mk.dim() == d.dim()
+    return (x2,) + topk_rows(x2, mk, per_client_mask=per_client_mask, qmax=qmax, topk_ratio=topk_ratio)
+
+
+def fake_compress(delta, residual=None, mask=None, *, qmax: int = 0, topk_ratio: float = 1.0,
+                  use_thresh: bool = False, stacked: bool = False):
+    """Simulated compressed upload over a tree, with error feedback.
+
+    Per leaf: ``x = delta + residual`` (what the client would send), ``y =
+    dequant(quant(x))`` (what the server reconstructs, the value that enters
+    the merge) and ``new_residual = x - y``. Returns ``(y_tree,
+    new_residual_tree)``; ``residual`` None means no error feedback.
+
+    ``qmax`` 127/7 selects int8/int4 with one scale per consecutive 128
+    values of the flattened leaf; ``use_thresh`` adds per-leaf top-k, the
+    threshold being the ``k``-th largest ``|x|`` with ``k = max(1,
+    ceil(topk_ratio · active))`` (:func:`topk_rows`), and the scale the
+    leaf's absmax·(1/qmax). Threshold and scale need a sort over the leaf, so
+    they are computed here (:func:`compress_rows`) and ride into the kernel
+    as one row per client.
+
+    ``stacked``: every leaf of ``delta``/``residual`` carries a leading axis
+    of k clients, each compressed as its own leaf (its own threshold, scale
+    and 128-groups); a mask leaf with that axis too (as many dimensions as
+    the delta leaf) counts per client, one without is shared by all.
+    """
+    per_leaf_scale = use_thresh and qmax > 0
+    resid = residual if residual is not None else tree_map(lambda _: None, delta)
+
+    def one(d, r, mk):
+        x2, thresh, scale = compress_rows(d, r, mk, qmax=qmax, topk_ratio=topk_ratio,
+                                          use_thresh=use_thresh, stacked=stacked)
+        if _on_cuda(x2):
+            y, res = torch.empty_like(x2), torch.empty_like(x2)
+            _cp.fake_compress_launch(y, res, x2, torch.stack([thresh, scale], dim=1).contiguous(),
+                                     qmax=qmax, use_thresh=use_thresh, per_leaf_scale=per_leaf_scale)
+            fake_compress.launches += 1
+        else:
+            y, res = _ref.fake_compress_ref(x2, thresh, scale, qmax=qmax, use_thresh=use_thresh,
+                                            per_leaf_scale=per_leaf_scale)
+        return y.reshape(d.shape), res.reshape(d.shape)
+
+    return tree_unzip(tree_map(one, delta, resid, _masks(mask, delta)), 2)
+
+
 masked_sgd_update.launches = 0
 masked_adamw_update.launches = 0
+fake_compress.launches = 0

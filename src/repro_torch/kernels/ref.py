@@ -10,11 +10,31 @@ Frozen semantics (paper §4.3.2), with ``eff = mask ⊙ active``:
             p' = eff ? p - lr·(m'·m̂s/(√(v'·v̂s)+ε) + wd·p) : p
 
 Compute is f32 and each output keeps its input's dtype, so a frozen entry
-keeps its bits.
+keeps its bits. A leaf may stack k clients on its leading axis; ``active``,
+``lr`` and the Adam scales are then per-client tensors shaped to broadcast
+over it.
+
+Fake compression (kernel B3), per client row of a (k, m) leaf with
+``s`` the client's scale or the absmax·(1/qmax) of each 128-value group:
+
+  y = (|x| >= thresh ?) clip(round(x·(1/s)), ±qmax)·s        r = x - y
+
+The reference writes the group scale as ``absmax / qmax``; XLA computes a
+division by a constant as a multiply by its f32 reciprocal, and the port
+does the same so that its scales are the reference's bit for bit.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+QUANT_GROUP = 128  # values per quantization scale, the wire format's group
+
+
+def inv_qmax(qmax: int) -> float:
+    """``1/qmax`` rounded to f32, the factor of every quantization scale."""
+    return float(np.float32(1.0) / np.float32(qmax))
 
 
 def _update_pred(mask, active, device):
@@ -62,3 +82,34 @@ def masked_adamw_update_ref(p, g, m, v, mask, lr, mhat_scale, vhat_scale, *,
     if wd:
         step = step + lr * wd * pf
     return sel(pf - step, pf).to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+
+
+def fake_compress_ref(x, thresh, scale, *, qmax: int = 0, use_thresh: bool = False,
+                      per_leaf_scale: bool = False):
+    """Fake-quantize / top-k round trip with error feedback.
+
+    ``x`` (k, m): k clients' flattened leaves. ``thresh``/``scale`` (k,) f32:
+    each client's top-k threshold and per-leaf scale, read only by the top-k
+    (``use_thresh`` / ``per_leaf_scale``) variants. int8/int4 (``qmax``
+    127/7) take one scale, absmax·(1/qmax), per 128 consecutive values of
+    each client's row, the last group short when ``m % 128``. Returns ``(y, x - y)`` in
+    ``x.dtype``, the difference taken in f32 before ``y`` is cast.
+    """
+    xf = x.to(torch.float32)
+    k, m = xf.shape
+    if qmax:
+        if per_leaf_scale:
+            s = scale.to(torch.float32).reshape(k, 1)
+        else:
+            groups = -(-m // QUANT_GROUP)
+            padded = F.pad(xf, (0, groups * QUANT_GROUP - m)).reshape(k, groups, QUANT_GROUP)
+            s = torch.amax(torch.abs(padded), dim=-1, keepdim=True) * inv_qmax(qmax)
+            s = s.expand(k, groups, QUANT_GROUP).reshape(k, groups * QUANT_GROUP)[:, :m]
+        safe = torch.where(s > 0.0, s, 1.0)
+        inv = torch.where(s > 0.0, 1.0 / safe, 0.0)
+        y = torch.clamp(torch.round(xf * inv), -qmax, qmax) * s
+    else:
+        y = xf
+    if use_thresh:
+        y = torch.where(torch.abs(xf) >= thresh.reshape(k, 1), y, 0.0)
+    return y.to(x.dtype), (xf - y).to(x.dtype)

@@ -3,4 +3,5 @@ from repro_torch.lora.lora import (
     init_lora,
     lora_num_logical_layers,
     neuron_mask_tree,
+    rank_mask_tree,
 )

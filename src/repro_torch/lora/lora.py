@@ -88,6 +88,27 @@ def gal_mask_tree(cfg: ModelConfig, lora, gal_layers) -> Any:
     return out
 
 
+def rank_mask_tree(lora, rank: int) -> Any:
+    """Per-leaf f32 {0., 1.} masks keeping only the first ``rank`` LoRA rank
+    components trainable (resource-adaptive per-client rank).
+
+    A rank-``r_i`` client updates the leading ``r_i`` columns of ``a`` and
+    rows of ``b``; the rest stay frozen at the pulled global values, so its
+    delta is exactly zero beyond ``r_i`` and rank-heterogeneous aggregation
+    is plain masked FedAvg. ``rank >=`` the LoRA rank gives all ones.
+    """
+
+    def mk(ab):
+        r = ab["a"].shape[-1]
+        keep = (torch.arange(r, device=ab["a"].device) < rank).to(torch.float32)
+        return {
+            "a": keep * torch.ones_like(ab["a"], dtype=torch.float32),
+            "b": keep[:, None] * torch.ones_like(ab["b"], dtype=torch.float32),
+        }
+
+    return {group: {t: mk(ab) for t, ab in targets.items()} for group, targets in lora.items()}
+
+
 def neuron_mask_tree(cfg: ModelConfig, lora, neuron_masks: Dict[str, Any]) -> Any:
     """Full-shape per-leaf update masks from per-target neuron keep-masks.
 

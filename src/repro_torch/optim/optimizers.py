@@ -9,6 +9,11 @@ predicate (0/1 scalar). Frozen entries (``mask == 0``, or every entry when
 with ``eff = mask ⊙ active``. AdamW's step counter ``t`` advances only on
 active steps.
 
+Stacked clients (the vectorized engine) pass ``active`` of shape (k,): every
+leaf then carries k clients on its leading axis, each committed by its own
+predicate, and AdamW's ``t`` is (k,), one counter per client, as JAX's vmap
+of the update gives each client.
+
 ``fused=True`` routes every leaf through the hand-written masked-update
 kernels (:mod:`repro_torch.kernels.ops`); the functions below are the
 semantic spec and the unfused path.
@@ -28,6 +33,7 @@ def _commit(new, old, mask_leaf, active):
     """``eff = mask ⊙ active`` entry-wise commit; ``None`` means all-on."""
     if mask_leaf is None and active is None:
         return new
+    active = _kops.per_client(active, new)
     if mask_leaf is None:
         pred = torch.as_tensor(active, device=new.device) != 0
     elif active is None:
@@ -89,7 +95,8 @@ def adamw_update(grads, state, params, lr, mask=None, active=None, *,
     lr_t = _kops.as_f32(lr, t.device)
 
     def upd(p, mm, vv, mk):
-        step = lr_t * (mm * mhat_scale) / (torch.sqrt(vv * vhat_scale) + eps)
+        mhs, vhs = _kops.per_client(mhat_scale, p), _kops.per_client(vhat_scale, p)
+        step = lr_t * (mm * mhs) / (torch.sqrt(vv * vhs) + eps)
         if wd:
             step = step + lr_t * wd * p
         return _commit(p - step, p, mk, active)

@@ -43,11 +43,30 @@ def make_logits_loss(cfg: ModelConfig) -> Callable:
 
 
 def make_loss_fn(model: ModelFns) -> Callable:
-    """``(params, lora, batch) -> scalar``: the forward plus its loss."""
+    """``(params, lora, batch) -> scalar``: the forward plus its loss.
+
+    The returned function carries ``.masked(params, lora, batch,
+    sample_mask)``: the same loss restricted to the mask's valid samples
+    with one batched forward (per-sample CE weighted by the mask). It equals
+    the plain loss of the ragged sub-batch, which is what lets the
+    vectorized engine train on padded fixed-shape batches.
+    """
     logits_loss = make_logits_loss(model.cfg)
 
     def loss_fn(params, lora, batch: Dict[str, Any]):
         logits, aux = model.forward(params, lora, batch)
         return logits_loss(logits, batch) + aux
 
+    def masked(params, lora, batch: Dict[str, Any], sample_mask):
+        logits, aux = model.forward(params, lora, batch)
+        m = sample_mask.to(torch.float32)
+        denom = torch.clamp(torch.sum(m), min=1.0)
+        if "label_token" in batch:
+            per = _xent(logits[:, -1], batch["label_token"])
+        else:
+            tokens = batch["tokens"]
+            per = torch.mean(_xent(logits[:, : tokens.shape[1] - 1], tokens[:, 1:]), dim=-1)
+        return torch.sum(per * m) / denom + aux
+
+    loss_fn.masked = masked
     return loss_fn

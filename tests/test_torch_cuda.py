@@ -80,3 +80,79 @@ def test_kernel_refuses_bf16_moments(cuda):
     st = {"m": {"w": m.bfloat16()}, "v": {"w": v.bfloat16()}, "t": torch.tensor(0, device="cuda")}
     with pytest.raises(TypeError, match="dtype"):
         ops.masked_adamw_update({"w": g}, st, {"w": p}, 0.01, {"w": mask})
+
+
+# --- stacked clients: one (k, 4) row of scalars per client (B1/B2) ---
+
+K = 4
+
+
+def _rows(x, leaf):
+    return x.reshape((-1,) + (1,) * (leaf.dim() - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_kernel_stacked_rows_match_plain(cuda, dtype):
+    p, g, m, v, mask = _inputs(cuda, (K, 24, 8, 128), dtype)
+    active = torch.tensor([1.0, 0.0, 1.0, 1.0], device="cuda")
+    t = torch.tensor([0, 3, 7, 1], dtype=torch.int32, device="cuda")
+    new_p, st = ops.masked_adamw_update({"w": g}, {"m": {"w": m}, "v": {"w": v}, "t": t},
+                                        {"w": p}, 0.01, {"w": mask}, active, wd=0.01)
+    t2, mhat, vhat = ops.adam_step_scales(t, active, 0.9, 0.999)
+    assert torch.equal(st["t"], t2) and st["t"].tolist() == [1, 3, 8, 2]
+    want = ref.masked_adamw_update_ref(p, g, m, v, mask, ops.as_f32(0.01, "cuda"), _rows(mhat, p),
+                                       _rows(vhat, p), wd=0.01, active=_rows(active, p))
+    torch.cuda.synchronize()
+    for out, w in zip((new_p["w"], st["m"]["w"], st["v"]["w"]), want):
+        assert torch.equal(out, w)
+    assert torch.equal(new_p["w"][1], p[1])  # the inactive client keeps its bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_sgd_kernel_stacked_rows_match_plain(cuda, momentum):
+    p, g, mu, _, mask = _inputs(cuda, (K, 24, 8, 896), torch.float32)
+    active = torch.tensor([0.0, 1.0, 1.0, 0.0], device="cuda")
+    new_p, st = ops.masked_sgd_update({"w": g}, {"mu": {"w": mu}} if momentum else {}, {"w": p}, 0.05,
+                                      {"w": mask}, active, momentum=momentum)
+    want_p, want_mu = ref.masked_sgd_update_ref(p, g, mu if momentum else None, mask, ops.as_f32(0.05, "cuda"),
+                                                momentum=momentum, active=_rows(active, p))
+    torch.cuda.synchronize()
+    assert torch.equal(new_p["w"], want_p)
+    if momentum:
+        assert torch.equal(st["mu"]["w"], want_mu)
+
+
+# --- B3: fake compression ---
+
+COMPRESS_MODES = [(127, 1.0, False), (7, 1.0, False), (127, 0.1, True), (0, 0.25, True)]
+
+
+def plain_fake_compress(d, r, mk, *, qmax, topk_ratio, use_thresh, stacked):
+    """The wrapper's steps with the plain version in place of the kernel."""
+    x2, thresh, scale = ops.compress_rows(d, r, mk, qmax=qmax, topk_ratio=topk_ratio,
+                                          use_thresh=use_thresh, stacked=stacked)
+    y, res = ref.fake_compress_ref(x2, thresh, scale, qmax=qmax, use_thresh=use_thresh,
+                                   per_leaf_scale=use_thresh and qmax > 0)
+    return y.reshape(d.shape), res.reshape(d.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,stacked", [((24, 896, 8), False), ((24, 8, 128), False),
+                                           ((7, 5), False), ((K, 300, 130), True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", COMPRESS_MODES)
+def test_fake_compress_kernel_matches_plain(cuda, shape, stacked, dtype, mode):
+    qmax, ratio, use_thresh = mode
+    d = (torch.randn(shape, generator=cuda, device="cuda") * 1e-2).to(dtype)
+    r = (torch.randn(shape, generator=cuda, device="cuda") * 1e-3).to(dtype)
+    mk = (torch.rand(shape, generator=cuda, device="cuda") < 0.5).float()
+    kw = dict(qmax=qmax, topk_ratio=ratio, use_thresh=use_thresh)
+    before = ops.fake_compress.launches
+    y, res = ops.fake_compress({"w": d}, {"w": r}, {"w": mk}, stacked=stacked, **kw)
+    assert ops.fake_compress.launches == before + 1
+    want_y, want_r = plain_fake_compress(d, r, mk, stacked=stacked, **kw)
+    torch.cuda.synchronize()
+    assert y["w"].dtype == dtype
+    assert torch.equal(y["w"], want_y) and torch.equal(res["w"], want_r)

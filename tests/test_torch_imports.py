@@ -4,7 +4,8 @@
 ``chip_smoke.py`` import neither JAX nor the JAX package (``repro``), not
 even its modules that need no JAX: they run where only PyTorch is. A runner built
 without ``device=`` refuses to start when there is no CUDA device, rather
-than falling back to the CPU; unported engines and options raise.
+than falling back to the CPU; unported engines and options raise, and
+malformed options are rejected.
 """
 import dataclasses
 import pathlib
@@ -77,9 +78,8 @@ def test_runner_without_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize(
     "kw",
-    [{"engine": "vectorized"}, {"engine": "sharded"}, {"engine": "async"},
-     {"compression": object()}, {"store": object()}, {"hierarchy": 2},
-     {"client_ranks": [1, 2]}, {"telemetry": object()}, {"mesh": object()}],
+    [{"engine": "sharded"}, {"engine": "async"}, {"store": object()}, {"hierarchy": 2},
+     {"telemetry": object()}, {"mesh": object()}],
 )
 def test_unported_engines_and_options_raise(kw):
     from repro_torch.federated import make_runner
@@ -99,13 +99,28 @@ def test_lossless_criteria_raise(field):
         make_runner("fibecfed", model, loss_fn, fl, data, device="cpu")
 
 
+@pytest.mark.parametrize(
+    "kw,error",
+    [({"compression": object()}, TypeError), ({"client_ranks": [1]}, ValueError),
+     ({"client_ranks": [0, 2]}, ValueError), ({"engine": "turbo"}, ValueError)],
+)
+def test_bad_options_rejected(kw, error):
+    from repro_torch.federated import make_runner
+
+    model, loss_fn, fl, data = _world()
+    with pytest.raises(error):
+        make_runner("fibecfed", model, loss_fn, fl, data, device="cpu", **kw)
+
+
 def test_port_runs_end_to_end_on_cpu():
-    """A whole init + round + evaluation on its own seeded torch init."""
+    """A whole init + round + evaluation on its own seeded torch init, on
+    the default (vectorized) engine."""
     from repro_torch.federated import make_runner, run_experiment
 
     model, loss_fn, fl, data = _world()
     runner = make_runner("fibecfed", model, loss_fn, fl, data, optimizer="adamw",
                          fused_optimizer=True, device="cpu", seed=3)
+    assert runner.engine == "vectorized"
     out = run_experiment(runner, data[0], rounds=2, eval_every=1)
     assert len(out["history"]) == 2 and np.isfinite(out["history"][-1]["loss"])
     assert 0.0 <= out["final_accuracy"] <= 1.0

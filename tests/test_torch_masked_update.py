@@ -183,12 +183,21 @@ def test_kernel_launchers_refuse_what_the_kernel_does_not_take():
     build or call the CUDA library; here every tensor lies on the CPU."""
     from repro_torch.kernels import masked_update
 
+    from repro_torch.kernels import compress
+
     x = torch.zeros(4, 6)
-    scal = torch.zeros(4)
+    scal = torch.zeros(1, 4)
     with pytest.raises(ValueError, match="must lie on"):
         masked_update.adamw_launch(x, x, x, x, x, x, x, None, scal, b1=0.9, b2=0.999, eps=1e-8, wd=0.0)
     with pytest.raises(ValueError, match="must lie on"):
         masked_update.sgd_launch(x, x, x, None, None, None, scal, momentum=0.0)
     with pytest.raises(ValueError, match="scal"):
         masked_update.sgd_launch(x, x, x, None, None, None, torch.zeros(3), momentum=0.0)
+    # a (k, 4) table needs a leaf that stacks k clients on its leading axis
+    with pytest.raises(ValueError, match="stack"):
+        masked_update.sgd_launch(x, x, x, None, None, None, torch.zeros(3, 4), momentum=0.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        compress.fake_compress_launch(x, x.clone(), x.clone(), torch.zeros(4, 2), qmax=127,
+                                      use_thresh=False, per_leaf_scale=False)
     assert masked_update.library.cache_info().currsize == 0  # nothing was built
+    assert compress.library.cache_info().currsize == 0
