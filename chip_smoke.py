@@ -19,6 +19,13 @@ device and exits non-zero without one, or if any phase fails:
 5. the JAX package's default path: ``make_runner("fibecfed", ...)`` with no
    ``engine=`` (the vectorized engine), adamw, fused, init and 2 rounds;
    its Fisher difficulty scores held to the loop engine's, batch by batch;
+5b. the public kernel entry point ``repro_torch.kernels.ops`` on that run's
+   own data: the Fisher-diagonal update (B4) over a client's FIM tree and
+   over all 8 clients' stacked, bit for bit; the neuron-masked LoRA product
+   (B5) and its gather-packed form (B6) on the clients' LoRA and neuron
+   masks, and the multi-adapter product (B7) over the 8 clients' adapters,
+   within a stated tolerance of their plain versions; every kernel again at
+   shapes off any tile grid; then their times;
 6. compressed uploads (top-k 0.1, int8 values, error feedback) with
    per-client ranks, random_select/sgd (fused), 1 round on each engine from
    the same seed: equal comm bytes, equal to the wire format recomputed from the GAL mask and ranks,
@@ -29,9 +36,9 @@ device and exits non-zero without one, or if any phase fails:
    the same order);
 8. one JSON line listing the kernels; last, the ok line.
 
-Each path of phases 4-6 is driven with the kernels' launch counts set to 0
-just before it and read just after. Float32 matmuls run in full f32 (TF32
-off for matmuls and cuDNN alike).
+Each path of phases 4-6, 5b included, is driven with the kernels' launch
+counts set to 0 just before it and read just after. Float32 matmuls run in
+full f32 (TF32 off for matmuls and cuDNN alike).
 """
 import json
 import math
@@ -50,7 +57,9 @@ LEAF_SHAPES = {"a": (24, 896, 8), "b_q_o": (24, 8, 896), "b_k_v": (24, 8, 128)}
 K = 4  # the cohort: clients stacked on the vectorized engine's leading axis
 MU_SOURCE = "src/repro_torch/kernels/csrc/masked_update.cu"
 CP_SOURCE = "src/repro_torch/kernels/csrc/compress.cu"
-KERNELS = {  # name -> what it ports, its source, and its work per element
+FD_SOURCE = "src/repro_torch/kernels/csrc/fisher_diag.cu"
+SL_SOURCE = "src/repro_torch/kernels/csrc/sparse_lora.cu"
+KERNELS = {  # name -> what it ports, its source, and its work per element (B1-B3)
     "masked_adamw_update": dict(
         replaces="src/repro/kernels/masked_update.py:156", source=MU_SOURCE,
         bytes_per_elem=32,  # p, g, m, v, mask read; p, m, v written (f32)
@@ -77,7 +86,26 @@ KERNELS = {  # name -> what it ports, its source, and its work per element
         # compare, select, subtract
         flops_per_elem=9,
     ),
+    # B4-B7: phase 5b computes their bytes and flops for the whole call
+    "fisher_diag_update": dict(replaces="src/repro/kernels/fisher_diag.py:26", source=FD_SOURCE),
+    "sparse_lora_apply": dict(replaces="src/repro/kernels/sparse_lora.py:79", source=SL_SOURCE),
+    "sparse_lora_apply_packed": dict(replaces="src/repro/kernels/sparse_lora.py:119", source=SL_SOURCE),
+    "batched_sparse_lora_apply": dict(replaces="src/repro/kernels/sparse_lora.py:191", source=SL_SOURCE),
 }
+# the wrappers of repro_torch.kernels.ops whose launches a path counts
+LAUNCHED = ("masked_adamw_update", "masked_sgd_update", "fake_compress", "fisher_diag_update",
+            "sparse_lora_apply", "sparse_lora_apply_packed", "batched_sparse_lora_apply")
+# Phase 5b: the LoRA layers and row counts it drives. 256 rows are one
+# client's batch (4 sequences of 64 tokens); 4096 a batch of 64 such
+# sequences. The LoRA products sum in another order than the plain
+# version's matmuls, so the two f32 results differ by up to 1e-5 of the
+# largest |y| (the sums' scale, not each value's). On top of that, f32
+# outputs agree within atol = rtol = 1e-4, and bf16 outputs, which round
+# those f32 values, at most one bf16 ulp apart.
+OPS_LAYERS = (0, 11, 23)
+OPS_ROWS = (256, 4096)
+LORA_TOL = 1e-4
+LORA_ORDER_REL = 1e-5
 COMPRESSION = dict(mode="topk", topk_ratio=0.1, topk_values="int8", error_feedback=True)
 RANKS = [8, 8, 4, 4, 8, 8, 2, 8]
 # Phase 5 holds the vectorized engine's Fisher difficulty scores to the loop
@@ -172,6 +200,29 @@ def check_equal(out, plain, what):
         err = (out.float() - plain.float()).abs().max().item()
         raise AssertionError(f"{what}: differs from the plain version (max abs err {err})")
     return 0.0
+
+
+def check_lora(out, plain, what):
+    """A LoRA product against its plain version at the tolerance stated at
+    ``LORA_TOL``. Returns the max abs error."""
+    if out.dtype != plain.dtype or out.shape != plain.shape:
+        raise AssertionError(f"{what}: {out.dtype} {tuple(out.shape)} vs {plain.dtype} {tuple(plain.shape)}")
+    o, p = out.float(), plain.float()
+    err = (o - p).abs()
+    order = LORA_ORDER_REL * p.abs().max()
+    if out.dtype == torch.float32:
+        allowed = LORA_TOL + LORA_TOL * p.abs() + order
+    else:
+        _, e = torch.frexp(torch.maximum(o.abs(), p.abs()))
+        allowed = torch.ldexp(torch.ones_like(o), e - 8) + order
+    if not bool((err <= allowed).all()):
+        raise AssertionError(f"{what}: max abs err {err.max().item()} beyond tolerance")
+    return err.max().item()
+
+
+def check_frozen_zero(y, frozen, what):
+    if not bool((y[..., frozen] == 0).all()):
+        raise AssertionError(f"{what}: a frozen column is not exactly 0")
 
 
 def phase_kernels(ops, ref, gen):
@@ -312,11 +363,17 @@ def lora_tree(kind, lead=()):
                        for t, (sa, sb) in shapes.items()}}
 
 
+def bound_of(bytes_moved, flops):
+    """The least time for a call that moves ``bytes_moved`` (each input read
+    once, each output written once) and does ``flops`` f32 operations."""
+    bytes_s = bytes_moved / HBM_BYTES_PER_S
+    flops_s = flops / F32_FLOPS_PER_S
+    return dict(bound_ms=max(bytes_s, flops_s) * 1e3, bound_by="bytes" if bytes_s >= flops_s else "operations")
+
+
 def bound(name, n_elems):
     spec = KERNELS[name]
-    bytes_s = n_elems * spec["bytes_per_elem"] / HBM_BYTES_PER_S
-    flops_s = n_elems * spec["flops_per_elem"] / F32_FLOPS_PER_S
-    return dict(bound_ms=max(bytes_s, flops_s) * 1e3, bound_by="bytes" if bytes_s >= flops_s else "operations")
+    return bound_of(n_elems * spec["bytes_per_elem"], n_elems * spec["flops_per_elem"])
 
 
 def phase_timing(ops, ref, compress, gen, tree_leaves, tree_map):
@@ -416,6 +473,267 @@ def phase_timing(ops, ref, compress, gen, tree_leaves, tree_map):
     return times
 
 
+def client_lora(client, target, layer):
+    """One client's LoRA ``a`` (K, r), ``b`` (r, N) and neuron keep-mask (N,)
+    of one target at one layer."""
+    ab = client.lora["layers"][target]
+    return ab["a"][layer], ab["b"][layer], client.neuron_mask["layers"][target]["b"][layer, 0, :]
+
+
+def adapter_stack(clients, target, layer):
+    """The clients' adapters of one target at one layer, stacked: a (A, K, r),
+    b (A, r, N), mask (A, N)."""
+    parts = [client_lora(c, target, layer) for c in clients]
+    return tuple(torch.stack(xs).contiguous() for xs in zip(*parts))
+
+
+def drive_lora(ops, ref, x, a, b, keep, scale, what):
+    """B5 and B6 on one input against their plain versions; masked columns
+    exactly 0. Returns the max abs errors."""
+    y = ops.sparse_lora_apply(x, a, b, keep, scale)
+    e5 = check_lora(y, ref.sparse_lora_matmul_ref(x, a, b, keep, scale), f"B5 {what}")
+    check_frozen_zero(y, keep == 0, f"B5 {what}")
+    yp = ops.sparse_lora_apply_packed(x, a, b, keep, scale)
+    e6 = check_lora(yp, y, f"B6 vs B5 {what}")
+    kept = torch.nonzero(keep).reshape(-1)
+    if kept.numel():
+        e6 = max(e6, check_lora(yp[:, kept], ref.sparse_lora_matmul_packed_ref(x, a, b[:, kept], scale),
+                                f"B6 kept columns {what}"))
+    check_frozen_zero(yp, keep == 0, f"B6 {what}")
+    return e5, e6
+
+
+def drive_batched(ops, ref, x, idx, a, b, mask, scale, what):
+    """B7 against its plain version; a row whose index lies outside [0, A)
+    is exactly 0, and so is every row's own frozen column."""
+    y = ops.batched_sparse_lora_apply(x, idx, a, b, mask, scale)
+    K, N = x.shape[-1], b.shape[-1]
+    err = check_lora(y.reshape(-1, N), ref.batched_sparse_lora_matmul_ref(
+        x.reshape(-1, K), idx.reshape(-1), a, b, mask, scale), f"B7 {what}")
+    out = (idx < 0) | (idx >= a.shape[0])
+    if not bool((y[out] == 0).all()):
+        raise AssertionError(f"B7 {what}: a row with an out-of-range adapter is not 0")
+    frozen = mask[idx.clamp(0, a.shape[0] - 1)] == 0
+    if not bool((y[frozen & ~out[..., None]] == 0).all()):
+        raise AssertionError(f"B7 {what}: a frozen column is not exactly 0")
+    return y, err
+
+
+def phase_ops(ops, ref, vec, cfg, gen, tree_leaves, tree_map):
+    """Phase 5b: the four public wrappers of ``repro_torch.kernels.ops`` on
+    the vectorized run's own FIM trees, LoRA and neuron masks (the FIM
+    warmup's rho = 0.5 masks), then at shapes off any tile grid. Returns the
+    launch counts of the run and the max abs errors."""
+    clients = vec.clients
+    c0 = clients[0]
+    scale = cfg.lora_alpha / cfg.lora_rank
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    errs = dict.fromkeys(("fisher_diag_update", "sparse_lora_apply", "sparse_lora_apply_packed",
+                          "batched_sparse_lora_apply"), 0.0)
+
+    def note(name, err):
+        errs[name] = max(errs[name], err)
+
+    n_lora = 0
+    with Launches(ops) as run:
+        # B4: one client's FIM tree, then all clients' stacked; g f32 and bf16
+        stacked_fim = tree_map(lambda *xs: torch.stack(xs), *[c.fim for c in clients])
+        for fim in (c0.fim, stacked_fim):
+            g = tree_map(lambda f: randn(*f.shape) * 1e-3, fim)
+            for gg in (g, tree_map(lambda t: t.bfloat16(), g)):
+                out = ops.fisher_diag_update(fim, gg, 0.9)
+                plain = tree_map(lambda f, t: ref.fisher_diag_update_ref(t, f, 0.9), fim, gg)
+                for o, w in zip(tree_leaves(out), tree_leaves(plain)):
+                    check_equal(o, w, f"B4 {tuple(o.shape)} g {gg['layers']['wq']['a'].dtype}")
+        n_fim = sum(x.numel() for x in tree_leaves(stacked_fim))
+        # B5/B6: each target at a few layers, one client's real LoRA and masks
+        for target in ("wq", "wk", "wv", "wo"):
+            for layer in OPS_LAYERS:
+                a, b, keep = client_lora(c0, target, layer)
+                for rows in OPS_ROWS:
+                    x = randn(rows, a.shape[0]).bfloat16()
+                    e5, e6 = drive_lora(ops, ref, x, a, b, keep, scale, f"{target}[{layer}] M={rows} bf16")
+                    note("sparse_lora_apply", e5)
+                    note("sparse_lora_apply_packed", e6)
+                    n_lora += 1
+        a, b, keep = client_lora(c0, "wq", OPS_LAYERS[1])
+        x = randn(4, 64, a.shape[0])  # f32, with leading dims (B, S, K)
+        x2 = x.reshape(-1, x.shape[-1])
+        e5, e6 = drive_lora(ops, ref, x2, a, b, keep, scale, "wq f32")
+        note("sparse_lora_apply", e5)
+        note("sparse_lora_apply_packed", e6)
+        y3 = ops.sparse_lora_apply(x, a, b, keep, scale)
+        check_equal(y3.reshape(x2.shape[0], -1), ops.sparse_lora_apply(x2, a, b, keep, scale), "B5 leading dims")
+        # B7: the 8 clients' wq adapters at one layer, rows spread at random
+        a8, b8, m8 = adapter_stack(clients, "wq", OPS_LAYERS[1])
+        n_ad = a8.shape[0]
+        x = randn(16, OPS_ROWS[0], a8.shape[1]).bfloat16()  # (B, S, K)
+        idx = torch.randint(0, n_ad, (16, OPS_ROWS[0]), generator=gen, device="cuda")
+        idx[:, ::97] = n_ad
+        idx[:, 5::101] = -1
+        for xx in (x, x.float()):
+            _, e7 = drive_batched(ops, ref, xx, idx, a8, b8, m8, scale, f"A={n_ad} (B, S, K) {xx.dtype}")
+            note("batched_sparse_lora_apply", e7)
+        # one adapter: the unbatched product
+        y1, e7 = drive_batched(ops, ref, x, torch.zeros_like(idx), a8[:1], b8[:1], m8[:1], scale, "A=1")
+        note("batched_sparse_lora_apply", e7)
+        check_lora(y1, ops.sparse_lora_apply(x, a8[0], b8[0], m8[0], scale), "B7 A=1 vs B5")
+        # off any tile grid: ragged M, K and N; ranks whose rows fill no
+        # 16-byte load (6) or no power of two (12); random weights
+        M, K, N = 200, 300, 250
+        for r in (4, 16, 6, 12):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, a, b = randn(M, K).to(dtype), randn(K, r), randn(r, N)
+                keep = (torch.rand(N, generator=gen, device="cuda") < 0.5).float()
+                what = f"M={M} K={K} N={N} r={r} {dtype}"
+                e5, e6 = drive_lora(ops, ref, x, a, b, keep, 0.5, what)
+                note("sparse_lora_apply", e5)
+                note("sparse_lora_apply_packed", e6)
+                idx = torch.randint(-1, 4, (M,), generator=gen, device="cuda")
+                masks = (torch.rand(3, N, generator=gen, device="cuda") < 0.5).float()
+                _, e7 = drive_batched(ops, ref, x, idx, randn(3, K, r), randn(3, r, N), masks, 0.5, what)
+                note("batched_sparse_lora_apply", e7)
+        for shape in ((7,), (1000, 3), (24, 7, 131)):
+            f, g = torch.rand(shape, generator=gen, device="cuda"), randn(*shape)
+            check_equal(ops.fisher_diag_update(f, g, 0.95), ref.fisher_diag_update_ref(g, f, 0.95),
+                        f"B4 {shape}")
+    torch.cuda.synchronize()
+    log(f"B4 vs plain on the run's FIM trees (one client; {len(clients)} stacked, {n_fim} elements), "
+        "g f32/bf16, and ragged sizes: bit for bit")
+    log(f"B5/B6 vs plain on client 0's LoRA and rho=0.5 neuron masks: {n_lora} bf16 cases "
+        f"(wq/wk/wv/wo x layers {list(OPS_LAYERS)} x M {list(OPS_ROWS)}) + f32; B7 over the {n_ad} clients' "
+        "wq adapters with out-of-range rows, (B, S, K) and A=1; all at ragged shapes, ranks 4/16/6/12: "
+        f"within tolerance; max abs err {errs}")
+    log("launches, ops phase:", run.counts)
+    if run.counts != only(**{name: run.counts[name] for name in errs}) or min(run.counts[n] for n in errs) == 0:
+        raise AssertionError(f"the ops phase did not launch each of its kernels: {run.counts}")
+    return {name: run.counts[name] for name in errs}, errs
+
+
+def graph_ms(fn, calls=20, replays=5):
+    """Device time per call of ``fn(i)`` from a CUDA graph of ``calls``
+    calls, replayed: the launches' host cost is left out."""
+    fn(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def phase_ops_timing(ops, ref, fisher_diag, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
+    """B4-B7 timed as phase 5b drives them, on the run's data: ``ms`` is the
+    kernel through its launcher (host checks and the ctypes call included),
+    ``graph_ms`` its device time from a CUDA graph of launches over inputs
+    that do not fit the 50 MB L2 together, ``wrapper_ms`` the ops wrapper."""
+    clients = vec.clients
+    scale = cfg.lora_alpha / cfg.lora_rank
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    times = {}
+
+    # B4 over the 8 clients' stacked FIM trees (the vectorized warmup's size)
+    fim = tree_map(lambda *xs: torch.stack(xs).contiguous(), *[c.fim for c in clients])
+    g = tree_map(lambda f: randn(*f.shape) * 1e-3, fim)
+    fl, gl = tree_leaves(fim), tree_leaves(g)
+    outs = [torch.empty_like(f) for f in fl]
+    n = sum(f.numel() for f in fl)
+
+    def b4_launch(_=0):
+        for o, gg, f in zip(outs, gl, fl):
+            fisher_diag.fisher_diag_launch(o, gg, f, 0.9)
+
+    def b4_nearest():  # two foreach calls: 0.9·fim, then + 0.1·g·g
+        torch._foreach_addcmul_(torch._foreach_mul(fl, 0.9), gl, gl, value=0.1)
+
+    one, one_g = clients[0].fim, tree_map(lambda x: x[0], g)
+    times["fisher_diag_update"] = dict(
+        ms=cuda_ms(b4_launch), graph_ms=graph_ms(b4_launch, calls=4),
+        wrapper_ms=cuda_ms(lambda: ops.fisher_diag_update(fim, g, 0.9)),
+        one_client_wrapper_ms=cuda_ms(lambda: ops.fisher_diag_update(one, one_g, 0.9)),
+        plain_ms=cuda_ms(lambda: tree_map(lambda f, t: ref.fisher_diag_update_ref(t, f, 0.9), fim, g)),
+        # no single call: nearest torch._foreach_mul + torch._foreach_addcmul_
+        library_ms=None, nearest_ms=cuda_ms(b4_nearest),
+        **bound_of(12 * n, 4 * n),  # g, fim read and out written, f32
+    )
+    log(f"B4 timed over {len(clients)} stacked FIM trees: {n} elements, {len(fl)} leaves")
+
+    # B5 and B6 at 4096 bf16 rows on client 0's wq (N 896) and wk (N 128)
+    M = OPS_ROWS[1]
+    copies = 8  # 8 x (x + y) of 7.3 MB each: more than the L2 holds
+    for target in ("wq", "wk"):
+        a, b, keep = (t.contiguous() for t in client_lora(clients[0], target, OPS_LAYERS[1]))
+        K, r = a.shape
+        N = b.shape[1]
+        xs = [randn(M, K).bfloat16() for _ in range(copies)]
+        ys = [torch.empty(M, N, dtype=torch.bfloat16, device="cuda") for _ in range(copies)]
+        x = xs[0]
+
+        def b5_launch(i=0):
+            sparse_lora.sparse_lora_launch(ys[i % copies], xs[i % copies], a, b, keep, scale=scale)
+
+        bm16, a16 = (b * keep).bfloat16(), a.bfloat16()
+        entry = dict(
+            ms=cuda_ms(b5_launch), graph_ms=graph_ms(b5_launch),
+            wrapper_ms=cuda_ms(lambda: ops.sparse_lora_apply(x, a, b, keep, scale)),
+            plain_ms=cuda_ms(lambda: ref.sparse_lora_matmul_ref(x, a, b, keep, scale)),
+            # the nearest one call; it rounds x@a to bf16 between the products
+            library_ms=cuda_ms(lambda: torch.linalg.multi_dot([x, a16, bm16])),
+            **bound_of(2 * M * K + 2 * M * N + 4 * (K * r + r * N + N), 2 * M * K * r + 2 * M * r * N + r * N),
+        )
+        if target == "wk":
+            times["sparse_lora_apply"]["wk_wv"] = entry
+            continue
+        times["sparse_lora_apply"] = entry
+        kept = torch.nonzero(keep).reshape(-1)
+        bp = b[:, kept].contiguous()
+        nk = bp.shape[1]
+        yps = [torch.empty(M, nk, dtype=torch.bfloat16, device="cuda") for _ in range(copies)]
+
+        def b6_launch(i=0):
+            sparse_lora.sparse_lora_launch(yps[i % copies], xs[i % copies], a, bp, None, scale=scale)
+
+        bp16 = bp.bfloat16()
+        times["sparse_lora_apply_packed"] = dict(
+            ms=cuda_ms(b6_launch), graph_ms=graph_ms(b6_launch),
+            wrapper_ms=cuda_ms(lambda: ops.sparse_lora_apply_packed(x, a, b, keep, scale)),
+            plain_ms=cuda_ms(lambda: ref.sparse_lora_matmul_packed_ref(x, a, bp, scale)),
+            library_ms=cuda_ms(lambda: torch.linalg.multi_dot([x, a16, bp16])),
+            n_keep=nk, **bound_of(2 * M * K + 2 * M * nk + 4 * (K * r + r * nk), 2 * M * K * r + 2 * M * r * nk),
+        )
+
+    # B7: 8 adapters (the clients' wq at one layer), rows spread at random
+    a8, b8, m8 = adapter_stack(clients, "wq", OPS_LAYERS[1])
+    A, K, r = a8.shape
+    N = b8.shape[2]
+    xs = [randn(M, K).bfloat16() for _ in range(copies)]
+    ys = [torch.empty(M, N, dtype=torch.bfloat16, device="cuda") for _ in range(copies)]
+    idx = torch.randint(0, A, (M,), generator=gen, device="cuda", dtype=torch.int32)
+    x = xs[0]
+
+    def b7_launch(i=0):
+        sparse_lora.sparse_lora_launch(ys[i % copies], xs[i % copies], a8, b8, m8, idx, scale=scale)
+
+    times["batched_sparse_lora_apply"] = dict(
+        ms=cuda_ms(b7_launch), graph_ms=graph_ms(b7_launch),
+        wrapper_ms=cuda_ms(lambda: ops.batched_sparse_lora_apply(x, idx, a8, b8, m8, scale)),
+        plain_ms=cuda_ms(lambda: ref.batched_sparse_lora_matmul_ref(x, idx, a8, b8, m8, scale)),
+        # no single call: nearest a gather of the adapters + torch.bmm
+        library_ms=None, adapters=A,
+        **bound_of(2 * M * K + 2 * M * N + 4 * M + 4 * A * (K * r + r * N + N), 2 * M * K * r + 2 * M * r * N),
+    )
+    log("ops kernel times:", json.dumps(times))
+    return times
+
+
 def keyword_world(vocab_size, data_mod, fl):
     task = data_mod.make_keyword_task(n_samples=256, seq_len=64, vocab_size=vocab_size, seed=0)
     parts = data_mod.dirichlet_partition(task.data["label"], fl.num_devices, fl.dirichlet_alpha, seed=0)
@@ -456,14 +774,16 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def only(**counts):
+    """Expected launch counts of a path: those given, 0 for every other kernel."""
+    return {**dict.fromkeys(LAUNCHED, 0), **counts}
+
+
 class Launches:
     """The kernels' launch counts over one path: zeroed on entry, read on exit."""
 
     def __init__(self, ops):
-        self.ops = ops
-        self.fns = {"masked_adamw_update": ops.masked_adamw_update,
-                    "masked_sgd_update": ops.masked_sgd_update,
-                    "fake_compress": ops.fake_compress}
+        self.fns = {name: getattr(ops, name) for name in LAUNCHED}
 
     def __enter__(self):
         for fn in self.fns.values():
@@ -493,7 +813,7 @@ def main() -> int:
     from repro_torch.config import FibecFedConfig
     from repro_torch.configs import ARCHS
     from repro_torch.federated import CompressionConfig, make_runner
-    from repro_torch.kernels import build, compress, masked_update, ops, ref
+    from repro_torch.kernels import build, compress, fisher_diag, masked_update, ops, ref, sparse_lora
     from repro_torch.models import build_model
     from repro_torch.train import make_loss_fn
     from repro_torch.utils.tree import tree_clone, tree_leaves, tree_map
@@ -512,10 +832,11 @@ def main() -> int:
 
     # --- 2. build: one nvcc per source, all at once ---
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        reports = list(pool.map(lambda m: build.compile_cuda(m.SOURCE)[1], (masked_update, compress)))
-    masked_update.library()
-    compress.library()
+    sources = (masked_update, compress, fisher_diag, sparse_lora)
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        reports = list(pool.map(lambda m: build.compile_cuda(m.SOURCE)[1], sources))
+    for module in sources:
+        module.library()
     log(f"build: {time.perf_counter() - t0:.2f} s")
     log("\n".join(line for report in reports for line in report.splitlines() if "Used" in line))
 
@@ -565,11 +886,9 @@ def main() -> int:
     del fed
     log("launches, loop paths:", {"fibecfed": fib_run.counts, "fedavg_lora": fed_run.counts},
         "steps:", {"fibecfed": fib_steps, "fedavg_lora": fed_steps})
-    if fib_run.counts != {"masked_adamw_update": 8 * fib_steps, "masked_sgd_update": 0, "fake_compress": 0} \
-            or fib_steps == 0:
+    if fib_run.counts != only(masked_adamw_update=8 * fib_steps) or fib_steps == 0:
         raise AssertionError("the loop fibecfed run did not go through the AdamW kernel once per leaf and step")
-    if fed_run.counts != {"masked_adamw_update": 0, "masked_sgd_update": 8 * fed_steps, "fake_compress": 0} \
-            or fed_steps == 0:
+    if fed_run.counts != only(masked_sgd_update=8 * fed_steps) or fed_steps == 0:
         raise AssertionError("the loop fedavg_lora run did not go through the SGD kernel once per leaf and step")
     launches["masked_adamw_update"] += fib_run.counts["masked_adamw_update"]
     launches["masked_sgd_update"] += fed_run.counts["masked_sgd_update"]
@@ -601,9 +920,16 @@ def main() -> int:
         f"{np.array_equal(fused_decisions[1], vec.gal_layers)}")
     log(f"vectorized fibecfed peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"launches {vec_run.counts} over {vec_steps} padded steps")
-    if vec_run.counts != {"masked_adamw_update": 8 * vec_steps, "masked_sgd_update": 0, "fake_compress": 0}:
+    if vec_run.counts != only(masked_adamw_update=8 * vec_steps):
         raise AssertionError("the vectorized run did not launch the AdamW kernel once per leaf and step")
     launches["masked_adamw_update_stacked"] += vec_run.counts["masked_adamw_update"]
+
+    # --- 5b. the public kernel entry point on the vectorized run's data ---
+    ops_counts, ops_errs = phase_ops(ops, ref, vec, cfg, gen, tree_leaves, tree_map)
+    for name in ops_counts:
+        launches[name] += ops_counts[name]
+    errs.update(ops_errs)
+    times.update(phase_ops_timing(ops, ref, fisher_diag, sparse_lora, vec, cfg, gen, tree_leaves, tree_map))
     del vec
 
     # --- 6. compressed uploads and per-client ranks, on both engines ---
@@ -621,7 +947,7 @@ def main() -> int:
         chosen = r.last_round_info["chosen"]
         steps = int(stats["padded_steps"]) if engine == "vectorized" else int(r.last_round_info["client_steps"].sum())
         uploads = 1 if engine == "vectorized" else len(chosen)
-        if run.counts != {"masked_adamw_update": 0, "masked_sgd_update": 8 * steps, "fake_compress": 8 * uploads}:
+        if run.counts != only(masked_sgd_update=8 * steps, fake_compress=8 * uploads):
             raise AssertionError(f"the {engine} compressed run did not go through its kernels: {run.counts}")
         launches["masked_sgd_update" + ("_stacked" if engine == "vectorized" else "")] += run.counts["masked_sgd_update"]
         launches["fake_compress"] += run.counts["fake_compress"]

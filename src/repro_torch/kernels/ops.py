@@ -1,10 +1,15 @@
-"""Tree wrappers around the port's kernels.
+"""Public wrappers around the port's kernels (the counterpart of
+``repro.kernels.ops``).
 
-Each wrapper walks a LoRA tree leaf by leaf and dispatches on the leaf's
-device alone: a CUDA tensor goes to the hand-written kernel (which raises
-if it cannot launch), a CPU tensor to the plain version in
-:mod:`repro_torch.kernels.ref`. Each wrapper carries a ``launches`` count,
-raised by one for every kernel launch and by nothing else.
+Each wrapper dispatches on its tensors' device alone: a CUDA tensor goes to
+the hand-written kernel (which raises if it cannot launch), a CPU tensor to
+the plain version in :mod:`repro_torch.kernels.ref`. Each wrapper carries a
+``launches`` count, raised by one for every kernel launch and by nothing
+else. The tree wrappers (the optimizer updates, fake compression and the
+Fisher update) walk a tree leaf by leaf; the LoRA products take arrays with
+any leading dimensions. The Fisher update and the LoRA products keep the
+JAX package's names, signatures, argument order and output dtypes. The
+kernels mask their own ragged edges, so nothing is padded to tiles.
 
 The wrappers are functional: new tensors come back and the inputs are left
 as they were, on both devices. Each takes stacked clients (the vectorized
@@ -16,8 +21,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import compress as _cp
+from repro_torch.kernels import fisher_diag as _fd
 from repro_torch.kernels import masked_update as _mu
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import sparse_lora as _sl
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unzip
 
 
@@ -218,6 +225,97 @@ def fake_compress(delta, residual=None, mask=None, *, qmax: int = 0, topk_ratio:
     return tree_unzip(tree_map(one, delta, resid, _masks(mask, delta)), 2)
 
 
+def _kernel_float(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous f32/bf16 tensor; other floats become f32, the
+    plain versions' first step."""
+    t = t if t.dtype in _fd.DTYPE_CODES else t.to(torch.float32)
+    return t.contiguous()
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous()
+
+
+def fisher_diag_update(fim, g, momentum: float = 0.9):
+    """Momentum diag-FIM update over a tree: ``γ·fim + (1-γ)·g⊙g`` per
+    leaf, f32 out whatever the leaves' float dtypes; one kernel launch per
+    CUDA leaf (a leaf stacking k clients is one launch)."""
+
+    def one(f, gl):
+        if _on_cuda(gl):
+            out = torch.empty(gl.shape, dtype=torch.float32, device=gl.device)
+            if out.numel():
+                _fd.fisher_diag_launch(out, _kernel_float(gl), _kernel_float(f), momentum)
+                fisher_diag_update.launches += 1
+            return out
+        return _ref.fisher_diag_update_ref(gl, f, momentum)
+
+    return tree_map(one, fim, g)
+
+
+def _lora_product(x, a, b, mask, idx, scale, plain, counter):
+    """The shared body of the LoRA products: flatten x's leading dimensions
+    to rows, run the kernel (or the plain version on the CPU), restore them."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    N = b.shape[-1]
+    x2 = x.reshape(-1, K)
+    if not _on_cuda(x2):
+        return plain(x2).reshape(*lead, N)
+    y = torch.empty((x2.shape[0], N), dtype=x.dtype, device=x.device)
+    if y.numel():
+        _sl.sparse_lora_launch(y, x2.contiguous(), _f32(a), _f32(b),
+                               None if mask is None else _f32(mask), idx, scale=scale)
+        counter.launches += 1
+    return y.reshape(*lead, N)
+
+
+def sparse_lora_apply(x, a, b, mask, scale: float = 1.0):
+    """``y = (x @ a) @ (b ⊙ mask) · scale``. x (..., K); a (K, r);
+    b (r, N); mask (N,). y in x's dtype; a masked column is exactly 0."""
+    return _lora_product(x, a, b, mask, None, scale,
+                         lambda x2: _ref.sparse_lora_matmul_ref(x2, a, b, mask, scale), sparse_lora_apply)
+
+
+def batched_sparse_lora_apply(x, idx, a, b, mask, scale: float = 1.0):
+    """Multi-adapter apply: ``y[m] = x[m] @ a[idx[m]] @ (b[idx[m]] ⊙
+    mask[idx[m]]) · scale``. x (..., K); idx (...,) any integer dtype;
+    a (A, K, r); b (A, r, N); mask (A, N). A row whose index lies outside
+    [0, A) comes out as zeros, as the JAX package's kernel gives it."""
+    idx2 = idx.reshape(-1)
+    if _on_cuda(idx2):
+        # clamped first, so that no index wraps into range as int32
+        idx2 = torch.clamp(idx2, -1, a.shape[0]).to(torch.int32).contiguous()
+    return _lora_product(x, a, b, mask, idx2, scale,
+                         lambda x2: _ref.batched_sparse_lora_matmul_ref(x2, idx2, a, b, mask, scale),
+                         batched_sparse_lora_apply)
+
+
+def sparse_lora_apply_packed(x, a, b, mask, scale: float = 1.0):
+    """Gather-packed apply: the result of :func:`sparse_lora_apply`, but
+    the frozen columns of ``b`` never reach the product.
+
+    The kept columns are read from ``mask`` on the host (one sync on the
+    card, as the JAX wrapper needs a concrete mask), gathered from ``b``,
+    multiplied densely by the kernel and scattered into zeros of
+    ``(..., N)``. All columns frozen: zeros, and no launch.
+    """
+    _on_cuda(x)  # a device with neither a kernel nor a plain version raises here
+    keep = torch.nonzero(mask.reshape(-1)).reshape(-1)
+    lead, N = x.shape[:-1], b.shape[1]
+    y = torch.zeros((*lead, N), dtype=x.dtype, device=x.device)
+    if keep.numel() == 0:
+        return y
+    b_packed = b[:, keep]
+    y[..., keep] = _lora_product(
+        x, a, b_packed, None, None, scale,
+        lambda x2: _ref.sparse_lora_matmul_packed_ref(x2, a, b_packed, scale), sparse_lora_apply_packed)
+    return y
+
+
 masked_sgd_update.launches = 0
 masked_adamw_update.launches = 0
 fake_compress.launches = 0
+fisher_diag_update.launches = 0
+sparse_lora_apply.launches = 0
+sparse_lora_apply_packed.launches = 0
+batched_sparse_lora_apply.launches = 0

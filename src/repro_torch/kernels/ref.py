@@ -22,6 +22,14 @@ Fake compression (kernel B3), per client row of a (k, m) leaf with
 The reference writes the group scale as ``absmax / qmax``; XLA computes a
 division by a constant as a multiply by its f32 reciprocal, and the port
 does the same so that its scales are the reference's bit for bit.
+
+The public kernels of ``repro_torch.kernels.ops`` (B4-B7), in f32:
+
+  fisher diag   fim' = γ·fim + ((1-γ)·g)·g                      (f32 out)
+  sparse LoRA   y = scale·(x@a)@(b⊙mask)                        (x's dtype)
+  packed        y = scale·(x@a)@b_packed, b_packed = b[:, keep]
+  batched       y[m] = scale·(x[m]@a[i])@(b[i]⊙mask[i]), i = idx[m];
+                zeros where i is outside [0, A)
 """
 from __future__ import annotations
 
@@ -113,3 +121,45 @@ def fake_compress_ref(x, thresh, scale, *, qmax: int = 0, use_thresh: bool = Fal
     if use_thresh:
         y = torch.where(torch.abs(xf) >= thresh.reshape(k, 1), y, 0.0)
     return y.to(x.dtype), (xf - y).to(x.dtype)
+
+
+def fisher_diag_update_ref(g, fim, momentum: float):
+    """Momentum diag-FIM update (kernel B4): ``γ·fim + ((1-γ)·g)·g`` in f32,
+    f32 out whatever the inputs' float dtypes."""
+    gf = g.to(torch.float32)
+    return momentum * fim.to(torch.float32) + (1.0 - momentum) * gf * gf
+
+
+def sparse_lora_matmul_ref(x, a, b, mask, scale: float = 1.0):
+    """Neuron-masked LoRA product (kernel B5): ``scale·(x@a)@(b⊙mask)``.
+    x (M, K); a (K, r); b (r, N); mask (N,). f32 compute, ``x.dtype`` out."""
+    xa = x.to(torch.float32) @ a.to(torch.float32)
+    bm = b.to(torch.float32) * mask.to(torch.float32)[None, :]
+    return (scale * (xa @ bm)).to(x.dtype)
+
+
+def sparse_lora_matmul_packed_ref(x, a, b_packed, scale: float = 1.0):
+    """Dense product on gather-packed ``b`` (kernel B6): the columns are
+    already restricted to the kept set, so this equals the masked product's
+    kept columns."""
+    xa = x.to(torch.float32) @ a.to(torch.float32)
+    return (scale * (xa @ b_packed.to(torch.float32))).to(x.dtype)
+
+
+def batched_sparse_lora_matmul_ref(x, idx, a, b, mask, scale: float = 1.0):
+    """Multi-adapter product (kernel B7): ``y[m] = scale·(x[m]@a[idx[m]])
+    @(b[idx[m]]⊙mask[idx[m]])``. x (M, K); idx (M,) int; a (A, K, r);
+    b (A, r, N); mask (A, N).
+
+    A row whose ``idx[m]`` lies outside ``[0, A)`` comes out as zeros, as
+    the TPU kernel gives it (it matches no adapter). This departs from the
+    JAX package's jnp oracle, whose gather clamps the index.
+    """
+    n_adapters = a.shape[0]
+    idx = idx.to(torch.int64)
+    valid = (idx >= 0) & (idx < n_adapters)
+    safe = torch.where(valid, idx, 0)
+    xa = torch.einsum("mk,mkr->mr", x.to(torch.float32), a.to(torch.float32)[safe])
+    bm = (b.to(torch.float32) * mask.to(torch.float32)[:, None, :])[safe]
+    y = scale * torch.einsum("mr,mrn->mn", xa, bm)
+    return torch.where(valid[:, None], y, 0.0).to(x.dtype)

@@ -1,0 +1,82 @@
+"""Launcher of the hand-written CUDA neuron-masked LoRA kernel (B5-B7).
+
+Ports the TPU kernels ``repro/kernels/sparse_lora.py::sparse_lora_matmul``,
+``::sparse_lora_matmul_packed`` and ``::batched_sparse_lora_matmul``: one
+CUDA source, ``csrc/sparse_lora.cu``, with its bound and design. The
+masked product, the packed one (no mask) and the multi-adapter one (a row
+index into stacked adapters) are one launch with other arguments. The
+launcher checks the tensors, allocates nothing, launches on PyTorch's
+current stream and raises if the launch is refused. The library is built
+and loaded at the first launch (``kernels/build.py``), never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.build import CSRC, load_library
+
+SOURCE = CSRC / "sparse_lora.cu"
+MAX_RANK = 64  # the kernel's largest rank (csrc/sparse_lora.cu, kMaxRank)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    lib = load_library(SOURCE)
+    lib.repro_sparse_lora.argtypes = [_P] * 6 + [_I64, _I64, _I64, _I, _I, _I, _F, _P]
+    lib.repro_sparse_lora.restype = _I
+    return lib
+
+
+def _check(name, t, device, shape, dtype) -> None:
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous tensor on {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+
+
+def sparse_lora_launch(y, x, a, b, mask=None, idx=None, *, scale: float = 1.0) -> None:
+    """``y = scale·(x@a)@(b⊙mask)`` row by row, each row with its adapter.
+
+    ``x`` (M, K) f32 or bf16 and ``y`` (M, N) of its dtype, not aliasing it.
+    Without ``idx``: ``a`` (K, r), ``b`` (r, N), ``mask`` (N,) or None (the
+    packed product). With ``idx`` (M,) int32: ``a`` (A, K, r), ``b``
+    (A, r, N), ``mask`` (A, N) or None, and a row whose index lies outside
+    [0, A) comes out as zeros. a, b and mask are f32; r is at most
+    ``MAX_RANK``; everything is contiguous on x's device.
+    """
+    if not x.is_cuda or x.dim() != 2 or x.dtype not in _DTYPE_CODES:
+        raise ValueError("x must be a (M, K) float32/bfloat16 CUDA tensor")
+    M, K = x.shape
+    batched = idx is not None
+    lead = (a.shape[0],) if batched and a.dim() == 3 else ()
+    if a.dim() != 2 + batched or b.dim() != 2 + batched:
+        raise ValueError(f"a and b must be {'(A, K, r) and (A, r, N)' if batched else '(K, r) and (r, N)'}")
+    r, N = b.shape[-2], b.shape[-1]
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"rank {r} is outside the kernel's 1..{MAX_RANK}")
+    _check("x", x, x.device, (M, K), x.dtype)
+    _check("y", y, x.device, (M, N), x.dtype)
+    _check("a", a, x.device, lead + (K, r), torch.float32)
+    _check("b", b, x.device, lead + (r, N), torch.float32)
+    if mask is not None:
+        _check("mask", mask, x.device, lead + (N,), torch.float32)
+    if batched:
+        _check("idx", idx, x.device, (M,), torch.int32)
+    if y.data_ptr() == x.data_ptr():
+        raise ValueError("y must not alias x")
+    if M == 0 or N == 0:
+        raise ValueError("an empty output has nothing to launch")
+    err = library().repro_sparse_lora(
+        y.data_ptr(), x.data_ptr(), idx.data_ptr() if batched else None, a.data_ptr(), b.data_ptr(),
+        mask.data_ptr() if mask is not None else None, M, K, N, r, lead[0] if batched else 1,
+        _DTYPE_CODES[x.dtype], scale, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"sparse-LoRA launch failed with CUDA error {err}")

@@ -156,3 +156,130 @@ def test_fake_compress_kernel_matches_plain(cuda, shape, stacked, dtype, mode):
     torch.cuda.synchronize()
     assert y["w"].dtype == dtype
     assert torch.equal(y["w"], want_y) and torch.equal(res["w"], want_r)
+
+
+# --- B4: the momentum diag-FIM update ---
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 896, 8), (8, 24, 8, 896), (1000, 3), (7,)])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fim_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_fisher_diag_kernel_matches_plain(cuda, shape, g_dtype, fim_dtype, momentum):
+    g = torch.randn(shape, generator=cuda, device="cuda").to(g_dtype)
+    fim = torch.rand(shape, generator=cuda, device="cuda").to(fim_dtype)
+    before = ops.fisher_diag_update.launches
+    out = ops.fisher_diag_update({"w": fim}, {"w": g}, momentum)["w"]
+    assert ops.fisher_diag_update.launches == before + 1
+    want = ref.fisher_diag_update_ref(g, fim, momentum)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.equal(out, want)  # same operations in the same order
+
+
+@pytest.mark.cuda
+def test_fisher_diag_kernel_unaligned_views(cuda):
+    # views one element into their storage: the kernel's elementwise path
+    g = torch.randn(4097, generator=cuda, device="cuda")[1:]
+    fim = torch.rand(4097, generator=cuda, device="cuda").bfloat16()[1:]
+    out = ops.fisher_diag_update(fim, g, 0.95)  # a bare tensor is a one-leaf tree
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.fisher_diag_update_ref(g, fim, 0.95))
+
+
+# --- B5-B7: the neuron-masked LoRA products ---
+
+
+def assert_lora_close(out, plain):
+    """The kernel sums in another order than the plain version's matmuls, so
+    their f32 results differ by up to 1e-5 of the largest |value| (the sums'
+    scale, not each value's). On top of that: f32 within atol = rtol =
+    1e-4; bf16 at most one ulp apart, where rounding parts them."""
+    assert out.dtype == plain.dtype and out.shape == plain.shape
+    o, p = out.float(), plain.float()
+    order = 1e-5 * p.abs().max()
+    if out.dtype == torch.float32:
+        allowed = 1e-4 + 1e-4 * p.abs() + order
+    else:
+        _, e = torch.frexp(torch.maximum(o.abs(), p.abs()))
+        allowed = torch.ldexp(torch.ones_like(o), e - 8) + order
+    assert bool(((o - p).abs() <= allowed).all()), float((o - p).abs().max())
+
+
+LORA_CASES = [(256, 896, 896, 8), (256, 896, 128, 8), (200, 300, 250, 4), (200, 300, 250, 16),
+              (64, 96, 80, 6), (33, 7, 5, 3), (17, 64, 40, 64)]
+
+
+def _lora(gen, M, K, N, r, dtype, rho=0.5):
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    a = torch.randn(K, r, generator=gen, device="cuda")
+    b = torch.randn(r, N, generator=gen, device="cuda")
+    mask = (torch.rand(N, generator=gen, device="cuda") < rho).float()
+    return x, a, b, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,r", LORA_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_lora_kernel_matches_plain(cuda, M, K, N, r, dtype):
+    x, a, b, mask = _lora(cuda, M, K, N, r, dtype)
+    before = ops.sparse_lora_apply.launches
+    y = ops.sparse_lora_apply(x, a, b, mask, 0.5)
+    assert ops.sparse_lora_apply.launches == before + 1
+    torch.cuda.synchronize()
+    assert_lora_close(y, ref.sparse_lora_matmul_ref(x, a, b, mask, 0.5))
+    assert bool((y[:, mask == 0] == 0).all())  # frozen neurons: no delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,r", LORA_CASES)
+@pytest.mark.parametrize("rho", [0.0, 0.25, 0.5])
+def test_sparse_lora_packed_kernel_matches_plain(cuda, M, K, N, r, rho):
+    x, a, b, mask = _lora(cuda, M, K, N, r, torch.bfloat16, rho)
+    before = ops.sparse_lora_apply_packed.launches
+    y = ops.sparse_lora_apply_packed(x, a, b, mask, 2.0)
+    keep = torch.nonzero(mask).reshape(-1)
+    assert ops.sparse_lora_apply_packed.launches == before + (1 if keep.numel() else 0)
+    torch.cuda.synchronize()
+    assert_lora_close(y, ops.sparse_lora_apply(x, a, b, mask, 2.0))
+    if keep.numel():
+        assert_lora_close(y[:, keep], ref.sparse_lora_matmul_packed_ref(x, a, b[:, keep], 2.0))
+    assert bool((y[:, mask == 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,r,A", [(256, 896, 896, 8, 8), (200, 300, 250, 4, 3), (64, 96, 80, 6, 2),
+                                       (128, 512, 128, 16, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_sparse_lora_kernel_matches_plain(cuda, M, K, N, r, A, dtype):
+    x = torch.randn(M, K, generator=cuda, device="cuda").to(dtype)
+    a = torch.randn(A, K, r, generator=cuda, device="cuda")
+    b = torch.randn(A, r, N, generator=cuda, device="cuda")
+    mask = (torch.rand(A, N, generator=cuda, device="cuda") < 0.5).float()
+    idx = torch.randint(0, A, (M,), generator=cuda, device="cuda")
+    idx[::7] = A  # out of range: zeros
+    idx[3::11] = -1
+    before = ops.batched_sparse_lora_apply.launches
+    y = ops.batched_sparse_lora_apply(x, idx, a, b, mask, 1.5)
+    assert ops.batched_sparse_lora_apply.launches == before + 1
+    torch.cuda.synchronize()
+    assert_lora_close(y, ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, 1.5))
+    out = (idx < 0) | (idx >= A)
+    assert bool((y[out] == 0).all())
+    if A == 1:  # a single adapter is the unbatched product
+        ok = ~out
+        assert_lora_close(y[ok], ops.sparse_lora_apply(x, a[0], b[0], mask[0], 1.5)[ok])
+    # leading dimensions are flattened and restored
+    y3 = ops.batched_sparse_lora_apply(x.reshape(1, M, K), idx.reshape(1, M), a, b, mask, 1.5)
+    torch.cuda.synchronize()
+    assert torch.equal(y3.reshape(M, N), y)
+
+
+@pytest.mark.cuda
+def test_sparse_lora_launcher_refuses_what_it_cannot_run(cuda):
+    x, a, b, mask = _lora(cuda, 8, 16, 12, 65, torch.float32)
+    with pytest.raises(ValueError, match="rank"):
+        ops.sparse_lora_apply(x, a, b, mask)
+    x, a, b, mask = _lora(cuda, 8, 16, 12, 4, torch.float16)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        ops.sparse_lora_apply(x, a, b, mask)
