@@ -26,6 +26,18 @@ device and exits non-zero without one, or if any phase fails:
    masks, and the multi-adapter product (B7) over the 8 clients' adapters,
    within a stated tolerance of their plain versions; every kernel again at
    shapes off any tile grid; then their times;
+5c. the public entry point's attention and state-space kernels:
+   ``flash_attention`` (B8) at qwen2-0.5b's attention width (14 heads, 2 KV
+   heads, D 64, bf16) on (i) the q, k, v that layer 0 of the vectorized
+   run's model computes on one client's batch, (ii) S 4096 causal, (iii)
+   S 16384 causal with the model's 8192-token window (checked in slices
+   of query rows), (iv) f32, ragged S 2000, window 1000, D 128; and
+   ``ssd_chunk_intra`` (B9) at mamba2-1.3b's widths (S 2048 in chunks of
+   128, 64 heads: 1024 groups, head_dim 64, state 128) in f32 and bf16,
+   with b and c shared by the heads and the Mamba2 initializer's decays,
+   plus the JAX tests' small shapes; each within a stated tolerance of its
+   plain version; then their times beside their bounds and, for B8,
+   ``scaled_dot_product_attention``'s;
 6. compressed uploads (top-k 0.1, int8 values, error feedback) with
    per-client ranks, random_select/sgd (fused), 1 round on each engine from
    the same seed: equal comm bytes, equal to the wire format recomputed from the GAL mask and ranks,
@@ -36,7 +48,7 @@ device and exits non-zero without one, or if any phase fails:
    the same order);
 8. one JSON line listing the kernels; last, the ok line.
 
-Each path of phases 4-6, 5b included, is driven with the kernels' launch
+Each path of phases 4-6, 5b and 5c included, is driven with the kernels' launch
 counts set to 0 just before it and read just after. Float32 matmuls run in
 full f32 (TF32 off for matmuls and cuDNN alike).
 """
@@ -53,12 +65,15 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 LEAF_SHAPES = {"a": (24, 896, 8), "b_q_o": (24, 8, 896), "b_k_v": (24, 8, 128)}
 K = 4  # the cohort: clients stacked on the vectorized engine's leading axis
 MU_SOURCE = "src/repro_torch/kernels/csrc/masked_update.cu"
 CP_SOURCE = "src/repro_torch/kernels/csrc/compress.cu"
 FD_SOURCE = "src/repro_torch/kernels/csrc/fisher_diag.cu"
 SL_SOURCE = "src/repro_torch/kernels/csrc/sparse_lora.cu"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SC_SOURCE = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
 KERNELS = {  # name -> what it ports, its source, and its work per element (B1-B3)
     "masked_adamw_update": dict(
         replaces="src/repro/kernels/masked_update.py:156", source=MU_SOURCE,
@@ -91,10 +106,14 @@ KERNELS = {  # name -> what it ports, its source, and its work per element (B1-B
     "sparse_lora_apply": dict(replaces="src/repro/kernels/sparse_lora.py:79", source=SL_SOURCE),
     "sparse_lora_apply_packed": dict(replaces="src/repro/kernels/sparse_lora.py:119", source=SL_SOURCE),
     "batched_sparse_lora_apply": dict(replaces="src/repro/kernels/sparse_lora.py:191", source=SL_SOURCE),
+    # B8-B9: phase 5c computes their bytes and flops for the whole call
+    "flash_attention": dict(replaces="src/repro/kernels/flash_attention.py:78", source=FA_SOURCE),
+    "ssd_chunk_intra": dict(replaces="src/repro/kernels/ssd_chunk.py:40", source=SC_SOURCE),
 }
 # the wrappers of repro_torch.kernels.ops whose launches a path counts
 LAUNCHED = ("masked_adamw_update", "masked_sgd_update", "fake_compress", "fisher_diag_update",
-            "sparse_lora_apply", "sparse_lora_apply_packed", "batched_sparse_lora_apply")
+            "sparse_lora_apply", "sparse_lora_apply_packed", "batched_sparse_lora_apply",
+            "flash_attention", "ssd_chunk_intra")
 # Phase 5b: the LoRA layers and row counts it drives. 256 rows are one
 # client's batch (4 sequences of 64 tokens); 4096 a batch of 64 such
 # sequences. The LoRA products sum in another order than the plain
@@ -106,6 +125,20 @@ OPS_LAYERS = (0, 11, 23)
 OPS_ROWS = (256, 4096)
 LORA_TOL = 1e-4
 LORA_ORDER_REL = 1e-5
+# Phase 5c. B8: an output row is a convex combination of v's rows, and the
+# kernel takes the scores, exponentials and sums in another order than the
+# plain version, so f32 outputs agree within 1e-5 of the largest |v|; bf16
+# outputs round those f32 values, so they may be one bf16 ulp further
+# apart. B9: the sums (c·b, the scan of a, M·x) run in other orders; they
+# err by a few ulp of their absolute terms and a decay exp(cs_i - cs_j) by
+# a few ulp of |cs|, so an output may differ by (1e-5 + 1e-6·max|cs|) times
+# the sum of its absolute terms (the plain version on |x|, |b|, |c|).
+ATTN_REL = 1e-5
+SSD_REL, SSD_CS_REL = 1e-5, 1e-6
+ATTN_HEADS = (14, 2, 64)  # qwen2-0.5b: query heads, KV heads, head_dim
+ATTN_SLICE = 1024  # query rows per slice of the plain version at S 16384
+SSD_WIDTHS = dict(S=2048, chunk=128, nh=64, hd=64, N=128)  # mamba2-1.3b, one sequence
+SSD_SMALL = ((128, 64, 32), (128, 128, 128), (64, 32, 16))  # the JAX tests' (Q, hd, N)
 COMPRESSION = dict(mode="topk", topk_ratio=0.1, topk_values="int8", error_feedback=True)
 RANKS = [8, 8, 4, 4, 8, 8, 2, 8]
 # Phase 5 holds the vectorized engine's Fisher difficulty scores to the loop
@@ -363,11 +396,12 @@ def lora_tree(kind, lead=()):
                        for t, (sa, sb) in shapes.items()}}
 
 
-def bound_of(bytes_moved, flops):
+def bound_of(bytes_moved, flops, flops_per_s=F32_FLOPS_PER_S):
     """The least time for a call that moves ``bytes_moved`` (each input read
-    once, each output written once) and does ``flops`` f32 operations."""
+    once, each output written once) and does ``flops`` operations at
+    ``flops_per_s`` (f32 outside the tensor cores unless given)."""
     bytes_s = bytes_moved / HBM_BYTES_PER_S
-    flops_s = flops / F32_FLOPS_PER_S
+    flops_s = flops / flops_per_s
     return dict(bound_ms=max(bytes_s, flops_s) * 1e3, bound_by="bytes" if bytes_s >= flops_s else "operations")
 
 
@@ -734,6 +768,232 @@ def phase_ops_timing(ops, ref, fisher_diag, sparse_lora, vec, cfg, gen, tree_lea
     return times
 
 
+def attention_pairs(S, causal, window):
+    """The (query, key) pairs that the masks leave, for one head of one sequence."""
+    i = np.arange(S, dtype=np.int64)
+    hi = i + 1 if causal else np.full(S, S, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window is not None else np.zeros(S, dtype=np.int64)
+    return int(np.sum(hi - lo))
+
+
+def attention_bound(B, S, H, KVH, D, causal, window, dtype):
+    """B8's bound: q, k, v read and o written once; 4·D flops per pair and
+    query head (q·k and p·v) at the inputs' type's peak (bf16 tensor cores,
+    or f32), with the f32 line that a CUDA-core kernel cannot beat."""
+    size = torch.finfo(dtype).bits // 8
+    bytes_moved = size * B * S * D * (2 * H + 2 * KVH)
+    flops = 4 * D * B * H * attention_pairs(S, causal, window)
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    return dict(**bound_of(bytes_moved, flops, rate), f32_line_ms=flops / F32_FLOPS_PER_S * 1e3,
+                gflop=flops / 1e9)
+
+
+def check_attention(out, plain, v, what):
+    """B8 against its plain version at the tolerance stated at ``ATTN_REL``.
+    Returns the max abs error."""
+    if out.dtype != plain.dtype or out.shape != plain.shape:
+        raise AssertionError(f"{what}: {out.dtype} {tuple(out.shape)} vs {plain.dtype} {tuple(plain.shape)}")
+    o, p = out.float(), plain.float()
+    allowed = ATTN_REL * v.float().abs().max()
+    if out.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(o.abs(), p.abs()))
+        allowed = allowed + torch.ldexp(torch.ones_like(o), e - 8)
+    err = (o - p).abs()
+    if not bool((err <= allowed).all()) or not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"{what}: max abs err {err.max().item()} beyond tolerance")
+    return err.max().item()
+
+
+def plain_attention(ref, q, k, v, causal, window):
+    """The plain version, whole or (for long S) by slices of query rows, so
+    that no S×S matrix exists at once."""
+    S = q.shape[1]
+    if S <= 4096:
+        return ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
+    return torch.cat([ref.flash_attention_gqa_ref(q[:, r:r + ATTN_SLICE], k, v, causal=causal, window=window,
+                                                  q_offset=r) for r in range(0, S, ATTN_SLICE)], dim=1)
+
+
+def check_ssd(y, plain, terms, a, what):
+    """B9 against its plain version at the tolerance stated at ``SSD_REL``;
+    ``terms`` is the plain version on |x|, |b|, |c|. Returns the max abs error."""
+    if y.dtype != torch.float32 or y.shape != plain.shape:
+        raise AssertionError(f"{what}: {y.dtype} {tuple(y.shape)}")
+    cs_max = a.float().sum(dim=-1).abs().max()
+    err = (y - plain).abs()
+    if not bool((err <= (SSD_REL + SSD_CS_REL * cs_max) * terms).all()) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"{what}: max abs err {err.max().item()} beyond tolerance")
+    return err.max().item()
+
+
+def layer0_qkv(vec, cfg):
+    """q, k, v of layer 0 of the vectorized run's model (its global LoRA) on
+    client 0's first curriculum batch, through the port's layer functions."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import apply_rope
+
+    c0 = vec.clients[0]
+    tokens = vec._client_batch(c0, c0.batches[int(c0.order[0])])["tokens"]
+    p0 = {k: v[0] for k, v in vec.params["layers"].items()}
+    lora0 = {t: {n: x[0] for n, x in ab.items()} for t, ab in vec.global_lora["layers"].items()}
+    x = tf._norm(torch.nn.functional.embedding(tokens, vec.params["embed"]), p0, "attn_norm", cfg.norm)
+    q, k, v = tf._project_qkv(x, p0, lora0, cfg, cfg.lora_alpha / cfg.lora_rank)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    q = apply_rope(q, positions, theta=cfg.rope_theta, mode=cfg.rope)
+    k = apply_rope(k, positions, theta=cfg.rope_theta, mode=cfg.rope)
+    return q, k, v
+
+
+def attention_cases(vec, cfg, gen):
+    """Phase 5c's B8 inputs: name -> (q, k, v, causal, window)."""
+    H, KVH, D = ATTN_HEADS
+    randn = lambda *s, dtype=torch.bfloat16: torch.randn(s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q, k, v = layer0_qkv(vec, cfg)
+    cases = {"layer0_batch": (q, k, v, True, cfg.attention_window)}
+    cases["s4096_causal"] = (randn(1, 4096, H, D), randn(1, 4096, KVH, D), randn(1, 4096, KVH, D), True, None)
+    S = 16384
+    cases["s16384_window8192"] = (randn(1, S, H, D), randn(1, S, KVH, D), randn(1, S, KVH, D), True,
+                                  cfg.attention_window)
+    f32 = dict(dtype=torch.float32)
+    cases["f32_s2000_window1000_d128"] = (randn(1, 2000, H, 128, **f32), randn(1, 2000, KVH, 128, **f32),
+                                          randn(1, 2000, KVH, 128, **f32), True, 1000)
+    return cases
+
+
+def ssd_inputs(gen, dtype):
+    """B9's inputs at mamba2-1.3b's widths, laid out as the model hands them
+    to the kernel: groups (B, chunk, head), b and c shared by the heads, x
+    already scaled by dt, decays a = -exp(A_log)·dt with A from 1 to 16 over
+    the heads and dt log-uniform in [1e-3, 0.1], as the initializer draws them."""
+    S, Q, nh, hd, N = (SSD_WIDTHS[k] for k in ("S", "chunk", "nh", "hd", "N"))
+    nc = S // Q
+    A = torch.linspace(1.0, 16.0, nh, device="cuda")
+    u = torch.rand(1, S, nh, generator=gen, device="cuda")
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    a = (-A * dt).reshape(1, nc, Q, nh).permute(0, 1, 3, 2).reshape(nc * nh, 1, Q).contiguous()
+    x = torch.randn(1, S, nh, hd, generator=gen, device="cuda") * dt[..., None]
+    x = x.reshape(1, nc, Q, nh, hd).permute(0, 1, 3, 2, 4).reshape(nc * nh, Q, hd).contiguous()
+    b, c = (torch.randn(1, nc, 1, Q, N, generator=gen, device="cuda").expand(1, nc, nh, Q, N)
+            .reshape(nc * nh, Q, N).contiguous() for _ in range(2))
+    return x.to(dtype), a, b.to(dtype), c.to(dtype)
+
+
+def phase_attention_ssd(ops, ref, vec, cfg, gen):
+    """Phase 5c: B8 and B9 through ``repro_torch.kernels.ops`` against their
+    plain versions. Returns the launch counts, the max abs errors and the
+    inputs of the timed cases."""
+    errs = {"flash_attention": 0.0, "ssd_chunk_intra": 0.0}
+    cases = attention_cases(vec, cfg, gen)
+    ssd = {"f32": ssd_inputs(gen, torch.float32), "bf16": ssd_inputs(gen, torch.bfloat16)}
+    with Launches(ops) as run:
+        for name, (q, k, v, causal, window) in cases.items():
+            out = ops.flash_attention(q, k, v, causal=causal, window=window)
+            plain = plain_attention(ref, q, k, v, causal, window)
+            e = check_attention(out, plain, v, f"B8 {name} {tuple(q.shape)} {q.dtype}")
+            log(f"B8 {name}: q {tuple(q.shape)} {q.dtype}, causal {causal}, window {window}: max abs err {e:.3g}")
+            errs["flash_attention"] = max(errs["flash_attention"], e)
+            del out, plain
+        for name, (x, a, b, c) in ssd.items():
+            y = ops.ssd_chunk_intra(x, a, b, c)
+            e = check_ssd(y, ref.ssd_chunk_intra_ref(x, a, b, c), ref.ssd_chunk_intra_ref(x.abs(), a, b.abs(), c.abs()),
+                          a, f"B9 {name}")
+            log(f"B9 mamba2-1.3b {name}: x {tuple(x.shape)}, b/c {tuple(b.shape)}: max abs err {e:.3g}")
+            errs["ssd_chunk_intra"] = max(errs["ssd_chunk_intra"], e)
+        for Q, hd, N in SSD_SMALL:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(4, Q, hd, generator=gen, device="cuda").to(dtype)
+                a = -torch.randn(4, 1, Q, generator=gen, device="cuda").abs() * 0.1
+                b, c = (torch.randn(4, Q, N, generator=gen, device="cuda").to(dtype) for _ in range(2))
+                y = ops.ssd_chunk_intra(x, a, b, c)
+                e = check_ssd(y, ref.ssd_chunk_intra_ref(x, a, b, c),
+                              ref.ssd_chunk_intra_ref(x.abs(), a, b.abs(), c.abs()), a, f"B9 {(Q, hd, N)} {dtype}")
+                errs["ssd_chunk_intra"] = max(errs["ssd_chunk_intra"], e)
+    torch.cuda.synchronize()
+    log(f"B8/B9 vs plain: within tolerance; max abs err {errs}; launches, phase 5c: {run.counts}")
+    if run.counts != only(flash_attention=len(cases), ssd_chunk_intra=len(ssd) + 2 * len(SSD_SMALL)):
+        raise AssertionError(f"phase 5c did not launch each of its kernels once per case: {run.counts}")
+    return {name: run.counts[name] for name in errs}, errs, cases, ssd
+
+
+def library_ms(fn, big):
+    """Time of one PyTorch call (a yardstick the port never calls). For a
+    long sequence the unfused math backend, which would hold S×S scores for
+    every head, is left out; a call that no other backend takes is not
+    timed (None)."""
+    if not big:
+        return cuda_ms(fn, iters=20, warmup=1)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]):
+            return cuda_ms(fn, iters=5, warmup=1)
+    except RuntimeError as err:
+        log(f"library call not timed: {str(err).splitlines()[0]}")
+        return None
+
+
+def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd):
+    """B8 and B9 timed on phase 5c's inputs: ``ms`` the kernel through its
+    launcher, ``graph_ms`` its device time from a CUDA graph of launches,
+    ``wrapper_ms`` the ops wrapper, ``plain_ms`` the plain version (by slices
+    of query rows at S 16384), ``library_ms`` one PyTorch call that computes
+    the same function (B8: ``scaled_dot_product_attention``; B9: none)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    entries = {}
+    for name in ("s4096_causal", "s16384_window8192", "f32_s2000_window1000_d128"):
+        q, k, v, causal, window = cases[name]
+        B, S, H, D = q.shape
+        out = torch.empty_like(q)
+        launch = lambda _=0: flash_attention.flash_attention_launch(out, q, k, v, causal=causal,  # noqa: E731
+                                                                       window=window)
+        big = S > 4096
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        entry = dict(
+            ms=cuda_ms(launch, iters=5 if big else 20, warmup=1),
+            graph_ms=graph_ms(launch, calls=2 if big else 5, replays=3),
+            wrapper_ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
+                               iters=5 if big else 20, warmup=1),
+            plain_ms=cuda_ms(lambda: plain_attention(ref, q, k, v, causal, window), iters=2, warmup=1),
+            **attention_bound(B, S, H, k.shape[2], D, causal, window, q.dtype),
+        )
+        if window is None or window >= S:
+            entry["library_ms"] = library_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), big)
+        else:
+            # the same function as one call: the causal window as a boolean mask
+            pos = torch.arange(S, device="cuda")
+            band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            entry["library_ms"] = library_ms(lambda: sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True), big)
+            # beside it, the causal call without the window: more work, the flash path
+            entry["library_causal_ms"] = library_ms(
+                lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), big)
+            del band
+        entries[name] = entry
+    times = {"flash_attention": dict(entries["s4096_causal"], s16384_window8192=entries["s16384_window8192"],
+                                     f32_s2000_window1000_d128=entries["f32_s2000_window1000_d128"])}
+
+    ssd_entries = {}
+    for name, (x, a, b, c) in ssd.items():
+        y = torch.empty(x.shape, dtype=torch.float32, device="cuda")
+        launch = lambda _=0: ssd_chunk.ssd_chunk_launch(y, x, a, b, c)  # noqa: E731
+        G, Q, hd = x.shape
+        N = b.shape[-1]
+        pairs = Q * (Q + 1) // 2
+        size = x.element_size()
+        bytes_moved = size * G * Q * (hd + 2 * N) + a.element_size() * G * Q + 4 * G * Q * hd
+        flops = G * (pairs * (2 * N + 2 * hd + 2) + Q)  # c·b, exp·score, M·x; the scan
+        rate = BF16_FLOPS_PER_S if x.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        ssd_entries[name] = dict(
+            ms=cuda_ms(launch), graph_ms=graph_ms(launch, calls=5, replays=3),
+            wrapper_ms=cuda_ms(lambda: ops.ssd_chunk_intra(x, a, b, c)),
+            plain_ms=cuda_ms(lambda: ref.ssd_chunk_intra_ref(x, a, b, c), iters=10, warmup=1),
+            # no single call; the plain version is the nearest einsum chain
+            library_ms=None, **bound_of(bytes_moved, flops, rate), gflop=flops / 1e9, mb=bytes_moved / 1e6,
+        )
+    times["ssd_chunk_intra"] = dict(ssd_entries["f32"], bf16=ssd_entries["bf16"])
+    log("B8/B9 times:", json.dumps(times))
+    return times
+
+
 def keyword_world(vocab_size, data_mod, fl):
     task = data_mod.make_keyword_task(n_samples=256, seq_len=64, vocab_size=vocab_size, seed=0)
     parts = data_mod.dirichlet_partition(task.data["label"], fl.num_devices, fl.dirichlet_alpha, seed=0)
@@ -813,7 +1073,8 @@ def main() -> int:
     from repro_torch.config import FibecFedConfig
     from repro_torch.configs import ARCHS
     from repro_torch.federated import CompressionConfig, make_runner
-    from repro_torch.kernels import build, compress, fisher_diag, masked_update, ops, ref, sparse_lora
+    from repro_torch.kernels import (build, compress, fisher_diag, flash_attention, masked_update, ops, ref,
+                                     sparse_lora, ssd_chunk)
     from repro_torch.models import build_model
     from repro_torch.train import make_loss_fn
     from repro_torch.utils.tree import tree_clone, tree_leaves, tree_map
@@ -832,7 +1093,7 @@ def main() -> int:
 
     # --- 2. build: one nvcc per source, all at once ---
     t0 = time.perf_counter()
-    sources = (masked_update, compress, fisher_diag, sparse_lora)
+    sources = (masked_update, compress, fisher_diag, sparse_lora, flash_attention, ssd_chunk)
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         reports = list(pool.map(lambda m: build.compile_cuda(m.SOURCE)[1], sources))
     for module in sources:
@@ -930,7 +1191,14 @@ def main() -> int:
         launches[name] += ops_counts[name]
     errs.update(ops_errs)
     times.update(phase_ops_timing(ops, ref, fisher_diag, sparse_lora, vec, cfg, gen, tree_leaves, tree_map))
-    del vec
+
+    # --- 5c. attention (B8) and the SSD intra-chunk scan (B9) ---
+    attn_counts, attn_errs, cases, ssd = phase_attention_ssd(ops, ref, vec, cfg, gen)
+    for name in attn_counts:
+        launches[name] += attn_counts[name]
+    errs.update(attn_errs)
+    times.update(phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd))
+    del vec, cases, ssd
 
     # --- 6. compressed uploads and per-client ranks, on both engines ---
     comp = CompressionConfig(**COMPRESSION)

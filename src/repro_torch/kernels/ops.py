@@ -7,9 +7,10 @@ the plain version in :mod:`repro_torch.kernels.ref`. Each wrapper carries a
 ``launches`` count, raised by one for every kernel launch and by nothing
 else. The tree wrappers (the optimizer updates, fake compression and the
 Fisher update) walk a tree leaf by leaf; the LoRA products take arrays with
-any leading dimensions. The Fisher update and the LoRA products keep the
-JAX package's names, signatures, argument order and output dtypes. The
-kernels mask their own ragged edges, so nothing is padded to tiles.
+any leading dimensions. The Fisher update, the LoRA products, flash attention and the SSD intra-chunk
+scan keep the JAX package's names, signatures, argument order, layouts and
+output dtypes. The kernels mask their own ragged edges, so nothing is padded
+to tiles.
 
 The wrappers are functional: new tensors come back and the inputs are left
 as they were, on both devices. Each takes stacked clients (the vectorized
@@ -22,9 +23,11 @@ import torch
 
 from repro_torch.kernels import compress as _cp
 from repro_torch.kernels import fisher_diag as _fd
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import masked_update as _mu
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparse_lora as _sl
+from repro_torch.kernels import ssd_chunk as _sc
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unzip
 
 
@@ -312,6 +315,50 @@ def sparse_lora_apply_packed(x, a, b, mask, scale: float = 1.0):
     return y
 
 
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """GQA flash attention. q (B, S, H, D); k/v (B, S, KVH, D). Returns
+    q-shaped, in q's dtype; query head h reads KV head ``h // (H // KVH)``.
+
+    On the card one kernel launch reads the three tensors in place, for any
+    S (a ragged last tile is masked in the kernel); D must be 64 or 128.
+    Mixed dtypes, or a dtype other than f32/bf16, run in f32 and the output
+    is cast to q's dtype, as the plain version does. On the CPU the heads are
+    folded as the JAX wrapper folds them and the plain version runs.
+    ``window`` is None or at least 1.
+    """
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} must be at least 1")
+    if _on_cuda(q):
+        if not (q.dtype == k.dtype == v.dtype and q.dtype in _fa.DTYPE_CODES):
+            q32, k32, v32 = (t.to(torch.float32) for t in (q, k, v))
+            return flash_attention(q32, k32, v32, causal=causal, window=window).to(q.dtype)
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _fa.flash_attention_launch(out, q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal, window=window)
+        flash_attention.launches += 1
+        return out
+    return _ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
+
+
+def ssd_chunk_intra(x, a, b, c):
+    """Intra-chunk SSD. x (G, Q, hd), a (G, 1, Q), b/c (G, Q, N) ->
+    (G, Q, hd) f32: ``y[g,i] = Σ_{j≤i} exp(cs_i - cs_j)·(c_i·b_j)·x[g,j]``
+    with ``cs = cumsum(a[g,0])``, one kernel launch on the card.
+
+    The kernel takes x, b and c in one dtype (f32 or bf16; otherwise all
+    three run in f32, the plain version's first step) and a in f32 or bf16,
+    Q a multiple of 8 up to 128 and hd a multiple of 4 up to 128.
+    """
+    if not _on_cuda(x):
+        return _ref.ssd_chunk_intra_ref(x, a, b, c)
+    if not (x.dtype == b.dtype == c.dtype and x.dtype in _sc.DTYPE_CODES):
+        x, b, c = _f32(x), _f32(b), _f32(c)
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    _sc.ssd_chunk_launch(y, x.contiguous(), _kernel_float(a), b.contiguous(), c.contiguous())
+    ssd_chunk_intra.launches += 1
+    return y
+
+
 masked_sgd_update.launches = 0
 masked_adamw_update.launches = 0
 fake_compress.launches = 0
@@ -319,3 +366,5 @@ fisher_diag_update.launches = 0
 sparse_lora_apply.launches = 0
 sparse_lora_apply_packed.launches = 0
 batched_sparse_lora_apply.launches = 0
+flash_attention.launches = 0
+ssd_chunk_intra.launches = 0

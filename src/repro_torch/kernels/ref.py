@@ -30,6 +30,13 @@ The public kernels of ``repro_torch.kernels.ops`` (B4-B7), in f32:
   packed        y = scale·(x@a)@b_packed, b_packed = b[:, keep]
   batched       y[m] = scale·(x[m]@a[i])@(b[i]⊙mask[i]), i = idx[m];
                 zeros where i is outside [0, A)
+
+and the attention and state-space kernels (B8, B9), in f32:
+
+  flash attn    o = softmax(where(mask, q·kᵀ/√D, NEG_INF))·v        (q's dtype)
+                mask: k ≤ q when causal, k > q - window with a window
+  ssd intra     y[g,i] = Σ_{j≤i} exp(cs_i - cs_j)·(c_i·b_j)·x[g,j],
+                cs = cumsum(a[g,0])                                  (f32 out)
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 QUANT_GROUP = 128  # values per quantization scale, the wire format's group
+NEG_INF = -1e30  # the masked score and decay exponent of the JAX kernels
 
 
 def inv_qmax(qmax: int) -> float:
@@ -163,3 +171,49 @@ def batched_sparse_lora_matmul_ref(x, idx, a, b, mask, scale: float = 1.0):
     bm = (b.to(torch.float32) * mask.to(torch.float32)[:, None, :])[safe]
     y = scale * torch.einsum("mr,mrn->mn", xa, bm)
     return torch.where(valid[:, None], y, 0.0).to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0):
+    """Exact softmax attention on (BH, S, D) (kernel B8's function): scores
+    and softmax in f32, masked entries set to ``NEG_INF``, out in q's dtype.
+
+    ``q`` may hold only the rows at positions ``q_offset, q_offset + 1, ...``
+    of the sequence that k and v hold whole, so that a long sequence can be
+    checked a slice of rows at a time."""
+    Sq, D = q.shape[1], q.shape[2]
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32), k.to(torch.float32)) / (D ** 0.5)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)
+
+
+def flash_attention_gqa_ref(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0):
+    """The plain version of ``ops.flash_attention``: q (B, Sq, H, D), k/v
+    (B, Sk, KVH, D), heads folded as the JAX wrapper folds them (k and v
+    repeated for each query head of their group), then
+    :func:`flash_attention_ref`. Returns q-shaped, in q's dtype."""
+    B, Sq, H, D = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, t.shape[1], D)  # noqa: E731
+    out = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal, window=window, q_offset=q_offset)
+    return out.reshape(B, H, Sq, D).transpose(1, 2)
+
+
+def ssd_chunk_intra_ref(x, a, b, c):
+    """Intra-chunk SSD (kernel B9): x (G, Q, hd), a (G, 1, Q) log decays,
+    b/c (G, Q, N) -> (G, Q, hd) f32, f32 throughout."""
+    cs = torch.cumsum(a[:, 0].to(torch.float32), dim=-1)  # (G, Q)
+    diff = cs[:, :, None] - cs[:, None, :]
+    Q = x.shape[1]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    L = torch.exp(torch.where(tri[None], diff, NEG_INF))
+    scores = torch.einsum("gis,gjs->gij", c.to(torch.float32), b.to(torch.float32))
+    return torch.einsum("gij,gjd->gid", L * scores, x.to(torch.float32))

@@ -5,9 +5,10 @@ Plain PyTorch matmul + softmax, as the JAX package leaves this to XLA.
 Scores are f32 and masked with ``NEG_INF``; GQA groups the query heads as
 (KVH, G) and never materializes a repeat of K/V. :func:`blockwise_attention`
 bounds memory with an online softmax over KV blocks and, with a window,
-visits only the KV span each query block can see. The hand-written kernel
-for this (the Pallas ``flash_attention_bhsd``) is still to be ported, with
-the backward that training needs.
+visits only the KV span each query block can see. As in the JAX package,
+the model calls no kernel: the hand-written forward kernel for this (B8) is
+reached through ``repro_torch.kernels.ops.flash_attention`` and is held
+against :func:`blockwise_attention` in the tests.
 """
 from __future__ import annotations
 

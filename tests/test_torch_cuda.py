@@ -6,6 +6,8 @@ where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -283,3 +285,123 @@ def test_sparse_lora_launcher_refuses_what_it_cannot_run(cuda):
     x, a, b, mask = _lora(cuda, 8, 16, 12, 4, torch.float16)
     with pytest.raises(ValueError, match="float32/bfloat16"):
         ops.sparse_lora_apply(x, a, b, mask)
+
+
+# --- B8: flash attention ---
+
+
+def assert_attention_close(out, plain, v):
+    """An output row is a convex combination of v's rows; the kernel takes
+    the scores, exponentials and sums in another order than the plain
+    version, so f32 outputs agree within 1e-5 of the largest |v|, and bf16
+    outputs, which round those f32 values, to that plus one bf16 ulp."""
+    assert out.dtype == plain.dtype and out.shape == plain.shape
+    o, p = out.float(), plain.float()
+    allowed = 1e-5 * v.float().abs().max()
+    if out.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(o.abs(), p.abs()))
+        allowed = allowed + torch.ldexp(torch.ones_like(o), e - 8)
+    assert bool(((o - p).abs() <= allowed).all()), float((o - p).abs().max())
+
+
+FLASH_CASES = [  # B, S, H, KVH, D, causal, window
+    (2, 256, 4, 2, 64, True, None),
+    (2, 256, 8, 1, 128, True, 128),
+    (1, 300, 14, 2, 64, True, 100),  # ragged; rows whose first visited tile is wholly masked
+    (1, 1000, 4, 2, 64, True, 300),  # S > window + tile
+    (1, 321, 4, 4, 128, True, 64),  # a window of one tile
+    (1, 200, 4, 4, 128, False, None),
+    (1, 200, 4, 2, 64, False, 50),
+    (3, 1, 2, 1, 64, True, None),
+    (1, 70, 6, 3, 64, True, 9000),  # a window longer than the sequence
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, B, S, H, KVH, D, causal, window, dtype):
+    q = torch.randn(B, S, H, D, generator=cuda, device="cuda").to(dtype)
+    k, v = (torch.randn(B, S, KVH, D, generator=cuda, device="cuda").to(dtype) for _ in range(2))
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert_attention_close(out, ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window), v)
+
+
+@pytest.mark.cuda
+def test_flash_attention_query_slices_match_whole(cuda):
+    """The plain version by slices of query rows (how long sequences are
+    checked) equals it whole."""
+    q = torch.randn(1, 384, 4, 64, generator=cuda, device="cuda")
+    k, v = (torch.randn(1, 384, 2, 64, generator=cuda, device="cuda") for _ in range(2))
+    whole = ref.flash_attention_gqa_ref(q, k, v, causal=True, window=100)
+    parts = [ref.flash_attention_gqa_ref(q[:, r:r + 128], k, v, causal=True, window=100, q_offset=r)
+             for r in range(0, 384, 128)]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
+@pytest.mark.cuda
+def test_flash_attention_mixed_dtypes_and_refusals(cuda):
+    q = torch.randn(1, 130, 4, 64, generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn(1, 130, 2, 64, generator=cuda, device="cuda") for _ in range(2))
+    out = ops.flash_attention(q, k, v)  # f32 k, v: the kernel runs in f32, out in q's dtype
+    torch.cuda.synchronize()
+    assert_attention_close(out, ref.flash_attention_gqa_ref(q, k, v), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(torch.zeros(1, 8, 2, 32, device="cuda"), torch.zeros(1, 8, 2, 32, device="cuda"),
+                            torch.zeros(1, 8, 2, 32, device="cuda"))
+
+
+# --- B9: the SSD intra-chunk scan ---
+
+
+def mamba_decays(gen, G, Q, nh):
+    """a = -exp(A_log)·dt as the Mamba2 initializer draws them: A from 1 to
+    16 over the heads, dt log-uniform in [1e-3, 0.1] (here per step)."""
+    A = torch.linspace(1.0, 16.0, nh, device="cuda").repeat(G // nh + 1)[:G]
+    u = torch.rand(G, 1, Q, generator=gen, device="cuda")
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    return -A[:, None, None] * dt
+
+
+def assert_ssd_close(y, x, a, b, c):
+    """The kernel sums c·b, the scan of a and M·x in other orders than the
+    plain version. The sums err by a few ulp of their absolute terms, and a
+    decay exp(cs_i - cs_j) by a few ulp of |cs|, so the bound per output is
+    (1e-5 + 1e-6·max|cs|) times the sum of the absolute terms
+    (the plain version on |x|, |b|, |c|)."""
+    plain = ref.ssd_chunk_intra_ref(x, a, b, c)
+    assert y.dtype == torch.float32 and y.shape == plain.shape
+    terms = ref.ssd_chunk_intra_ref(x.abs(), a, b.abs(), c.abs())
+    cs_max = float(a.float().sum(dim=-1).abs().max())
+    allowed = (1e-5 + 1e-6 * cs_max) * terms
+    assert bool(((y - plain).abs() <= allowed).all()), float(((y - plain).abs() / terms.clamp_min(1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,hd,N", [(128, 64, 32), (128, 128, 128), (64, 32, 16), (128, 64, 128), (8, 4, 1),
+                                    (72, 20, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_matches_plain(cuda, Q, hd, N, dtype, a_dtype):
+    G, nh = 12, 4
+    x = torch.randn(G, Q, hd, generator=cuda, device="cuda").to(dtype)
+    b, c = (torch.randn(G, Q, N, generator=cuda, device="cuda").to(dtype) for _ in range(2))
+    a = mamba_decays(cuda, G, Q, nh).to(a_dtype)
+    before = ops.ssd_chunk_intra.launches
+    y = ops.ssd_chunk_intra(x, a, b, c)
+    assert ops.ssd_chunk_intra.launches == before + 1
+    torch.cuda.synchronize()
+    assert_ssd_close(y, x, a, b, c)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_refuses_what_it_cannot_run(cuda):
+    for Q, hd in ((12, 64), (256, 64), (128, 130)):
+        x = torch.zeros(2, Q, hd, device="cuda")
+        bc = torch.zeros(2, Q, 16, device="cuda")
+        with pytest.raises(ValueError):
+            ops.ssd_chunk_intra(x, torch.zeros(2, 1, Q, device="cuda"), bc, bc)

@@ -1,0 +1,231 @@
+"""The port's flash attention (B8), SSD intra-chunk scan (B9) and chunked
+SSD agree with the JAX package's.
+
+``repro_torch.kernels.ops.flash_attention`` / ``ssd_chunk_intra`` against
+``repro.kernels.ops``, and ``repro_torch.models.ssm`` against
+``repro.models.ssm``, on the same inputs made from a seed with numpy. The
+JAX side runs its Pallas kernels in interpret mode, as
+``tests/test_kernels.py`` does (a ragged S goes to its dense oracle there);
+the port's side gets CPU tensors and so takes the plain versions
+(``kernels/ref.py``), which the CUDA kernels are held to on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+Tolerances, tighter than the JAX tests' own (2e-3 for attention, 1e-4 for
+SSD):
+- attention: an output row is a convex combination of v's rows, and the
+  scores, exponentials and sums run in another order on each side, so f32
+  outputs agree within 1e-5 of the largest |v|; bf16 outputs round those
+  f32 values, so they agree to that plus one bf16 ulp.
+- SSD: the cumulative sums, the products c·b and the sums over j and over
+  the state run in another order (and, in ``ssd_chunked``, through
+  differently associated einsums), so f32 outputs and states agree within
+  1e-5 of their largest magnitude; bf16 inputs are widened exactly, so
+  the same holds for them.
+"""
+import pytest
+
+pytest.importorskip("torch")
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.kernels import ops as jops
+from repro.models import ssm as jssm
+
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ssd_chunk as tsc
+from repro_torch.models import attention as tattn
+from repro_torch.models import ssm as tssm
+
+REL = 1e-5
+
+
+def _pair(a, dtype="float32"):
+    """The same values as a JAX array and a CPU torch tensor."""
+    j = jnp.asarray(a, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    n = np.asarray(j)
+    if n.dtype.name == "bfloat16":
+        return j, torch.from_numpy(n.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    return j, torch.from_numpy(np.array(n))
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        return t.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def _assert_close(port, want, scale, bf16=False):
+    """Within ``REL · scale``; bf16 outputs one ulp of the larger value beyond."""
+    p, w = _np(port), _np(want)
+    assert p.shape == w.shape
+    allowed = REL * scale
+    if bf16:
+        _, e = np.frexp(np.maximum(np.abs(p), np.abs(w)))
+        allowed = allowed + np.ldexp(1.0, e - 8)
+    excess = np.abs(p - w) - allowed
+    assert np.all(excess <= 0), f"beyond tolerance by up to {excess.max()}"
+
+
+def _qkv(seed, B, S, H, KVH, D, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, D), dtype=np.float32)
+    k = rng.standard_normal((B, S, KVH, D), dtype=np.float32)
+    v = rng.standard_normal((B, S, KVH, D), dtype=np.float32)
+    return [_pair(t, dtype) for t in (q, k, v)]
+
+
+def _check_flash(seed, B, S, H, KVH, D, *, causal=True, window=None, dtype="float32"):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(seed, B, S, H, KVH, D, dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window)
+    got = tops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _assert_close(got, want, float(np.max(np.abs(_np(tv)))), bf16=dtype == "bfloat16")
+
+
+@pytest.mark.parametrize("S,H,KVH,D", [(128, 4, 4, 64), (256, 4, 2, 64), (256, 8, 1, 128)])
+@pytest.mark.parametrize("window", [None, 128])
+def test_flash_attention_matches_jax(S, H, KVH, D, window):
+    _check_flash(S + H + KVH + D, 2, S, H, KVH, D, window=window)
+
+
+@pytest.mark.parametrize("S", [100, 200])
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_attention_ragged_matches_jax(S, window):
+    # JAX sends S % 128 != 0 to its dense oracle; the port's kernel masks it
+    _check_flash(S, 2, S, 4, 2, 64, window=window)
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_attention_bf16_matches_jax(window):
+    _check_flash(7, 2, 256, 4, 2, 64, window=window, dtype="bfloat16")
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_attention_not_causal_matches_jax(window):
+    _check_flash(11, 2, 256, 4, 2, 64, causal=False, window=window)
+
+
+def test_flash_matches_model_blockwise():
+    (_, q), (_, k), (_, v) = _qkv(3, 2, 256, 4, 2, 64)
+    got = tops.flash_attention(q, k, v, causal=True)
+    want = tattn.blockwise_attention(q, k, v, causal=True, q_block=64, kv_block=64)
+    _assert_close(got, want, float(v.abs().max()))
+
+
+def test_flash_attention_refuses_what_the_kernel_cannot_run():
+    q, k = torch.zeros(1, 8, 4, 64), torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError):
+        tops.flash_attention(q, k, k, window=0)
+    tfa.check_shape(q.shape, k.shape)
+    for bad_q, bad_k in (((1, 8, 4, 96), (1, 8, 2, 96)), ((1, 8, 4, 64), (1, 8, 3, 64)),
+                         ((1, 8, 4, 64), (1, 9, 2, 64)), ((8, 4, 64), (8, 2, 64))):
+        with pytest.raises(ValueError):
+            tfa.check_shape(bad_q, bad_k)
+
+
+def _ssd_inputs(seed, G, Q, hd, N, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((G, Q, hd), dtype=np.float32)
+    a = -np.abs(rng.standard_normal((G, 1, Q), dtype=np.float32)) * 0.1
+    b = rng.standard_normal((G, Q, N), dtype=np.float32)
+    c = rng.standard_normal((G, Q, N), dtype=np.float32)
+    return [_pair(x, dtype), _pair(a), _pair(b, dtype), _pair(c, dtype)]
+
+
+@pytest.mark.parametrize("Q,hd,N", [(128, 64, 32), (128, 128, 128), (64, 32, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_intra_matches_jax(Q, hd, N, dtype):
+    (jx, tx), (ja, ta), (jb, tb), (jc, tc) = _ssd_inputs(Q + hd + N, 4, Q, hd, N, dtype)
+    want = jops.ssd_chunk_intra(jx, ja, jb, jc)
+    got = tops.ssd_chunk_intra(tx, ta, tb, tc)
+    assert got.dtype == torch.float32
+    _assert_close(got, want, float(np.max(np.abs(_np(want)))))
+
+
+def test_ssd_chunk_refuses_what_the_kernel_cannot_run():
+    tsc.check_shape(1024, 128, 64, 128)
+    for bad in ((4, 12, 64, 16), (4, 256, 64, 16), (4, 64, 30, 16), (4, 64, 256, 16), (4, 64, 32, 0)):
+        with pytest.raises(ValueError):
+            tsc.check_shape(*bad)
+
+
+def _ssd_model_inputs(seed, B, S, nh, hd, N):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, nh, hd), dtype=np.float32)
+    a = -np.abs(rng.standard_normal((B, S, nh), dtype=np.float32)) * 0.1
+    b = rng.standard_normal((B, S, N), dtype=np.float32)
+    c = rng.standard_normal((B, S, N), dtype=np.float32)
+    return [_pair(t) for t in (x, a, b, c)]
+
+
+@pytest.mark.parametrize("S,chunk,with_state", [(256, 64, False), (200, 64, True), (130, 32, True)])
+def test_ssd_chunked_matches_jax(S, chunk, with_state):
+    B, nh, hd, N = 2, 3, 16, 8
+    (jx, tx), (ja, ta), (jb, tb), (jc, tc) = _ssd_model_inputs(S + chunk, B, S, nh, hd, N)
+    js, ts = (None, None)
+    if with_state:
+        js, ts = _pair(np.random.default_rng(1).standard_normal((B, nh, hd, N), dtype=np.float32))
+    jy, jstate = jssm.ssd_chunked(jx, ja, jb, jc, chunk, js)
+    ty, tstate = tssm.ssd_chunked(tx, ta, tb, tc, chunk, ts)
+    assert ty.shape == (B, S, nh, hd) and tstate.shape == (B, nh, hd, N)
+    _assert_close(ty, jy, float(np.max(np.abs(_np(jy)))))
+    _assert_close(tstate, jstate, float(np.max(np.abs(_np(jstate)))))
+
+
+def test_ssd_decode_step_matches_jax():
+    B, nh, hd, N = 2, 3, 16, 8
+    rng = np.random.default_rng(5)
+    (jx, tx), (ja, ta), (jb, tb), (jc, tc), (js, ts) = (
+        _pair(rng.standard_normal(s, dtype=np.float32)) for s in ((B, nh, hd), (B, nh), (B, N), (B, N),
+                                                                  (B, nh, hd, N)))
+    jy, jnew = jssm.ssd_decode_step(jx, -jnp.abs(ja), jb, jc, js)
+    ty, tnew = tssm.ssd_decode_step(tx, -ta.abs(), tb, tc, ts)
+    _assert_close(ty, jy, float(np.max(np.abs(_np(jy)))))
+    _assert_close(tnew, jnew, float(np.max(np.abs(_np(jnew)))))
+
+
+def test_segsum_and_conv_match_jax():
+    rng = np.random.default_rng(2)
+    ja, ta = _pair(-np.abs(rng.standard_normal((3, 16), dtype=np.float32)))
+    _assert_close(tssm.segsum_decay(ta), jssm.segsum_decay(ja), 1.0)
+    (jx, tx), (jw, tw) = (_pair(rng.standard_normal(s, dtype=np.float32)) for s in ((2, 10, 6), (4, 6)))
+    want = jssm.causal_conv1d(jx, jw)
+    _assert_close(tssm.causal_conv1d(tx, tw), want, float(np.max(np.abs(_np(want)))))
+
+
+def test_ssd_chunk_matches_model_path():
+    """The intra-chunk kernel's function equals ``ssd_chunked`` with one
+    chunk and no initial state (the model lays b/c out shared by the heads)."""
+    B, Q, nh, hd, N = 2, 64, 2, 32, 16
+    (_, x), (_, a), (_, b), (_, c) = _ssd_model_inputs(9, B, Q, nh, hd, N)
+    y_model, _ = tssm.ssd_chunked(x, a, b, c, chunk=Q)
+    xg = x.permute(0, 2, 1, 3).reshape(B * nh, Q, hd)
+    ag = a.permute(0, 2, 1).reshape(B * nh, 1, Q)
+    bg = b[:, None].expand(B, nh, Q, N).reshape(B * nh, Q, N)
+    cg = c[:, None].expand(B, nh, Q, N).reshape(B * nh, Q, N)
+    y_kernel = tops.ssd_chunk_intra(xg, ag, bg, cg).reshape(B, nh, Q, hd).permute(0, 2, 1, 3)
+    _assert_close(y_kernel, y_model, float(y_model.abs().max()))
+
+
+def _calls(device):
+    q, k = torch.randn(1, 8, 4, 64, device=device), torch.randn(1, 8, 2, 64, device=device)
+    x, a, bc = torch.randn(2, 8, 4, device=device), -torch.rand(2, 1, 8, device=device), \
+        torch.randn(2, 8, 3, device=device)
+    return {"flash_attention": lambda: tops.flash_attention(q, k, k, window=3),
+            "ssd_chunk_intra": lambda: tops.ssd_chunk_intra(x, a, bc, bc)}
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    counts = {name: getattr(tops, name).launches for name in _calls("cpu")}
+    for fn in _calls("cpu").values():
+        fn()
+    assert {name: getattr(tops, name).launches for name in counts} == counts
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "ssd_chunk_intra"])
+def test_other_devices_raise(name):
+    with pytest.raises(ValueError, match="device meta"):
+        _calls("meta")[name]()
