@@ -9,9 +9,12 @@ device and exits non-zero without one, or if any phase fails:
    ``nvcc`` per source, all started together;
 3. kernels against their plain PyTorch versions, on the card, at every LoRA
    leaf shape of full qwen2-0.5b: masked AdamW/SGD (B1/B2) per client and
-   stacked over 4 clients with one row of scalars each, and fake compression
-   (B3) in every mode, f32 and bf16, with a short last group and stacked;
-   then their times in the main paths' configurations (B3's kernel alone
+   stacked over 4 clients with one row of scalars each, B2 over whole LoRA
+   trees (one launch per tree: f32 and mixed bf16 leaves, dense and masked
+   leaves, lr as a number and as a tensor, bit for bit), and fake
+   compression (B3) in every mode, f32 and bf16, with a short last group and
+   stacked; then their times in the main paths' configurations (B2's device
+   time from a CUDA graph over trees larger than the L2; B3's kernel alone
    and with its wrapper's threshold sort);
 4. the loop engine at full width: FibecFed (adamw, fused kernels) for 2
    rounds and FedAvg+LoRA (sgd, fused) for 1 round on qwen2-0.5b (24
@@ -36,8 +39,9 @@ device and exits non-zero without one, or if any phase fails:
    128, 64 heads: 1024 groups, head_dim 64, state 128) in f32 and bf16,
    with b and c shared by the heads and the Mamba2 initializer's decays,
    plus the JAX tests' small shapes; each within a stated tolerance of its
-   plain version; then their times beside their bounds and, for B8,
-   ``scaled_dot_product_attention``'s;
+   plain version; then their times beside their bounds and, for B8 (bf16 on
+   the tensor cores, f32 on the CUDA cores), its TFLOP/s, its share of the
+   bound and ``scaled_dot_product_attention``'s time;
 6. compressed uploads (top-k 0.1, int8 values, error feedback) with
    per-client ranks, random_select/sgd (fused), 1 round on each engine from
    the same seed: equal comm bytes, equal to the wire format recomputed from the GAL mask and ranks,
@@ -66,6 +70,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+L2_BYTES = 50e6  # H100 L2 cache
 LEAF_SHAPES = {"a": (24, 896, 8), "b_q_o": (24, 8, 896), "b_k_v": (24, 8, 128)}
 K = 4  # the cohort: clients stacked on the vectorized engine's leading axis
 MU_SOURCE = "src/repro_torch/kernels/csrc/masked_update.cu"
@@ -210,6 +215,16 @@ def cuda_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def paired_ms(fn, other, rounds=5):
+    """Medians of :func:`cuda_ms` of two calls timed in turns (fn, other,
+    other, fn, ...), so that a drift of the host's speed reaches both."""
+    a, b = [], []
+    for r in range(rounds):
+        for f, out in ((fn, a), (other, b)) if r % 2 == 0 else ((other, b), (fn, a)):
+            out.append(cuda_ms(f))
+    return float(np.median(a)), float(np.median(b))
+
+
 def check_update(out, plain, old, frozen, what):
     """Frozen entries keep their bits; live ones agree with the plain version
     within 1e-6 relative (f32) or one ulp (bf16). Returns the max abs error."""
@@ -285,20 +300,20 @@ def phase_kernels(ops, ref, gen):
                                                (new_st["v"]["w"], pv, v, "v")):
                         e = check_update(out, plain, old, frozen, f"adamw {n} {what}")
                         errs["masked_adamw_update"] = max(errs["masked_adamw_update"], e)
-                    # B2: SGD, with and without momentum
+                    # B2: SGD, with and without momentum: the plain version's
+                    # operations in its order, bit for bit
                     for momentum in (0.0, 0.9):
                         st = {"mu": {"w": m}} if momentum else {}
                         new_p, new_st = ops.masked_sgd_update({"w": g}, st, {"w": p}, lr, mk, active,
                                                               momentum=momentum)
                         pp, pmu = ref.masked_sgd_update_ref(p, g, m if momentum else None, mask, lr_t,
                                                             momentum=momentum, active=active)
-                        e = check_update(new_p["w"], pp, p, frozen, f"sgd({momentum}) p {what}")
+                        check_equal(new_p["w"], pp, f"sgd({momentum}) p {what}")
                         if momentum:
-                            e = max(e, check_update(new_st["mu"]["w"], pmu, m, frozen, f"sgd mu {what}"))
-                        errs["masked_sgd_update"] = max(errs["masked_sgd_update"], e)
+                            check_equal(new_st["mu"]["w"], pmu, f"sgd mu {what}")
     torch.cuda.synchronize()
-    log("B1/B2 vs plain: all leaf shapes, f32/bf16, mask on/off, active 0/1, momentum 0/0.9 agree;",
-        "max abs err", errs)
+    log("B1/B2 vs plain: all leaf shapes, f32/bf16, mask on/off, active 0/1, momentum 0/0.9 agree "
+        "(B2 bit for bit); max abs err", errs)
     return errs
 
 
@@ -338,6 +353,46 @@ def phase_stacked_kernels(ops, ref, gen):
     log(f"B1/B2 stacked over {K} clients vs plain: all leaf shapes, f32/bf16, mixed active, "
         "per-client step counters, momentum 0/0.9: bit for bit")
     return {"masked_adamw_update_stacked": 0.0, "masked_sgd_update_stacked": 0.0}
+
+
+def phase_sgd_trees(ops, ref, gen, tree_leaves, tree_map):
+    """Phase 3b': B2 over whole trees, as the engines call it: one client's
+    LoRA tree (the ``a`` leaves dense, the ``b`` leaves masked: a mask tree
+    holding None), the same tree with half its leaves bf16, and K stacked
+    clients' trees with a per-client ``active`` that holds zeros; lr as a
+    Python number and as a 0-d tensor, momentum 0 and 0.9. One launch per
+    tree, every leaf bit for bit equal to its plain version."""
+    randn = lambda s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    n_trees = 0
+    for lead, active in (((), None), ((K,), torch.tensor([1.0, 0.0, 1.0, 0.0], device="cuda"))):
+        for mixed in (False, True):
+            params, grads, mus = lora_tree(randn, lead), lora_tree(randn, lead), lora_tree(randn, lead)
+            if mixed:
+                params = {"layers": {t: {"a": ab["a"].bfloat16(), "b": ab["b"]} for t, ab in params["layers"].items()}}
+                grads = tree_map(lambda p, g: g.to(p.dtype), params, grads)
+            mask = {"layers": {t: {"a": None, "b": (torch.rand(ab["b"].shape, generator=gen, device="cuda") < 0.5)
+                                   .float()} for t, ab in params["layers"].items()}}
+            for lr in (1e-3, torch.tensor(1e-3, device="cuda")):
+                lr_t = lr if isinstance(lr, torch.Tensor) else ops.as_f32(lr, "cuda")
+                for momentum in (0.0, 0.9):
+                    before = ops.masked_sgd_update.launches
+                    new_p, st = ops.masked_sgd_update(grads, {"mu": mus} if momentum else {}, params, lr, mask,
+                                                      active, momentum=momentum)
+                    if ops.masked_sgd_update.launches != before + 1:
+                        raise AssertionError("B2 took more than one launch for a LoRA tree")
+                    what = f"sgd tree lead={lead} mixed={mixed} lr={type(lr).__name__} momentum={momentum}"
+                    for p, g, mu, mk, o, omu in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(mus),
+                                                    tree_leaves(mask), tree_leaves(new_p),
+                                                    tree_leaves(st["mu"]) if momentum else tree_leaves(mus)):
+                        wp, wmu = ref.masked_sgd_update_ref(p, g, mu if momentum else None, mk, lr_t,
+                                                            momentum=momentum, active=ops.per_client(active, p))
+                        check_equal(o, wp, f"{what} p")
+                        if momentum:
+                            check_equal(omu, wmu, f"{what} mu")
+                    n_trees += 1
+    torch.cuda.synchronize()
+    log(f"B2 over whole LoRA trees: {n_trees} trees (one client and {K} stacked with a zero in active; f32 and "
+        "half bf16; dense a, masked b; lr number/tensor; momentum 0/0.9): one launch each, bit for bit")
 
 
 def plain_fake_compress(ops, ref, tree_map, delta, residual, mask, *, qmax, topk_ratio, use_thresh,
@@ -453,17 +508,31 @@ def phase_timing(ops, ref, compress, gen, tree_leaves, tree_map):
             # no single PyTorch call computes a masked AdamW step
             library_ms=None, **bound("masked_adamw_update" + suffix, n),
         )
+        # the device time of a step: a CUDA graph of steps over a rotation of
+        # trees that together exceed the 50 MB L2
+        copies = math.ceil(2 * L2_BYTES / (KERNELS["masked_sgd_update" + suffix]["bytes_per_elem"] * n))
+        rot = [(lora_tree(randn, lead), lora_tree(randn, lead),
+                lora_tree(lambda s: (torch.rand(s, generator=gen, device="cuda") < 0.5).float(), lead)
+                if lead else None) for _ in range(copies)]
+        # lr a Python number, as both engines pass it (by value, no device
+        # work); one foreach call computes p - lr·g unmasked, p - lr·g·mask
+        # with the stacked path's binary mask (every client active)
+        b2_step = lambda: ops.masked_sgd_update(grads, {}, params, lr, sgd_mask, active)  # noqa: E731
+        lib_step = ((lambda: torch._foreach_addcmul(p_list, g_list, mk_list, value=-lr)) if lead
+                    else (lambda: torch._foreach_add(p_list, g_list, alpha=-lr)))
         times["masked_sgd_update" + suffix] = dict(
-            ms=cuda_ms(lambda: ops.masked_sgd_update(grads, {}, params, lr_t, sgd_mask, active)),
-            plain_ms=cuda_ms(plain_sgd),
-            # one foreach call: p - lr·g unmasked, p - lr·g·mask with the
-            # stacked path's binary mask (every client active)
-            library_ms=cuda_ms(lambda: torch._foreach_addcmul(p_list, g_list, mk_list, value=-lr)) if lead
-            else cuda_ms(lambda: torch._foreach_add(p_list, g_list, alpha=-lr)),
+            ms=cuda_ms(b2_step), plain_ms=cuda_ms(plain_sgd), library_ms=cuda_ms(lib_step),
+            graph_ms=graph_ms(lambda i: ops.masked_sgd_update(rot[i % copies][1], {}, rot[i % copies][0], lr,
+                                                              rot[i % copies][2], active), calls=4 * copies),
             **bound("masked_sgd_update" + suffix, n),
         )
+        # both are host-bound: also timed in turns, so that a drift of the
+        # host's speed reaches both (medians of 5; beside ms, not instead)
+        entry = times["masked_sgd_update" + suffix]
+        entry["paired_ms"], entry["paired_library_ms"] = paired_ms(b2_step, lib_step)
+        del rot
         log(f"one optimizer step over {'%d stacked' % lead[0] if lead else 'one'} LoRA tree(s) "
-            f"({n} elements, 8 leaves)")
+            f"({n} elements, 8 leaves); B2 graph over {copies} trees")
 
     # B3 as the vectorized compressed round calls it: K stacked clients'
     # GAL deltas, their residuals and their per-client count masks
@@ -967,6 +1036,13 @@ def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd)
             entry["library_causal_ms"] = library_ms(
                 lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), big)
             del band
+        # the attention's own operations per second, and the share of the
+        # bound (bf16 tensor cores, or the f32 line) that the device time reaches
+        entry["tflops"] = entry["gflop"] / entry["graph_ms"]
+        entry["bound_share"] = entry["bound_ms"] / entry["graph_ms"]
+        log(f"B8 {name} {q.dtype}: device {entry['graph_ms']:.4f} ms, {entry['tflops']:.1f} TFLOP/s, "
+            f"{entry['bound_share']:.1%} of its bound ({entry['bound_ms']:.4f} ms); "
+            f"scaled_dot_product_attention {entry['library_ms']} ms")
         entries[name] = entry
     times = {"flash_attention": dict(entries["s4096_causal"], s16384_window8192=entries["s16384_window8192"],
                                      f32_s2000_window1000_d128=entries["f32_s2000_window1000_d128"])}
@@ -1105,6 +1181,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels(ops, ref, gen)
     errs.update(phase_stacked_kernels(ops, ref, gen))
+    phase_sgd_trees(ops, ref, gen, tree_leaves, tree_map)
     errs.update(phase_compress_kernel(ops, ref, gen, tree_map))
     times = phase_timing(ops, ref, compress, gen, tree_leaves, tree_map)
 
@@ -1149,8 +1226,8 @@ def main() -> int:
         "steps:", {"fibecfed": fib_steps, "fedavg_lora": fed_steps})
     if fib_run.counts != only(masked_adamw_update=8 * fib_steps) or fib_steps == 0:
         raise AssertionError("the loop fibecfed run did not go through the AdamW kernel once per leaf and step")
-    if fed_run.counts != only(masked_sgd_update=8 * fed_steps) or fed_steps == 0:
-        raise AssertionError("the loop fedavg_lora run did not go through the SGD kernel once per leaf and step")
+    if fed_run.counts != only(masked_sgd_update=fed_steps) or fed_steps == 0:
+        raise AssertionError("the loop fedavg_lora run did not launch the SGD kernel once per step")
     launches["masked_adamw_update"] += fib_run.counts["masked_adamw_update"]
     launches["masked_sgd_update"] += fed_run.counts["masked_sgd_update"]
 
@@ -1215,7 +1292,7 @@ def main() -> int:
         chosen = r.last_round_info["chosen"]
         steps = int(stats["padded_steps"]) if engine == "vectorized" else int(r.last_round_info["client_steps"].sum())
         uploads = 1 if engine == "vectorized" else len(chosen)
-        if run.counts != only(masked_sgd_update=8 * steps, fake_compress=8 * uploads):
+        if run.counts != only(masked_sgd_update=steps, fake_compress=8 * uploads):
             raise AssertionError(f"the {engine} compressed run did not go through its kernels: {run.counts}")
         launches["masked_sgd_update" + ("_stacked" if engine == "vectorized" else "")] += run.counts["masked_sgd_update"]
         launches["fake_compress"] += run.counts["fake_compress"]

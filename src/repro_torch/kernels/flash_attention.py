@@ -1,9 +1,11 @@
-"""Launcher of the hand-written CUDA flash-attention kernel (B8).
+"""Launcher of the hand-written CUDA flash-attention kernels (B8).
 
 Ports the TPU kernel ``repro/kernels/flash_attention.py::flash_attention_bhsd``;
-the CUDA source, with its bound and design, is ``csrc/flash_attention.cu``.
-The kernel reads q, k and v in their (B, S, H, D) / (B, S, KVH, D) layouts,
-GQA and a ragged S included, so nothing is repeated, transposed or padded.
+the CUDA source, with its bound and design, is ``csrc/flash_attention.cu``:
+bf16 runs on the tensor cores (``mma.sync`` with cp.async-fed K/V tiles),
+f32 on the CUDA cores. The kernels read q, k and v in their (B, S, H, D) /
+(B, S, KVH, D) layouts, GQA and a ragged S included, so nothing is
+repeated, transposed or padded.
 The launcher checks the tensors, allocates nothing, launches on PyTorch's
 current stream and raises if the launch is refused. The library is built and
 loaded at the first launch (``kernels/build.py``), never at import.
@@ -51,7 +53,8 @@ def flash_attention_launch(out, q, k, v, *, causal: bool, window) -> None:
     head h reading KV head ``h // (H // KVH)``, masked ``k ≤ q`` when
     ``causal`` and ``k > q - window`` with a ``window`` (None for none, else
     at least 1). All four tensors contiguous on one CUDA device, of one
-    dtype (f32 or bf16); ``out`` q's shape, aliasing none of them."""
+    dtype (f32 or bf16, and then starting on 16-byte boundaries); ``out``
+    q's shape, aliasing none of them."""
     if not q.is_cuda or q.dtype not in DTYPE_CODES:
         raise ValueError("q must be a float32/bfloat16 CUDA tensor")
     check_shape(q.shape, k.shape)
@@ -62,6 +65,8 @@ def flash_attention_launch(out, q, k, v, *, causal: bool, window) -> None:
             raise TypeError(f"{name} has dtype {t.dtype}, expected {q.dtype}")
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be at least 1")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (out, q, k, v)):
+        raise ValueError("bf16 tensors must start on a 16-byte boundary")
     if out.data_ptr() in (q.data_ptr(), k.data_ptr(), v.data_ptr()):
         raise ValueError("out must not alias an input")
     B, S, H, D = q.shape

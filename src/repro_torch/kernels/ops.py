@@ -5,17 +5,18 @@ Each wrapper dispatches on its tensors' device alone: a CUDA tensor goes to
 the hand-written kernel (which raises if it cannot launch), a CPU tensor to
 the plain version in :mod:`repro_torch.kernels.ref`. Each wrapper carries a
 ``launches`` count, raised by one for every kernel launch and by nothing
-else. The tree wrappers (the optimizer updates, fake compression and the
-Fisher update) walk a tree leaf by leaf; the LoRA products take arrays with
-any leading dimensions. The Fisher update, the LoRA products, flash attention and the SSD intra-chunk
-scan keep the JAX package's names, signatures, argument order, layouts and
-output dtypes. The kernels mask their own ragged edges, so nothing is padded
+else. Masked SGD launches once for a whole tree (up to 32 leaves); the
+other tree wrappers (AdamW, fake compression and the Fisher update) launch
+leaf by leaf; the LoRA products take arrays with any leading dimensions.
+The Fisher update, the LoRA products, flash attention and the SSD
+intra-chunk scan keep the JAX package's names, signatures, argument order,
+layouts and output dtypes. The kernels mask their own ragged edges, so nothing is padded
 to tiles.
 
 The wrappers are functional: new tensors come back and the inputs are left
 as they were, on both devices. Each takes stacked clients (the vectorized
 engine's state, k clients on every leaf's leading axis) as well as single
-trees, and then launches once per leaf for all k clients.
+trees, with one launch covering all k clients.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from repro_torch.kernels import masked_update as _mu
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparse_lora as _sl
 from repro_torch.kernels import ssd_chunk as _sc
-from repro_torch.utils.tree import tree_leaves, tree_map, tree_unzip
+from repro_torch.utils.tree import tree_leaves, tree_leaves_like, tree_map, tree_unflatten, tree_unzip
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -85,35 +86,72 @@ def _masks(mask, params):
     return mask if mask is not None else tree_map(lambda _: None, params)
 
 
+def sgd_scalars(lr, active, device):
+    """B2's scalars: ``(lr, active, None)`` as Python numbers when both are
+    numbers (``active`` None counts as 1), so that they travel by value and
+    the call makes no device work for them; else ``(0, 0, table)`` with the
+    contiguous f32 (k, 4) device table of rows ``[lr, active, 0, 0]``, k
+    the length of a (k,) ``active`` (1 otherwise), built once per call. The
+    kernel reads a row's active as ``!= 0``, so a float active goes in as it
+    is."""
+    if not isinstance(lr, torch.Tensor):
+        if not isinstance(active, torch.Tensor):
+            return float(lr), 1.0 if active is None else float(active != 0), None
+        act = active if active.dim() == 1 else active.reshape(1)
+        if act.dtype != torch.float32:
+            act = (act != 0).to(torch.float32)
+        zero = torch.zeros_like(act)
+        return 0.0, 0.0, torch.stack((torch.full_like(act, float(lr)), act, zero, zero), dim=1)
+    zero = as_f32(0.0, device)
+    return 0.0, 0.0, _scal_table(as_f32(lr, device), _active_f32(active, device), zero, zero)
+
+
 def masked_sgd_update(grads, state, params, lr, mask=None, active=None, *, momentum: float = 0.0):
-    """Masked SGD(+momentum) over a tree, one kernel launch per CUDA leaf.
+    """Masked SGD(+momentum) over a tree: on the card one kernel launch for
+    the whole tree (up to 32 leaves; a larger tree takes one launch per 32).
 
     Same signature and frozen-moment semantics as
     :func:`repro_torch.optim.optimizers.sgd_update`: entries with
     ``mask == 0``, and every entry when ``active == 0``, keep parameter AND
     momentum bit for bit. An ``active`` of shape (k,) means every leaf
-    stacks k clients on its leading axis, each with its own predicate.
+    stacks k clients on its leading axis, each with its own predicate. The
+    mask tree may hold None leaves (dense leaves beside masked ones). On
+    the card the new leaves are views into one buffer per dtype.
     """
-    device = tree_leaves(params)[0].device
-    lr_t = as_f32(lr, device)
-    zero = as_f32(0.0, device)
-    scal = _scal_table(lr_t, _active_f32(active, device), zero, zero)
+    ps = tree_leaves(params)
+    cuda = [p for p in ps if _on_cuda(p)]
+    if not cuda:
+        lr_t = as_f32(lr, ps[0].device)
 
-    def one(p, g, mu, mk):
-        if _on_cuda(p):
-            p_out = torch.empty_like(p)
-            mu_out = torch.empty_like(mu) if momentum else None
-            _mu.sgd_launch(p_out, p, g, mu_out, mu if momentum else None, mk, scal,
-                           momentum=momentum)
-            masked_sgd_update.launches += 1
-            return p_out, mu_out
-        return _ref.masked_sgd_update_ref(p, g, mu if momentum else None, mk, lr_t,
-                                          momentum=momentum, active=per_client(active, p))
+        def one(p, g, mu, mk):
+            return _ref.masked_sgd_update_ref(p, g, mu if momentum else None, mk, lr_t,
+                                              momentum=momentum, active=per_client(active, p))
 
-    mus = state["mu"] if momentum else tree_map(lambda _: None, params)
-    new_params, new_mu = tree_unzip(tree_map(one, params, grads, mus, _masks(mask, params)), 2)
+        mus = state["mu"] if momentum else tree_map(lambda _: None, params)
+        new_params, new_mu = tree_unzip(tree_map(one, params, grads, mus, _masks(mask, params)), 2)
+        return (new_params, {"mu": new_mu}) if momentum else (new_params, state)
+
+    # a tree with any leaf on the card goes to the kernel, which refuses a
+    # leaf elsewhere; the other trees are read at params' leaf positions
+    # (a key of params missing from one raises KeyError, as tree_map does)
+    none = [None] * len(ps)
+    gs = tree_leaves_like(params, grads)
+    mks = none if mask is None else tree_leaves_like(params, mask)
+    mus = tree_leaves_like(params, state["mu"]) if momentum else none
+    device = cuda[0].device
+    lr_v, active_v, scal = sgd_scalars(lr, active, device)
+    clients = 1 if scal is None else scal.shape[0]
+    sig = tuple((p.shape, p.dtype) for p in ps)
+    lay = _mu.layout(sig)
+    p_out = _mu.views(lay, device)
+    mu_out = _mu.views(_mu.layout(tuple((s, torch.float32) for s, _ in sig)), device) if momentum else none
+    for launch in _mu.plan_sgd(lay.sizes):
+        _mu.sgd_tree_launch(launch, p_out, ps, gs, mu_out, mus, mks, clients=clients, scal=scal,
+                            lr=lr_v, active=active_v, momentum=momentum)
+        masked_sgd_update.launches += 1
+    new_params = tree_unflatten(params, p_out)
     if momentum:
-        return new_params, {"mu": new_mu}
+        return new_params, {"mu": tree_unflatten(params, mu_out)}
     return new_params, state
 
 
@@ -315,12 +353,22 @@ def sparse_lora_apply_packed(x, a, b, mask, scale: float = 1.0):
     return y
 
 
+def _fa_input(t):
+    # contiguous, and a bf16 view off a 16-byte boundary copied to fresh
+    # (aligned) storage: the tensor-core kernel's cp.async reads 16 bytes
+    t = t.contiguous()
+    return t.clone() if t.dtype == torch.bfloat16 and t.data_ptr() % 16 else t
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """GQA flash attention. q (B, S, H, D); k/v (B, S, KVH, D). Returns
     q-shaped, in q's dtype; query head h reads KV head ``h // (H // KVH)``.
 
     On the card one kernel launch reads the three tensors in place, for any
     S (a ragged last tile is masked in the kernel); D must be 64 or 128.
+    bf16 inputs run on the tensor cores (a bf16 view off a 16-byte boundary
+    is first copied), f32 on the CUDA cores; both keep the scores and p in
+    f32.
     Mixed dtypes, or a dtype other than f32/bf16, run in f32 and the output
     is cast to q's dtype, as the plain version does. On the CPU the heads are
     folded as the JAX wrapper folds them and the plain version runs.
@@ -333,8 +381,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
             q32, k32, v32 = (t.to(torch.float32) for t in (q, k, v))
             return flash_attention(q32, k32, v32, causal=causal, window=window).to(q.dtype)
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        _fa.flash_attention_launch(out, q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal=causal, window=window)
+        _fa.flash_attention_launch(out, *(_fa_input(t) for t in (q, k, v)), causal=causal, window=window)
         flash_attention.launches += 1
         return out
     return _ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window)

@@ -12,9 +12,18 @@ from typing import Any, Callable, Iterator, List, Mapping, Tuple
 import torch
 
 
+def _is_node(x: Any) -> bool:
+    # dicts and tensors first: an ABC check against Mapping costs ~10x more
+    if isinstance(x, dict):
+        return True
+    if x is None or isinstance(x, torch.Tensor):
+        return False
+    return isinstance(x, Mapping)
+
+
 def tree_items(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     """``('a/b/c', leaf)`` pairs in sorted-key order."""
-    if isinstance(tree, Mapping):
+    if _is_node(tree):
         for k in sorted(tree):
             yield from tree_items(tree[k], f"{prefix}/{k}" if prefix else str(k))
     else:
@@ -22,24 +31,66 @@ def tree_items(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 
 
 def tree_leaves(tree: Any) -> List[Any]:
-    return [leaf for _, leaf in tree_items(tree)]
+    """The leaves in sorted-key order (no key paths built)."""
+    out: List[Any] = []
+    _collect(tree, out)
+    return out
+
+
+def _collect(tree: Any, out: List[Any]) -> None:
+    if _is_node(tree):
+        for k in sorted(tree):
+            _collect(tree[k], out)
+    else:
+        out.append(tree)
+
+
+def tree_leaves_like(like: Any, tree: Any) -> List[Any]:
+    """The values of ``tree`` at ``like``'s leaf positions, in leaf order:
+    a key of ``like`` missing from ``tree`` raises KeyError, as
+    :func:`tree_map` over the two does."""
+    out: List[Any] = []
+    _collect_like(like, tree, out)
+    return out
+
+
+def _collect_like(like: Any, tree: Any, out: List[Any]) -> None:
+    if _is_node(like):
+        for k in sorted(like):
+            _collect_like(like[k], tree[k], out)
+    else:
+        out.append(tree)
 
 
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     """Map ``fn`` over the leaves of ``tree`` and same-structured ``rest``."""
-    if isinstance(tree, Mapping):
+    if _is_node(tree):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     return fn(tree, *rest)
 
 
 def tree_map_with_path_str(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") -> Any:
     """tree_map where ``fn`` receives a '/'-joined key path string."""
-    if isinstance(tree, Mapping):
+    if _is_node(tree):
         return {
             k: tree_map_with_path_str(fn, tree[k], f"{prefix}/{k}" if prefix else str(k))
             for k in sorted(tree)
         }
     return fn(prefix, tree)
+
+
+def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
+    """A tree of ``like``'s structure holding ``leaves`` in leaf order (the
+    inverse of :func:`tree_leaves`)."""
+    return _build(like, iter(leaves))
+
+
+def _build(node: Any, it: Iterator[Any]) -> Any:
+    # a module-level recursion: a self-referencing closure would form a
+    # reference cycle that keeps the leaves alive until the garbage collector runs
+    if _is_node(node):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def tree_unzip(tree: Any, n: int) -> Tuple[Any, ...]:

@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention, ops, ref  # noqa: E402
 
 SHAPES = [(24, 896, 8), (24, 8, 128), (1000, 3)]  # LoRA a, b of wk/wv; a ragged size
 
@@ -124,6 +124,116 @@ def test_sgd_kernel_stacked_rows_match_plain(cuda, momentum):
     assert torch.equal(new_p["w"], want_p)
     if momentum:
         assert torch.equal(st["mu"]["w"], want_mu)
+
+
+# --- B2 over whole trees: one launch per tree of up to 32 leaves ---
+
+LORA_LEAVES = {"wq": ((24, 896, 8), (24, 8, 896)), "wk": ((24, 896, 8), (24, 8, 128)),
+               "wv": ((24, 896, 8), (24, 8, 128)), "wo": ((24, 896, 8), (24, 8, 896))}  # qwen2-0.5b
+
+
+def _lr(kind, lr=0.05):
+    return lr if kind == "float" else torch.tensor(lr, dtype=torch.float32, device="cuda")
+
+
+def _assert_sgd_tree(new_p, new_st, params, grads, mus, masks, lr, active, momentum):
+    """Leaf by leaf, bit for bit against the plain version."""
+    lr_t = lr if isinstance(lr, torch.Tensor) else ops.as_f32(lr, "cuda")
+    torch.cuda.synchronize()
+    for key in params:
+        p, g = params[key], grads[key]
+        mk = None if masks is None else masks[key]
+        want_p, want_mu = ref.masked_sgd_update_ref(p, g, mus[key] if momentum else None, mk, lr_t,
+                                                    momentum=momentum, active=ops.per_client(active, p))
+        assert new_p[key].dtype == p.dtype and new_p[key].shape == p.shape
+        assert torch.equal(new_p[key], want_p), key
+        if momentum:
+            assert torch.equal(new_st["mu"][key], want_mu), key
+
+
+def _sgd_tree_case(gen, shapes, dtypes, masked, momentum):
+    params = {k: torch.randn(s, generator=gen, device="cuda").to(dtypes[k]) for k, s in shapes.items()}
+    grads = {k: torch.randn(s, generator=gen, device="cuda").to(dtypes[k]) for k, s in shapes.items()}
+    mus = {k: torch.randn(s, generator=gen, device="cuda") for k, s in shapes.items()}
+    masks = {k: (torch.rand(s, generator=gen, device="cuda") < 0.5).float() if masked[k] else None
+             for k, s in shapes.items()}
+    return params, grads, mus, masks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("lr_kind", ["float", "tensor"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_sgd_tree_lora_one_launch_matches_plain(cuda, stacked, momentum, lr_kind, masked):
+    """qwen2-0.5b's 8-leaf LoRA tree, one client or 4 stacked with a (k,)
+    active that holds zeros: one launch, every leaf bit for bit."""
+    lead = (K,) if stacked else ()
+    shapes = {f"{t}_{ab}": lead + s for t, (sa, sb) in LORA_LEAVES.items() for ab, s in (("a", sa), ("b", sb))}
+    params, grads, mus, masks = _sgd_tree_case(cuda, shapes, dict.fromkeys(shapes, torch.float32),
+                                               dict.fromkeys(shapes, masked), momentum)
+    active = torch.tensor([1.0, 0.0, 1.0, 0.0], device="cuda") if stacked else None
+    lr = _lr(lr_kind)
+    before = ops.masked_sgd_update.launches
+    new_p, st = ops.masked_sgd_update(grads, {"mu": mus} if momentum else {}, params, lr,
+                                      masks if masked else None, active, momentum=momentum)
+    assert ops.masked_sgd_update.launches == before + 1
+    _assert_sgd_tree(new_p, st, params, grads, mus, masks if masked else None, lr, active, momentum)
+    if stacked:
+        assert torch.equal(new_p["wq_a"][1], params["wq_a"][1])  # an inactive client keeps its bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("lr_kind", ["float", "tensor"])
+@pytest.mark.parametrize("active", [None, 0.0, 1.0])
+def test_sgd_tree_ragged_mixed_leaves_match_plain(cuda, momentum, lr_kind, active):
+    """Leaves of 1, 3, 1000 and 4097 elements, f32 and bf16, masked and
+    dense, and views one element into a larger buffer (unaligned: the
+    kernel's element-by-element path) in one tree and one launch."""
+    shapes = {"a": (1,), "b": (3,), "c": (1000,), "d": (4097,), "e": (8, 17), "f": (4097,)}
+    dtypes = {"a": torch.float32, "b": torch.bfloat16, "c": torch.float32, "d": torch.bfloat16,
+              "e": torch.bfloat16, "f": torch.float32}
+    masked = {"a": True, "b": False, "c": True, "d": True, "e": False, "f": True}
+    params, grads, mus, masks = _sgd_tree_case(cuda, shapes, dtypes, masked, momentum)
+    # unaligned views: p, g, mu and the mask of leaf "f" start one element into their buffers
+    for tree in (params, grads, mus, masks):
+        base = torch.randn(4098, generator=cuda, device="cuda")
+        tree["f"] = ((base > 0).float() if tree is masks else base)[1:]
+        assert tree["f"].data_ptr() % 16 != 0
+    lr = _lr(lr_kind)
+    before = ops.masked_sgd_update.launches
+    new_p, st = ops.masked_sgd_update(grads, {"mu": mus} if momentum else {}, params, lr, masks, active,
+                                      momentum=momentum)
+    assert ops.masked_sgd_update.launches == before + 1
+    _assert_sgd_tree(new_p, st, params, grads, mus, masks, lr, active, momentum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cpu_leaf", ["a", "b"])
+def test_sgd_tree_with_a_cpu_leaf_is_refused(cuda, cpu_leaf):
+    """A tree with any leaf on the card goes to the kernel, which refuses a
+    leaf elsewhere, whichever comes first in leaf order: no leaf takes the
+    plain version."""
+    params = {"a": torch.randn(64, generator=cuda, device="cuda"), "b": torch.randn(64, generator=cuda, device="cuda")}
+    params[cpu_leaf] = params[cpu_leaf].cpu()
+    grads = {k: torch.ones_like(p) for k, p in params.items()}
+    before = ops.masked_sgd_update.launches
+    with pytest.raises(ValueError, match="must lie on"):
+        ops.masked_sgd_update(grads, {}, params, 0.1)
+    assert ops.masked_sgd_update.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_leaves", [32, 33, 70])
+def test_sgd_tree_beyond_the_table_splits_into_launches(cuda, n_leaves):
+    shapes = {f"w{i:03d}": (5 + i,) for i in range(n_leaves)}
+    params, grads, mus, masks = _sgd_tree_case(cuda, shapes, dict.fromkeys(shapes, torch.float32),
+                                               {k: i % 2 == 0 for i, k in enumerate(shapes)}, 0.9)
+    before = ops.masked_sgd_update.launches
+    new_p, st = ops.masked_sgd_update(grads, {"mu": mus}, params, 0.05, masks, momentum=0.9)
+    assert ops.masked_sgd_update.launches == before + -(-n_leaves // 32)
+    _assert_sgd_tree(new_p, st, params, grads, mus, masks, 0.05, None, 0.9)
 
 
 # --- B3: fake compression ---
@@ -353,6 +463,59 @@ def test_flash_attention_mixed_dtypes_and_refusals(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention(torch.zeros(1, 8, 2, 32, device="cuda"), torch.zeros(1, 8, 2, 32, device="cuda"),
                             torch.zeros(1, 8, 2, 32, device="cuda"))
+
+
+# the bf16 tensor-core kernel: every case above, ragged S off the tile grid
+# (17, 129), H 14 over one KV head, a non-causal window with B 2, D 128 at S 1000
+FLASH_TC_CASES = FLASH_CASES + [
+    (2, 17, 4, 2, 64, True, None),
+    (1, 129, 4, 2, 128, True, 100),
+    (1, 300, 14, 1, 64, True, None),
+    (2, 300, 4, 2, 64, False, 100),
+    (1, 1000, 4, 2, 128, True, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D,causal,window", FLASH_TC_CASES)
+def test_flash_attention_tensor_core_kernel_matches_plain(cuda, B, S, H, KVH, D, causal, window):
+    q = torch.randn(B, S, H, D, generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn(B, S, KVH, D, generator=cuda, device="cuda").bfloat16() for _ in range(2))
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert_attention_close(out, ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D,causal,window", [FLASH_TC_CASES[i] for i in (0, 1, 2, 6, 11, 13)])
+def test_flash_attention_kernels_agree(cuda, B, S, H, KVH, D, causal, window):
+    """The same bf16 inputs through the tensor-core kernel and, cast to
+    f32, through the CUDA-core kernel agree within the attention tolerance."""
+    q = torch.randn(B, S, H, D, generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn(B, S, KVH, D, generator=cuda, device="cuda").bfloat16() for _ in range(2))
+    tc = ops.flash_attention(q, k, v, causal=causal, window=window)
+    cc = ops.flash_attention(q.float(), k.float(), v.float(), causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert cc.dtype == torch.float32
+    assert_attention_close(tc, cc.bfloat16(), v)
+
+
+@pytest.mark.cuda
+def test_flash_attention_unaligned_bf16_matches_plain(cuda):
+    """bf16 at an address off 16 bytes: the wrapper copies it to aligned
+    storage for the tensor-core kernel, whose launcher refuses the view."""
+    B, S, H, KVH, D = 1, 130, 4, 2, 64
+    q = torch.randn(B * S * H * D + 1, generator=cuda, device="cuda").bfloat16()[1:].view(B, S, H, D)
+    k, v = (torch.randn(B * S * KVH * D + 1, generator=cuda, device="cuda").bfloat16()[1:].view(B, S, KVH, D)
+            for _ in range(2))
+    assert q.data_ptr() % 16 != 0
+    out = ops.flash_attention(q, k, v, causal=True, window=50)
+    torch.cuda.synchronize()
+    assert_attention_close(out, ref.flash_attention_gqa_ref(q, k, v, causal=True, window=50), v)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention.flash_attention_launch(torch.empty_like(q), q, k, v, causal=True, window=50)
 
 
 # --- B9: the SSD intra-chunk scan ---

@@ -108,6 +108,57 @@ def test_flash_attention_not_causal_matches_jax(window):
     _check_flash(11, 2, 256, 4, 2, 64, causal=False, window=window)
 
 
+def _tensor_core_emulation(q, k, v, *, causal, window, tile=64):
+    """The arithmetic of the card's bf16 flash-attention kernel, in torch:
+    scores as sums in f32 of exact bf16 products, scaled into log2 units,
+    the online softmax over 64-key tiles with p = 2^(s - m), each f32 p
+    split into hi = bf16(p) and lo = bf16(p - hi) with hi·v + lo·v summed
+    in f32, and l the sum of the f32 p's."""
+    B, S, H, D = q.shape
+    qf, kf, vf = (t.to(torch.float32).repeat_interleave(H // t.shape[2], dim=2).transpose(1, 2)
+                  for t in (q, k, v))
+    scale = float(np.float32(np.float32(1.0) / np.sqrt(np.float32(D))) * np.float32(1.4426950408889634))
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, D))
+    pos = torch.arange(S)
+    for k0 in range(0, S, tile):
+        s = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * scale
+        kp, qp = pos[None, k0:k0 + tile], pos[:, None]
+        ok = torch.ones_like(kp <= qp)
+        if causal:
+            ok = ok & (kp <= qp)
+        if window is not None:
+            ok = ok & (kp > qp - window)
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).to(torch.float32)
+        lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+        vt = vf[:, :, k0:k0 + tile]
+        acc = acc * alpha + hi @ vt + lo @ vt
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("S,H,KVH,D,causal,window", [
+    (128, 4, 4, 64, True, None), (128, 4, 4, 64, True, 128), (256, 4, 2, 64, True, None),
+    (256, 4, 2, 64, True, 128), (256, 8, 1, 128, True, None), (256, 8, 1, 128, True, 128),
+    (100, 4, 2, 64, True, None), (200, 4, 2, 64, True, 64), (256, 4, 2, 64, False, None),
+    (256, 4, 2, 64, False, 64),
+])
+def test_flash_tensor_core_arithmetic_matches_jax(S, H, KVH, D, causal, window):
+    """The hi/lo split of p keeps the bf16 kernel within the unchanged bf16
+    tolerance of the JAX package's flash attention (Pallas interpret mode;
+    its dense oracle at a ragged S), before any card runs it."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(S + 13 * H + D, 2, S, H, KVH, D, "bfloat16")
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window)
+    got = _tensor_core_emulation(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    _assert_close(got, want, float(np.max(np.abs(_np(tv)))), bf16=True)
+
+
 def test_flash_matches_model_blockwise():
     (_, q), (_, k), (_, v) = _qkv(3, 2, 256, 4, 2, 64)
     got = tops.flash_attention(q, k, v, causal=True)

@@ -23,6 +23,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 
+from repro_torch.kernels import masked_update
 from repro_torch.kernels import ops as tops
 from repro_torch.optim import adamw_init, make_optimizer
 from repro_torch.utils.tree import tree_leaves
@@ -187,17 +188,195 @@ def test_kernel_launchers_refuse_what_the_kernel_does_not_take():
 
     x = torch.zeros(4, 6)
     scal = torch.zeros(1, 4)
+    launch = masked_update.plan_sgd((x.numel(),))[0]
+    sgd = dict(lr=0.1, active=1.0, momentum=0.0)
     with pytest.raises(ValueError, match="must lie on"):
         masked_update.adamw_launch(x, x, x, x, x, x, x, None, scal, b1=0.9, b2=0.999, eps=1e-8, wd=0.0)
     with pytest.raises(ValueError, match="must lie on"):
-        masked_update.sgd_launch(x, x, x, None, None, None, scal, momentum=0.0)
+        masked_update.sgd_tree_launch(launch, [x], [x], [x], [None], [None], [None], clients=1, scal=None, **sgd)
     with pytest.raises(ValueError, match="scal"):
-        masked_update.sgd_launch(x, x, x, None, None, None, torch.zeros(3), momentum=0.0)
-    # a (k, 4) table needs a leaf that stacks k clients on its leading axis
+        masked_update.sgd_tree_launch(launch, [x], [x], [x], [None], [None], [None], clients=1,
+                                      scal=torch.zeros(3), **sgd)
+    # a (k, 4) table needs leaves that stack k clients on their leading axis
     with pytest.raises(ValueError, match="stack"):
-        masked_update.sgd_launch(x, x, x, None, None, None, torch.zeros(3, 4), momentum=0.0)
+        masked_update.sgd_tree_launch(launch, [x], [x], [x], [None], [None], [None], clients=3,
+                                      scal=torch.zeros(3, 4), **sgd)
     with pytest.raises(ValueError, match="CUDA"):
         compress.fake_compress_launch(x, x.clone(), x.clone(), torch.zeros(4, 2), qmax=127,
                                       use_thresh=False, per_leaf_scale=False)
     assert masked_update.library.cache_info().currsize == 0  # nothing was built
     assert compress.library.cache_info().currsize == 0
+
+
+# --- B2 on the card: one launch per tree. Its planner, scalars and outputs
+# are plain Python, checked here; the kernel itself on the card. ---
+
+LORA_SIZES = [24 * 896 * 8, 24 * 8 * 128, 24 * 896 * 8, 24 * 8 * 896] * 2  # qwen2-0.5b's 8 leaves
+PLAN_SIZES = [LORA_SIZES, [4 * n for n in LORA_SIZES], [1, 3, 1000, 4097], [4096, 4096, 1],
+              [0, 5, 0, 8192 * 3 + 1], [7] * 40]
+
+
+def _chunk_of_block(launch, sizes, b):
+    """The kernel's map: block b -> (leaf, first element, end element) of
+    the chunk it updates, leaf l owning the blocks from block0[l] on."""
+    j = 0
+    while j + 1 < len(launch.leaves) and launch.block0[j + 1] <= b:
+        j += 1
+    leaf = launch.leaves[j]
+    start = (b - launch.block0[j]) * masked_update.SGD_CHUNK
+    return leaf, start, min(sizes[leaf], start + masked_update.SGD_CHUNK)
+
+
+@pytest.mark.parametrize("sizes", PLAN_SIZES, ids=["lora", "lora_stacked", "ragged", "chunks", "empty", "many"])
+@pytest.mark.parametrize("capacity", [masked_update.SGD_MAX_LEAVES, 3, 1])
+def test_sgd_plan_covers_every_element_once_in_order(sizes, capacity):
+    """Block b of a launch updates chunk b - block0[l] of its leaf l (the
+    kernel's map): every element of every non-empty leaf exactly once,
+    chunk after chunk, the leaves in tree order."""
+    plans = masked_update.plan_sgd(tuple(sizes), capacity)
+    covered = {i: [] for i in range(len(sizes))}
+    for launch in plans:
+        assert 1 <= len(launch.leaves) <= capacity
+        for b in range(launch.grid):
+            leaf, start, end = _chunk_of_block(launch, sizes, b)
+            assert start < end <= start + masked_update.SGD_CHUNK
+            covered[leaf].append((start, end))
+    for i, n in enumerate(sizes):
+        done = 0
+        for start, end in covered[i]:
+            assert start == done
+            done = end
+        assert done == n
+    assert [i for launch in plans for i in launch.leaves] == [i for i, n in enumerate(sizes) if n > 0]
+
+
+@pytest.mark.parametrize("n_leaves,launches", [(1, 1), (8, 1), (32, 1), (33, 2), (64, 2), (70, 3)])
+def test_sgd_plan_splits_beyond_the_table(n_leaves, launches):
+    plans = masked_update.plan_sgd((100,) * n_leaves)
+    assert masked_update.SGD_MAX_LEAVES == 32
+    assert len(plans) == launches
+    assert sum(len(p.leaves) for p in plans) == n_leaves
+
+
+@pytest.mark.parametrize("lr,active,by_value", [
+    (0.05, None, True), (0.05, 0.0, True), (0.05, 2, True), (np.float32(0.05), np.float32(1.0), True),
+    (torch.tensor(0.05), None, False), (0.05, torch.tensor([1.0, 0.0, 3.0]), False),
+    (torch.tensor(0.05), torch.tensor(0.0), False), (0.05, torch.tensor([True, False]), False),
+    (0.05, torch.tensor(0.0), False),
+], ids=["float", "inactive", "int_active", "numpy", "tensor_lr", "per_client", "tensor_both", "bool_active",
+        "scalar_active"])
+def test_sgd_scalars_by_value_or_device_table(lr, active, by_value):
+    """Python numbers travel by value (no device work); a tensor lr or
+    active makes the (k, 4) f32 row table [lr, active, 0, 0], whose active
+    column the kernel reads as != 0."""
+    lr_v, active_v, table = tops.sgd_scalars(lr, active, "cpu")
+    if by_value:
+        assert table is None
+        assert lr_v == float(lr) and active_v == (1.0 if active is None else float(active != 0))
+        return
+    k = active.shape[0] if isinstance(active, torch.Tensor) and active.dim() == 1 else 1
+    assert table.shape == (k, 4) and table.dtype == torch.float32 and table.is_contiguous()
+    want_active = np.ones(k) if active is None else (np.asarray(active, np.float32) != 0) * np.ones(k)
+    np.testing.assert_array_equal(table[:, 0].numpy(), np.full(k, np.float32(float(lr))))
+    np.testing.assert_array_equal(table[:, 1].numpy() != 0, want_active != 0)
+    assert not table[:, 2:].any()
+
+
+def test_sgd_outputs_are_views_of_one_buffer_per_dtype():
+    leaves = [torch.zeros(3, 5), torch.zeros(7, dtype=torch.bfloat16), torch.zeros(2, 2), torch.zeros(0),
+              torch.zeros(9, dtype=torch.bfloat16)]
+    sig = tuple((t.shape, t.dtype) for t in leaves)
+    lay = masked_update.layout(sig)
+    assert lay.sizes == (15, 7, 4, 0, 9) and masked_update.layout(sig) is lay  # cached per signature
+    out = masked_update.views(lay, "cpu")
+    for o, t in zip(out, leaves):
+        assert o.shape == t.shape and o.dtype == t.dtype and o.is_contiguous()
+        assert o.data_ptr() % 16 == 0
+    assert out[0].untyped_storage().data_ptr() == out[2].untyped_storage().data_ptr()
+    assert out[1].untyped_storage().data_ptr() == out[4].untyped_storage().data_ptr()
+    for i, o in enumerate(out):  # no two leaves overlap
+        o.fill_(i + 1)
+    for i, o in enumerate(out):
+        assert bool((o == i + 1).all())
+    mus = masked_update.views(masked_update.layout(tuple((s, torch.float32) for s, _ in sig[:3])), "cpu")
+    assert [m.dtype for m in mus] == [torch.float32] * 3
+
+
+def test_unflattened_outputs_are_freed_without_the_garbage_collector():
+    """B2 returns its new leaves through ``tree_unflatten``: the tree holds
+    them in leaf order, and dropping it frees them at once (a reference
+    cycle would keep each step's output buffer until the collector ran,
+    and the card's allocator would take fresh memory every step)."""
+    import gc
+    import weakref
+
+    from repro_torch.utils.tree import tree_unflatten
+
+    like = {"b": {"y": 0, "x": None}, "a": 0}
+    leaves = [torch.zeros(3), torch.ones(2), torch.full((1,), 2.0)]
+    refs = [weakref.ref(t) for t in leaves]
+    gc.disable()
+    try:
+        tree = tree_unflatten(like, leaves)
+        assert tree_leaves(tree) == leaves and tree["b"]["x"] is leaves[1]
+        del tree, leaves
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
+def test_sgd_tree_dispatch_looks_at_every_leaf():
+    """The tree's device is not read off its first leaf: a leaf neither on
+    the CPU nor on the card is refused wherever it stands in leaf order,
+    before any leaf takes the plain version."""
+    for odd in ("a", "b"):
+        params = {"a": torch.zeros(4), "b": torch.zeros(4)}
+        params[odd] = torch.zeros(4, device="meta")
+        grads = {k: torch.ones_like(p) for k, p in params.items()}
+        with pytest.raises(ValueError, match="no kernel or plain version"):
+            tops.masked_sgd_update(grads, {}, params, 0.1)
+
+
+def test_tree_leaves_like_reads_at_the_first_trees_positions():
+    """B2's CUDA path pairs the leaves of grads, mask and momentum with
+    params' by position: they are read at params' keys, so a tree that
+    lacks one of them raises KeyError (as tree_map does) instead of
+    shifting every later leaf onto the wrong parameter."""
+    from repro_torch.utils.tree import tree_leaves_like
+
+    like = {"l": {"b": 0, "a": 0}, "c": 0}
+    assert tree_leaves_like(like, {"c": 3, "l": {"a": 1, "b": 2}}) == [3, 1, 2]
+    assert tree_leaves_like(like, {"c": 3, "l": {"a": 1, "b": 2, "z": 9}}) == [3, 1, 2]
+    assert tree_leaves_like(like, {"c": None, "l": {"a": None, "b": 2}}) == [None, None, 2]
+    with pytest.raises(KeyError):
+        tree_leaves_like(like, {"c": 3, "l": {"a": 1, "z": 2}})
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("active", [None, 0.0, 1.0])
+def test_sgd_tree_with_mixed_masks_matches_pallas(momentum, active):
+    """One tree, as the card's single launch takes it: f32 and bf16 leaves,
+    masked and dense leaves side by side (the mask tree holds None), ragged
+    sizes; leaf by leaf against the Pallas kernels in interpret mode."""
+    rng = np.random.default_rng(int(momentum * 10) + (3 if active is None else int(active)))
+    spec = {"a": ((48, 32), "float32", True), "b": ((300, 140), "bfloat16", False),
+            "c": ((2, 8, 17), "bfloat16", True), "d": ((130,), "float32", False), "e": ((1,), "float32", True)}
+    p, g, mu, mk = ({k: rng.standard_normal(s).astype(np.float32) for k, (s, _, _) in spec.items()}
+                    for _ in range(4))
+    mk = {k: (rng.uniform(size=s) < 0.5).astype(np.float32) if masked else None
+          for k, (s, _, masked) in spec.items()}
+    dt = {k: d for k, (_, d, _) in spec.items()}
+    jout, jst = jops.masked_sgd_update(
+        {k: _j(g[k], dt[k]) for k in spec}, {"mu": {k: _j(mu[k]) for k in spec}} if momentum else {},
+        {k: _j(p[k], dt[k]) for k in spec}, 0.05, {k: None if mk[k] is None else _j(mk[k]) for k in spec},
+        active, momentum=momentum, use_kernel=True)
+    tout, tst = tops.masked_sgd_update(
+        {k: _t(g[k], dt[k]) for k in spec}, {"mu": {k: _t(mu[k]) for k in spec}} if momentum else {},
+        {k: _t(p[k], dt[k]) for k in spec}, 0.05, {k: None if mk[k] is None else _t(mk[k]) for k in spec},
+        active, momentum=momentum)
+    for k in spec:
+        mask = np.ones(spec[k][0], np.float32) if mk[k] is None else mk[k]
+        assert tout[k].dtype == TORCH[dt[k]]
+        _assert_update(tout[k], jout[k], _j(p[k], dt[k]), mask, active, dt[k] == "bfloat16")
+        if momentum:
+            _assert_update(tst["mu"][k], jst["mu"][k], mu[k], mask, active, False)
