@@ -8,14 +8,16 @@ device and exits non-zero without one, or if any phase fails:
 2. build: compile the hand-written CUDA sources from ``src/repro_torch``, one
    ``nvcc`` per source, all started together;
 3. kernels against their plain PyTorch versions, on the card, at every LoRA
-   leaf shape of full qwen2-0.5b: masked AdamW/SGD (B1/B2) per client and
-   stacked over 4 clients with one row of scalars each, B2 over whole LoRA
-   trees (one launch per tree: f32 and mixed bf16 leaves, dense and masked
-   leaves, lr as a number and as a tensor, bit for bit), and fake
-   compression (B3) in every mode, f32 and bf16, with a short last group and
-   stacked; then their times in the main paths' configurations (B2's device
-   time from a CUDA graph over trees larger than the L2; B3's kernel alone
-   and with its wrapper's threshold sort);
+   leaf shape of full qwen2-0.5b, bit for bit: masked AdamW/SGD (B1/B2) per
+   client and stacked over 4 clients with per-client scalars, moments f32
+   and bf16; B1 and B2 over whole LoRA trees (one launch per tree: f32 and
+   mixed bf16 leaves and moments, dense and masked leaves, lr as a number
+   and as a tensor); fake compression (B3) over whole trees (one launch per
+   upload) in every mode, f32 and bf16, one client and stacked, with a GAL
+   (L, 1, 1), a shared and a per-client mask, ties, an all-zero row, a
+   short last group and rows longer than the kernel's shared memory; then
+   their times in the main paths' configurations (device times from CUDA
+   graphs over inputs larger than the L2);
 4. the loop engine at full width: FibecFed (adamw, fused kernels) for 2
    rounds and FedAvg+LoRA (sgd, fused) for 1 round on qwen2-0.5b (24
    layers, d 896, vocab 151936, bf16, seeded torch init);
@@ -101,10 +103,13 @@ KERNELS = {  # name -> what it ports, its source, and its work per element (B1-B
     ),
     "fake_compress": dict(
         replaces="src/repro/kernels/compress.py:56", source=CP_SOURCE,
-        bytes_per_elem=12,  # x read; y, residual written (f32)
-        # top-k, per-leaf scale: multiply, round, two clamps, multiply, abs,
-        # compare, select, subtract
-        flops_per_elem=9,
+        # the whole stacked upload: d, r and the per-client mask read, y and
+        # the residual written (f32); 16 with a broadcast GAL mask
+        bytes_per_elem=20,
+        # d + r, abs, compare to the mask; the select's 3 digit passes (shift,
+        # compare, count); the top-k/int8 round trip (multiply, round, two
+        # clamps, multiply, compare, select, subtract)
+        flops_per_elem=20,
     ),
     # B4-B7: phase 5b computes their bytes and flops for the whole call
     "fisher_diag_update": dict(replaces="src/repro/kernels/fisher_diag.py:26", source=FD_SOURCE),
@@ -274,47 +279,51 @@ def check_frozen_zero(y, frozen, what):
 
 
 def phase_kernels(ops, ref, gen):
-    """Phase 3a: B1/B2 per client against their plain versions."""
-    errs = {"masked_adamw_update": 0.0, "masked_sgd_update": 0.0}
+    """Phase 3a: B1/B2 per client against their plain versions, moments in
+    f32 and in bf16 (each returned in its own dtype), bit for bit; frozen
+    entries keep their bits."""
     lr = 1e-3
+    lr_t = torch.tensor(lr, dtype=torch.float32, device="cuda")
     for shape_name, shape in LEAF_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             p, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(2))
-            m = torch.randn(shape, generator=gen, device="cuda") * 0.1
-            v = torch.rand(shape, generator=gen, device="cuda") * 0.1
+            m32 = torch.randn(shape, generator=gen, device="cuda") * 0.1
+            v32 = torch.rand(shape, generator=gen, device="cuda") * 0.1
             half = (torch.rand(shape, generator=gen, device="cuda") < 0.5).float()
-            for mask in (None, half):
-                for active in (0.0, 1.0):
-                    frozen = torch.zeros(shape, dtype=torch.bool, device="cuda") if mask is None else mask == 0
-                    frozen = frozen | (active == 0.0)
-                    what = f"{shape_name} {dtype} mask={mask is not None} active={active}"
-                    # B1: AdamW
-                    t = torch.tensor(4, dtype=torch.int32, device="cuda")
-                    st = {"m": {"w": m}, "v": {"w": v}, "t": t}
-                    mk = None if mask is None else {"w": mask}
-                    new_p, new_st = ops.masked_adamw_update({"w": g}, st, {"w": p}, lr, mk, active)
-                    _, mhat, vhat = ops.adam_step_scales(t, active, 0.9, 0.999)
-                    lr_t = torch.tensor(lr, dtype=torch.float32, device="cuda")
-                    pp, pm, pv = ref.masked_adamw_update_ref(p, g, m, v, mask, lr_t, mhat, vhat, active=active)
-                    for out, plain, old, n in ((new_p["w"], pp, p, "p"), (new_st["m"]["w"], pm, m, "m"),
-                                               (new_st["v"]["w"], pv, v, "v")):
-                        e = check_update(out, plain, old, frozen, f"adamw {n} {what}")
-                        errs["masked_adamw_update"] = max(errs["masked_adamw_update"], e)
-                    # B2: SGD, with and without momentum: the plain version's
-                    # operations in its order, bit for bit
-                    for momentum in (0.0, 0.9):
-                        st = {"mu": {"w": m}} if momentum else {}
-                        new_p, new_st = ops.masked_sgd_update({"w": g}, st, {"w": p}, lr, mk, active,
-                                                              momentum=momentum)
-                        pp, pmu = ref.masked_sgd_update_ref(p, g, m if momentum else None, mask, lr_t,
-                                                            momentum=momentum, active=active)
-                        check_equal(new_p["w"], pp, f"sgd({momentum}) p {what}")
-                        if momentum:
-                            check_equal(new_st["mu"]["w"], pmu, f"sgd mu {what}")
+            for mdtype in (torch.float32, torch.bfloat16):
+                m, v = m32.to(mdtype), v32.to(mdtype)
+                for mask in (None, half):
+                    for active in (0.0, 1.0):
+                        frozen = torch.zeros(shape, dtype=torch.bool, device="cuda") if mask is None else mask == 0
+                        frozen = frozen | (active == 0.0)
+                        what = f"{shape_name} {dtype} moments {mdtype} mask={mask is not None} active={active}"
+                        # B1: AdamW
+                        t = torch.tensor(4, dtype=torch.int32, device="cuda")
+                        st = {"m": {"w": m}, "v": {"w": v}, "t": t}
+                        mk = None if mask is None else {"w": mask}
+                        new_p, new_st = ops.masked_adamw_update({"w": g}, st, {"w": p}, lr, mk, active)
+                        t2, mhat, vhat = ops.adam_step_scales(t, active, 0.9, 0.999)
+                        if not torch.equal(new_st["t"], t2):
+                            raise AssertionError(f"adamw {what}: step counter {new_st['t']} != {t2}")
+                        want = ref.masked_adamw_update_ref(p, g, m, v, mask, lr_t, mhat, vhat, active=active)
+                        for out, plain, old, n in zip((new_p["w"], new_st["m"]["w"], new_st["v"]["w"]), want,
+                                                      (p, m, v), "pmv"):
+                            check_equal(out, plain, f"adamw {n} {what}")
+                            check_equal(out[frozen], old[frozen], f"adamw frozen {n} {what}")
+                        # B2: SGD, with and without momentum
+                        for momentum in (0.0, 0.9):
+                            st = {"mu": {"w": m}} if momentum else {}
+                            new_p, new_st = ops.masked_sgd_update({"w": g}, st, {"w": p}, lr, mk, active,
+                                                                  momentum=momentum)
+                            pp, pmu = ref.masked_sgd_update_ref(p, g, m if momentum else None, mask, lr_t,
+                                                                momentum=momentum, active=active)
+                            check_equal(new_p["w"], pp, f"sgd({momentum}) p {what}")
+                            if momentum:
+                                check_equal(new_st["mu"]["w"], pmu, f"sgd mu {what}")
     torch.cuda.synchronize()
-    log("B1/B2 vs plain: all leaf shapes, f32/bf16, mask on/off, active 0/1, momentum 0/0.9 agree "
-        "(B2 bit for bit); max abs err", errs)
-    return errs
+    log("B1/B2 vs plain: all leaf shapes, params f32/bf16, moments f32/bf16, mask on/off, active 0/1, "
+        "momentum 0/0.9: bit for bit (B1's bias scales computed in the kernel from t)")
+    return {"masked_adamw_update": 0.0, "masked_sgd_update": 0.0}
 
 
 def phase_stacked_kernels(ops, ref, gen):
@@ -324,14 +333,15 @@ def phase_stacked_kernels(ops, ref, gen):
     t = torch.tensor([0, 3, 7, 1], dtype=torch.int32, device="cuda")
     lr_t = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
     for shape_name, shape in LEAF_SHAPES.items():
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, mdtype in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                              (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)):
             s = (K,) + shape
             p, g = (torch.randn(s, generator=gen, device="cuda").to(dtype) for _ in range(2))
-            m = torch.randn(s, generator=gen, device="cuda") * 0.1
-            v = torch.rand(s, generator=gen, device="cuda") * 0.1
+            m = (torch.randn(s, generator=gen, device="cuda") * 0.1).to(mdtype)
+            v = (torch.rand(s, generator=gen, device="cuda") * 0.1).to(mdtype)
             mask = (torch.rand(s, generator=gen, device="cuda") < 0.5).float()
             rows = lambda x: x.reshape((K,) + (1,) * len(shape))  # noqa: E731
-            what = f"stacked {shape_name} {dtype}"
+            what = f"stacked {shape_name} {dtype} moments {mdtype}"
             new_p, st = ops.masked_adamw_update({"w": g}, {"m": {"w": m}, "v": {"w": v}, "t": t},
                                                 {"w": p}, lr_t, {"w": mask}, active)
             t2, mhat, vhat = ops.adam_step_scales(t, active, 0.9, 0.999)
@@ -350,8 +360,8 @@ def phase_stacked_kernels(ops, ref, gen):
                 if momentum:
                     check_equal(st["mu"]["w"], wmu, f"sgd mu {what}")
     torch.cuda.synchronize()
-    log(f"B1/B2 stacked over {K} clients vs plain: all leaf shapes, f32/bf16, mixed active, "
-        "per-client step counters, momentum 0/0.9: bit for bit")
+    log(f"B1/B2 stacked over {K} clients vs plain: all leaf shapes, params and moments f32/bf16, mixed "
+        "active, per-client step counters, momentum 0/0.9: bit for bit")
     return {"masked_adamw_update_stacked": 0.0, "masked_sgd_update_stacked": 0.0}
 
 
@@ -395,10 +405,57 @@ def phase_sgd_trees(ops, ref, gen, tree_leaves, tree_map):
         "half bf16; dense a, masked b; lr number/tensor; momentum 0/0.9): one launch each, bit for bit")
 
 
+def phase_adamw_trees(ops, ref, gen, tree_leaves, tree_map):
+    """Phase 3b'': B1 over whole trees, as the engines call it: one client's
+    LoRA tree (``a`` dense, ``b`` masked: a mask tree holding None), the same
+    tree with half its leaves and their moments bf16, and K stacked clients'
+    trees with per-client step counters and an ``active`` read in place from
+    a column of a step plan (a strided view that holds zeros); lr as a
+    Python number and as a 0-d tensor. One launch per tree; every leaf, its
+    moments and the step counters bit for bit equal to the plain version."""
+    randn = lambda s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    plan = torch.tensor([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0], [0.0, 0.0]], device="cuda")
+    n_trees = 0
+    for lead, active, t in (((), None, torch.tensor(6, dtype=torch.int32, device="cuda")),
+                            ((K,), plan[:, 0], torch.tensor([0, 3, 7, 1], dtype=torch.int32, device="cuda"))):
+        for mixed in (False, True):
+            params, grads = lora_tree(randn, lead), lora_tree(randn, lead)
+            m, v = lora_tree(lambda s: randn(s) * 0.1, lead), lora_tree(lambda s: randn(s).abs() * 0.1, lead)
+            if mixed:
+                low = lambda tree: {"layers": {n: {"a": ab["a"].bfloat16(), "b": ab["b"]}  # noqa: E731
+                                               for n, ab in tree["layers"].items()}}
+                params, grads, m, v = low(params), low(grads), low(m), low(v)
+            mask = {"layers": {n: {"a": None, "b": (torch.rand(ab["b"].shape, generator=gen, device="cuda") < 0.5)
+                                   .float()} for n, ab in params["layers"].items()}}
+            st = {"m": m, "v": v, "t": t}
+            for lr in (1e-3, torch.tensor(1e-3, device="cuda")):
+                lr_t = lr if isinstance(lr, torch.Tensor) else ops.as_f32(lr, "cuda")
+                before = ops.masked_adamw_update.launches
+                new_p, new_st = ops.masked_adamw_update(grads, st, params, lr, mask, active, wd=0.01)
+                if ops.masked_adamw_update.launches != before + 1:
+                    raise AssertionError("B1 took more than one launch for a LoRA tree")
+                what = f"adamw tree lead={lead} mixed={mixed} lr={type(lr).__name__}"
+                t2, mhat, vhat = ops.adam_step_scales(t, active, 0.9, 0.999)
+                check_equal(new_st["t"], t2, f"{what} t")
+                rows = ops.per_client
+                for leaves in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(m), tree_leaves(v),
+                                  tree_leaves(mask), tree_leaves(new_p), tree_leaves(new_st["m"]),
+                                  tree_leaves(new_st["v"])):
+                    p, g, mm, vv, mk = leaves[:5]
+                    want = ref.masked_adamw_update_ref(p, g, mm, vv, mk, lr_t, rows(mhat, p), rows(vhat, p),
+                                                       wd=0.01, active=rows(active, p))
+                    for out, w, name in zip(leaves[5:], want, "pmv"):
+                        check_equal(out, w, f"{what} {name} {tuple(p.shape)}")
+                n_trees += 1
+    torch.cuda.synchronize()
+    log(f"B1 over whole LoRA trees: {n_trees} trees (one client and {K} stacked with a zero in active; f32 and "
+        "half bf16 with bf16 moments; dense a, masked b; lr number/tensor): one launch each, bit for bit")
+
+
 def plain_fake_compress(ops, ref, tree_map, delta, residual, mask, *, qmax, topk_ratio, use_thresh,
                         stacked=False):
-    """``ops.fake_compress`` step by step with the plain version in place of
-    the kernel (the same threshold and scale rows)."""
+    """``ops.fake_compress`` step by step with the plain version: each leaf's
+    threshold from a sort (``ops.compress_rows``), then the round trip."""
 
     def one(d, r, mk):
         x2, thresh, scale = ops.compress_rows(d, r, mk, qmax=qmax, topk_ratio=topk_ratio,
@@ -411,36 +468,75 @@ def plain_fake_compress(ops, ref, tree_map, delta, residual, mask, *, qmax, topk
     return tree_map(one, delta, none if residual is None else residual, none if mask is None else mask)
 
 
+COMPRESS_MODES = {"int8": (127, 1.0, False), "int4": (7, 1.0, False), "topk/int8": (127, 0.1, True),
+                  "topk/float": (0, 0.1, True)}
+
+
+def compress_case(gen, shapes, dtype, stacked, mask_kind):
+    """Deltas and residuals of ``shapes`` (the first leaf: a few distinct
+    values, so ties sit at every threshold, and, stacked, an all-zero first
+    row) and the count mask: GAL (L, 1, 1), one shared of a client's leaf
+    shape, or per client of the leaf's full shape."""
+    d = {k: (torch.randn(s, generator=gen, device="cuda") * 1e-2).to(dtype) for k, s in shapes.items()}
+    r = {k: (torch.randn(s, generator=gen, device="cuda") * 1e-3).to(dtype) for k, s in shapes.items()}
+    first = next(iter(shapes))
+    d[first] = (torch.round(d[first].float() * 300) / 300).to(dtype)
+    r[first].zero_()
+    if stacked:
+        d[first][0] = 0.0
+    client = (lambda s: s[1:]) if stacked else (lambda s: s)
+    masks = {
+        "gal": lambda s: (torch.rand((client(s)[0], 1, 1), generator=gen, device="cuda") < 0.75).float(),
+        "shared": lambda s: (torch.rand(client(s), generator=gen, device="cuda") < 0.5).float(),
+        "per_client": lambda s: (torch.rand(s, generator=gen, device="cuda") < 0.5).float(),
+    }
+    return d, r, {k: masks[mask_kind](s) for k, s in shapes.items()}
+
+
 def phase_compress_kernel(ops, ref, gen, tree_map):
-    """Phase 3c: B3 against its plain version: every LoRA leaf shape, a
-    shape whose size is not a multiple of the 128-value group, and K
-    stacked clients; f32 and bf16; int8, int4, top-k/int8, top-k/float;
-    with and without a residual."""
-    modes = {"int8": (127, 1.0, False), "int4": (7, 1.0, False),
-             "topk/int8": (127, 0.1, True), "topk/float": (0, 0.1, True)}
-    shapes = ([(s, False) for s in LEAF_SHAPES.values()] + [((K,) + s, True) for s in LEAF_SHAPES.values()]
-              + [((24, 7, 131), False), ((K, 24, 7, 131), True)])
+    """Phase 3c: B3 over whole trees against its plain version: the LoRA
+    leaves plus a leaf whose rows are no multiple of the 128-value group (or
+    of 4 values), one client and K stacked; f32 and bf16; int8, int4,
+    top-k/int8 and top-k/float; with and without a residual; a GAL, a shared
+    and a per-client mask; then rows longer than the kernel's shared memory.
+    One launch per tree, bit for bit."""
     n_checked = 0
-    for shape, stacked in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            d = (torch.randn(shape, generator=gen, device="cuda") * 1e-2).to(dtype)
-            r = (torch.randn(shape, generator=gen, device="cuda") * 1e-3).to(dtype)
-            d.view(-1)[:256] = 0.0  # all-zero groups: a safe scale of zero
-            gal = (torch.rand(shape[1 if stacked else 0], 1, 1, generator=gen, device="cuda") < 0.75).float()
-            per_client = (torch.rand(shape, generator=gen, device="cuda") < 0.5).float()
-            for mode, (qmax, ratio, use_thresh) in modes.items():
-                for res in (None, {"w": r}):
-                    for mk in ((gal, per_client) if stacked else (gal,)):
-                        kw = dict(qmax=qmax, topk_ratio=ratio, use_thresh=use_thresh, stacked=stacked)
-                        y, rr = ops.fake_compress({"w": d}, res, {"w": mk}, **kw)
-                        wy, wr = plain_fake_compress(ops, ref, tree_map, {"w": d}, res, {"w": mk}, **kw)["w"]
-                        what = f"{shape} {dtype} {mode} residual={res is not None} mask={tuple(mk.shape)}"
-                        check_equal(y["w"], wy, f"fake_compress y {what}")
-                        check_equal(rr["w"], wr, f"fake_compress residual {what}")
-                        n_checked += 1
+    both = (torch.float32, torch.bfloat16)
+    cases = []  # (shapes, stacked, mask kind, dtypes, modes)
+    for stacked in (False, True):
+        lead = (K,) if stacked else ()
+        shapes = {f"{t}_{ab}": lead + LEAF_SHAPES[s] for t, (sa, sb) in
+                  {"wq": ("a", "b_q_o"), "wk": ("a", "b_k_v"), "wv": ("a", "b_k_v"), "wo": ("a", "b_q_o")}.items()
+                  for ab, s in (("a", sa), ("b", sb))}
+        shapes["z_ragged"] = lead + (24, 7, 131)
+        for kind in ("gal", "shared", "per_client") if stacked else ("gal", "shared"):
+            cases.append((shapes, stacked, kind, both, list(COMPRESS_MODES)))
+    # top-k rows longer than a cluster's shared memory holds (196,608 f32 or
+    # 393,216 bf16 values), beside a row that fits
+    for dtype, row in ((torch.float32, 200_000), (torch.bfloat16, 400_000)):
+        cases.append(({"a_long": (2, 8, row // 8), "b_fits": (2, 8, 1000)}, True, "per_client", (dtype,),
+                      ["topk/int8", "topk/float"]))
+    for shapes, stacked, kind, dtypes, modes in cases:
+        for dtype in dtypes:
+            d, r, mk = compress_case(gen, shapes, dtype, stacked, kind)
+            for mode in modes:
+                qmax, ratio, use_thresh = COMPRESS_MODES[mode]
+                for res in (None, r):
+                    kw = dict(qmax=qmax, topk_ratio=ratio, use_thresh=use_thresh, stacked=stacked)
+                    before = ops.fake_compress.launches
+                    y, rr = ops.fake_compress(d, res, mk, **kw)
+                    if ops.fake_compress.launches != before + 1:
+                        raise AssertionError("B3 took more than one launch for a tree")
+                    want = plain_fake_compress(ops, ref, tree_map, d, res, mk, **kw)
+                    for key in d:
+                        what = f"{tuple(d[key].shape)} {dtype} {mode} residual={res is not None} mask={kind}"
+                        check_equal(y[key], want[key][0], f"fake_compress y {what}")
+                        check_equal(rr[key], want[key][1], f"fake_compress residual {what}")
+                    n_checked += 1
     torch.cuda.synchronize()
-    log(f"B3 vs plain: {n_checked} cases (leaf shapes, a short last group, {K} stacked clients; "
-        "f32/bf16; int8, int4, top-k int8/float; residual on/off): bit for bit")
+    log(f"B3 vs plain: {n_checked} trees (8 LoRA leaves and a ragged one, one client and {K} stacked; "
+        "f32/bf16; int8, int4, top-k int8/float; residual on/off; GAL, shared and per-client masks; ties, "
+        "an all-zero row; rows beyond the cluster's shared memory): one launch each, bit for bit")
     return {"fake_compress": 0.0}
 
 
@@ -465,27 +561,36 @@ def bound(name, n_elems):
     return bound_of(n_elems * spec["bytes_per_elem"], n_elems * spec["flops_per_elem"])
 
 
-def phase_timing(ops, ref, compress, gen, tree_leaves, tree_map):
+def phase_timing(ops, ref, gen, tree_leaves, tree_map):
     """Kernel, plain-version and library times in the main paths'
     configurations: one optimizer step over the whole LoRA tree per client
     (loop engine) and over K stacked clients (vectorized engine), and one
-    compressed upload of K stacked clients' trees: B3's kernel and plain
-    version alone on the prepared rows, and its wrapper, which also adds
-    the residual and sorts each leaf for the threshold."""
+    compressed upload of K stacked clients' trees and of one client's. ``ms``
+    is the wrapper (host work and launch), ``graph_ms`` the device time from
+    a CUDA graph of calls over inputs that together exceed the 50 MB L2."""
     randn = lambda s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
     lr = 4e-4
     lr_t = torch.tensor(lr, dtype=torch.float32, device="cuda")
     times = {}
+
+    def rotation(bytes_per_call, make):
+        copies = math.ceil(2 * L2_BYTES / bytes_per_call)
+        return copies, [make() for _ in range(copies)]
+
     for lead, suffix in (((), ""), ((K,), "_stacked")):
         params, grads = lora_tree(randn, lead), lora_tree(randn, lead)
         n = sum(x.numel() for x in tree_leaves(params))
-        # B1 as fibecfed runs it: f32, every leaf masked (a: ones, b: neuron mask)
-        mask = tree_map(lambda x: (torch.rand(x.shape, generator=gen, device="cuda") < 0.5).float(), params)
+        # B1 as fibecfed runs it: f32, every leaf masked (a: ones, b: neuron
+        # mask), lr a Python number; stacked, active a column of the step plan
+        neuron = lambda: lora_tree(lambda s: (torch.rand(s, generator=gen, device="cuda") < 0.5).float(), lead)  # noqa: E731
+        mask = neuron()
         for ab in mask["layers"].values():
             ab["a"].fill_(1.0)
         t0 = torch.full(lead, 3, dtype=torch.int32, device="cuda")
-        active = torch.ones(lead, device="cuda") if lead else None
-        st = {"m": tree_map(lambda x: x * 0.01, grads), "v": tree_map(lambda x: x * x * 1e-3, grads), "t": t0}
+        active = torch.ones((K, 2), device="cuda")[:, 0] if lead else None
+        adam_state = lambda g: {"m": tree_map(lambda x: x * 0.01, g), "v": tree_map(lambda x: x * x * 1e-3, g),  # noqa: E731
+                                "t": t0}
+        st = adam_state(grads)
         rows = ops.per_client
 
         def plain_adamw():
@@ -502,21 +607,31 @@ def phase_timing(ops, ref, compress, gen, tree_leaves, tree_map):
                             params, grads, sgd_mask if sgd_mask is not None else tree_map(lambda _: None, params))
 
         p_list, g_list, mk_list = tree_leaves(params), tree_leaves(grads), tree_leaves(mask)
+        # the nearest single call: PyTorch's fused AdamW over the same tree,
+        # unmasked and without per-client steps (not the same function)
+        fused = [[x.clone() for x in tree_leaves(t)] for t in (params, st["m"], st["v"])]
+        steps = [torch.tensor(4.0, device="cuda") for _ in p_list]
+        nearest = lambda: torch._fused_adamw_(fused[0], g_list, fused[1], fused[2], [], steps, lr=lr,  # noqa: E731
+                                              beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                                              amsgrad=False, maximize=False)
+        b1_step = lambda: ops.masked_adamw_update(grads, st, params, lr, mask, active)  # noqa: E731
+        copies, rot = rotation(KERNELS["masked_adamw_update" + suffix]["bytes_per_elem"] * n,
+                               lambda: (lora_tree(randn, lead), lora_tree(randn, lead), neuron()))
+        rot_st = [adam_state(g) for _, g, _ in rot]
         times["masked_adamw_update" + suffix] = dict(
-            ms=cuda_ms(lambda: ops.masked_adamw_update(grads, st, params, lr_t, mask, active)),
-            plain_ms=cuda_ms(plain_adamw),
+            ms=cuda_ms(b1_step), plain_ms=cuda_ms(plain_adamw),
+            graph_ms=graph_ms(lambda i: ops.masked_adamw_update(rot[i % copies][1], rot_st[i % copies],
+                                                                rot[i % copies][0], lr, rot[i % copies][2],
+                                                                active), calls=4 * copies),
             # no single PyTorch call computes a masked AdamW step
-            library_ms=None, **bound("masked_adamw_update" + suffix, n),
+            library_ms=None, nearest_ms=cuda_ms(nearest), **bound("masked_adamw_update" + suffix, n),
         )
-        # the device time of a step: a CUDA graph of steps over a rotation of
-        # trees that together exceed the 50 MB L2
-        copies = math.ceil(2 * L2_BYTES / (KERNELS["masked_sgd_update" + suffix]["bytes_per_elem"] * n))
-        rot = [(lora_tree(randn, lead), lora_tree(randn, lead),
-                lora_tree(lambda s: (torch.rand(s, generator=gen, device="cuda") < 0.5).float(), lead)
-                if lead else None) for _ in range(copies)]
-        # lr a Python number, as both engines pass it (by value, no device
+        del rot, rot_st, fused
+        # B2: lr a Python number, as both engines pass it (by value, no device
         # work); one foreach call computes p - lr·g unmasked, p - lr·g·mask
         # with the stacked path's binary mask (every client active)
+        copies, rot = rotation(KERNELS["masked_sgd_update" + suffix]["bytes_per_elem"] * n,
+                               lambda: (lora_tree(randn, lead), lora_tree(randn, lead), neuron() if lead else None))
         b2_step = lambda: ops.masked_sgd_update(grads, {}, params, lr, sgd_mask, active)  # noqa: E731
         lib_step = ((lambda: torch._foreach_addcmul(p_list, g_list, mk_list, value=-lr)) if lead
                     else (lambda: torch._foreach_add(p_list, g_list, alpha=-lr)))
@@ -532,46 +647,37 @@ def phase_timing(ops, ref, compress, gen, tree_leaves, tree_map):
         entry["paired_ms"], entry["paired_library_ms"] = paired_ms(b2_step, lib_step)
         del rot
         log(f"one optimizer step over {'%d stacked' % lead[0] if lead else 'one'} LoRA tree(s) "
-            f"({n} elements, 8 leaves); B2 graph over {copies} trees")
+            f"({n} elements, 8 leaves)")
 
     # B3 as the vectorized compressed round calls it: K stacked clients'
-    # GAL deltas, their residuals and their per-client count masks
-    delta = lora_tree(lambda s: randn(s) * 1e-3, (K,))
-    res = lora_tree(lambda s: randn(s) * 1e-4, (K,))
-    cmask = tree_map(lambda x: (torch.rand(x.shape, generator=gen, device="cuda") < 0.75).float(), delta)
+    # GAL deltas, their residuals and their per-client count masks; and one
+    # client's upload as the loop engine calls it, with the GAL mask
+    upload = lambda: (lora_tree(lambda s: randn(s) * 1e-3, (K,)), lora_tree(lambda s: randn(s) * 1e-4, (K,)),  # noqa: E731
+                      lora_tree(lambda s: (torch.rand(s, generator=gen, device="cuda") < 0.75).float(), (K,)))
+    delta, res, cmask = upload()
     n = sum(x.numel() for x in tree_leaves(delta))
-    kw = dict(qmax=127, topk_ratio=0.1, use_thresh=True, stacked=True)
-    rows = [ops.compress_rows(d, r, mk, **kw) for d, r, mk in
-            zip(tree_leaves(delta), tree_leaves(res), tree_leaves(cmask))]
-    tables = [torch.stack([thresh, scale], dim=1).contiguous() for _, thresh, scale in rows]
-    outs = [(torch.empty_like(x2), torch.empty_like(x2)) for x2, _, _ in rows]
-
-    def kernel_only():
-        for (x2, _, _), scal, (y, r) in zip(rows, tables, outs):
-            compress.fake_compress_launch(y, r, x2, scal, qmax=127, use_thresh=True, per_leaf_scale=True)
-
-    def plain_only():
-        return [ref.fake_compress_ref(x2, thresh, scale, qmax=127, use_thresh=True, per_leaf_scale=True)
-                for x2, thresh, scale in rows]
-
-    kernel_only()
-    for (y, r), (wy, wr) in zip(outs, plain_only()):
-        check_equal(y, wy, "fake_compress y (timed rows)")
-        check_equal(r, wr, "fake_compress residual (timed rows)")
+    kw = dict(qmax=127, topk_ratio=0.1, use_thresh=True)
+    copies, rot = rotation(KERNELS["fake_compress"]["bytes_per_elem"] * n, upload)
+    one = lambda tree, i=0: tree_map(lambda x: x[i], tree)  # noqa: E731
+    gal = tree_map(lambda x: torch.ones((x.shape[1], 1, 1), device="cuda"), delta)
+    delta1, res1 = one(delta), one(res)
+    n_one = n // K
     times["fake_compress"] = dict(
-        ms=cuda_ms(kernel_only), plain_ms=cuda_ms(plain_only),
-        wrapper_ms=cuda_ms(lambda: ops.fake_compress(delta, res, cmask, **kw)),
-        plain_wrapper_ms=cuda_ms(lambda: plain_fake_compress(ops, ref, tree_map, delta, res, cmask, **kw)),
+        ms=cuda_ms(lambda: ops.fake_compress(delta, res, cmask, stacked=True, **kw)),
+        plain_ms=cuda_ms(lambda: plain_fake_compress(ops, ref, tree_map, delta, res, cmask, stacked=True, **kw)),
+        graph_ms=graph_ms(lambda i: ops.fake_compress(*rot[i % copies], stacked=True, **kw), calls=4 * copies),
+        ms_one_client=cuda_ms(lambda: ops.fake_compress(delta1, res1, gal, **kw)),
+        graph_ms_one_client=graph_ms(lambda i: ops.fake_compress(one(rot[i % copies][0], i % K),
+                                                                 one(rot[i % copies][1], i % K), gal, **kw),
+                                     calls=4 * K * copies),
+        # a GAL (L, 1, 1) mask is 16 B/value: d and r read, y and r written
+        bound_ms_one_client=bound_of(16 * n_one, KERNELS["fake_compress"]["flops_per_elem"] * n_one)["bound_ms"],
         # no single PyTorch call thresholds, fake-quantizes and keeps the
         # residual (torch.fake_quantize_per_tensor_affine does the middle step)
         library_ms=None, **bound("fake_compress", n),
     )
-    one = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in delta["layers"].items()}
-    one_res = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in res["layers"].items()}
-    gal = tree_map(lambda x: torch.ones((x.shape[0], 1, 1), device="cuda"), one)
-    single_ms = cuda_ms(lambda: ops.fake_compress(one, one_res, gal, qmax=127, topk_ratio=0.1, use_thresh=True))
-    log(f"one compressed upload of {K} stacked clients ({n} elements, 8 leaves); "
-        f"of one client as the loop engine calls it: {single_ms:.4f} ms")
+    del rot
+    log(f"one compressed upload of {K} stacked clients ({n} elements, 8 leaves) and of one client")
     log("kernel times:", json.dumps(times))
     return times
 
@@ -1182,8 +1288,9 @@ def main() -> int:
     errs = phase_kernels(ops, ref, gen)
     errs.update(phase_stacked_kernels(ops, ref, gen))
     phase_sgd_trees(ops, ref, gen, tree_leaves, tree_map)
+    phase_adamw_trees(ops, ref, gen, tree_leaves, tree_map)
     errs.update(phase_compress_kernel(ops, ref, gen, tree_map))
-    times = phase_timing(ops, ref, compress, gen, tree_leaves, tree_map)
+    times = phase_timing(ops, ref, gen, tree_leaves, tree_map)
 
     cfg = ARCHS["qwen2-0.5b"]
     model = build_model(cfg)
@@ -1224,8 +1331,8 @@ def main() -> int:
     del fed
     log("launches, loop paths:", {"fibecfed": fib_run.counts, "fedavg_lora": fed_run.counts},
         "steps:", {"fibecfed": fib_steps, "fedavg_lora": fed_steps})
-    if fib_run.counts != only(masked_adamw_update=8 * fib_steps) or fib_steps == 0:
-        raise AssertionError("the loop fibecfed run did not go through the AdamW kernel once per leaf and step")
+    if fib_run.counts != only(masked_adamw_update=fib_steps) or fib_steps == 0:
+        raise AssertionError("the loop fibecfed run did not launch the AdamW kernel once per step")
     if fed_run.counts != only(masked_sgd_update=fed_steps) or fed_steps == 0:
         raise AssertionError("the loop fedavg_lora run did not launch the SGD kernel once per step")
     launches["masked_adamw_update"] += fib_run.counts["masked_adamw_update"]
@@ -1258,8 +1365,8 @@ def main() -> int:
         f"{np.array_equal(fused_decisions[1], vec.gal_layers)}")
     log(f"vectorized fibecfed peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"launches {vec_run.counts} over {vec_steps} padded steps")
-    if vec_run.counts != only(masked_adamw_update=8 * vec_steps):
-        raise AssertionError("the vectorized run did not launch the AdamW kernel once per leaf and step")
+    if vec_run.counts != only(masked_adamw_update=vec_steps) or vec_steps == 0:
+        raise AssertionError("the vectorized run did not launch the AdamW kernel once per step")
     launches["masked_adamw_update_stacked"] += vec_run.counts["masked_adamw_update"]
 
     # --- 5b. the public kernel entry point on the vectorized run's data ---
@@ -1292,7 +1399,7 @@ def main() -> int:
         chosen = r.last_round_info["chosen"]
         steps = int(stats["padded_steps"]) if engine == "vectorized" else int(r.last_round_info["client_steps"].sum())
         uploads = 1 if engine == "vectorized" else len(chosen)
-        if run.counts != only(masked_sgd_update=steps, fake_compress=8 * uploads):
+        if run.counts != only(masked_sgd_update=steps, fake_compress=uploads):
             raise AssertionError(f"the {engine} compressed run did not go through its kernels: {run.counts}")
         launches["masked_sgd_update" + ("_stacked" if engine == "vectorized" else "")] += run.counts["masked_sgd_update"]
         launches["fake_compress"] += run.counts["fake_compress"]

@@ -18,8 +18,8 @@ leading client axis; client data lives on one padded ``(C, NB, B, ...)``
 grid (:func:`repro_torch.data.pipeline.stack_clients`) with validity masks,
 so padded samples and padded steps are exact no-ops. The optimizer runs
 outside the vmap because ``vmap`` cannot see into the hand-written kernels:
-each update launches once per leaf for all k clients, with one row of
-scalars per client (:mod:`repro_torch.kernels.ops`). JAX's ``jit`` with
+each update launches once per step for the whole tree and all k clients,
+with each client's scalars (:mod:`repro_torch.kernels.ops`). JAX's ``jit`` with
 buffer donation becomes plain functions that write the stacked tensors in
 place.
 

@@ -5,9 +5,9 @@ Each wrapper dispatches on its tensors' device alone: a CUDA tensor goes to
 the hand-written kernel (which raises if it cannot launch), a CPU tensor to
 the plain version in :mod:`repro_torch.kernels.ref`. Each wrapper carries a
 ``launches`` count, raised by one for every kernel launch and by nothing
-else. Masked SGD launches once for a whole tree (up to 32 leaves); the
-other tree wrappers (AdamW, fake compression and the Fisher update) launch
-leaf by leaf; the LoRA products take arrays with any leading dimensions.
+else. Masked SGD, masked AdamW and fake compression launch once for a
+whole tree (up to 32 leaves); the Fisher update launches leaf by leaf; the
+LoRA products take arrays with any leading dimensions.
 The Fisher update, the LoRA products, flash attention and the SSD
 intra-chunk scan keep the JAX package's names, signatures, argument order,
 layouts and output dtypes. The kernels mask their own ragged edges, so nothing is padded
@@ -29,6 +29,7 @@ from repro_torch.kernels import masked_update as _mu
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparse_lora as _sl
 from repro_torch.kernels import ssd_chunk as _sc
+from repro_torch.kernels import tree_launch as _tl
 from repro_torch.utils.tree import tree_leaves, tree_leaves_like, tree_map, tree_unflatten, tree_unzip
 
 
@@ -78,7 +79,7 @@ def per_client(x, leaf):
 
 
 def _scal_table(*cols) -> torch.Tensor:
-    """The kernels' contiguous f32 (k, 4) table from scalar or (k,) columns."""
+    """B2's contiguous f32 (k, 4) table from scalar or (k,) columns."""
     return torch.stack(torch.broadcast_tensors(*cols), dim=-1).reshape(-1, 4).contiguous()
 
 
@@ -115,8 +116,9 @@ def masked_sgd_update(grads, state, params, lr, mask=None, active=None, *, momen
     ``mask == 0``, and every entry when ``active == 0``, keep parameter AND
     momentum bit for bit. An ``active`` of shape (k,) means every leaf
     stacks k clients on its leading axis, each with its own predicate. The
-    mask tree may hold None leaves (dense leaves beside masked ones). On
-    the card the new leaves are views into one buffer per dtype.
+    mask tree may hold None leaves (dense leaves beside masked ones). The
+    momentum may be f32 or bf16 and keeps its dtype. On the card the new
+    leaves are views into one buffer per dtype.
     """
     ps = tree_leaves(params)
     cuda = [p for p in ps if _on_cuda(p)]
@@ -134,19 +136,19 @@ def masked_sgd_update(grads, state, params, lr, mask=None, active=None, *, momen
     # a tree with any leaf on the card goes to the kernel, which refuses a
     # leaf elsewhere; the other trees are read at params' leaf positions
     # (a key of params missing from one raises KeyError, as tree_map does)
-    none = [None] * len(ps)
+    n = len(ps)
+    none = [None] * n
     gs = tree_leaves_like(params, grads)
     mks = none if mask is None else tree_leaves_like(params, mask)
-    mus = tree_leaves_like(params, state["mu"]) if momentum else none
+    mus = tree_leaves_like(params, state["mu"]) if momentum else []
     device = cuda[0].device
     lr_v, active_v, scal = sgd_scalars(lr, active, device)
     clients = 1 if scal is None else scal.shape[0]
-    sig = tuple((p.shape, p.dtype) for p in ps)
-    lay = _mu.layout(sig)
-    p_out = _mu.views(lay, device)
-    mu_out = _mu.views(_mu.layout(tuple((s, torch.float32) for s, _ in sig)), device) if momentum else none
-    for launch in _mu.plan_sgd(lay.sizes):
-        _mu.sgd_tree_launch(launch, p_out, ps, gs, mu_out, mus, mks, clients=clients, scal=scal,
+    lay = _tl.layout(tuple((x.shape, x.dtype) for x in ps + mus))
+    outs = _tl.views(lay, device)
+    p_out, mu_out = outs[:n], (outs[n:] if momentum else none)
+    for launch in _tl.plan(lay.sizes[:n], clients, _mu.SGD_CHUNK):
+        _mu.sgd_tree_launch(launch, p_out, ps, gs, mu_out, mus or none, mks, clients=clients, scal=scal,
                             lr=lr_v, active=active_v, momentum=momentum)
         masked_sgd_update.launches += 1
     new_params = tree_unflatten(params, p_out)
@@ -157,34 +159,65 @@ def masked_sgd_update(grads, state, params, lr, mask=None, active=None, *, momen
 
 def masked_adamw_update(grads, state, params, lr, mask=None, active=None, *,
                         b1=0.9, b2=0.999, eps=1e-8, wd=0.0):
-    """Masked AdamW over a tree, one kernel launch per CUDA leaf.
+    """Masked AdamW over a tree: on the card one kernel launch for the whole
+    tree (up to 32 leaves; a larger tree takes one launch per 32).
 
     Same contract as :func:`repro_torch.optim.optimizers.adamw_update`:
     frozen entries hold parameter, ``m`` and ``v`` bit for bit, and the step
-    counter ``t`` advances only on active steps. The bias-correction scales
-    are computed from ``t`` once, on the device, and shared by every leaf.
-    Stacked clients carry ``active`` and ``t`` of shape (k,): one step
-    counter and one row of scalars per client.
+    counter ``t`` advances only on active steps. Stacked clients carry
+    ``active`` and ``t`` of shape (k,): one step counter per client. The
+    moments may be f32 or bf16 and keep their dtypes. On the card the kernel
+    advances ``t`` and computes each client's bias-correction scales from it
+    (the plain version's operations); lr and ``active`` travel by value when
+    they are numbers, and a tensor ``active`` is read in place, so a step
+    makes no device op besides the launch. The new leaves are views into one
+    buffer per dtype.
     """
-    t, mhat, vhat = adam_step_scales(state["t"], active, b1, b2)
-    device = t.device
-    lr_t = as_f32(lr, device)
-    scal = _scal_table(lr_t, _active_f32(active, device), mhat, vhat)
+    ps = tree_leaves(params)
+    cuda = [p for p in ps if _on_cuda(p)]
+    if not cuda:
+        t, mhat, vhat = adam_step_scales(state["t"], active, b1, b2)
+        lr_t = as_f32(lr, t.device)
 
-    def one(p, g, m, v, mk):
-        if _on_cuda(p):
-            p_out, m_out, v_out = torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
-            _mu.adamw_launch(p_out, p, g, m_out, m, v_out, v, mk, scal,
-                             b1=b1, b2=b2, eps=eps, wd=wd)
-            masked_adamw_update.launches += 1
-            return p_out, m_out, v_out
-        return _ref.masked_adamw_update_ref(p, g, m, v, mk, lr_t, per_client(mhat, p),
-                                            per_client(vhat, p), b1=b1, b2=b2, eps=eps, wd=wd,
-                                            active=per_client(active, p))
+        def one(p, g, m, v, mk):
+            return _ref.masked_adamw_update_ref(p, g, m, v, mk, lr_t, per_client(mhat, p),
+                                                per_client(vhat, p), b1=b1, b2=b2, eps=eps, wd=wd,
+                                                active=per_client(active, p))
 
-    outs = tree_map(one, params, grads, state["m"], state["v"], _masks(mask, params))
-    new_params, m, v = tree_unzip(outs, 3)
-    return new_params, {"m": m, "v": v, "t": t}
+        outs = tree_map(one, params, grads, state["m"], state["v"], _masks(mask, params))
+        new_params, m, v = tree_unzip(outs, 3)
+        return new_params, {"m": m, "v": v, "t": t}
+
+    n = len(ps)
+    gs = tree_leaves_like(params, grads)
+    ms = tree_leaves_like(params, state["m"])
+    vs = tree_leaves_like(params, state["v"])
+    mks = [None] * n if mask is None else tree_leaves_like(params, mask)
+    device = cuda[0].device
+    t = state["t"]
+    if isinstance(lr, torch.Tensor):
+        lr = as_f32(lr, device)
+    if active is None:
+        active = 1.0
+    elif not isinstance(active, torch.Tensor):
+        active = float(active != 0)
+    elif not (active.dtype == torch.float32 and active.is_cuda):
+        active = (active.to(device) != 0).to(torch.float32)
+    stacked = t.dim() == 1 or (isinstance(active, torch.Tensor) and active.dim() == 1)
+    clients = t.shape[0] if t.dim() == 1 else (active.shape[0] if stacked else 1)
+    t_out = torch.empty((clients,) if stacked else (), dtype=torch.int32, device=device)
+    lay = _tl.layout(tuple((x.shape, x.dtype) for x in ps + ms + vs))
+    outs = _tl.views(lay, device)
+    launches = _tl.plan(lay.sizes[:n], clients, _mu.ADAMW_CHUNK)
+    for launch in launches:
+        _mu.adamw_tree_launch(launch, outs[:n], ps, gs, outs[n:2 * n], ms, outs[2 * n:], vs, mks,
+                              clients=clients, t=t, t_out=t_out, lr=lr, active=active,
+                              b1=b1, b2=b2, eps=eps, wd=wd)
+        masked_adamw_update.launches += 1
+    if not launches:  # every leaf is empty: no kernel advances t
+        t_out = adam_step_scales(t, active, b1, b2)[0]
+    return tree_unflatten(params, outs[:n]), {"m": tree_unflatten(params, outs[n:2 * n]),
+                                              "v": tree_unflatten(params, outs[2 * n:]), "t": t_out}
 
 
 def topk_rows(x2, mk, *, per_client_mask: bool, qmax: int, topk_ratio: float):
@@ -193,7 +226,8 @@ def topk_rows(x2, mk, *, per_client_mask: bool, qmax: int, topk_ratio: float):
     under the mask's nonzero entries (a mask leaf may be broadcastable, each
     entry covering ``m // mask.numel()`` values of a client; a
     ``per_client_mask`` stacks one mask per client). The product runs in
-    f32, as the JAX package computes it."""
+    f32, as the JAX package computes it. The plain version: the card's
+    kernel selects the same order statistic without a sort."""
     k, m = x2.shape
     flat = torch.abs(x2).to(torch.float32)
     if mk is None:
@@ -210,11 +244,11 @@ def topk_rows(x2, mk, *, per_client_mask: bool, qmax: int, topk_ratio: float):
 
 
 def compress_rows(d, r, mk, *, qmax: int, topk_ratio: float, use_thresh: bool, stacked: bool):
-    """The steps of :func:`fake_compress` before the kernel, for one leaf:
-    ``x = d + r`` flattened to ``x2`` (k, m), k the stacked clients (1 when
-    not ``stacked``), and each client's threshold and scale
-    (:func:`topk_rows`; zeros without top-k). Returns ``(x2, thresh, scale)``,
-    the kernel's input and its row ``[thresh, scale]`` per client."""
+    """The plain version's steps before :func:`ref.fake_compress_ref`, for
+    one leaf: ``x = d + r`` flattened to ``x2`` (k, m), k the stacked
+    clients (1 when not ``stacked``), and each client's threshold and scale
+    (:func:`topk_rows`; zeros without top-k). Returns ``(x2, thresh,
+    scale)``."""
     x = d if r is None else d + r.to(d.dtype)
     k = d.shape[0] if stacked else 1
     x2 = x.reshape(k, -1).contiguous()
@@ -223,6 +257,10 @@ def compress_rows(d, r, mk, *, qmax: int, topk_ratio: float, use_thresh: bool, s
         return x2, zeros, zeros
     per_client_mask = stacked and mk is not None and mk.dim() == d.dim()
     return (x2,) + topk_rows(x2, mk, per_client_mask=per_client_mask, qmax=qmax, topk_ratio=topk_ratio)
+
+
+def _dense(t):
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def fake_compress(delta, residual=None, mask=None, *, qmax: int = 0, topk_ratio: float = 1.0,
@@ -238,32 +276,53 @@ def fake_compress(delta, residual=None, mask=None, *, qmax: int = 0, topk_ratio:
     values of the flattened leaf; ``use_thresh`` adds per-leaf top-k, the
     threshold being the ``k``-th largest ``|x|`` with ``k = max(1,
     ceil(topk_ratio · active))`` (:func:`topk_rows`), and the scale the
-    leaf's absmax·(1/qmax). Threshold and scale need a sort over the leaf, so
-    they are computed here (:func:`compress_rows`) and ride into the kernel
-    as one row per client.
+    leaf's absmax·(1/qmax).
+
+    On the card one kernel launch takes the whole tree (up to 32 leaves):
+    it forms x, finds each (leaf, client) row's threshold and scale itself
+    (a radix select in a thread-block cluster, no sort) and writes y and
+    the residual, views into one buffer per dtype. On the CPU each leaf
+    takes the plain version (:func:`compress_rows`, which sorts).
 
     ``stacked``: every leaf of ``delta``/``residual`` carries a leading axis
     of k clients, each compressed as its own leaf (its own threshold, scale
     and 128-groups); a mask leaf with that axis too (as many dimensions as
     the delta leaf) counts per client, one without is shared by all.
     """
-    per_leaf_scale = use_thresh and qmax > 0
-    resid = residual if residual is not None else tree_map(lambda _: None, delta)
+    ds = tree_leaves(delta)
+    cuda = [d for d in ds if _on_cuda(d)]
+    if not cuda:
+        per_leaf_scale = use_thresh and qmax > 0
 
-    def one(d, r, mk):
-        x2, thresh, scale = compress_rows(d, r, mk, qmax=qmax, topk_ratio=topk_ratio,
-                                          use_thresh=use_thresh, stacked=stacked)
-        if _on_cuda(x2):
-            y, res = torch.empty_like(x2), torch.empty_like(x2)
-            _cp.fake_compress_launch(y, res, x2, torch.stack([thresh, scale], dim=1).contiguous(),
-                                     qmax=qmax, use_thresh=use_thresh, per_leaf_scale=per_leaf_scale)
-            fake_compress.launches += 1
-        else:
+        def one(d, r, mk):
+            x2, thresh, scale = compress_rows(d, r, mk, qmax=qmax, topk_ratio=topk_ratio,
+                                              use_thresh=use_thresh, stacked=stacked)
             y, res = _ref.fake_compress_ref(x2, thresh, scale, qmax=qmax, use_thresh=use_thresh,
                                             per_leaf_scale=per_leaf_scale)
-        return y.reshape(d.shape), res.reshape(d.shape)
+            return y.reshape(d.shape), res.reshape(d.shape)
 
-    return tree_unzip(tree_map(one, delta, resid, _masks(mask, delta)), 2)
+        resid = residual if residual is not None else tree_map(lambda _: None, delta)
+        return tree_unzip(tree_map(one, delta, resid, _masks(mask, delta)), 2)
+
+    n = len(ds)
+    none = [None] * n
+    rs = none if residual is None else tree_leaves_like(delta, residual)
+    mks = none if mask is None or not use_thresh else tree_leaves_like(delta, mask)
+    # the kernel reads d and r contiguous in one dtype (r rounded to d's, as
+    # the plain version's r.to(d.dtype)) and counts a float32 mask's nonzeros
+    ds = [_dense(d) for d in ds]
+    rs = [r if r is None else _dense(r if r.dtype == d.dtype else r.to(d.dtype)) for d, r in zip(ds, rs)]
+    mks = [mk if mk is None or (mk.dtype == torch.float32 and mk.is_contiguous())
+           else (mk != 0).to(torch.float32).contiguous() for mk in mks]
+    device = cuda[0].device
+    clients = ds[0].shape[0] if stacked else 1
+    lay = _tl.layout(tuple((d.shape, d.dtype) for d in ds) * 2)
+    outs = _tl.views(lay, device)
+    for launch in _tl.plan(lay.sizes[:n], clients, None if use_thresh else _cp.GROUP_CHUNK):
+        _cp.fake_compress_tree_launch(launch, outs[:n], outs[n:], ds, rs, mks, clients=clients, stacked=stacked,
+                                      qmax=qmax, topk_ratio=topk_ratio, use_thresh=use_thresh)
+        fake_compress.launches += 1
+    return tree_unflatten(delta, outs[:n]), tree_unflatten(delta, outs[n:])
 
 
 def _kernel_float(t: torch.Tensor) -> torch.Tensor:

@@ -146,3 +146,145 @@ def test_rank_mask_tree_matches_jax(rank):
     for g, w in zip(tree_leaves(got), jax.tree.leaves(want)):
         assert g.dtype == torch.float32
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# --- B3 on the card: the threshold is selected in the kernel, one
+# thread-block cluster per (leaf, client) row, by an MSB-first radix select.
+# Its arithmetic is emulated here in numpy, block by block, and held to the
+# plain version's sort; its host table is plain Python. ---
+
+CLUSTER = 8  # blocks per row (kCluster in csrc/compress.cu)
+DIGIT_SHIFTS = {"float32": (20, 9, 0), "bfloat16": (20, 16)}  # digits of the f32 bits of |x|
+
+
+def _cluster_select(row, mask_row, mask_n, ratio, qmax, dtype):
+    """The kernel's threshold and scale of one row (f32 values, already
+    rounded to ``dtype``): each of CLUSTER blocks counts its slice's mask
+    entries and histograms its slice's digits; the summed histograms pick
+    each digit in turn. Returns ``(thresh, scale)`` as float32."""
+    m = row.size
+    keys = np.abs(row).astype(np.float32).view(np.uint32)
+    sl = ((m + CLUSTER - 1) // CLUSTER + 3) // 4 * 4
+    slices = [keys[min(b * sl, m):min(b * sl + sl, m)] for b in range(CLUSTER)]
+    if mask_row is None:
+        active = np.float32(m)
+    else:
+        part = -(-mask_n // CLUSTER)
+        count = sum(int(np.count_nonzero(mask_row[min(b * part, mask_n):min(b * part + part, mask_n)]))
+                    for b in range(CLUSTER))
+        active = np.float32(count) * np.float32(m // mask_n)
+    k = max(np.float32(1.0), np.ceil(np.float32(ratio) * active))
+    target = int(np.clip(m - int(k), 0, m - 1))
+    prefix, prev = 0, 31
+    for shift in DIGIT_SHIFTS[dtype]:
+        bits = prev - shift
+        total = np.zeros(1 << bits, np.int64)
+        for s in slices:
+            cand = s[(s >> np.uint32(prev)) == (prefix >> prev)] if prev < 31 else s
+            total += np.bincount((cand >> np.uint32(shift)) & np.uint32((1 << bits) - 1), minlength=1 << bits)
+        before = np.cumsum(total) - total
+        digit = int(np.nonzero((before <= target) & (target < before + total))[0][0])
+        target -= int(before[digit])
+        prefix |= digit << shift
+        prev = shift
+    amax = max((s.max() if s.size else np.uint32(0)) for s in slices).view(np.float32)
+    scale = amax * np.float32(1.0 / qmax) if qmax else np.float32(0.0)
+    return np.uint32(prefix).view(np.float32), np.float32(scale)
+
+
+def _rows_case(kind, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((4, 24, 7, 13)) * 1e-2).astype(np.float32)
+    if kind == "ties_zeros":
+        x[:, :10] = 0.0
+        x[1, 10:, :, :5] = 3e-3  # a run of ties at the boundary
+        x[2] = np.round(x[2] * 300) / 300  # few distinct values
+    elif kind == "all_equal":
+        x[:] = -2.5e-3
+        x[3] = 0.0  # an all-zero row
+    if dtype == "bfloat16":
+        x = _bf16(x).astype(np.float32)
+    return x
+
+
+MASK_KINDS = {  # name -> (mask of a (4, 24, 7, 13) stacked leaf, counted per client?)
+    "none": None,
+    "gal": lambda rng: (rng.random((24, 1, 1)) < 0.6).astype(np.float32),
+    "shared": lambda rng: (rng.random((24, 7, 13)) < 0.3).astype(np.float32),
+    "per_client": lambda rng: (rng.random((4, 24, 7, 13)) < 0.5).astype(np.float32),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["random", "ties_zeros", "all_equal"])
+@pytest.mark.parametrize("mask_kind", list(MASK_KINDS))
+@pytest.mark.parametrize("ratio", [1e-9, 0.1, 1.0], ids=["k1", "k10pct", "km"])
+def test_cluster_radix_select_equals_sorted_order_statistic(dtype, kind, mask_kind, ratio):
+    """The kernel's select (emulated) finds the very value ``topk_rows``
+    reads off its sort, ties included, for every mask kind, k = 1 (the
+    row's largest |x|) and k = m (its smallest), f32 and bf16 values; and
+    the same absmax scale."""
+    rng = np.random.default_rng(7)
+    x = _rows_case(kind, dtype, seed=3)
+    mk = None if MASK_KINDS[mask_kind] is None else MASK_KINDS[mask_kind](rng)
+    per_client = mask_kind == "per_client"
+    x2 = torch.from_numpy(x.reshape(4, -1))
+    want_t, want_s = tops.topk_rows(x2, None if mk is None else torch.from_numpy(mk),
+                                    per_client_mask=per_client, qmax=127, topk_ratio=ratio)
+    m = x2.shape[1]
+    for c in range(4):
+        mask_row, mask_n = None, 0
+        if mk is not None:
+            mask_row = mk[c].reshape(-1) if per_client else mk.reshape(-1)
+            mask_n = mask_row.size
+        thresh, scale = _cluster_select(x[c].reshape(-1), mask_row, mask_n, ratio, 127, dtype)
+        assert thresh == np.float32(want_t[c]), (c, thresh, float(want_t[c]))
+        assert scale == np.float32(want_s[c])
+        if ratio == 1e-9:
+            assert thresh == np.abs(x[c]).max()
+        if ratio == 1.0 and mask_kind == "none":
+            assert thresh == np.abs(x[c]).min()
+    assert m == 24 * 7 * 13
+
+
+def test_compress_table_reads_masks_in_place():
+    """The B3 launcher's host table, on CPU tensors: per leaf the delta,
+    residual, mask and output pointers, the row length, the mask entries per
+    row and their stride (0: shared), the first row and the dtype; and
+    what it refuses."""
+    from repro_torch.kernels import compress, tree_launch
+
+    k = 4
+    d = [torch.zeros(k, 24, 896, 8), torch.zeros(k, 24, 8, 128, dtype=torch.bfloat16), torch.zeros(k, 131)]
+    r = [torch.zeros_like(d[0]), None, torch.zeros_like(d[2])]
+    mk = [torch.ones(k, 24, 896, 8), torch.ones(24, 1, 1), None]  # per client, GAL, none
+    lay = tree_launch.layout(tuple((x.shape, x.dtype) for x in d) * 2)
+    outs = tree_launch.views(lay, "cpu")
+    y, res = outs[:3], outs[3:]
+    (launch,) = tree_launch.plan(lay.sizes[:3], k, None)
+    words = np.asarray(compress.table(launch, y, res, d, r, mk, clients=k, stacked=True, use_thresh=True))
+    rows = words.reshape(3, 11)
+    np.testing.assert_array_equal(rows[:, 0], [x.data_ptr() for x in d])
+    np.testing.assert_array_equal(rows[:, 1], [r[0].data_ptr(), 0, r[2].data_ptr()])
+    np.testing.assert_array_equal(rows[:, 2], [mk[0].data_ptr(), mk[1].data_ptr(), 0])
+    np.testing.assert_array_equal(rows[:, 3], [t.data_ptr() for t in y])
+    np.testing.assert_array_equal(rows[:, 4], [t.data_ptr() for t in res])
+    np.testing.assert_array_equal(rows[:, 5], [x.numel() for x in d])
+    np.testing.assert_array_equal(rows[:, 6], [x.numel() // k for x in d])
+    np.testing.assert_array_equal(rows[:, 7], [24 * 896 * 8, 24, 0])  # mask entries per row
+    np.testing.assert_array_equal(rows[:, 8], [24 * 896 * 8, 0, 0])  # per client, shared
+    np.testing.assert_array_equal(rows[:, 9], [0, k, 2 * k])  # first row of each leaf
+    np.testing.assert_array_equal(rows[:, 10], [0, 1, 0])
+    # without top-k the mask is not read
+    words = np.asarray(compress.table(launch, y, res, d, r, mk, clients=k, stacked=True, use_thresh=False))
+    assert not words.reshape(3, 11)[:, 2].any()
+    with pytest.raises(ValueError, match="alias"):
+        compress.table(launch, [d[0], y[1], y[2]], res, d, r, mk, clients=k, stacked=True, use_thresh=True)
+    with pytest.raises(TypeError, match="residual"):
+        compress.table(launch, y, res, d, [r[0], torch.zeros_like(d[1], dtype=torch.float32), None], mk,
+                       clients=k, stacked=True, use_thresh=True)
+    with pytest.raises(ValueError, match="client rows"):
+        compress.table(launch, y, res, d, r, [torch.ones(3, 5, 1, 1), None, None], clients=k, stacked=True,
+                       use_thresh=True)
+    with pytest.raises(TypeError, match="mask"):
+        compress.table(launch, y, res, d, r, [mk[0].bool(), None, None], clients=k, stacked=True, use_thresh=True)

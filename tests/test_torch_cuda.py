@@ -77,11 +77,36 @@ def test_sgd_kernel_matches_plain(cuda, shape, dtype, momentum, with_mask):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_bf16_moments(cuda):
-    p, g, m, v, mask = _inputs(cuda, (8, 8), torch.float32)
-    st = {"m": {"w": m.bfloat16()}, "v": {"w": v.bfloat16()}, "t": torch.tensor(0, device="cuda")}
-    with pytest.raises(TypeError, match="dtype"):
-        ops.masked_adamw_update({"w": g}, st, {"w": p}, 0.01, {"w": mask})
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_kernel_bf16_moments_match_plain(cuda, shape, dtype, stacked):
+    """B1 and B2 take moments in bf16 (as the optimizers' init makes them
+    for a bf16 tree), compute in f32 and return each moment rounded to its
+    own dtype, bit for bit equal to the plain version; frozen entries keep
+    their bits."""
+    shape = ((K,) if stacked else ()) + shape
+    p, g, m, v, mask = _inputs(cuda, shape, dtype)
+    m, v = m.bfloat16(), v.bfloat16()
+    active = torch.tensor([1.0, 0.0, 1.0, 1.0], device="cuda") if stacked else 1.0
+    t = torch.tensor([0, 3, 7, 1] if stacked else 2, dtype=torch.int32, device="cuda")
+    new_p, st = ops.masked_adamw_update({"w": g}, {"m": {"w": m}, "v": {"w": v}, "t": t}, {"w": p}, 0.01,
+                                        {"w": mask}, active, wd=0.01)
+    t2, mhat, vhat = ops.adam_step_scales(t, active, 0.9, 0.999)
+    rows = (lambda x: _rows(x, p)) if stacked else (lambda x: x)
+    want = ref.masked_adamw_update_ref(p, g, m, v, mask, ops.as_f32(0.01, "cuda"), rows(mhat), rows(vhat),
+                                       wd=0.01, active=rows(active) if stacked else active)
+    torch.cuda.synchronize()
+    assert torch.equal(st["t"], t2)
+    for out, w in zip((new_p["w"], st["m"]["w"], st["v"]["w"]), want):
+        assert out.dtype == w.dtype and torch.equal(out, w)
+    assert torch.equal(st["m"]["w"][mask == 0], m[mask == 0])
+    new_p, st = ops.masked_sgd_update({"w": g}, {"mu": {"w": m}}, {"w": p}, 0.05, {"w": mask}, active, momentum=0.9)
+    want_p, want_mu = ref.masked_sgd_update_ref(p, g, m, mask, ops.as_f32(0.05, "cuda"), momentum=0.9,
+                                                active=rows(active) if stacked else active)
+    torch.cuda.synchronize()
+    assert st["mu"]["w"].dtype == torch.bfloat16
+    assert torch.equal(new_p["w"], want_p) and torch.equal(st["mu"]["w"], want_mu)
 
 
 # --- stacked clients: one (k, 4) row of scalars per client (B1/B2) ---
@@ -234,6 +259,106 @@ def test_sgd_tree_beyond_the_table_splits_into_launches(cuda, n_leaves):
     new_p, st = ops.masked_sgd_update(grads, {"mu": mus}, params, 0.05, masks, momentum=0.9)
     assert ops.masked_sgd_update.launches == before + -(-n_leaves // 32)
     _assert_sgd_tree(new_p, st, params, grads, mus, masks, 0.05, None, 0.9)
+
+
+# --- B1 over whole trees: one launch per tree of up to 32 leaves ---
+
+
+def _assert_adamw_tree(new_p, new_st, params, grads, st, masks, lr, active, wd=0.01):
+    """Leaf by leaf, bit for bit against the plain version, with the step
+    counters advanced as the plain version advances them."""
+    lr_t = lr if isinstance(lr, torch.Tensor) else ops.as_f32(lr, "cuda")
+    t2, mhat, vhat = ops.adam_step_scales(st["t"], active, 0.9, 0.999)
+    torch.cuda.synchronize()
+    assert torch.equal(new_st["t"], t2) and new_st["t"].dtype == torch.int32
+    for key in params:
+        p = params[key]
+        mk = None if masks is None else masks[key]
+        want = ref.masked_adamw_update_ref(p, grads[key], st["m"][key], st["v"][key], mk, lr_t,
+                                           ops.per_client(mhat, p), ops.per_client(vhat, p), wd=wd,
+                                           active=ops.per_client(active, p))
+        for out, w, name in zip((new_p[key], new_st["m"][key], new_st["v"][key]), want, "pmv"):
+            assert out.dtype == w.dtype and out.shape == w.shape, (key, name)
+            assert torch.equal(out, w), (key, name)
+
+
+def _adamw_tree_case(gen, shapes, dtypes, mdtypes, masked, t):
+    params, grads, mus, masks = _sgd_tree_case(gen, shapes, dtypes, masked, 0.0)
+    m = {k: (0.1 * mus[k]).to(mdtypes[k]) for k in shapes}
+    v = {k: (0.1 * torch.rand(s, generator=gen, device="cuda")).to(mdtypes[k]) for k, s in shapes.items()}
+    return params, grads, {"m": m, "v": v, "t": t}, masks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("lr_kind", ["float", "tensor"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_adamw_tree_lora_one_launch_matches_plain(cuda, stacked, mixed, lr_kind, masked):
+    """qwen2-0.5b's 8-leaf LoRA tree, one client or 4 stacked with per-client
+    step counters and an ``active`` read in place from a column of a step
+    plan (a strided view holding zeros); f32, or half the leaves bf16 with
+    bf16 moments: one launch, every leaf bit for bit."""
+    lead = (K,) if stacked else ()
+    shapes = {f"{t}_{ab}": lead + s for t, (sa, sb) in LORA_LEAVES.items() for ab, s in (("a", sa), ("b", sb))}
+    low = {k: torch.bfloat16 if mixed and k.endswith("_a") else torch.float32 for k in shapes}
+    t = torch.tensor([0, 3, 7, 1], dtype=torch.int32, device="cuda") if stacked else \
+        torch.tensor(5, dtype=torch.int32, device="cuda")
+    params, grads, st, masks = _adamw_tree_case(cuda, shapes, low, low, dict.fromkeys(shapes, masked), t)
+    plan = torch.tensor([[1.0, 0.0, 1.0], [0.0, 0.0, 1.0], [1.0, 1.0, 1.0], [1.0, 0.0, 0.0]], device="cuda")
+    active = plan[:, 0] if stacked else None
+    lr = _lr(lr_kind, 1e-3)
+    before = ops.masked_adamw_update.launches
+    new_p, new_st = ops.masked_adamw_update(grads, st, params, lr, masks if masked else None, active, wd=0.01)
+    assert ops.masked_adamw_update.launches == before + 1
+    _assert_adamw_tree(new_p, new_st, params, grads, st, masks if masked else None, lr, active)
+    if stacked:
+        assert torch.equal(new_p["wq_a"][1], params["wq_a"][1])  # an inactive client keeps its bits
+        assert torch.equal(new_st["v"]["wo_b"][1], st["v"]["wo_b"][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("active", [None, 0.0, 1.0])
+def test_adamw_tree_ragged_mixed_leaves_match_plain(cuda, active):
+    """Leaves of 1, 3, 1000 and 2049 elements, every mix of f32 and bf16
+    params and moments, masked and dense, and a leaf of unaligned views
+    (the kernel's element-by-element path), in one tree and one launch."""
+    shapes = {"a": (1,), "b": (3,), "c": (1000,), "d": (2049,), "e": (8, 17), "f": (4097,)}
+    dtypes = {"a": torch.float32, "b": torch.bfloat16, "c": torch.float32, "d": torch.bfloat16,
+              "e": torch.bfloat16, "f": torch.float32}
+    mdtypes = {"a": torch.bfloat16, "b": torch.float32, "c": torch.float32, "d": torch.bfloat16,
+               "e": torch.float32, "f": torch.bfloat16}
+    masked = {"a": True, "b": False, "c": True, "d": True, "e": False, "f": True}
+    t = torch.tensor(0, dtype=torch.int32, device="cuda")
+    params, grads, st, masks = _adamw_tree_case(cuda, shapes, dtypes, mdtypes, masked, t)
+    for tree in (params, grads, st["m"], st["v"], masks):  # leaf "f": one element into its buffer
+        base = torch.randn(4098, generator=cuda, device="cuda")
+        tree["f"] = ((base > 0).float() if tree is masks else base.to(tree["f"].dtype).abs())[1:]
+        assert tree["f"].data_ptr() % 16 != 0
+    before = ops.masked_adamw_update.launches
+    new_p, new_st = ops.masked_adamw_update(grads, st, params, 0.01, masks, active, wd=0.01)
+    assert ops.masked_adamw_update.launches == before + 1
+    _assert_adamw_tree(new_p, new_st, params, grads, st, masks, 0.01, active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clients,n_leaves", [(1, 33), (3, 70)])
+def test_adamw_tree_rows_and_table_splits(cuda, clients, n_leaves):
+    """Stacked rows of a length that is not a multiple of the kernel's 2048
+    chunk (no chunk straddles two clients), and trees beyond the 32-leaf
+    table: one launch per 32 leaves, every leaf bit for bit."""
+    lead = (clients,) if clients > 1 else ()
+    shapes = {f"w{i:03d}": lead + (2049 + 7 * i,) for i in range(n_leaves)}
+    t = torch.arange(clients, dtype=torch.int32, device="cuda") if clients > 1 else \
+        torch.tensor(1, dtype=torch.int32, device="cuda")
+    f32 = dict.fromkeys(shapes, torch.float32)
+    params, grads, st, masks = _adamw_tree_case(cuda, shapes, f32, f32, {k: i % 2 == 0 for i, k in enumerate(shapes)},
+                                                t)
+    active = torch.tensor([1.0, 0.0, 1.0], device="cuda") if clients > 1 else None
+    before = ops.masked_adamw_update.launches
+    new_p, new_st = ops.masked_adamw_update(grads, st, params, 0.02, masks, active, wd=0.01)
+    assert ops.masked_adamw_update.launches == before + -(-n_leaves // 32)
+    _assert_adamw_tree(new_p, new_st, params, grads, st, masks, 0.02, active)
 
 
 # --- B3: fake compression ---
@@ -568,3 +693,103 @@ def test_ssd_chunk_kernel_refuses_what_it_cannot_run(cuda):
         bc = torch.zeros(2, Q, 16, device="cuda")
         with pytest.raises(ValueError):
             ops.ssd_chunk_intra(x, torch.zeros(2, 1, Q, device="cuda"), bc, bc)
+
+
+# --- B3 over whole trees: one launch per upload, the threshold selected in
+# the kernel (one thread-block cluster per row) ---
+
+MASK_KINDS = ["gal", "shared", "per_client", "none"]
+
+
+def _compress_tree(gen, shapes, dtype, mask_kind, stacked, special=True):
+    """A tree of deltas and residuals of ``shapes`` and the count mask of
+    ``mask_kind``: GAL-style (L, 1, 1), one shared mask of a client's leaf
+    shape, or one per client of the leaf's full shape. With ``special``
+    the first leaf holds a handful of distinct values (ties at every
+    threshold; no residual) and, stacked, an all-zero first row."""
+    d = {k: (torch.randn(s, generator=gen, device="cuda") * 1e-2).to(dtype) for k, s in shapes.items()}
+    r = {k: (torch.randn(s, generator=gen, device="cuda") * 1e-3).to(dtype) for k, s in shapes.items()}
+    if special:
+        first = next(iter(shapes))
+        d[first] = (torch.round(d[first].float() * 300) / 300).to(dtype)
+        r[first].zero_()
+        if stacked:
+            d[first][0] = 0.0  # an all-zero row: threshold and scale 0
+    client = (lambda s: s[1:]) if stacked else (lambda s: s)
+    if mask_kind == "none":
+        mk = None
+    elif mask_kind == "gal":
+        mk = {k: (torch.rand((client(s)[0], 1, 1), generator=gen, device="cuda") < 0.75).float()
+              for k, s in shapes.items()}
+    elif mask_kind == "shared":
+        mk = {k: (torch.rand(client(s), generator=gen, device="cuda") < 0.5).float() for k, s in shapes.items()}
+    else:
+        mk = {k: (torch.rand(s, generator=gen, device="cuda") < 0.5).float() for k, s in shapes.items()}
+    return d, r, mk
+
+
+def _assert_compress_tree(d, r, mk, y, res, kw, stacked):
+    torch.cuda.synchronize()
+    for key in d:
+        want_y, want_r = plain_fake_compress(d[key], None if r is None else r[key], None if mk is None else mk[key],
+                                             stacked=stacked, **kw)
+        assert y[key].dtype == d[key].dtype and y[key].shape == d[key].shape
+        assert torch.equal(y[key], want_y), key
+        assert torch.equal(res[key], want_r), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", COMPRESS_MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_kind", MASK_KINDS)
+@pytest.mark.parametrize("stacked", [False, True])
+def test_fake_compress_tree_one_launch_matches_plain(cuda, mode, dtype, mask_kind, stacked):
+    """qwen2-0.5b's 8 LoRA leaves, one client or 4 stacked, plus a ragged
+    leaf (rows not a multiple of 4 values: the element-by-element path), in
+    every mode with each mask kind: one launch, y and the residual bit for
+    bit equal to the plain version (its sort), ties and an all-zero row
+    included."""
+    qmax, ratio, use_thresh = mode
+    if mask_kind == "per_client" and not stacked:
+        mask_kind = "shared"  # one client: a mask of the leaf's shape is the shared one
+    lead = (K,) if stacked else ()
+    shapes = {f"{t}_{ab}": lead + s for t, (sa, sb) in LORA_LEAVES.items() for ab, s in (("a", sa), ("b", sb))}
+    shapes["z_ragged"] = lead + (24, 7, 131)
+    d, r, mk = _compress_tree(cuda, shapes, dtype, mask_kind, stacked)
+    kw = dict(qmax=qmax, topk_ratio=ratio, use_thresh=use_thresh)
+    for res_tree in (r, None):
+        before = ops.fake_compress.launches
+        y, res = ops.fake_compress(d, res_tree, mk, stacked=stacked, **kw)
+        assert ops.fake_compress.launches == before + 1
+        _assert_compress_tree(d, res_tree, mk, y, res, kw, stacked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [m for m in COMPRESS_MODES if m[2]])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_kind", ["gal", "per_client"])
+def test_fake_compress_rows_beyond_shared_memory_match_plain(cuda, mode, dtype, mask_kind):
+    """Rows whose cluster slice exceeds the kernel's shared memory (above
+    196,608 f32 or 393,216 bf16 values) re-form x from device memory on
+    every pass of the select; beside them a row that fits, in one launch."""
+    qmax, ratio, use_thresh = mode
+    long = 200_000 if dtype == torch.float32 else 400_000
+    shapes = {"a_long": (2, 8, long // 8), "b_fits": (2, 8, 1000)}
+    d, r, mk = _compress_tree(cuda, shapes, dtype, mask_kind, True)
+    kw = dict(qmax=qmax, topk_ratio=ratio, use_thresh=use_thresh)
+    y, res = ops.fake_compress(d, r, mk, stacked=True, **kw)
+    _assert_compress_tree(d, r, mk, y, res, kw, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", [1e-9, 1.0, 0.5])
+def test_fake_compress_tree_k_extremes_match_plain(cuda, ratio):
+    """k = 1 (keep the largest |x|), k = m (keep every value) and an
+    all-equal row: the select's edge ranks, against the plain version."""
+    shapes = {"w": (3, 24, 8, 128)}
+    d, r, mk = _compress_tree(cuda, shapes, torch.float32, "per_client", True, special=False)
+    d["w"][1] = -2.5e-3
+    r["w"][1] = 0.0
+    kw = dict(qmax=127, topk_ratio=ratio, use_thresh=True)
+    y, res = ops.fake_compress(d, r, mk, stacked=True, **kw)
+    _assert_compress_tree(d, r, mk, y, res, kw, True)

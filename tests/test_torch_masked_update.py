@@ -23,7 +23,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 
-from repro_torch.kernels import masked_update
+from repro_torch.kernels import masked_update, tree_launch
 from repro_torch.kernels import ops as tops
 from repro_torch.optim import adamw_init, make_optimizer
 from repro_torch.utils.tree import tree_leaves
@@ -31,6 +31,14 @@ from repro_torch.utils.tree import tree_leaves
 SHAPES = [(48, 32), (300, 140), (2, 8, 17)]
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# params' dtype, or "<params' dtype>/bf16_moments": moments (m, v, mu) in bf16
+DTYPES = ["float32", "bfloat16", "bfloat16/bf16_moments", "float32/bf16_moments"]
+
+
+def _dtypes(case):
+    """(params' dtype, moments' dtype) of a ``DTYPES`` case."""
+    p, _, moments = case.partition("/")
+    return p, "bfloat16" if moments else "float32"
 
 
 def _inputs(shape, density, seed):
@@ -68,51 +76,58 @@ def _assert_update(port, ref, old, mask, active, bf16):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
 @pytest.mark.parametrize("active", [None, 0.0, 1.0])
 def test_adamw_matches_pallas_and_ref(shape, dtype, density, active):
+    dtype, mdt = _dtypes(dtype)
     p, g, m, v, mask = _inputs(shape, density, seed=len(shape) * 7 + int(density * 10))
     t0 = 3
     lr, wd = 0.01, 0.01
     jp, jg = _j(p, dtype), _j(g, dtype)
-    jst = {"m": {"w": _j(m)}, "v": {"w": _j(v)}, "t": jnp.int32(t0)}
+    jm, jv = _j(m, mdt), _j(v, mdt)
+    jst = {"m": {"w": jm}, "v": {"w": jv}, "t": jnp.int32(t0)}
     kern_p, kern_st = jops.masked_adamw_update(
         {"w": jg}, jst, {"w": jp}, lr, {"w": _j(mask)}, active, wd=wd, use_kernel=True
     )
-    tst = {"m": {"w": _t(m)}, "v": {"w": _t(v)}, "t": torch.tensor(t0, dtype=torch.int32)}
+    tst = {"m": {"w": _t(m, mdt)}, "v": {"w": _t(v, mdt)}, "t": torch.tensor(t0, dtype=torch.int32)}
     out_p, out_st = tops.masked_adamw_update(
         {"w": _t(g, dtype)}, tst, {"w": _t(p, dtype)}, lr, {"w": _t(mask)}, active, wd=wd
     )
-    assert out_p["w"].dtype == TORCH[dtype] and out_st["m"]["w"].dtype == torch.float32
+    assert out_p["w"].dtype == TORCH[dtype] and out_st["m"]["w"].dtype == out_st["v"]["w"].dtype == TORCH[mdt]
     assert int(out_st["t"]) == int(kern_st["t"]) == t0 + (0 if active == 0.0 else 1)
     bf16 = dtype == "bfloat16"
     _assert_update(out_p["w"], kern_p["w"], jp, mask, active, bf16)
-    _assert_update(out_st["m"]["w"], kern_st["m"]["w"], m, mask, active, False)
-    _assert_update(out_st["v"]["w"], kern_st["v"]["w"], v, mask, active, False)
+    _assert_update(out_st["m"]["w"], kern_st["m"]["w"], jm, mask, active, mdt == "bfloat16")
+    _assert_update(out_st["v"]["w"], kern_st["v"]["w"], jv, mask, active, mdt == "bfloat16")
     # the JAX package's oracle, called directly with its own scale definition
     tf = jnp.float32(int(kern_st["t"]))
     oracle = jref.masked_adamw_update_ref(
-        jp, jg, _j(m), _j(v), _j(mask), jnp.float32(lr),
+        jp, jg, jm, jv, _j(mask), jnp.float32(lr),
         1.0 / (1.0 - 0.9 ** tf), 1.0 / (1.0 - 0.999 ** tf), wd=wd, active=active,
     )
     _assert_update(out_p["w"], oracle[0], jp, mask, active, bf16)
 
 
+# (dtype, momentum): bf16 moments only where there is a momentum
+SGD_CASES = [pytest.param(dt, mom, id=f"{mom}-{dt}") for dt in DTYPES for mom in (0.0, 0.9)
+             if mom or "/" not in dt]
+
+
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("dtype,momentum", SGD_CASES)
 @pytest.mark.parametrize("with_mask", [False, True])
 @pytest.mark.parametrize("active", [None, 0.0, 1.0])
 def test_sgd_matches_pallas_and_ref(shape, dtype, momentum, with_mask, active):
+    dtype, mdt = _dtypes(dtype)
     p, g, mu, _, mask = _inputs(shape, 0.5, seed=len(shape) + int(momentum * 10))
     if not with_mask:
         mask = np.ones_like(mask)
     lr = 0.05
     jmask = {"w": _j(mask)} if with_mask else None
     tmask = {"w": _t(mask)} if with_mask else None
-    jst = {"mu": {"w": _j(mu)}} if momentum else {}
-    tst = {"mu": {"w": _t(mu)}} if momentum else {}
+    jst = {"mu": {"w": _j(mu, mdt)}} if momentum else {}
+    tst = {"mu": {"w": _t(mu, mdt)}} if momentum else {}
     kern_p, kern_st = jops.masked_sgd_update(
         {"w": _j(g, dtype)}, jst, {"w": _j(p, dtype)}, lr, jmask, active,
         momentum=momentum, use_kernel=True,
@@ -123,12 +138,13 @@ def test_sgd_matches_pallas_and_ref(shape, dtype, momentum, with_mask, active):
     bf16 = dtype == "bfloat16"
     _assert_update(out_p["w"], kern_p["w"], _j(p, dtype), mask, active, bf16)
     oracle_p, _ = jref.masked_sgd_update_ref(
-        _j(p, dtype), _j(g, dtype), _j(mu) if momentum else None,
+        _j(p, dtype), _j(g, dtype), _j(mu, mdt) if momentum else None,
         _j(mask) if with_mask else None, jnp.float32(lr), momentum=momentum, active=active,
     )
     _assert_update(out_p["w"], oracle_p, _j(p, dtype), mask, active, bf16)
     if momentum:
-        _assert_update(out_st["mu"]["w"], kern_st["mu"]["w"], mu, mask, active, False)
+        assert out_st["mu"]["w"].dtype == TORCH[mdt]
+        _assert_update(out_st["mu"]["w"], kern_st["mu"]["w"], _j(mu, mdt), mask, active, mdt == "bfloat16")
     else:
         assert out_st == {}
 
@@ -182,64 +198,86 @@ def test_adamw_init_matches_jax_layout():
 def test_kernel_launchers_refuse_what_the_kernel_does_not_take():
     """The launchers check device, dtype, size and contiguity before they
     build or call the CUDA library; here every tensor lies on the CPU."""
-    from repro_torch.kernels import masked_update
-
     from repro_torch.kernels import compress
 
     x = torch.zeros(4, 6)
-    scal = torch.zeros(1, 4)
-    launch = masked_update.plan_sgd((x.numel(),))[0]
+    launch = tree_launch.plan((x.numel(),))[0]
     sgd = dict(lr=0.1, active=1.0, momentum=0.0)
+    none = [None]
     with pytest.raises(ValueError, match="must lie on"):
-        masked_update.adamw_launch(x, x, x, x, x, x, x, None, scal, b1=0.9, b2=0.999, eps=1e-8, wd=0.0)
+        masked_update.adamw_tree_launch(launch, [x], [x], [x], [x], [x], [x], [x], none, clients=1,
+                                        t=torch.zeros((), dtype=torch.int32), t_out=torch.zeros(1, dtype=torch.int32),
+                                        lr=0.1, active=1.0, b1=0.9, b2=0.999, eps=1e-8, wd=0.0)
     with pytest.raises(ValueError, match="must lie on"):
-        masked_update.sgd_tree_launch(launch, [x], [x], [x], [None], [None], [None], clients=1, scal=None, **sgd)
+        masked_update.sgd_tree_launch(launch, [x], [x], [x], none, none, none, clients=1, scal=None, **sgd)
     with pytest.raises(ValueError, match="scal"):
-        masked_update.sgd_tree_launch(launch, [x], [x], [x], [None], [None], [None], clients=1,
+        masked_update.sgd_tree_launch(launch, [x], [x], [x], none, none, none, clients=1,
                                       scal=torch.zeros(3), **sgd)
     # a (k, 4) table needs leaves that stack k clients on their leading axis
     with pytest.raises(ValueError, match="stack"):
-        masked_update.sgd_tree_launch(launch, [x], [x], [x], [None], [None], [None], clients=3,
+        masked_update.sgd_tree_launch(launch, [x], [x], [x], none, none, none, clients=3,
                                       scal=torch.zeros(3, 4), **sgd)
     with pytest.raises(ValueError, match="CUDA"):
-        compress.fake_compress_launch(x, x.clone(), x.clone(), torch.zeros(4, 2), qmax=127,
-                                      use_thresh=False, per_leaf_scale=False)
+        compress.fake_compress_tree_launch(launch, [x.clone()], [x.clone()], [x], none, none, clients=1,
+                                           stacked=False, qmax=127, topk_ratio=1.0, use_thresh=False)
     assert masked_update.library.cache_info().currsize == 0  # nothing was built
     assert compress.library.cache_info().currsize == 0
 
 
-# --- B2 on the card: one launch per tree. Its planner, scalars and outputs
-# are plain Python, checked here; the kernel itself on the card. ---
+# --- B1/B2/B3 on the card: one launch per tree. The planner, scalars,
+# tables and outputs are plain Python, checked here; the kernels on the card. ---
 
 LORA_SIZES = [24 * 896 * 8, 24 * 8 * 128, 24 * 896 * 8, 24 * 8 * 896] * 2  # qwen2-0.5b's 8 leaves
-PLAN_SIZES = [LORA_SIZES, [4 * n for n in LORA_SIZES], [1, 3, 1000, 4097], [4096, 4096, 1],
-              [0, 5, 0, 8192 * 3 + 1], [7] * 40]
+CHUNKS = {"sgd": masked_update.SGD_CHUNK, "adamw": masked_update.ADAMW_CHUNK, "groups": 1024}
+# id -> (leaf sizes, clients stacked on every leaf, chunk)
+PLAN_CASES = {
+    "lora": (LORA_SIZES, 1, CHUNKS["sgd"]),
+    "lora_stacked": ([4 * n for n in LORA_SIZES], 1, CHUNKS["sgd"]),
+    "ragged": ([1, 3, 1000, 4097], 1, CHUNKS["sgd"]),
+    "chunks": ([4096, 4096, 1], 1, CHUNKS["sgd"]),
+    "empty": ([0, 5, 0, 8192 * 3 + 1], 1, CHUNKS["sgd"]),
+    "many": ([7] * 40, 1, CHUNKS["sgd"]),
+    # client rows: no chunk straddles two clients, rows not a multiple of the chunk
+    "lora_rows": ([4 * n for n in LORA_SIZES], 4, CHUNKS["sgd"]),
+    "lora_rows_adamw": ([4 * n for n in LORA_SIZES], 4, CHUNKS["adamw"]),
+    "ragged_rows_sgd": ([3 * 5000, 3 * 1, 3 * 4097, 0, 3 * 2048], 3, CHUNKS["sgd"]),
+    "ragged_rows_adamw": ([3 * 5000, 3 * 1, 3 * 4097, 0, 3 * 2049], 3, CHUNKS["adamw"]),
+    "ragged_adamw": ([1, 3, 1000, 2049, 6000], 1, CHUNKS["adamw"]),
+    "groups_rows": ([4 * 131 * 7 * 24, 4 * 33], 4, CHUNKS["groups"]),
+}
 
 
-def _chunk_of_block(launch, sizes, b):
-    """The kernel's map: block b -> (leaf, first element, end element) of
-    the chunk it updates, leaf l owning the blocks from block0[l] on."""
+def _chunk_of_block(launch, sizes, clients, chunk, b):
+    """The kernels' map: block b of a launch -> (leaf, client, first element,
+    end element) of the chunk it works on, leaf l owning the blocks from
+    block0[l] on, client row after client row."""
     j = 0
     while j + 1 < len(launch.leaves) and launch.block0[j + 1] <= b:
         j += 1
     leaf = launch.leaves[j]
-    start = (b - launch.block0[j]) * masked_update.SGD_CHUNK
-    return leaf, start, min(sizes[leaf], start + masked_update.SGD_CHUNK)
+    row = sizes[leaf] // clients
+    c, k = divmod(b - launch.block0[j], -(-row // chunk))
+    start = c * row + k * chunk
+    return leaf, c, start, min(start + chunk, (c + 1) * row)
 
 
-@pytest.mark.parametrize("sizes", PLAN_SIZES, ids=["lora", "lora_stacked", "ragged", "chunks", "empty", "many"])
-@pytest.mark.parametrize("capacity", [masked_update.SGD_MAX_LEAVES, 3, 1])
-def test_sgd_plan_covers_every_element_once_in_order(sizes, capacity):
-    """Block b of a launch updates chunk b - block0[l] of its leaf l (the
-    kernel's map): every element of every non-empty leaf exactly once,
-    chunk after chunk, the leaves in tree order."""
-    plans = masked_update.plan_sgd(tuple(sizes), capacity)
+@pytest.mark.parametrize("case", list(PLAN_CASES.values()), ids=list(PLAN_CASES))
+@pytest.mark.parametrize("capacity", [tree_launch.MAX_LEAVES, 3, 1])
+def test_sgd_plan_covers_every_element_once_in_order(case, capacity):
+    """Block b of a launch updates chunk b - block0[l] of its leaf l, client
+    row after client row (the kernels' map): every element of every
+    non-empty leaf exactly once, chunk after chunk, the leaves in tree order,
+    and no chunk straddles two clients' rows. The planner is shared by B1,
+    B2 and B3; each kernel has its own chunk."""
+    sizes, clients, chunk = case
+    plans = tree_launch.plan(tuple(sizes), clients, chunk, capacity)
     covered = {i: [] for i in range(len(sizes))}
     for launch in plans:
         assert 1 <= len(launch.leaves) <= capacity
         for b in range(launch.grid):
-            leaf, start, end = _chunk_of_block(launch, sizes, b)
-            assert start < end <= start + masked_update.SGD_CHUNK
+            leaf, c, start, end = _chunk_of_block(launch, sizes, clients, chunk, b)
+            row = sizes[leaf] // clients
+            assert c * row <= start < end <= min(start + chunk, (c + 1) * row)
             covered[leaf].append((start, end))
     for i, n in enumerate(sizes):
         done = 0
@@ -250,10 +288,44 @@ def test_sgd_plan_covers_every_element_once_in_order(sizes, capacity):
     assert [i for launch in plans for i in launch.leaves] == [i for i, n in enumerate(sizes) if n > 0]
 
 
+@pytest.mark.parametrize("clients", [1, 4])
+def test_plan_one_block_per_row(clients):
+    """B3's top-k plan: each (leaf, client) row is one block of the plan (a
+    thread-block cluster on the card), numbered in leaf order."""
+    sizes = (clients * 172032, 0, clients * 24576, clients * 131)
+    (launch,) = tree_launch.plan(sizes, clients, None)
+    assert launch.leaves == (0, 2, 3)
+    assert launch.block0 == (0, clients, 2 * clients) and launch.grid == 3 * clients
+
+
+def test_adamw_table_keeps_each_tensors_dtype():
+    """B1's host table, on CPU tensors: per leaf the eight pointers, the
+    element count, the client row, the first block and the dtype codes of
+    p, g, m and v (0 f32, 1 bf16), each moment with its own; an output in
+    another dtype than its input is refused."""
+    k, bf = 2, torch.bfloat16
+    p = [torch.zeros(k, 5), torch.zeros(k, 3, dtype=bf)]
+    g = [torch.zeros(k, 5, dtype=bf), torch.zeros(k, 3, dtype=bf)]
+    m = [torch.zeros(k, 5, dtype=bf), torch.zeros(k, 3)]
+    v = [torch.zeros(k, 5), torch.zeros(k, 3, dtype=bf)]
+    mask = [None, torch.ones(k, 3)]
+    outs = tree_launch.views(tree_launch.layout(tuple((x.shape, x.dtype) for x in p + m + v)), "cpu")
+    (launch,) = tree_launch.plan((10, 6), k, masked_update.ADAMW_CHUNK)
+    words = masked_update.table(launch, k, outs[:2], p, g, outs[2:4], m, outs[4:], v, mask)
+    rows = np.asarray(words).reshape(2, 12)
+    for j in range(2):
+        want = [p[j], g[j], m[j], v[j], mask[j], outs[j], outs[2 + j], outs[4 + j]]
+        assert rows[j, :8].tolist() == [0 if t is None else t.data_ptr() for t in want]
+    assert rows[:, 8].tolist() == [10, 6] and rows[:, 9].tolist() == [5, 3] and rows[:, 10].tolist() == [0, 2]
+    assert rows[:, 11].tolist() == [0 | 1 << 8 | 1 << 16 | 0 << 24, 1 | 1 << 8 | 0 << 16 | 1 << 24]
+    with pytest.raises(TypeError, match="m_out"):
+        masked_update.table(launch, k, outs[:2], p, g, [outs[2].float(), outs[3]], m, outs[4:], v, mask)
+
+
 @pytest.mark.parametrize("n_leaves,launches", [(1, 1), (8, 1), (32, 1), (33, 2), (64, 2), (70, 3)])
 def test_sgd_plan_splits_beyond_the_table(n_leaves, launches):
-    plans = masked_update.plan_sgd((100,) * n_leaves)
-    assert masked_update.SGD_MAX_LEAVES == 32
+    plans = tree_launch.plan((100,) * n_leaves)
+    assert tree_launch.MAX_LEAVES == 32
     assert len(plans) == launches
     assert sum(len(p.leaves) for p in plans) == n_leaves
 
@@ -286,9 +358,9 @@ def test_sgd_outputs_are_views_of_one_buffer_per_dtype():
     leaves = [torch.zeros(3, 5), torch.zeros(7, dtype=torch.bfloat16), torch.zeros(2, 2), torch.zeros(0),
               torch.zeros(9, dtype=torch.bfloat16)]
     sig = tuple((t.shape, t.dtype) for t in leaves)
-    lay = masked_update.layout(sig)
-    assert lay.sizes == (15, 7, 4, 0, 9) and masked_update.layout(sig) is lay  # cached per signature
-    out = masked_update.views(lay, "cpu")
+    lay = tree_launch.layout(sig)
+    assert lay.sizes == (15, 7, 4, 0, 9) and tree_launch.layout(sig) is lay  # cached per signature
+    out = tree_launch.views(lay, "cpu")
     for o, t in zip(out, leaves):
         assert o.shape == t.shape and o.dtype == t.dtype and o.is_contiguous()
         assert o.data_ptr() % 16 == 0
@@ -298,7 +370,7 @@ def test_sgd_outputs_are_views_of_one_buffer_per_dtype():
         o.fill_(i + 1)
     for i, o in enumerate(out):
         assert bool((o == i + 1).all())
-    mus = masked_update.views(masked_update.layout(tuple((s, torch.float32) for s, _ in sig[:3])), "cpu")
+    mus = tree_launch.views(tree_launch.layout(tuple((s, torch.float32) for s, _ in sig[:3])), "cpu")
     assert [m.dtype for m in mus] == [torch.float32] * 3
 
 
