@@ -6,7 +6,8 @@ device and exits non-zero without one, or if any phase fails:
 
 1. device: the card's name and power limit;
 2. build: compile the hand-written CUDA sources from ``src/repro_torch``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together; each kernel's registers,
+   shared memory and spills as ``ptxas`` reports them;
 3. kernels against their plain PyTorch versions, on the card, at every LoRA
    leaf shape of full qwen2-0.5b, bit for bit: masked AdamW/SGD (B1/B2) per
    client and stacked over 4 clients with per-client scalars, moments f32
@@ -30,7 +31,12 @@ device and exits non-zero without one, or if any phase fails:
    (B5) and its gather-packed form (B6) on the clients' LoRA and neuron
    masks, and the multi-adapter product (B7) over the 8 clients' adapters,
    within a stated tolerance of their plain versions; every kernel again at
-   shapes off any tile grid; then their times;
+   shapes off any tile grid, and B5/B6 at ranks on both single-adapter
+   kernels (1, 8, 16 with a and b in shared memory, 64 from L2), widths 1,
+   128 and 896, masks keeping no column, every column and half, a K with
+   no 16-byte rows, x off a 16-byte boundary and more row tiles than a
+   block's ring holds; that the main path's widths take the persistent
+   kernel; then their times and shares of the bound;
 5c. the public entry point's attention and state-space kernels:
    ``flash_attention`` (B8) at qwen2-0.5b's attention width (14 heads, 2 KV
    heads, D 64, bf16) on (i) the q, k, v that layer 0 of the vectorized
@@ -40,10 +46,11 @@ device and exits non-zero without one, or if any phase fails:
    ``ssd_chunk_intra`` (B9) at mamba2-1.3b's widths (S 2048 in chunks of
    128, 64 heads: 1024 groups, head_dim 64, state 128) in f32 and bf16,
    with b and c shared by the heads and the Mamba2 initializer's decays,
-   plus the JAX tests' small shapes; each within a stated tolerance of its
-   plain version; then their times beside their bounds and, for B8 (bf16 on
-   the tensor cores, f32 on the CUDA cores), its TFLOP/s, its share of the
-   bound and ``scaled_dot_product_attention``'s time;
+   plus the JAX tests' small shapes and Q, hd and N off the kernel's tiles
+   (a in f32 and bf16); each within a stated tolerance of its plain
+   version; then their times beside their bounds and shares of them and,
+   for B8 (bf16 on the tensor cores, f32 on the CUDA cores), its TFLOP/s
+   and ``scaled_dot_product_attention``'s time;
 6. compressed uploads (top-k 0.1, int8 values, error feedback) with
    per-client ranks, random_select/sgd (fused), 1 round on each engine from
    the same seed: equal comm bytes, equal to the wire format recomputed from the GAL mask and ranks,
@@ -135,6 +142,12 @@ OPS_LAYERS = (0, 11, 23)
 OPS_ROWS = (256, 4096)
 LORA_TOL = 1e-4
 LORA_ORDER_REL = 1e-5
+# the single-adapter kernels' ragged cases: ranks on both of its paths,
+# widths of one column, of wk and of wq, and masks keeping no column, every
+# column and half of them
+LORA_RANKS = (1, 8, 16, 64)
+LORA_WIDTHS = (1, 128, 896)
+LORA_MASKS = {"zero": 0.0, "one": 1.1, "half": 0.5}
 # Phase 5c. B8: an output row is a convex combination of v's rows, and the
 # kernel takes the scores, exponentials and sums in another order than the
 # plain version, so f32 outputs agree within 1e-5 of the largest |v|; bf16
@@ -149,6 +162,8 @@ ATTN_HEADS = (14, 2, 64)  # qwen2-0.5b: query heads, KV heads, head_dim
 ATTN_SLICE = 1024  # query rows per slice of the plain version at S 16384
 SSD_WIDTHS = dict(S=2048, chunk=128, nh=64, hd=64, N=128)  # mamba2-1.3b, one sequence
 SSD_SMALL = ((128, 64, 32), (128, 128, 128), (64, 32, 16))  # the JAX tests' (Q, hd, N)
+# B9 off the main shape: Q, hd and N with and without padding to the kernel's tiles
+SSD_RAGGED = tuple((Q, hd, N) for Q in (8, 24, 64, 128) for hd in (4, 20, 64, 128) for N in (1, 5, 128))
 COMPRESSION = dict(mode="topk", topk_ratio=0.1, topk_values="int8", error_feedback=True)
 RANKS = [8, 8, 4, 4, 8, 8, 2, 8]
 # Phase 5 holds the vectorized engine's Fisher difficulty scores to the loop
@@ -205,6 +220,21 @@ def difficulty_gap(loop_scores, vec_scores):
 
 def log(*args):
     print(*args, flush=True)
+
+
+def ptxas_summary(report):
+    """One line per kernel from ``nvcc -Xptxas -v``: its registers, shared
+    memory and spills (the report names the kernel, then its stack and
+    spills, then its registers)."""
+    lines, name, spill = [], "?", ""
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            lines.append(f"  {name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return lines
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -728,7 +758,7 @@ def drive_batched(ops, ref, x, idx, a, b, mask, scale, what):
     return y, err
 
 
-def phase_ops(ops, ref, vec, cfg, gen, tree_leaves, tree_map):
+def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
     """Phase 5b: the four public wrappers of ``repro_torch.kernels.ops`` on
     the vectorized run's own FIM trees, LoRA and neuron masks (the FIM
     warmup's rho = 0.5 masks), then at shapes off any tile grid. Returns the
@@ -802,6 +832,30 @@ def phase_ops(ops, ref, vec, cfg, gen, tree_leaves, tree_map):
                 masks = (torch.rand(3, N, generator=gen, device="cuda") < 0.5).float()
                 _, e7 = drive_batched(ops, ref, x, idx, randn(3, K, r), randn(3, r, N), masks, 0.5, what)
                 note("batched_sparse_lora_apply", e7)
+        # the single-adapter kernels by rank (1, 8 and 16 keep a and b ⊙ mask
+        # in shared memory here, 64 reads them from L2), rows past the last
+        # whole tile, K with no 16-byte rows, all-zero, all-one and rho 0.5 masks
+        M, K = 1000, 301
+        paths = {}
+        for r in LORA_RANKS:
+            for N in LORA_WIDTHS:
+                for kind in ("zero", "one", "half"):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        x, a, b = randn(M, K).to(dtype), randn(K, r), randn(r, N)
+                        keep = (torch.rand(N, generator=gen, device="cuda") < LORA_MASKS[kind]).float()
+                        e5, e6 = drive_lora(ops, ref, x, a, b, keep, 0.5, f"M={M} K={K} N={N} r={r} {kind} {dtype}")
+                        note("sparse_lora_apply", e5)
+                        note("sparse_lora_apply_packed", e6)
+                        paths[(r, N, dtype)] = sparse_lora.resident_stages(K, N, r, dtype)
+        # x off a 16-byte boundary, and more row tiles than the ring holds
+        a, b, keep = client_lora(c0, "wq", OPS_LAYERS[1])
+        K = a.shape[0]
+        x = torch.empty(4096 * K + 1, dtype=torch.bfloat16, device="cuda")[1:].view(4096, K)
+        x.copy_(randn(4096, K))
+        for xx in (x, randn(16 * 132 * 6 + 5, K).bfloat16()):
+            e5, e6 = drive_lora(ops, ref, xx, a, b, keep, scale, f"wq x {tuple(xx.shape)} at {xx.data_ptr() % 16}")
+            note("sparse_lora_apply", e5)
+            note("sparse_lora_apply_packed", e6)
         for shape in ((7,), (1000, 3), (24, 7, 131)):
             f, g = torch.rand(shape, generator=gen, device="cuda"), randn(*shape)
             check_equal(ops.fisher_diag_update(f, g, 0.95), ref.fisher_diag_update_ref(g, f, 0.95),
@@ -813,6 +867,13 @@ def phase_ops(ops, ref, vec, cfg, gen, tree_leaves, tree_map):
         f"(wq/wk/wv/wo x layers {list(OPS_LAYERS)} x M {list(OPS_ROWS)}) + f32; B7 over the {n_ad} clients' "
         "wq adapters with out-of-range rows, (B, S, K) and A=1; all at ragged shapes, ranks 4/16/6/12: "
         f"within tolerance; max abs err {errs}")
+    log("single-adapter ring depth by (r, N, dtype) at K 301 (0: a and b read from L2):",
+        {f"{r},{n},{str(d)[6:]}": v for (r, n, d), v in paths.items()})
+    main_widths = {(client_lora(c0, t, 0)[0].shape[0], client_lora(c0, t, 0)[1].shape[1]) for t in ("wq", "wk")}
+    main = {f"K={k} N={n}": sparse_lora.resident_stages(k, n, cfg.lora_rank, torch.bfloat16) for k, n in main_widths}
+    log("single-adapter ring depth at the main path's widths (bf16, rank", cfg.lora_rank, "):", main)
+    if min(main.values()) == 0 or any(v != 0 for (r, _, _), v in paths.items() if r > 16):
+        raise AssertionError(f"a single-adapter launch took the wrong kernel: {main}, {paths}")
     log("launches, ops phase:", run.counts)
     if run.counts != only(**{name: run.counts[name] for name in errs}) or min(run.counts[n] for n in errs) == 0:
         raise AssertionError(f"the ops phase did not launch each of its kernels: {run.counts}")
@@ -898,6 +959,15 @@ def phase_ops_timing(ops, ref, fisher_diag, sparse_lora, vec, cfg, gen, tree_lea
             library_ms=cuda_ms(lambda: torch.linalg.multi_dot([x, a16, bm16])),
             **bound_of(2 * M * K + 2 * M * N + 4 * (K * r + r * N + N), 2 * M * K * r + 2 * M * r * N + r * N),
         )
+        # the share of the byte bound that the device time reaches
+        entry["bound_share"] = entry["bound_ms"] / entry["graph_ms"]
+        # one client's batch (256 rows): launch latency, reported beside it
+        x256, y256 = xs[0][:OPS_ROWS[0]], ys[0][:OPS_ROWS[0]]
+        launch256 = lambda _=0: sparse_lora.sparse_lora_launch(y256, x256, a, b, keep, scale=scale)  # noqa: E731
+        entry.update(rows256_ms=cuda_ms(launch256), rows256_graph_ms=graph_ms(launch256))
+        log(f"B5 {target} at {M} bf16 rows: device {entry['graph_ms']:.4f} ms, {entry['bound_share']:.1%} of its "
+            f"bound ({entry['bound_ms']:.4f} ms); launcher {entry['ms']:.4f}; at 256 rows device "
+            f"{entry['rows256_graph_ms']:.4f}; ring depth {sparse_lora.resident_stages(K, N, r, torch.bfloat16)}")
         if target == "wk":
             times["sparse_lora_apply"]["wk_wv"] = entry
             continue
@@ -918,6 +988,9 @@ def phase_ops_timing(ops, ref, fisher_diag, sparse_lora, vec, cfg, gen, tree_lea
             library_ms=cuda_ms(lambda: torch.linalg.multi_dot([x, a16, bp16])),
             n_keep=nk, **bound_of(2 * M * K + 2 * M * nk + 4 * (K * r + r * nk), 2 * M * K * r + 2 * M * r * nk),
         )
+        b6 = times["sparse_lora_apply_packed"]
+        b6["bound_share"] = b6["bound_ms"] / b6["graph_ms"]
+        log(f"B6 wq ({nk} kept columns): device {b6['graph_ms']:.4f} ms, {b6['bound_share']:.1%} of its bound")
 
     # B7: 8 adapters (the clients' wq at one layer), rows spread at random
     a8, b8, m8 = adapter_stack(clients, "wq", OPS_LAYERS[1])
@@ -1074,10 +1147,11 @@ def phase_attention_ssd(ops, ref, vec, cfg, gen):
                           a, f"B9 {name}")
             log(f"B9 mamba2-1.3b {name}: x {tuple(x.shape)}, b/c {tuple(b.shape)}: max abs err {e:.3g}")
             errs["ssd_chunk_intra"] = max(errs["ssd_chunk_intra"], e)
-        for Q, hd, N in SSD_SMALL:
+        for Q, hd, N in SSD_SMALL + SSD_RAGGED:
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn(4, Q, hd, generator=gen, device="cuda").to(dtype)
                 a = -torch.randn(4, 1, Q, generator=gen, device="cuda").abs() * 0.1
+                a = a.to(dtype) if (Q, hd, N) in SSD_RAGGED else a  # a in bf16 too
                 b, c = (torch.randn(4, Q, N, generator=gen, device="cuda").to(dtype) for _ in range(2))
                 y = ops.ssd_chunk_intra(x, a, b, c)
                 e = check_ssd(y, ref.ssd_chunk_intra_ref(x, a, b, c),
@@ -1085,7 +1159,7 @@ def phase_attention_ssd(ops, ref, vec, cfg, gen):
                 errs["ssd_chunk_intra"] = max(errs["ssd_chunk_intra"], e)
     torch.cuda.synchronize()
     log(f"B8/B9 vs plain: within tolerance; max abs err {errs}; launches, phase 5c: {run.counts}")
-    if run.counts != only(flash_attention=len(cases), ssd_chunk_intra=len(ssd) + 2 * len(SSD_SMALL)):
+    if run.counts != only(flash_attention=len(cases), ssd_chunk_intra=len(ssd) + 2 * len(SSD_SMALL + SSD_RAGGED)):
         raise AssertionError(f"phase 5c did not launch each of its kernels once per case: {run.counts}")
     return {name: run.counts[name] for name in errs}, errs, cases, ssd
 
@@ -1171,6 +1245,10 @@ def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd)
             # no single call; the plain version is the nearest einsum chain
             library_ms=None, **bound_of(bytes_moved, flops, rate), gflop=flops / 1e9, mb=bytes_moved / 1e6,
         )
+        e = ssd_entries[name]
+        e["bound_share"] = e["bound_ms"] / e["graph_ms"]
+        log(f"B9 {name} ({G} groups): device {e['graph_ms']:.4f} ms, {e['bound_share']:.1%} of its bound "
+            f"({e['bound_ms']:.4f} ms, {e['bound_by']}); launcher {e['ms']:.4f}")
     times["ssd_chunk_intra"] = dict(ssd_entries["f32"], bf16=ssd_entries["bf16"])
     log("B8/B9 times:", json.dumps(times))
     return times
@@ -1281,7 +1359,8 @@ def main() -> int:
     for module in sources:
         module.library()
     log(f"build: {time.perf_counter() - t0:.2f} s")
-    log("\n".join(line for report in reports for line in report.splitlines() if "Used" in line))
+    for module, report in zip(sources, reports):
+        log(f"{Path(module.SOURCE).name}:\n" + "\n".join(ptxas_summary(report)))
 
     # --- 3. kernels against their plain versions, and their times ---
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1370,7 +1449,7 @@ def main() -> int:
     launches["masked_adamw_update_stacked"] += vec_run.counts["masked_adamw_update"]
 
     # --- 5b. the public kernel entry point on the vectorized run's data ---
-    ops_counts, ops_errs = phase_ops(ops, ref, vec, cfg, gen, tree_leaves, tree_map)
+    ops_counts, ops_errs = phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map)
     for name in ops_counts:
         launches[name] += ops_counts[name]
     errs.update(ops_errs)

@@ -1,13 +1,17 @@
-"""Launcher of the hand-written CUDA neuron-masked LoRA kernel (B5-B7).
+"""Launcher of the hand-written CUDA neuron-masked LoRA kernels (B5-B7).
 
 Ports the TPU kernels ``repro/kernels/sparse_lora.py::sparse_lora_matmul``,
 ``::sparse_lora_matmul_packed`` and ``::batched_sparse_lora_matmul``: one
 CUDA source, ``csrc/sparse_lora.cu``, with its bound and design. The
 masked product, the packed one (no mask) and the multi-adapter one (a row
-index into stacked adapters) are one launch with other arguments. The
-launcher checks the tensors, allocates nothing, launches on PyTorch's
-current stream and raises if the launch is refused. The library is built
-and loaded at the first launch (``kernels/build.py``), never at import.
+index into stacked adapters) are one launch with other arguments. A
+single-adapter launch takes the persistent kernel that keeps a and
+b ⊙ mask in shared memory where they fit (:func:`resident_stages`), the
+kernel that reads them from L2 otherwise; the multi-adapter one always
+takes the latter. The launcher checks the tensors, allocates nothing,
+launches on PyTorch's current stream and raises if the launch is refused.
+The library is built and loaded at the first launch (``kernels/build.py``),
+never at import.
 """
 from __future__ import annotations
 
@@ -29,7 +33,20 @@ def library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     lib.repro_sparse_lora.argtypes = [_P] * 6 + [_I64, _I64, _I64, _I, _I, _I, _F, _P]
     lib.repro_sparse_lora.restype = _I
+    lib.repro_sparse_lora_stages.argtypes = [_I64, _I64, _I, _I]
+    lib.repro_sparse_lora_stages.restype = _I
     return lib
+
+
+def resident_stages(K: int, N: int, r: int, dtype: torch.dtype) -> int:
+    """The x-tile ring depth (1-4 tiles over its teams) of the persistent
+    single-adapter kernel for these widths on the current CUDA device, or 0
+    where a and b ⊙ mask do not fit its shared memory (rank above 16, or K
+    and N too wide) and a launch takes the kernel that reads them from L2."""
+    stages = library().repro_sparse_lora_stages(K, N, r, _DTYPE_CODES[dtype])
+    if stages < 0:
+        raise ValueError(f"no kernel for K {K}, N {N}, rank {r}")
+    return stages
 
 
 def _check(name, t, device, shape, dtype) -> None:

@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import flash_attention, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention, ops, ref, sparse_lora  # noqa: E402
 
 SHAPES = [(24, 896, 8), (24, 8, 128), (1000, 3)]  # LoRA a, b of wk/wv; a ragged size
 
@@ -512,6 +512,63 @@ def test_batched_sparse_lora_kernel_matches_plain(cuda, M, K, N, r, A, dtype):
     assert torch.equal(y3.reshape(M, N), y)
 
 
+# the single-adapter product's two kernels: a and b ⊙ mask resident in
+# shared memory (rank up to 16 where they fit) or read from L2 (rank 64)
+LORA_MASKS = {"zero": 0.0, "one": 1.1, "half": 0.5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 8, 16, 64])
+@pytest.mark.parametrize("N", [1, 128, 896])
+@pytest.mark.parametrize("mask_kind", list(LORA_MASKS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_lora_single_adapter_paths_match_plain(cuda, r, N, mask_kind, dtype):
+    M, K = 1000, 896  # rows past the last whole tile of 16
+    x, a, b, _ = _lora(cuda, M, K, N, r, dtype)
+    mask = (torch.rand(N, generator=cuda, device="cuda") < LORA_MASKS[mask_kind]).float()
+    stages = sparse_lora.resident_stages(K, N, r, dtype)
+    assert (stages > 0) == (r <= 8 or (r == 16 and (dtype == torch.bfloat16 or N < 896)))
+    y = ops.sparse_lora_apply(x, a, b, mask, 0.5)
+    torch.cuda.synchronize()
+    assert_lora_close(y, ref.sparse_lora_matmul_ref(x, a, b, mask, 0.5))
+    assert bool((y[:, mask == 0] == 0).all())
+    yp = ops.sparse_lora_apply_packed(x, a, b, mask, 0.5)
+    torch.cuda.synchronize()
+    assert_lora_close(yp, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [7, 300, 301, 1000])
+@pytest.mark.parametrize("r", [1, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_lora_resident_ragged_k_matches_plain(cuda, K, r, dtype):
+    """K whose rows allow no 16-byte copies (odd, or not a multiple of 8 in
+    bf16) goes element by element; rows and columns off the tiles."""
+    x, a, b, mask = _lora(cuda, 777, K, 250, r, dtype)
+    assert sparse_lora.resident_stages(K, 250, r, dtype) > 0
+    y = ops.sparse_lora_apply(x, a, b, mask, 1.5)
+    torch.cuda.synchronize()
+    assert_lora_close(y, ref.sparse_lora_matmul_ref(x, a, b, mask, 1.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 16, 4096, 16 * 132 * 6 + 5])
+def test_sparse_lora_resident_rows_and_unaligned_x(cuda, dtype, M):
+    """From one row to more tiles than the ring holds per block, with x at an
+    aligned and at a misaligned address (the same values)."""
+    K, N, r = 896, 896, 8
+    _, a, b, mask = _lora(cuda, 1, K, N, r, dtype)
+    x = torch.empty(M * K + 1, device="cuda", dtype=dtype)[1:].view(M, K)
+    x.copy_(torch.randn(M, K, generator=cuda, device="cuda"))
+    assert x.data_ptr() % 16
+    y = ops.sparse_lora_apply(x, a, b, mask, 2.0)
+    y_aligned = ops.sparse_lora_apply(x.clone(), a, b, mask, 2.0)
+    torch.cuda.synchronize()
+    assert_lora_close(y, ref.sparse_lora_matmul_ref(x, a, b, mask, 2.0))
+    assert torch.equal(y, y_aligned)  # the same sums in the same order
+
+
 @pytest.mark.cuda
 def test_sparse_lora_launcher_refuses_what_it_cannot_run(cuda):
     x, a, b, mask = _lora(cuda, 8, 16, 12, 65, torch.float32)
@@ -669,9 +726,14 @@ def assert_ssd_close(y, x, a, b, c):
     assert bool(((y - plain).abs() <= allowed).all()), float(((y - plain).abs() / terms.clamp_min(1e-30)).max())
 
 
+# the JAX tests' shapes, mamba2's, and Q, hd and N with and without padding
+# to the kernel's tiles (16 rows, 64 or 128 columns of hd, 32 of N)
+SSD_CASES = [(128, 64, 32), (128, 128, 128), (64, 32, 16), (72, 20, 33)] + [
+    (Q, hd, N) for Q in (8, 24, 64, 128) for hd in (4, 20, 64, 128) for N in (1, 5, 128)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,hd,N", [(128, 64, 32), (128, 128, 128), (64, 32, 16), (128, 64, 128), (8, 4, 1),
-                                    (72, 20, 33)])
+@pytest.mark.parametrize("Q,hd,N", SSD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16])
 def test_ssd_chunk_kernel_matches_plain(cuda, Q, hd, N, dtype, a_dtype):
@@ -684,6 +746,25 @@ def test_ssd_chunk_kernel_matches_plain(cuda, Q, hd, N, dtype, a_dtype):
     assert ops.ssd_chunk_intra.launches == before + 1
     torch.cuda.synchronize()
     assert_ssd_close(y, x, a, b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_unaligned_views(cuda, dtype):
+    """Inputs off a 16-byte boundary are copied element by element."""
+    G, Q, hd, N = 6, 128, 64, 128
+
+    def shifted(*shape):
+        t = torch.empty(math.prod(shape) + 1, device="cuda", dtype=dtype)[1:].view(*shape)
+        return t.copy_(torch.randn(shape, generator=cuda, device="cuda"))
+
+    x, b, c = shifted(G, Q, hd), shifted(G, Q, N), shifted(G, Q, N)
+    assert x.data_ptr() % 16 and b.data_ptr() % 16
+    a = mamba_decays(cuda, G, Q, 2)
+    y = ops.ssd_chunk_intra(x, a, b, c)
+    torch.cuda.synchronize()
+    assert_ssd_close(y, x, a, b, c)
+    assert torch.equal(y, ops.ssd_chunk_intra(x.clone(), a, b.clone(), c.clone()))
 
 
 @pytest.mark.cuda
