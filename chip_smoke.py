@@ -35,8 +35,13 @@ device and exits non-zero without one, or if any phase fails:
    kernels (1, 8, 16 with a and b in shared memory, 64 from L2), widths 1,
    128 and 896, masks keeping no column, every column and half, a K with
    no 16-byte rows, x off a 16-byte boundary and more row tiles than a
-   block's ring holds; that the main path's widths take the persistent
-   kernel; then their times and shares of the bound;
+   block's ring holds; B6 with inf and nan in b's frozen columns (exact
+   zeros there); B7 with a batch skewed to one adapter, adapters with no
+   row, every row out of range, every row on adapter 0 (B5's bits), and 64
+   random wq-shaped adapters, its on-device plan held to its plain twin;
+   that the main path's widths take the persistent B5 kernel and B7's SGMV
+   kernel; then their times (B6 as the whole call, also in a CUDA graph of
+   wrapper calls) and shares of the bound;
 5c. the public entry point's attention and state-space kernels:
    ``flash_attention`` (B8) at qwen2-0.5b's attention width (14 heads, 2 KV
    heads, D 64, bf16) on (i) the q, k, v that layer 0 of the vectorized
@@ -733,13 +738,19 @@ def drive_lora(ops, ref, x, a, b, keep, scale, what):
     e5 = check_lora(y, ref.sparse_lora_matmul_ref(x, a, b, keep, scale), f"B5 {what}")
     check_frozen_zero(y, keep == 0, f"B5 {what}")
     yp = ops.sparse_lora_apply_packed(x, a, b, keep, scale)
-    e6 = check_lora(yp, y, f"B6 vs B5 {what}")
-    kept = torch.nonzero(keep).reshape(-1)
-    if kept.numel():
-        e6 = max(e6, check_lora(yp[:, kept], ref.sparse_lora_matmul_packed_ref(x, a, b[:, kept], scale),
-                                f"B6 kept columns {what}"))
+    e6 = check_lora(yp, ref.sparse_lora_apply_packed_ref(x, a, b, keep, scale), f"B6 {what}")
+    check_lora(yp, y, f"B6 vs B5 {what}")
+    kept = keep != 0
+    check_equal(yp[:, kept], y[:, kept], f"B6 vs B5 kept columns {what}")  # b · 1 is b
     check_frozen_zero(yp, keep == 0, f"B6 {what}")
     return e5, e6
+
+
+def skewed_rows(gen, M, A, lead=()):
+    """Adapter indices with 3/4 of the rows on adapter 0 and the rest spread
+    evenly over the others (multi-tenant serving's heavy tenant)."""
+    idx = torch.randint(1, A, lead + (M,), generator=gen, device="cuda")
+    return torch.where(torch.rand(lead + (M,), generator=gen, device="cuda") < 0.75, 0, idx)
 
 
 def drive_batched(ops, ref, x, idx, a, b, mask, scale, what):
@@ -813,10 +824,43 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
         for xx in (x, x.float()):
             _, e7 = drive_batched(ops, ref, xx, idx, a8, b8, m8, scale, f"A={n_ad} (B, S, K) {xx.dtype}")
             note("batched_sparse_lora_apply", e7)
+        # the batch skewed to one adapter, adapters 1 and 3 owning no row,
+        # every row out of range (-1 and A), and every row on adapter 0,
+        # which is B5's product bit for bit (the same per-tile code)
+        ragged = {"skewed": skewed_rows(gen, OPS_ROWS[0], n_ad, (16,)),
+                  "no rows on 1, 3": torch.where((idx == 1) | (idx == 3), 2, idx),
+                  "all out of range": torch.where(idx % 2 == 0, -1, n_ad + idx.abs())}
+        for kind, ix in ragged.items():
+            _, e7 = drive_batched(ops, ref, x, ix, a8, b8, m8, scale, f"A={n_ad} {kind}")
+            note("batched_sparse_lora_apply", e7)
+        y0, e7 = drive_batched(ops, ref, x, torch.zeros_like(idx), a8, b8, m8, scale, f"A={n_ad} all on 0")
+        note("batched_sparse_lora_apply", e7)
+        check_equal(y0, ops.sparse_lora_apply(x, a8[0], b8[0], m8[0], scale), "B7 all rows on adapter 0 vs B5")
         # one adapter: the unbatched product
         y1, e7 = drive_batched(ops, ref, x, torch.zeros_like(idx), a8[:1], b8[:1], m8[:1], scale, "A=1")
         note("batched_sparse_lora_apply", e7)
-        check_lora(y1, ops.sparse_lora_apply(x, a8[0], b8[0], m8[0], scale), "B7 A=1 vs B5")
+        check_equal(y1, ops.sparse_lora_apply(x, a8[0], b8[0], m8[0], scale), "B7 A=1 vs B5")
+        # the card's plan (rows sorted by adapter, segment offsets) against its plain twin
+        x2, ix2 = x.reshape(-1, x.shape[-1]), idx.reshape(-1).int()
+        plan = torch.full((x2.shape[0] + n_ad + 2,), -1, dtype=torch.int32, device="cuda")
+        sparse_lora.sparse_lora_launch(torch.empty(x2.shape[0], b8.shape[2], dtype=x2.dtype, device="cuda"), x2,
+                                       a8, b8, m8, ix2, scale=scale, plan=plan)
+        check_equal(plan, sparse_lora.sgmv_plan(ix2, n_ad), "B7 plan vs its twin")
+        sgmv = {f"A={A} M={M} r={r}": sparse_lora.resident_stages(a8.shape[1], b8.shape[2], r, torch.bfloat16,
+                                                                    adapters=A, rows=M)
+                for A, M, r in ((n_ad, x2.shape[0], cfg.lora_rank), (64, 4096, cfg.lora_rank),
+                                (64, 1000, cfg.lora_rank), (n_ad, x2.shape[0], 64))}
+        # 64 random wq-shaped adapters: on the SGMV path at 4096 rows, on the
+        # L2 path at 1000 (fewer than 16 rows an adapter) and at rank 64
+        K8, N8 = a8.shape[1], b8.shape[2]
+        for M, r in ((4096, cfg.lora_rank), (1000, cfg.lora_rank), (1000, 64)):
+            a64, b64 = randn(64, K8, r) * 0.05, randn(64, r, N8) * 0.05
+            m64 = (torch.rand(64, N8, generator=gen, device="cuda") < 0.5).float()
+            x64 = randn(M, K8).bfloat16()
+            for kind, ix in (("random", torch.randint(0, 64, (M,), generator=gen, device="cuda")),
+                             ("skewed", skewed_rows(gen, M, 64))):
+                _, e7 = drive_batched(ops, ref, x64, ix, a64, b64, m64, scale, f"A=64 M={M} r={r} {kind}")
+                note("batched_sparse_lora_apply", e7)
         # off any tile grid: ragged M, K and N; ranks whose rows fill no
         # 16-byte load (6) or no power of two (12); random weights
         M, K, N = 200, 300, 250
@@ -856,6 +900,17 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
             e5, e6 = drive_lora(ops, ref, xx, a, b, keep, scale, f"wq x {tuple(xx.shape)} at {xx.data_ptr() % 16}")
             note("sparse_lora_apply", e5)
             note("sparse_lora_apply_packed", e6)
+        # inf and nan in b's frozen columns: B6 never reads them (0 there, as
+        # the JAX packed op gives), B5 multiplies them by 0 (nan, as JAX's does)
+        for a_r, b_r in ((a, b), (randn(K, 64), randn(64, b.shape[1]))):  # the resident and the L2 kernel
+            bad = b_r.clone()
+            bad[:, keep == 0] = float("nan")
+            bad[0, keep == 0] = float("inf")
+            yp = ops.sparse_lora_apply_packed(x, a_r, bad, keep, scale)
+            what = f"B6 r={b_r.shape[0]} non-finite frozen b"
+            check_frozen_zero(yp, keep == 0, what)
+            plain = ref.sparse_lora_apply_packed_ref(x, a_r, bad, keep, scale)
+            note("sparse_lora_apply_packed", check_lora(yp, plain, what))
         for shape in ((7,), (1000, 3), (24, 7, 131)):
             f, g = torch.rand(shape, generator=gen, device="cuda"), randn(*shape)
             check_equal(ops.fisher_diag_update(f, g, 0.95), ref.fisher_diag_update_ref(g, f, 0.95),
@@ -864,9 +919,14 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
     log(f"B4 vs plain on the run's FIM trees (one client; {len(clients)} stacked, {n_fim} elements), "
         "g f32/bf16, and ragged sizes: bit for bit")
     log(f"B5/B6 vs plain on client 0's LoRA and rho=0.5 neuron masks: {n_lora} bf16 cases "
-        f"(wq/wk/wv/wo x layers {list(OPS_LAYERS)} x M {list(OPS_ROWS)}) + f32; B7 over the {n_ad} clients' "
-        "wq adapters with out-of-range rows, (B, S, K) and A=1; all at ragged shapes, ranks 4/16/6/12: "
-        f"within tolerance; max abs err {errs}")
+        f"(wq/wk/wv/wo x layers {list(OPS_LAYERS)} x M {list(OPS_ROWS)}) + f32; B6's kept columns B5's bits, "
+        f"its frozen ones 0 with inf/nan in b there; B7 over the {n_ad} clients' wq adapters with out-of-range "
+        "rows, (B, S, K), skewed, rows on no adapter, all out of range, all on adapter 0 (B5's bits) and A=1, "
+        "64 random wq adapters (SGMV and L2 paths), its plan equal to the twin; all at ragged shapes, ranks "
+        f"4/16/6/12: within tolerance; max abs err {errs}")
+    log("B7 ring depth by shape (0: the L2 kernel):", sgmv)
+    if min(list(sgmv.values())[:2]) == 0 or max(list(sgmv.values())[2:]) != 0:
+        raise AssertionError(f"a multi-adapter launch took the wrong kernel: {sgmv}")
     log("single-adapter ring depth by (r, N, dtype) at K 301 (0: a and b read from L2):",
         {f"{r},{n},{str(d)[6:]}": v for (r, n, d), v in paths.items()})
     main_widths = {(client_lora(c0, t, 0)[0].shape[0], client_lora(c0, t, 0)[1].shape[1]) for t in ("wq", "wk")}
@@ -972,46 +1032,68 @@ def phase_ops_timing(ops, ref, fisher_diag, sparse_lora, vec, cfg, gen, tree_lea
             times["sparse_lora_apply"]["wk_wv"] = entry
             continue
         times["sparse_lora_apply"] = entry
-        kept = torch.nonzero(keep).reshape(-1)
-        bp = b[:, kept].contiguous()
-        nk = bp.shape[1]
-        yps = [torch.empty(M, nk, dtype=torch.bfloat16, device="cuda") for _ in range(copies)]
 
+        # B6, the whole call (one launch writes all of y): its launcher, its
+        # wrapper, and a CUDA graph of wrapper calls (no host sync to stop
+        # the capture); wrapper times taken in turns with B5's
         def b6_launch(i=0):
-            sparse_lora.sparse_lora_launch(yps[i % copies], xs[i % copies], a, bp, None, scale=scale)
+            sparse_lora.sparse_lora_launch(ys[i % copies], xs[i % copies], a, b, keep, scale=scale, packed=True)
 
-        bp16 = bp.bfloat16()
-        times["sparse_lora_apply_packed"] = dict(
-            ms=cuda_ms(b6_launch), graph_ms=graph_ms(b6_launch),
-            wrapper_ms=cuda_ms(lambda: ops.sparse_lora_apply_packed(x, a, b, keep, scale)),
-            plain_ms=cuda_ms(lambda: ref.sparse_lora_matmul_packed_ref(x, a, bp, scale)),
-            library_ms=cuda_ms(lambda: torch.linalg.multi_dot([x, a16, bp16])),
-            n_keep=nk, **bound_of(2 * M * K + 2 * M * nk + 4 * (K * r + r * nk), 2 * M * K * r + 2 * M * r * nk),
-        )
-        b6 = times["sparse_lora_apply_packed"]
-        b6["bound_share"] = b6["bound_ms"] / b6["graph_ms"]
-        log(f"B6 wq ({nk} kept columns): device {b6['graph_ms']:.4f} ms, {b6['bound_share']:.1%} of its bound")
+        def b6_call(i=0):
+            return ops.sparse_lora_apply_packed(xs[i % copies], a, b, keep, scale)
 
-    # B7: 8 adapters (the clients' wq at one layer), rows spread at random
+        nk = int((keep != 0).sum())
+        b6 = dict(ms=cuda_ms(b6_launch), graph_ms=graph_ms(b6_call), launcher_graph_ms=graph_ms(b6_launch),
+                  plain_ms=cuda_ms(lambda: ref.sparse_lora_apply_packed_ref(x, a, b, keep, scale)),
+                  # one call of the same function where b is finite: the frozen columns' b · 0
+                  library_ms=entry["library_ms"], n_keep=nk,
+                  **bound_of(2 * M * K + 2 * M * N + 4 * (K * r + r * nk + N), 2 * M * K * r + 2 * M * r * nk))
+        b6["wrapper_ms"], b5_wrapper = paired_ms(lambda: b6_call(), lambda: ops.sparse_lora_apply(x, a, b, keep, scale))
+        b6.update(bound_share=b6["bound_ms"] / b6["graph_ms"], b5_wrapper_ms=b5_wrapper,
+                  vs_b5_graph=b6["graph_ms"] / entry["graph_ms"], vs_b5_wrapper=b6["wrapper_ms"] / b5_wrapper)
+        times["sparse_lora_apply_packed"] = b6
+        log(f"B6 wq ({nk} kept columns), the whole call: device {b6['graph_ms']:.4f} ms ({b6['vs_b5_graph']:.3f}x "
+            f"B5), {b6['bound_share']:.1%} of its bound; wrapper {b6['wrapper_ms']:.4f} ({b6['vs_b5_wrapper']:.3f}x "
+            f"B5's {b5_wrapper:.4f}); launcher {b6['ms']:.4f}")
+
+    # B7: 8 adapters (the clients' wq at one layer), rows spread at random;
+    # the same batch skewed to one adapter; 64 random wq-shaped adapters
     a8, b8, m8 = adapter_stack(clients, "wq", OPS_LAYERS[1])
     A, K, r = a8.shape
     N = b8.shape[2]
     xs = [randn(M, K).bfloat16() for _ in range(copies)]
     ys = [torch.empty(M, N, dtype=torch.bfloat16, device="cuda") for _ in range(copies)]
-    idx = torch.randint(0, A, (M,), generator=gen, device="cuda", dtype=torch.int32)
     x = xs[0]
 
-    def b7_launch(i=0):
-        sparse_lora.sparse_lora_launch(ys[i % copies], xs[i % copies], a8, b8, m8, idx, scale=scale)
+    def b7_case(a_, b_, m_, idx):
+        n_ad = a_.shape[0]
 
-    times["batched_sparse_lora_apply"] = dict(
-        ms=cuda_ms(b7_launch), graph_ms=graph_ms(b7_launch),
-        wrapper_ms=cuda_ms(lambda: ops.batched_sparse_lora_apply(x, idx, a8, b8, m8, scale)),
-        plain_ms=cuda_ms(lambda: ref.batched_sparse_lora_matmul_ref(x, idx, a8, b8, m8, scale)),
-        # no single call: nearest a gather of the adapters + torch.bmm
-        library_ms=None, adapters=A,
-        **bound_of(2 * M * K + 2 * M * N + 4 * M + 4 * A * (K * r + r * N + N), 2 * M * K * r + 2 * M * r * N),
-    )
+        def launch(i=0):
+            sparse_lora.sparse_lora_launch(ys[i % copies], xs[i % copies], a_, b_, m_, idx, scale=scale)
+
+        case = dict(graph_ms=graph_ms(launch), adapters=n_ad,
+                    ring_depth=sparse_lora.resident_stages(K, N, r, torch.bfloat16, adapters=n_ad, rows=M),
+                    **bound_of(2 * M * K + 2 * M * N + 4 * M + 4 * n_ad * (K * r + r * N + N),
+                               2 * M * K * r + 2 * M * r * N))
+        case["bound_share"] = case["bound_ms"] / case["graph_ms"]
+        return launch, case
+
+    idx = torch.randint(0, A, (M,), generator=gen, device="cuda", dtype=torch.int32)
+    b7_launch, b7 = b7_case(a8, b8, m8, idx)
+    b7.update(ms=cuda_ms(b7_launch),
+              wrapper_ms=cuda_ms(lambda: ops.batched_sparse_lora_apply(x, idx, a8, b8, m8, scale)),
+              plain_ms=cuda_ms(lambda: ref.batched_sparse_lora_matmul_ref(x, idx, a8, b8, m8, scale)),
+              # no single call: nearest a gather of the adapters + torch.bmm
+              library_ms=None, vs_b5_graph=b7["graph_ms"] / times["sparse_lora_apply"]["graph_ms"])
+    _, b7["skewed"] = b7_case(a8, b8, m8, skewed_rows(gen, M, A).int())
+    a64, b64 = randn(64, K, r) * 0.05, randn(64, r, N) * 0.05
+    m64 = (torch.rand(64, N, generator=gen, device="cuda") < 0.5).float()
+    _, b7["a64"] = b7_case(a64, b64, m64, torch.randint(0, 64, (M,), generator=gen, device="cuda", dtype=torch.int32))
+    times["batched_sparse_lora_apply"] = b7
+    log(f"B7 at {M} bf16 rows, {A} adapters: device {b7['graph_ms']:.4f} ms ({b7['vs_b5_graph']:.3f}x B5 wq), "
+        f"{b7['bound_share']:.1%} of its bound ({b7['bound_ms']:.5f} ms); skewed {b7['skewed']['graph_ms']:.4f} "
+        f"({b7['skewed']['bound_share']:.1%}); A=64 {b7['a64']['graph_ms']:.4f} ({b7['a64']['bound_share']:.1%}); "
+        f"launcher {b7['ms']:.4f}, wrapper {b7['wrapper_ms']:.4f}")
     log("ops kernel times:", json.dumps(times))
     return times
 

@@ -1,5 +1,5 @@
-"""Device times of the SSD intra-chunk kernel (B9) and the single-adapter
-LoRA product (B5/B6) at the main paths' widths, without the model.
+"""Device times of the SSD intra-chunk kernel (B9) and the LoRA products
+(B5-B7) at the main paths' widths, without the model.
 
 Builds the two CUDA sources from the repository, checks each kernel against
 its plain version at chip_smoke.py's tolerances, and times it with
@@ -7,10 +7,12 @@ chip_smoke.py's helpers: the device time from a CUDA graph of launches over
 inputs larger than the L2, and the launcher's time (host checks and the
 ctypes call). B9 runs at mamba2-1.3b's widths (1024 groups, f32 and bf16
 inputs); B5 at 4096 bf16 rows of qwen2-0.5b's wq (K 896, N 896) and wk
-(N 128) with rank 8, random weights and a rho 0.5 neuron mask, and B6 on
-wq's kept columns. Prints each time beside its byte bound and, last, one
-JSON line with every number. With ``--repeat n`` every case is timed n
-times in turns, so that the spread within one card shows.
+(N 128) with rank 8, random weights and a rho 0.5 neuron mask, B6 (the
+whole call) at wq, and B7 over 8 wq-shaped adapters (rows at random,
+skewed, all on one adapter, all out of range) and 64. Prints each
+time beside its byte bound and, last, one JSON line with every number.
+With ``--repeat n`` every case is timed n times in turns, so that the
+spread within one card shows.
 
     python3 scripts/torch_kernel_times.py [--repeat 3]
 """
@@ -50,32 +52,62 @@ def ssd_cases(gen):
 
 
 def lora_cases(gen):
-    """B5 on wq and wk, B6 on wq's kept columns: 8 copies of x and y, more than the L2 holds."""
+    """B5 on wq and wk, B6 (the whole call) on wq, and B7 over 8 wq-shaped
+    adapters and over 64: 8 copies of x and y, more than the L2 holds."""
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
     M, K, r, copies, scale = cs.OPS_ROWS[1], 896, 8, 8, 2.0
     cases = {}
     for target, N in (("wq", 896), ("wk", 128)):
         a, b = randn(K, r) * 0.05, randn(r, N) * 0.05
         keep = (torch.rand(N, generator=gen, device="cuda") < 0.5).float()
-        kept = torch.nonzero(keep).reshape(-1)
-        for kind, bb, mk in (("b5", b, keep), ("b6", b[:, kept].contiguous(), None)):
+        nk = int(keep.sum())
+        for kind, packed in (("b5", False), ("b6", True)):
             if kind == "b6" and target == "wk":
                 continue
-            n = bb.shape[1]
             xs = [randn(M, K).bfloat16() for _ in range(copies)]
-            ys = [torch.empty(M, n, dtype=torch.bfloat16, device="cuda") for _ in range(copies)]
-            launch = lambda i=0, xs=xs, ys=ys, bb=bb, mk=mk: sparse_lora.sparse_lora_launch(  # noqa: E731
-                ys[i % copies], xs[i % copies], a, bb, mk, scale=scale)
+            ys = [torch.empty(M, N, dtype=torch.bfloat16, device="cuda") for _ in range(copies)]
+            launch = lambda i=0, xs=xs, ys=ys, a=a, b=b, keep=keep, packed=packed: (  # noqa: E731
+                sparse_lora.sparse_lora_launch(ys[i % copies], xs[i % copies], a, b, keep, scale=scale, packed=packed))
             launch()
-            plain = (ref.sparse_lora_matmul_ref(xs[0], a, bb, mk, scale) if mk is not None
-                     else ref.sparse_lora_matmul_packed_ref(xs[0], a, bb, scale))
+            plain = (ref.sparse_lora_apply_packed_ref if packed else ref.sparse_lora_matmul_ref)(xs[0], a, b, keep,
+                                                                                                 scale)
             err = cs.check_lora(ys[0], plain, f"{kind} {target}")
-            mask_bytes = 4 * N if mk is not None else 0
-            bound = cs.bound_of(2 * M * K + 2 * M * n + 4 * (K * r + r * n) + mask_bytes,
-                                2 * M * K * r + 2 * M * r * n)
+            n = nk if packed else N  # the columns whose b is read and multiplied
+            bound = cs.bound_of(2 * M * K + 2 * M * N + 4 * (K * r + r * n + N), 2 * M * K * r + 2 * M * r * n)
             cases[f"{kind}_{target}"] = (launch, bound, err)
-            stages = sparse_lora.resident_stages(K, n, r, torch.bfloat16)
-            print(f"{kind} {target}: N {n}, ring depth {stages}", flush=True)
+            print(f"{kind} {target}: N {N}, {nk} kept, ring depth "
+                  f"{sparse_lora.resident_stages(K, N, r, torch.bfloat16)}", flush=True)
+    N = 896
+    # rows at random, skewed 3/4 to adapter 0, all on adapter 0 (the plan's
+    # cost alone: every block has one adapter) and all out of range (the
+    # plan and zero rows), over 8 adapters; at random over 64
+    kinds = {"b7_a8": (8, "random"), "b7_a8_skewed": (8, "skewed"), "b7_a8_on0": (8, "on0"),
+             "b7_a8_out": (8, "out"), "b7_a64": (64, "random")}
+    for name, (A, kind) in kinds.items():
+        a, b = randn(A, K, r) * 0.05, randn(A, r, N) * 0.05
+        mask = (torch.rand(A, N, generator=gen, device="cuda") < 0.5).float()
+        if kind == "random":
+            idx = torch.randint(0, A, (M,), generator=gen, device="cuda")
+        elif kind == "skewed":
+            idx = cs.skewed_rows(gen, M, A)
+        else:
+            idx = torch.full((M,), 0 if kind == "on0" else -1, device="cuda")
+        idx = idx.int()
+        xs = [randn(M, K).bfloat16() for _ in range(copies)]
+        ys = [torch.empty(M, N, dtype=torch.bfloat16, device="cuda") for _ in range(copies)]
+        launch = lambda i=0, xs=xs, ys=ys, a=a, b=b, mask=mask, idx=idx: sparse_lora.sparse_lora_launch(  # noqa: E731
+            ys[i % copies], xs[i % copies], a, b, mask, idx, scale=scale)
+        launch()
+        err = cs.check_lora(ys[0], ref.batched_sparse_lora_matmul_ref(xs[0], idx, a, b, mask, scale), name)
+        # what this batch needs: x of the rows in range, the adapters they use,
+        # idx, and all of y
+        rows = int(((idx >= 0) & (idx < A)).sum())
+        used = int(torch.unique(idx[(idx >= 0) & (idx < A)]).numel())
+        bound = cs.bound_of(2 * rows * K + 2 * M * N + 4 * M + 4 * used * (K * r + r * N + N),
+                            2 * rows * K * r + 2 * rows * r * N)
+        cases[name] = (launch, bound, err)
+        print(f"{name}: ring depth {sparse_lora.resident_stages(K, N, r, torch.bfloat16, adapters=A, rows=M)}",
+              flush=True)
     return cases
 
 

@@ -3,18 +3,22 @@
 //
 // Replaces the TPU kernels
 //   src/repro/kernels/sparse_lora.py::sparse_lora_matmul          (_kernel)
-//   src/repro/kernels/sparse_lora.py::sparse_lora_matmul_packed   (_packed_kernel)
+//   src/repro/kernels/sparse_lora.py::sparse_lora_matmul_packed   (_packed_kernel,
+//       with the gather and scatter of its wrapper, src/repro/kernels/ops.py)
 //   src/repro/kernels/sparse_lora.py::batched_sparse_lora_matmul  (_batched_kernel)
 //
 // Each row m of x (M, K) gets an adapter i(m): 0 for the single-adapter
-// product, idx[m] for the multi-adapter one (a row whose idx lies outside
+// products, idx[m] for the multi-adapter one (a row whose idx lies outside
 // [0, A) comes out as zeros, as the TPU kernel gives it). Then, in f32,
 //   xa[m] = x[m] @ a[i]                              (K -> r)
 //   y[m]  = scale · (xa[m] @ (b[i] ⊙ mask[i]))       (r -> N), in x's dtype
 // with a (K, r), b (r, N) and mask (N,) per adapter, all f32, and x f32 or
-// bf16. The packed product is the same product with no mask (mask ==
-// null) on the kept columns of b, which the wrapper gathers and scatters
-// back.
+// bf16. The packed product (B6) is the same product on the kept columns
+// (mask != 0), with b as it is there, and an exact 0 in every frozen
+// column: it never reads b at a frozen column, so a non-finite value there
+// does not reach y (the masked product's b · 0 gives NaN there, as the TPU
+// kernel's does), and it writes all of y once, with no gather, zero fill or
+// scatter around the launch and no host sync.
 //
 // Bound: memory. With r = 8 the two products do ~4 flops per byte of x and
 // y moved (2·K·r + 2·r·N flops for 2·(K + N) bytes of a bf16 row), far below
@@ -26,24 +30,61 @@
 // keep x@a unrounded between the products. The sums run in another order
 // than the plain version's matmuls, so the two agree at a tolerance, not
 // bit for bit. A masked column multiplies b by 0 before the sum, as the
-// plain version does, so it comes out exactly 0 for finite b.
+// plain version does, so it comes out exactly 0 for finite b. A row's sums
+// do not depend on where in a tile the row sits, so every path that shares
+// the per-tile code gives a row the same bits.
 //
 // Two kernels:
 //
-// sparse_lora_resident_kernel: the single-adapter product (B5, and B6 on the
-// kept columns), when r <= 16 and a, b ⊙ mask and a tile per team fit one
-// block's shared memory (team_stages() > 0: at K = N = 896, bf16 x with r
-// up to 16, f32 x with r up to 8). Persistent: as many blocks as the SMs
-// hold at once (one an SM at qwen2-0.5b's widths), each walking row tiles
-// of 16 rows strided by the grid, with two teams of 8 warps that take
-// alternate tiles (one team for r > 8, whose sums need the registers), so
-// that one team's loads and stores run while the other multiplies.
+// sparse_lora_resident_kernel: a and b ⊙ mask resident in shared memory.
+// It takes the single-adapter products (B5, B6) where r <= 16 and a,
+// b ⊙ mask and a tile per team fit one block's shared memory (team_stages()
+// > 0: at K = N = 896, bf16 x with r up to 16, f32 x with r up to 8), and
+// the multi-adapter product (B7) where, besides, A <= kMaxSgmvAdapters and
+// M >= 16·A (a tile's rows per adapter on average; sgmv_stages()). As many
+// blocks as the SMs hold at once (one an SM at qwen2-0.5b's widths), each
+// taking an even share [g·T/G, (g+1)·T/G) of the T row tiles of 16, with two
+// teams of 8 warps that take alternate tiles (one team for r > 8, whose sums
+// need the registers), so that one team's loads and stores run while the
+// other multiplies.
+//   - B7 is an SGMV kernel, the first of two designs: one launch, and the
+//     plan stays on the device. Every block reads idx (16 KB at 4096 rows,
+//     from L2, with 16-byte loads) and counts the rows of each segment,
+//     adapters 0..A-1 and then segment A, the rows out of range, with
+//     warp-aggregated shared-memory atomics; its first warp scans the counts
+//     into each segment's first row and first tile in the order sorted by
+//     segment and cuts the block's tiles into pieces at segment boundaries.
+//     The block then lists each piece's rows in row order (stable) from
+//     per-thread counts and a block prefix sum, two pieces a pass; up to
+//     8 NT rows the segments read for the counts stay in registers, so idx
+//     is read once. Tiles, not adapters, are shared out, so a skewed batch
+//     keeps every SM busy. Per piece the block stages that adapter's a and
+//     b ⊙ mask once (the first piece's a is copied in while the rows are
+//     listed, the next piece's while the current one runs; b after a has
+//     landed, which PERF.md found faster than both at once) and streams the
+//     piece's rows through the ring: x rows are gathered by bulk copies from
+//     their places, y rows written back to theirs. Segment A is last; its
+//     tiles read nothing and write zero rows. The second design, a
+//     counting-sort kernel that writes a permutation for a second launch,
+//     was not taken: at the main path's 4096 rows the kernel boundary and a
+//     one-block sort would add as much latency as the plan, and a launch.
+//     What this one costs (PERF.md): the plan's chain of loads and block
+//     barriers before the first tile can be copied, and a block whose tiles
+//     span two adapters runs them one team at a time with a restage between.
+//     The plan's rows and segment offsets can be written out (plan != null)
+//     to be held against the plain twin of the plan.
+//   - The single-adapter products are one piece of one segment with no
+//     plan, their tiles strided by the grid; each of the three products is
+//     compiled apart (ResMode), so B5 carries none of the plan's code. A
+//     batch whose rows are all on one adapter gives B5's bits.
 //   - a (K x r) and b ⊙ mask (r x N) are staged in shared memory once per
-//     block (28 KB each at qwen2-0.5b's wq, r 8), so L2 sees them once per
-//     block, not once per 16 rows. Both come as bulk copies (the TMA's 1-D
-//     form, counted by an mbarrier); a lands as it lies and is rearranged so
-//     that a warp's 16-byte reads of it are contiguous; b ⊙ mask is formed
-//     as phase 2 reads b and the mask.
+//     piece (28 KB each at qwen2-0.5b's wq, r 8), so L2 sees them once per
+//     block and adapter, not once per 16 rows. Both come as bulk copies (the
+//     TMA's 1-D form, counted by an mbarrier); a lands as it lies and is
+//     rearranged so that a warp's 16-byte reads of it are contiguous;
+//     b ⊙ mask is formed as phase 2 reads b and the mask. The packed product
+//     reads the mask first, then only b's kept columns, element by element
+//     (the last team, while the first multiplies its first tile).
 //   - x comes through each team's ring of 1-2 tiles (16 rows x K), one bulk
 //     copy per row issued by the team's first warp, so the tiles after the
 //     current one stay in flight while it is multiplied and no thread waits
@@ -63,30 +104,30 @@
 //     for the first tile and a, then to the two products of one tile per
 //     team with few warps to hide their latencies (PERF.md).
 //
-// sparse_lora_kernel: every other case. The multi-adapter product (B7), and
-// the single-adapter product at ranks above 16 or widths whose a and b do
-// not fit, which read a and b from L2 per step. One block owns 16 rows and
-// all N columns. Phase 1 streams its x rows through shared memory in
-// 256-column chunks with 16-byte loads where the rows allow them; the loads
-// of the next chunk are issued before the current one is multiplied. It
-// accumulates xa in registers: a lane owns 4 rank components of one k per
-// step, each warp two rows, so every x element is read from device memory
-// once. A single adapter's a (rank up to 16) is staged beside x chunk by
-// chunk; multi-adapter rows and larger ranks read a with float4 loads,
-// coalesced across the warp, from L1/L2; a shuffle reduction leaves xa in
-// shared memory. Phase 2 walks N: a thread owns a column, loads its
+// sparse_lora_kernel: every other case, reading a and b from L2 per step:
+// ranks above 16, widths whose a and b do not fit, and the multi-adapter
+// product with more than kMaxSgmvAdapters adapters or fewer than 16 rows per
+// adapter, where staging each adapter would cost more than it saves. One
+// block owns 16 rows and all N columns. Phase 1 streams its x rows through
+// shared memory in 256-column chunks with 16-byte loads where the rows allow
+// them; the loads of the next chunk are issued before the current one is
+// multiplied. It accumulates xa in registers: a lane owns 4 rank components
+// of one k per step, each warp two rows, so every x element is read from
+// device memory once. A single adapter's a (rank up to 16) is staged beside
+// x chunk by chunk; multi-adapter rows and larger ranks read a with float4
+// loads, coalesced across the warp, from L1/L2; a shuffle reduction leaves
+// xa in shared memory. Phase 2 walks N: a thread owns a column, loads its
 // (b ⊙ mask) column once per adapter and writes that column of all 16
-// rows. Multi-adapter rows gather their own adapter (BGMV style): the
-// block orders its 16 rows by adapter, and a warp reloads a and b only
-// when the adapter changes. Sorting the whole batch by adapter (SGMV) is
-// later work.
+// rows. Multi-adapter rows gather their own adapter (BGMV): the block orders
+// its 16 rows by adapter, and a warp reloads a and b only when the adapter
+// changes. The packed product reads no b at a frozen column and writes 0.
 // The TPU kernels' padding to 128/512 tiles has no counterpart: ragged M, N
 // and K are masked here.
 //
 // C interface (loaded with ctypes): repro_sparse_lora returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a rank
-// above kMaxRank; repro_sparse_lora_stages says which kernel a
-// single-adapter launch takes (its ring depth, or 0).
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments it does not take; repro_sparse_lora_stages says which kernel a
+// launch takes (the resident kernel's ring depth, or 0).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,7 +161,7 @@ __global__ void __launch_bounds__(kThreads)
     sparse_lora_kernel(T* __restrict__ y, const T* __restrict__ x, const int* __restrict__ idx,
                        const float* __restrict__ a, const float* __restrict__ b,
                        const float* __restrict__ mask, int64_t M, int64_t K, int64_t N, int r,
-                       int n_adapters, float scale, bool x_vec, bool a_vec) {
+                       int n_adapters, float scale, bool packed, bool x_vec, bool a_vec) {
   constexpr int LK = RP / 4;
   constexpr int KS = 32 / LK;
   constexpr int VX = 16 / sizeof(T);                        // x values per 16-byte load
@@ -286,6 +327,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t n = tid; n < N; n += kThreads) {
     float bm[RP];
     int cur = -1;
+    bool frozen = false;  // the packed product: no b read, an exact 0
     for (int t = 0; t < kRows; ++t) {
       const int row = order_s[t];
       const int64_t m = m0 + row;
@@ -295,17 +337,17 @@ __global__ void __launch_bounds__(kThreads)
       if (ad >= 0) {
         if (ad != cur) {
           const float* bp = b + (int64_t)ad * r * N + n;
-          const float mk = mask != nullptr ? mask[(int64_t)ad * N + n] : 1.0f;
+          const float mk = mask[(int64_t)ad * N + n];
+          frozen = packed && mk == 0.0f;
 #pragma unroll
           for (int rr = 0; rr < RP; ++rr)
-            bm[rr] = rr < r ? (mask != nullptr ? bp[(int64_t)rr * N] * mk : bp[(int64_t)rr * N])
-                            : 0.0f;
+            bm[rr] = rr < r && !frozen ? (packed ? bp[(int64_t)rr * N] : bp[(int64_t)rr * N] * mk) : 0.0f;
           cur = ad;
         }
         float s = 0.0f;
 #pragma unroll
         for (int rr = 0; rr < RP; ++rr) s = fmaf(xa_s[row][rr], bm[rr], s);
-        out = scale * s;
+        out = frozen ? 0.0f : scale * s;
       }
       y[m * N + n] = from_f32<T>(out);
     }
@@ -315,23 +357,23 @@ __global__ void __launch_bounds__(kThreads)
 bool aligned(const void* p, uintptr_t bytes) { return ((uintptr_t)p % bytes) == 0; }
 
 template <typename T, int RP>
-int launch_rank(void* y, const void* x, const int* idx, const float* a, const float* b,
-                const float* mask, int64_t M, int64_t K, int64_t N, int r, int n_adapters,
-                float scale, cudaStream_t stream) {
+int launch_rank(void* y, const void* x, const int* idx, const float* a, const float* b, const float* mask,
+                int64_t M, int64_t K, int64_t N, int r, int n_adapters, float scale, bool packed,
+                cudaStream_t stream) {
   const bool x_vec = (K % (16 / (int64_t)sizeof(T))) == 0 && aligned(x, 16);
   const bool a_vec = (r % 4) == 0 && aligned(a, 16);
   const int64_t blocks = (M + kRows - 1) / kRows;
   sparse_lora_kernel<T, RP><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (T*)y, (const T*)x, idx, a, b, mask, M, K, N, r, n_adapters, scale, x_vec, a_vec);
+      (T*)y, (const T*)x, idx, a, b, mask, M, K, N, r, n_adapters, scale, packed, x_vec, a_vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(void* y, const void* x, const int* idx, const float* a, const float* b,
-           const float* mask, int64_t M, int64_t K, int64_t N, int r, int n_adapters,
-           float scale, cudaStream_t stream) {
+int launch(void* y, const void* x, const int* idx, const float* a, const float* b, const float* mask,
+           int64_t M, int64_t K, int64_t N, int r, int n_adapters, float scale, bool packed,
+           cudaStream_t stream) {
 #define REPRO_LORA(RP) \
-  return launch_rank<T, RP>(y, x, idx, a, b, mask, M, K, N, r, n_adapters, scale, stream)
+  return launch_rank<T, RP>(y, x, idx, a, b, mask, M, K, N, r, n_adapters, scale, packed, stream)
   if (r <= 4) REPRO_LORA(4);
   if (r <= 8) REPRO_LORA(8);
   if (r <= 16) REPRO_LORA(16);
@@ -340,13 +382,15 @@ int launch(void* y, const void* x, const int* idx, const float* a, const float* 
 #undef REPRO_LORA
 }
 
-// ---- the single-adapter product with a and b ⊙ mask resident ----
+// ---- a and b ⊙ mask resident: the single-adapter products and SGMV ----
 
 constexpr int kResRows = 16;          // rows per tile: two row groups of 8
 constexpr int kResMaxRank = 16;       // a lane's 2 rows x r partial sums
 constexpr int kResMaxStages = 4;      // x tiles in the ring, all teams together
 constexpr int kTeamThreads = 256;     // a team: 8 warps on one tile at a time
 constexpr int kKSplit = kTeamThreads / 64;  // warps sharing a row group's k's
+constexpr int kListTiles = 64;        // a planning block's tiles at most
+constexpr int kMaxSgmvAdapters = 1024;
 
 // Teams of a block: two, which take alternate tiles, where a lane's
 // registers allow it (rank up to 8), else one.
@@ -404,6 +448,9 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes));
 }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   uint32_t done = 0;
   while (!done)
@@ -413,6 +460,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
 }
+// after the generic proxy's last access to shared memory that a bulk copy
+// is about to overwrite
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // bytes (a multiple of 16) global -> shared, both 16-byte aligned; completes on bar
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
@@ -420,6 +472,9 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
                "l"(src), "r"(bytes), "r"(smem_u32(bar))
                : "memory");
 }
+
+// The segment of an adapter index: itself in [0, A), else A (out of range).
+__device__ __forceinline__ int segment(int v, int A) { return (unsigned)v < (unsigned)A ? v : A; }
 
 // Shared-memory layout of the resident kernel, in bytes from the start:
 //   a_s    float4 [RP/4][2][KP/2]: (c, h, p) holds a[2p + h][4c .. 4c + 3]
@@ -430,13 +485,18 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
 //   bars   uint64 [kResMaxStages + 2]: one per ring stage, then b's and a's
 //   a_tmp  float  [K][r]: a as it lies in device memory, rearranged into a_s
 //   ring   T      [teams][stages per team][kResRows][KX]
+//   plan   int    (the multi-adapter product only) the segments' row counts
+//                 [A + 1], first tiles [A + 2] and first rows [A + 2]; the
+//                 block's rows [kListTiles][kResRows], each tile's row count
+//                 [kListTiles]; each piece's first tile [kListTiles + 1] and
+//                 segment [kListTiles]; 40 words of block sums
 // KP: K rounded up to even (pairs of k); KX: K rounded up to 8 (16-byte
 // rows), and 8 more elements, so that the 4 row pairs a warp reads at once
 // start on other banks; NG: N / 8 rounded up. Rows past K, ranks past r and
 // columns past N are 0.
 struct ResLayout {
-  int KP, KX, NG, a, b, mask, red, xa, bars, a_tmp, ring, tile;
-  __host__ __device__ ResLayout(int64_t K, int64_t N, int r, int RP, int size) {
+  int KP, KX, NG, a, b, mask, red, xa, bars, a_tmp, ring, tile, plan_bytes;
+  __host__ __device__ ResLayout(int64_t K, int64_t N, int r, int RP, int size, int A) {
     const int teams = res_teams(RP);
     KP = (int)((K + 1) & ~1LL);
     KX = (int)((K + 7) & ~7LL) + 8;
@@ -450,37 +510,54 @@ struct ResLayout {
     a_tmp = bars + 8 * (kResMaxStages + 2);
     ring = a_tmp + (int)(((K * r * 4) + 15) & ~15LL);
     tile = kResRows * KX * size;
+    plan_bytes = A > 0 ? 4 * (3 * A + 5 + kListTiles * (kResRows + 3) + 1 + 40) : 0;
   }
-  // shared memory for `stages` ring stages per team
-  __host__ __device__ int bytes(int RP, int stages) const { return ring + res_teams(RP) * stages * tile; }
+  // where the plan starts, and the shared memory of a block, with `stages`
+  // ring stages per team
+  __host__ __device__ int plan(int RP, int stages) const { return ring + res_teams(RP) * stages * tile; }
+  __host__ __device__ int bytes(int RP, int stages) const { return plan(RP, stages) + plan_bytes; }
 };
 
 __device__ __forceinline__ void team_sync(int team) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + team), "r"(kTeamThreads) : "memory");
 }
 
-template <typename T, int RP>
+// The products it takes, each compiled apart: B5 (the masked single-adapter
+// product), B6 (packed) and B7 (SGMV, with idx).
+enum ResMode { kMasked, kPacked, kSgmv };
+
+template <typename T, int RP, int MODE>
 __global__ void __launch_bounds__(kTeamThreads * res_teams(RP))
-    sparse_lora_resident_kernel(T* __restrict__ y, const T* __restrict__ x, const float* __restrict__ a,
-                                const float* __restrict__ b, const float* __restrict__ mask, int64_t M,
-                                int K, int N, int r, float scale, int stages, bool x_vec, bool a_vec,
-                                bool b_vec, bool y_vec) {
+    sparse_lora_resident_kernel(T* __restrict__ y, const T* __restrict__ x, const int* __restrict__ idx,
+                                const float* __restrict__ a, const float* __restrict__ b,
+                                const float* __restrict__ mask, int* __restrict__ plan_out, int64_t M, int K,
+                                int N, int r, int A, float scale, int stages, bool x_vec,
+                                bool a_vec, bool b_vec, bool y_vec) {
   constexpr int TEAMS = res_teams(RP);
+  constexpr int NT = kTeamThreads * TEAMS;
   constexpr int V = 2 * RP;   // a lane's partial sums: 2 rows x RP
   constexpr int VL = V / 8;   // what each lane keeps after the reduce-scatter
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
-  const ResLayout lay(K, N, r, RP, (int)sizeof(T));
+  constexpr bool multi = MODE == kSgmv, packed = MODE == kPacked;
+  const ResLayout lay(K, N, r, RP, (int)sizeof(T), multi ? A : 0);
   float4* a_s = reinterpret_cast<float4*>(base + lay.a);
   float* b_s = reinterpret_cast<float*>(base + lay.b);
   float* mask_s = reinterpret_cast<float*>(base + lay.mask);
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + lay.bars);  // [stages], then b's, then a's
-  const float* a_tmp = reinterpret_cast<const float*>(base + lay.a_tmp);
+  float* a_tmp = reinterpret_cast<float*>(base + lay.a_tmp);
   const int KP = lay.KP, KP2 = lay.KP / 2, KX = lay.KX, NG = lay.NG, NB = 8 * lay.NG;
+  int* cnt_s = reinterpret_cast<int*>(base + lay.plan(RP, stages));  // [A + 1] rows per segment
+  int* toff_s = cnt_s + (A + 1);                    // [A + 2] first tile of each segment
+  int* roff_s = toff_s + (A + 2);                   // [A + 2] first row of each segment
+  int* list_s = roff_s + (A + 2);                   // [kListTiles][kResRows] the block's rows
+  int* tr_s = list_s + kListTiles * kResRows;       // [kListTiles] rows in each tile
+  int* pj_s = tr_s + kListTiles;                    // [kListTiles + 1] first tile of each piece
+  int* ps_s = pj_s + kListTiles + 1;                // [kListTiles] segment of each piece
+  int* sum_s = ps_s + kListTiles;  // [40] the pieces' count, warp sums [1, 33), the block's share
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int team = tid / kTeamThreads, ttid = tid % kTeamThreads, twarp = ttid >> 5;
-  const int64_t ntiles = (M + kResRows - 1) / kResRows;
   uint64_t* b_bar = bars + kResMaxStages;
   uint64_t* a_bar = bars + kResMaxStages + 1;
   float* red_s = reinterpret_cast<float*>(base + lay.red) + team * kResRows * kKSplit * RP;
@@ -488,93 +565,373 @@ __global__ void __launch_bounds__(kTeamThreads * res_teams(RP))
   T* ring = reinterpret_cast<T*>(base + lay.ring) + team * stages * kResRows * KX;
   uint64_t* tbars = bars + team * stages;
 
+  // --- the plan (B7): the segments' counts and offsets, then the block's share ---
+  // The segments (-1 past M) of a thread's rows of a batch of 8 NT: rows
+  // 4 tid + u of its first half and 4 NT + 4 tid + u of its second, so that
+  // a warp's 16-byte loads are contiguous.
+  int sv[8];
+  const bool idx_vec = ((uintptr_t)idx & 15) == 0;
+  auto load_segments = [&](int64_t m0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t m = m0 + 4 * ((int64_t)h * NT + tid);
+      if (idx_vec && m + 4 <= M) {
+        const int4 v = *reinterpret_cast<const int4*>(idx + m);
+        sv[4 * h] = segment(v.x, A);
+        sv[4 * h + 1] = segment(v.y, A);
+        sv[4 * h + 2] = segment(v.z, A);
+        sv[4 * h + 3] = segment(v.w, A);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) sv[4 * h + u] = m + u < M ? segment(idx[m + u], A) : -1;
+      }
+    }
+  };
+  if (multi) load_segments(0);  // in flight while the barriers are set up
   if (tid == 0) {
-    for (int i = 0; i < kResMaxStages + 2; ++i) mbar_init(bars + i, 1);
+    for (int i = 0; i < kResMaxStages; ++i) mbar_init(bars + i, 1);
+    // the packed product's b is gathered by a team whose threads all arrive
+    mbar_init(b_bar, packed ? kTeamThreads : 1);
+    mbar_init(a_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (multi)
+    for (int i = tid; i <= A; i += NT) cnt_s[i] = 0;
   __syncthreads();
 
-  // The block's tiles are blockIdx.x + j gridDim.x; team t takes those with
-  // j % TEAMS == t, its k-th into its ring stage k % stages. With 16-byte
-  // rows, the team's first warp copies them (lane i row i, as bulk copies
-  // that the stage's mbarrier counts), so no thread waits on a copy it
-  // issued; otherwise the team's threads copy elements, synchronously.
+  int P = 1;  // pieces: runs of the block's tiles in one segment
+  auto adapter = [&](int p) { return multi ? ps_s[p] : 0; };
+  // a (a bulk copy into a_tmp where its rows allow) for piece p, if it has
+  // one, by one thread
+  auto issue_a = [&](int p) {
+    if (!a_vec || p >= P || adapter(p) == A) return;
+    fence_async();
+    mbar_expect_tx(a_bar, K * r * 4);
+    bulk_copy(a_tmp, a + (int64_t)adapter(p) * K * r, K * r * 4, a_bar);
+  };
+  // b's rows and the mask of piece p as bulk copies, by one warp: lane i
+  // copies b's row i, lane r the mask
+  auto issue_b = [&](int p) {
+    const int64_t ad = adapter(p);
+    if (lane == 0) {
+      fence_async();
+      mbar_expect_tx(b_bar, (r + 1) * N * 4);
+    }
+    __syncwarp();
+    if (lane < r) bulk_copy(b_s + lane * NB, b + (ad * r + lane) * N, N * 4, b_bar);
+    if (lane == r) bulk_copy(mask_s, mask + ad * N, N * 4, b_bar);
+  };
+  // n · g / gridDim.x, in 32 bits where it fits (64-bit division is long)
+  auto part = [&](uint64_t n, uint64_t g) -> int64_t {
+    const uint64_t prod = n * g;
+    return prod >> 32 ? (int64_t)(prod / gridDim.x) : (int64_t)((uint32_t)prod / gridDim.x);
+  };
+  // the block's tiles: a single adapter's strided by the grid (gridDim.x <=
+  // ntiles); with a plan, an even share [t0, t0 + nt) of its tiles, in order
+  int64_t t0 = 0;
+  int nt = (int)part((M + kResRows - 1) / kResRows - blockIdx.x + gridDim.x - 1, 1);
+  if (multi) {
+    for (int64_t m0 = 0; m0 < M; m0 += 8 * NT) {
+      if (m0 > 0) load_segments(m0);
+      // counts into shared memory, one atomic per segment and warp where the
+      // warp's rows share a segment or there are few segments, else one per
+      // run of a segment in a thread's rows (match_any is slow over many)
+      const int first = __shfl_sync(0xffffffffu, sv[0], 0);  // every lane, before any branch
+      bool single = sv[0] == first;
+#pragma unroll
+      for (int u = 1; u < 8; ++u) single &= sv[u] == first;
+      if (__all_sync(0xffffffffu, single)) {
+        if (lane == 0 && sv[0] >= 0) atomicAdd(cnt_s + sv[0], 8 * 32);
+      } else if (A < 32) {
+        for (int sg = 0; sg <= A; ++sg) {
+          int c = 0;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) c += sv[u] == sg;
+          c = __reduce_add_sync(0xffffffffu, c);
+          if (lane == 0 && c) atomicAdd(cnt_s + sg, c);
+        }
+      } else {
+        int run = 1;
+#pragma unroll
+        for (int u = 1; u <= 8; ++u) {
+          if (u < 8 && sv[u] == sv[u - 1]) {
+            ++run;
+            continue;
+          }
+          if (sv[u - 1] >= 0) atomicAdd(cnt_s + sv[u - 1], run);
+          run = 1;
+        }
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {  // exclusive scans of rows and tiles over the A + 1 segments
+      const int per = (A + 1 + 31) / 32, s0 = lane * per, s1 = min(s0 + per, A + 1);
+      int rows = 0, tiles = 0;
+      for (int s = s0; s < s1; ++s) {
+        rows += cnt_s[s];
+        tiles += (cnt_s[s] + kResRows - 1) / kResRows;
+      }
+      int ri = rows, ti = tiles;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int ru = __shfl_up_sync(0xffffffffu, ri, off), tu = __shfl_up_sync(0xffffffffu, ti, off);
+        if (lane >= off) {
+          ri += ru;
+          ti += tu;
+        }
+      }
+      int rr = ri - rows, tt = ti - tiles;
+      for (int s = s0; s < s1; ++s) {
+        roff_s[s] = rr;
+        toff_s[s] = tt;
+        rr += cnt_s[s];
+        tt += (cnt_s[s] + kResRows - 1) / kResRows;
+      }
+      if (lane == 31) {
+        roff_s[A + 1] = ri;
+        toff_s[A + 1] = ti;
+      }
+      __syncwarp();
+      t0 = part(toff_s[A + 1], blockIdx.x);
+      nt = (int)(part(toff_s[A + 1], blockIdx.x + 1) - t0);
+      if (lane == 0) {
+        sum_s[33] = (int)t0;
+        sum_s[34] = nt;
+      }
+      if (lane == 0 && nt > 0) {  // the pieces, and each tile's row count
+        int p = 0;
+        for (int64_t t = t0; t < t0 + nt; ++p) {
+          int lo = 0, hi = A;  // the last segment that starts at or before tile t holds it
+          while (lo < hi) {
+            const int mid = (lo + hi + 1) / 2;
+            if (toff_s[mid] <= t) lo = mid;
+            else hi = mid - 1;
+          }
+          const int64_t end = min((int64_t)toff_s[lo + 1], t0 + nt);
+          ps_s[p] = lo;
+          pj_s[p] = (int)(t - t0);
+          for (; t < end; ++t) tr_s[t - t0] = min(kResRows, cnt_s[lo] - (int)(t - toff_s[lo]) * kResRows);
+        }
+        pj_s[p] = nt;
+        sum_s[0] = p;
+        P = p;
+        // the first piece's a is in flight while the rows are listed
+        issue_a(0);
+      }
+    }
+    __syncthreads();
+    t0 = sum_s[33];
+    nt = sum_s[34];
+    if (plan_out != nullptr && blockIdx.x == 0)
+      for (int i = tid; i < A + 2; i += NT) plan_out[M + i] = roff_s[i];
+    if (nt == 0) return;
+    P = sum_s[0];
+    // each piece's rows in row order, two pieces a pass: a thread counts its
+    // rows of each piece in each half of the batch (16 bits a half), a block
+    // prefix sum ranks them (with one batch of rows the histogram's segments
+    // are still in registers)
+    for (int p0 = 0; p0 < P; p0 += 2) {
+      int seg[2], lo[2], hi[2], seen[2] = {0, 0};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool here = p0 + q < P;
+        seg[q] = here ? ps_s[p0 + q] : -2;
+        lo[q] = here ? (int)(t0 + pj_s[p0 + q] - toff_s[seg[q]]) * kResRows : 0;
+        hi[q] = here ? min(lo[q] + (pj_s[p0 + q + 1] - pj_s[p0 + q]) * kResRows, cnt_s[seg[q]]) : 0;
+      }
+      for (int64_t m0 = 0; m0 < M && (seen[0] < hi[0] || seen[1] < hi[1]); m0 += 8 * NT) {
+        if (M > 8 * NT) load_segments(m0);
+        unsigned bits[2] = {0u, 0u};  // piece q's rows: bit 4 h + u
+        int c[2], inc[2];             // their counts, half h in bits 16 h
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+#pragma unroll
+          for (int u = 0; u < 8; ++u) bits[q] |= (unsigned)(sv[u] == seg[q]) << u;
+          c[q] = __popc(bits[q] & 15u) | __popc(bits[q] >> 4) << 16;
+          inc[q] = c[q];
+        }
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int v = __shfl_up_sync(0xffffffffu, inc[q], off);
+            if (lane >= off) inc[q] += v;
+          }
+        }
+        if (lane == 31) {
+          sum_s[1 + 2 * warp] = inc[0];
+          sum_s[2 + 2 * warp] = inc[1];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          int before = 0, total = 0;
+#pragma unroll
+          for (int w = 0; w < NT / 32; ++w) {
+            const int v = sum_s[1 + 2 * w + q];
+            total += v;
+            before += w < warp ? v : 0;
+          }
+          const int ex = before + inc[q] - c[q];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // rows before: the earlier pieces' passes, the first half's, then this half's
+            int rank = seen[q] + (h ? (total & 0xffff) + (ex >> 16) : ex & 0xffff);
+            for (unsigned bq = bits[q] >> (4 * h) & 15u; bq; bq &= bq - 1, ++rank) {
+              const int m = (int)(m0 + 4 * ((int64_t)h * NT + tid)) + __ffs(bq) - 1;
+              if (rank >= lo[q] && rank < hi[q]) {
+                list_s[(pj_s[p0 + q] * kResRows) + rank - lo[q]] = m;
+                if (plan_out != nullptr) plan_out[roff_s[seg[q]] + rank] = m;
+              }
+            }
+          }
+          seen[q] += (total & 0xffff) + (total >> 16);
+        }
+        __syncthreads();  // the sums read; the last pass's lists visible
+      }
+    }
+  } else if (nt == 0) {
+    return;
+  }
+  // the first tile of piece p (nt past the last); the first of segment A's tiles
+  auto piece_start = [&](int p) { return multi ? pj_s[p] : (p == 0 ? 0 : nt); };
+  const int zj = multi && ps_s[P - 1] == A ? pj_s[P - 1] : nt;
+  auto tile_of = [&](int j) { return blockIdx.x + (int64_t)j * gridDim.x; };  // a single adapter's
+  auto rows_of = [&](int j) {
+    return multi ? tr_s[j] : (int)min((int64_t)kResRows, M - tile_of(j) * kResRows);
+  };
+  auto row_of = [&](int j, int i) -> int64_t {
+    return multi ? (int64_t)list_s[j * kResRows + i] : tile_of(j) * kResRows + i;
+  };
+
+  // Team t takes the block's tiles j with j % TEAMS == t, its k-th into its
+  // ring stage k % stages. With 16-byte rows, the team's first warp copies
+  // them (lane i row i, as bulk copies that the stage's mbarrier counts), so
+  // no thread waits on a copy it issued; otherwise the team's threads copy
+  // elements, synchronously. Segment A's tiles (the last) are not copied.
   auto issue = [&](int k) {
-    const int64_t tile = blockIdx.x + ((int64_t)k * TEAMS + team) * gridDim.x;
-    if (tile >= ntiles) return;
+    const int j = k * TEAMS + team;
+    if (j >= zj) return;
     T* dst = ring + (k % stages) * kResRows * KX;
-    const int64_t m0 = tile * kResRows;
-    const int rows = M - m0 < kResRows ? (int)(M - m0) : kResRows;
+    const int rows = rows_of(j);
     if (x_vec) {
       if (twarp == 0) {
         if (lane == 0) {
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after this stage's last reads
+          fence_async();  // after this stage's last reads
           mbar_expect_tx(tbars + k % stages, rows * K * (int)sizeof(T));
         }
         __syncwarp();
         if (lane < rows)
-          bulk_copy(dst + lane * KX, x + (m0 + lane) * K, K * (int)sizeof(T), tbars + k % stages);
+          bulk_copy(dst + lane * KX, x + row_of(j, lane) * K, K * (int)sizeof(T), tbars + k % stages);
       }
     } else {
       for (int e = ttid; e < kResRows * KX; e += kTeamThreads) {
         const int row = e / KX, c = e % KX;
-        dst[row * KX + c] = (row < rows && c < K) ? x[(m0 + row) * K + c] : from_f32<T>(0.0f);
+        dst[row * KX + c] = (row < rows && c < K) ? x[row_of(j, row) * K + c] : from_f32<T>(0.0f);
       }
     }
   };
-  // what the first products need comes first: a (a bulk copy where its rows
-  // allow) and the first team's first tiles; b, the mask and the other
-  // team's tiles once a has landed
-  if (tid == 0 && a_vec) {
-    mbar_expect_tx(a_bar, K * r * 4);
-    bulk_copy(const_cast<float*>(a_tmp), a, K * r * 4, a_bar);
-  }
-  if (team == 0)
-    for (int k = 0; k < stages - 1; ++k) issue(k);
-  // what the bulk copies leave: b's rows past r and columns past N; all of
-  // b and the mask when the copies cannot take them
-  for (int e = tid; e < RP * NB; e += TEAMS * kTeamThreads) {
-    const int rr = e / NB, n = e % NB;
-    if (rr >= r || n >= N) b_s[e] = 0.f;
-    else if (!b_vec) b_s[e] = b[(int64_t)rr * N + n];
-  }
-  if (mask != nullptr) {
-    for (int n = tid; n < NB; n += TEAMS * kTeamThreads)
-      if (n >= N) mask_s[n] = 0.f;
-      else if (!b_vec) mask_s[n] = mask[n];
-  }
-  // a into the layout phase 1 reads: 16-byte pieces (c, h, p)
-  if (a_vec) mbar_wait(a_bar, 0);
-  for (int e = tid; e < RP / 4 * KP; e += TEAMS * kTeamThreads) {
-    const int c = e / KP, k = e % KP;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k < K && 4 * c < r) {
-      if (a_vec) {
-        v = *reinterpret_cast<const float4*>(a_tmp + k * r + 4 * c);
-      } else {
-        const float* src = a + (int64_t)k * r + 4 * c;
-        v = make_float4(src[0], 4 * c + 1 < r ? src[1] : 0.f, 4 * c + 2 < r ? src[2] : 0.f,
-                        4 * c + 3 < r ? src[3] : 0.f);
+  // What piece p's products read, by the whole block: b's columns and the
+  // mask where the bulk copies cannot take them, and a into the layout
+  // phase 1 reads, 16-byte pieces (c, h, p), from a_tmp once it has landed.
+  auto stage = [&](int p) {
+    const int64_t ad = adapter(p);
+    if (!b_vec && !packed)
+      for (int e = tid; e < r * N; e += NT) b_s[e / N * NB + e % N] = b[ad * r * N + e];
+    if (!b_vec || packed)
+      for (int n = tid; n < N; n += NT) mask_s[n] = mask[ad * N + n];
+    if (a_vec) mbar_wait(a_bar, p & 1);
+    const float* ap = a + ad * K * r;
+    for (int e = tid; e < RP / 4 * KP; e += NT) {
+      const int c = e / KP, k = e % KP;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k < K && 4 * c < r) {
+        if (a_vec) {
+          v = *reinterpret_cast<const float4*>(a_tmp + k * r + 4 * c);
+        } else {
+          const float* src = ap + (int64_t)k * r + 4 * c;
+          v = make_float4(src[0], 4 * c + 1 < r ? src[1] : 0.f, 4 * c + 2 < r ? src[2] : 0.f,
+                          4 * c + 3 < r ? src[3] : 0.f);
+        }
       }
+      a_s[(2 * c + (k & 1)) * KP2 + (k >> 1)] = v;
     }
-    a_s[(2 * c + (k & 1)) * KP2 + (k >> 1)] = v;
+    __syncthreads();  // a_s, the element copies visible to both teams; a_tmp read
+    if (warp == 0) {
+      if (b_vec && !packed) issue_b(p);
+      if (lane == 0) issue_a(p + 1);  // in flight while this piece runs
+    }
+  };
+  // From piece p - 1 to piece p, by the whole block: once every read of the
+  // last adapter is done, the next one's. Segment A's piece stages nothing.
+  auto restage = [&](int p) {
+    if (adapter(p) == A) return;
+    __syncthreads();
+    stage(p);
+  };
+
+  // Piece 0: what the first products need comes first: a and the first
+  // team's first tiles; b, the mask and the other team's tiles once a has
+  // landed. b's rows past r and columns past N, and the mask past N, are 0
+  // for every piece.
+  if (adapter(0) != A) {
+    if (tid == 0 && !multi) issue_a(0);
+    if (team == 0)
+      for (int k = 0; k < stages - 1; ++k) issue(k);
+    for (int e = tid; e < RP * NB; e += NT) {
+      const int rr = e / NB, n = e % NB;
+      if (rr >= r || n >= N) b_s[e] = 0.f;
+    }
+    for (int n = N + tid; n < NB; n += NT) mask_s[n] = 0.f;
+    stage(0);
+    if (TEAMS == 2 && team == 1)
+      for (int k = 0; k < stages - 1; ++k) issue(k);
+    if (packed && team == TEAMS - 1) {
+      // b's kept columns only (0 in the frozen ones), 4 columns of every row
+      // a thread with their loads all in flight, while the first team
+      // multiplies its first tile
+      for (int n0 = ttid; n0 < N; n0 += 4 * kTeamThreads) {
+        float v[4][RP];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int n = n0 + c * kTeamThreads;
+          const bool kept = n < N && mask_s[n] != 0.f;
+#pragma unroll
+          for (int rr = 0; rr < RP; ++rr) v[c][rr] = kept && rr < r ? b[(int64_t)rr * N + n] : 0.f;
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int n = n0 + c * kTeamThreads;
+#pragma unroll
+          for (int rr = 0; rr < RP; ++rr)
+            if (n < N && rr < r) b_s[rr * NB + n] = v[c][rr];
+        }
+      }
+      mbar_arrive(b_bar);
+    }
   }
-  __syncthreads();  // a_s, the zeros and the element copies visible to both teams
-  if (warp == 0 && b_vec) {  // lane i copies b's row i; lane r the mask
-    if (lane == 0) mbar_expect_tx(b_bar, (r + (mask != nullptr)) * N * 4);
-    __syncwarp();
-    if (lane < r) bulk_copy(b_s + lane * NB, b + (int64_t)lane * N, N * 4, b_bar);
-    if (lane == r && mask != nullptr) bulk_copy(mask_s, mask, N * 4, b_bar);
-  }
-  if (team == 1)
-    for (int k = 0; k < stages - 1; ++k) issue(k);
 
   // phase 1's lanes: warp (rg, kw) of the team owns rows 8 rg .. 8 rg + 7
   // and pairs of k p = kp + 8 (kw + kKSplit j); lane (rq, kp) rows 8 rg + 2 rq and + 1
   const int rg = twarp / kKSplit, kw = twarp % kKSplit, rq = lane >> 3, kp = lane & 7;
-  int k = 0;
-  for (int64_t tile = blockIdx.x + (int64_t)team * gridDim.x; tile < ntiles;
-       tile += (int64_t)TEAMS * gridDim.x, ++k) {
+  const int RL = NG >= kTeamThreads ? 1 : kTeamThreads / NG;
+  int pc = 0;       // the piece staged
+  int b_seen = -1;  // the last piece whose b this team waited for
+  for (int k = 0;; ++k) {
+    const int j = k * TEAMS + team;
+    if (j >= nt) break;
+    while (j >= piece_start(pc + 1)) restage(++pc);
+    if (j >= zj) {  // segment A: zero rows
+      const int rows = rows_of(j);
+      if (y_vec) {
+        const int per = N * (int)sizeof(T) / 16;
+        for (int e = ttid; e < rows * per; e += kTeamThreads)
+          reinterpret_cast<uint4*>(y + row_of(j, e / per) * N)[e % per] = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        for (int e = ttid; e < rows * N; e += kTeamThreads) y[row_of(j, e / N) * N + e % N] = from_f32<T>(0.f);
+      }
+      continue;
+    }
     issue(k + stages - 1);  // into the stage that the team's tile k - 1 used
     if (x_vec) mbar_wait(tbars + k % stages, (k / stages) & 1);
     team_sync(team);  // tile k visible to the whole team
@@ -624,34 +981,33 @@ __global__ void __launch_bounds__(kTeamThreads * res_teams(RP))
       for (int w = 1; w < kKSplit; ++w) s += src[w * RP];
       xa_s[ttid] = s;
     }
-    if (k == 0 && b_vec) mbar_wait(b_bar, 0);
+    if (b_seen != pc && (b_vec || packed)) {
+      mbar_wait(b_bar, pc & 1);
+      b_seen = pc;
+    }
     team_sync(team);
 
     // y = scale · xa @ (b ⊙ mask): 8 columns of RL-strided rows per item
-    const int64_t m0 = tile * kResRows;
-    const int RL = NG >= kTeamThreads ? 1 : kTeamThreads / NG;
+    const int rows = rows_of(j);
     for (int item = ttid; item < NG * RL; item += kTeamThreads) {
       const int g = item % NG, rl = item / NG;
       float bm[RP][8];
-      float4 mlo = make_float4(1.f, 1.f, 1.f, 1.f), mhi = mlo;
-      if (mask != nullptr) {
-        mlo = reinterpret_cast<const float4*>(mask_s)[2 * g];
-        mhi = reinterpret_cast<const float4*>(mask_s)[2 * g + 1];
-      }
+      const float4 mlo = reinterpret_cast<const float4*>(mask_s)[2 * g];
+      const float4 mhi = reinterpret_cast<const float4*>(mask_s)[2 * g + 1];
+      const float mv[8] = {mlo.x, mlo.y, mlo.z, mlo.w, mhi.x, mhi.y, mhi.z, mhi.w};
 #pragma unroll
       for (int rr = 0; rr < RP; ++rr) {
         const float4 lo = reinterpret_cast<const float4*>(b_s + rr * NB)[2 * g];
         const float4 hi = reinterpret_cast<const float4*>(b_s + rr * NB)[2 * g + 1];
         const float bv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-        const float mv[8] = {mlo.x, mlo.y, mlo.z, mlo.w, mhi.x, mhi.y, mhi.z, mhi.w};
 #pragma unroll
-        for (int q = 0; q < 8; ++q) bm[rr][q] = mask != nullptr ? bv[q] * mv[q] : bv[q];
+        for (int q = 0; q < 8; ++q) bm[rr][q] = packed ? bv[q] : bv[q] * mv[q];
       }
       const int n0 = 8 * g;
       const bool full = y_vec && n0 + 8 <= N;
-      // two rows at a time, 16 independent sums (a row past the tile or
-      // past M is computed and not stored)
-      for (int row = rl; row < kResRows && m0 + row < M; row += 2 * RL) {
+      // two rows at a time, 16 independent sums (a row past the tile's rows
+      // is computed and not stored)
+      for (int row = rl; row < rows; row += 2 * RL) {
         const int row2 = row + RL < kResRows ? row + RL : row;
         float out[2][8];
 #pragma unroll
@@ -672,10 +1028,10 @@ __global__ void __launch_bounds__(kTeamThreads * res_teams(RP))
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int rw = h ? row + RL : row;
-          if (rw >= kResRows || m0 + rw >= M) break;
+          if (rw >= rows) break;
 #pragma unroll
-          for (int q = 0; q < 8; ++q) out[h][q] = scale * out[h][q];
-          T* yp = y + (m0 + rw) * N + n0;
+          for (int q = 0; q < 8; ++q) out[h][q] = packed && mv[q] == 0.f ? 0.f : scale * out[h][q];
+          T* yp = y + row_of(j, rw) * N + n0;
           if (full) {
             store8(yp, out[h]);
           } else {
@@ -687,6 +1043,7 @@ __global__ void __launch_bounds__(kTeamThreads * res_teams(RP))
       }
     }
   }
+  while (pc + 1 < P) restage(++pc);  // the boundaries the other team still passes
 }
 
 // the current device's SM count and opt-in shared memory per block, read once per device
@@ -707,61 +1064,87 @@ DeviceInfo device_info() {
 
 int rank_pad(int r) { return r <= 4 ? 4 : r <= 8 ? 8 : 16; }
 
-// ring stages per team of the resident kernel for these widths (1..kResMaxStages
-// / teams), or 0 when a, b ⊙ mask and a team's tile do not fit one block's
-// shared memory
-int team_stages(int64_t K, int64_t N, int r, int size) {
+// Ring stages per team of the resident kernel for these widths (1..kResMaxStages
+// / teams), or 0 when a, b ⊙ mask, the plan (A > 0 adapters) and a team's tile
+// do not fit one block's shared memory.
+int team_stages(int64_t K, int64_t N, int r, int size, int A) {
   if (r > kResMaxRank || K < 1 || K > (1 << 24) || N > (1 << 24)) return 0;
   const int RP = rank_pad(r);
-  const ResLayout lay(K, N, r, RP, size);
+  const ResLayout lay(K, N, r, RP, size, A);
   const int64_t room = device_info().smem_optin;
-  const int64_t stages = (room - lay.ring) / ((int64_t)res_teams(RP) * lay.tile);
+  const int64_t stages = (room - lay.ring - lay.plan_bytes) / ((int64_t)res_teams(RP) * lay.tile);
   const int64_t most = kResMaxStages / res_teams(RP);
   return (int)(stages < 1 ? 0 : stages < most ? stages : most);
 }
 
+// The multi-adapter product's stages on the SGMV path, or 0 for the L2 kernel:
+// at most kMaxSgmvAdapters adapters, and at least a tile's rows per adapter.
+int sgmv_stages(int64_t M, int64_t K, int64_t N, int r, int A, int size) {
+  if (A < 1 || A > kMaxSgmvAdapters || M > 2147483647LL || M < (int64_t)kResRows * A) return 0;
+  return team_stages(K, N, r, size, A);
+}
 
-template <typename T, int RP>
-int launch_resident(void* y, const void* x, const float* a, const float* b, const float* mask, int64_t M,
-                    int64_t K, int64_t N, int r, float scale, int stages, cudaStream_t stream) {
-  const ResLayout lay(K, N, r, RP, (int)sizeof(T));
+template <typename T, int RP, int MODE>
+int launch_resident(void* y, const void* x, const int* idx, const float* a, const float* b, const float* mask,
+                    int* plan, int64_t M, int64_t K, int64_t N, int r, int A, float scale, int stages,
+                    cudaStream_t stream) {
+  const ResLayout lay(K, N, r, RP, (int)sizeof(T), idx ? A : 0);
   const int bytes = lay.bytes(RP, stages);
   // the attribute and the occupancy query only when the shared memory changes
   static int opted_in = 0, last_bytes = -1, per_sm = 0;
   if (bytes > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(sparse_lora_resident_kernel<T, RP>,
+    const cudaError_t err = cudaFuncSetAttribute(sparse_lora_resident_kernel<T, RP, MODE>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     opted_in = bytes;
   }
   if (bytes != last_bytes) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sparse_lora_resident_kernel<T, RP>, kTeamThreads * res_teams(RP), bytes);
+        &per_sm, sparse_lora_resident_kernel<T, RP, MODE>, kTeamThreads * res_teams(RP), bytes);
     if (err != cudaSuccess) return (int)err;
     last_bytes = bytes;
   }
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int64_t ntiles = (M + kResRows - 1) / kResRows;
+  // the most tiles the plan can make: each segment ends in at most one partial tile
+  const int64_t ntiles = (M + kResRows - 1) / kResRows + (idx ? A + 1 : 0);
   const int64_t resident = (int64_t)per_sm * device_info().sms;
-  const int64_t blocks = ntiles < resident ? ntiles : resident;
+  int64_t blocks = ntiles < resident ? ntiles : resident;
+  const int64_t listed = (ntiles + kListTiles - 1) / kListTiles;  // a planning block lists its rows
+  if (idx && blocks < listed) blocks = listed;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   const bool x_vec = (K * (int64_t)sizeof(T)) % 16 == 0 && aligned(x, 16);
   const bool a_vec = r % 4 == 0 && aligned(a, 16);  // K r 4 bytes: a multiple of 16
-  const bool b_vec = N % 4 == 0 && aligned(b, 16) && (mask == nullptr || aligned(mask, 16));
+  const bool b_vec = N % 4 == 0 && aligned(b, 16) && aligned(mask, 16);
   const bool y_vec = (N * (int64_t)sizeof(T)) % 16 == 0 && aligned(y, 16);
-  sparse_lora_resident_kernel<T, RP><<<(unsigned)blocks, kTeamThreads * res_teams(RP), bytes, stream>>>(
-      (T*)y, (const T*)x, a, b, mask, M, (int)K, (int)N, r, scale, stages, x_vec, a_vec, b_vec, y_vec);
+  sparse_lora_resident_kernel<T, RP, MODE><<<(unsigned)blocks, kTeamThreads * res_teams(RP), bytes, stream>>>(
+      (T*)y, (const T*)x, idx, a, b, mask, plan, M, (int)K, (int)N, r, A, scale, stages, x_vec, a_vec, b_vec,
+      y_vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_single(void* y, const void* x, const float* a, const float* b, const float* mask, int64_t M,
-                  int64_t K, int64_t N, int r, float scale, cudaStream_t stream) {
-  const int stages = team_stages(K, N, r, (int)sizeof(T));
-  if (stages == 0) return launch<T>(y, x, nullptr, a, b, mask, M, K, N, r, 1, scale, stream);
-  const int RP = rank_pad(r);
-  if (RP == 4) return launch_resident<T, 4>(y, x, a, b, mask, M, K, N, r, scale, stages, stream);
-  if (RP == 8) return launch_resident<T, 8>(y, x, a, b, mask, M, K, N, r, scale, stages, stream);
-  return launch_resident<T, 16>(y, x, a, b, mask, M, K, N, r, scale, stages, stream);
+int launch_any(void* y, const void* x, const int* idx, const float* a, const float* b, const float* mask, int* plan,
+               int64_t M, int64_t K, int64_t N, int r, int A, float scale, bool packed, cudaStream_t stream) {
+  const int size = (int)sizeof(T);
+  const int stages = idx ? sgmv_stages(M, K, N, r, A, size) : team_stages(K, N, r, size, 0);
+  if (stages == 0) {
+    if (plan != nullptr) return (int)cudaErrorInvalidValue;  // the L2 kernel makes no plan
+    return launch<T>(y, x, idx, a, b, mask, M, K, N, r, idx ? A : 1, scale, packed, stream);
+  }
+  const int mode = idx ? kSgmv : packed ? kPacked : kMasked;
+#define REPRO_RES(RP, MODE)                                                                                       \
+  if (rank_pad(r) == RP && mode == MODE)                                                                         \
+  return launch_resident<T, RP, MODE>(y, x, idx, a, b, mask, plan, M, K, N, r, A, scale, stages, stream)
+#define REPRO_RES_RANKS(MODE) \
+  REPRO_RES(4, MODE);         \
+  REPRO_RES(8, MODE);         \
+  REPRO_RES(16, MODE)
+  REPRO_RES_RANKS(kMasked);
+  REPRO_RES_RANKS(kPacked);
+  REPRO_RES_RANKS(kSgmv);
+#undef REPRO_RES_RANKS
+#undef REPRO_RES
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -769,33 +1152,36 @@ int launch_single(void* y, const void* x, const float* a, const float* b, const 
 extern "C" {
 
 // y (M, N) and x (M, K): contiguous, dtype 0 (float32) or 1 (bfloat16).
-// a (A, K, r), b (A, r, N), mask (A, N) or null: contiguous float32.
-// idx (M,) int32, or null for a single adapter (A = 1).
-int repro_sparse_lora(void* y, const void* x, const void* idx, const void* a, const void* b,
-                      const void* mask, int64_t M, int64_t K, int64_t N, int r, int n_adapters,
-                      int dtype, float scale, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || r < 1 || r > kMaxRank || n_adapters < 1)
+// a (A, K, r), b (A, r, N), mask (A, N): contiguous float32.
+// idx (M,) int32, or null for a single adapter (A = 1). packed (single
+// adapter only): the kept columns of b as they are, 0 in the frozen ones.
+// plan (M + A + 2,) int32 or null (the multi-adapter product on the SGMV
+// path only): the rows in the order sorted by segment, then each segment's
+// first row in that order, and the end.
+int repro_sparse_lora(void* y, const void* x, const void* idx, const void* a, const void* b, const void* mask,
+                      void* plan, int64_t M, int64_t K, int64_t N, int r, int n_adapters, int dtype, int packed,
+                      float scale, void* stream) {
+  if (M <= 0 || N <= 0 || K < 0 || r < 1 || r > kMaxRank || n_adapters < 1 || mask == nullptr)
     return (int)cudaErrorInvalidValue;
-  if ((M + kRows - 1) / kRows > 2147483647LL) return (int)cudaErrorInvalidValue;
+  if ((M + kRows - 1) / kRows > 2147483647LL || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
+  if (idx != nullptr ? packed != 0 : plan != nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* ix = (const int*)idx;
   const float *af = (const float*)a, *bf = (const float*)b, *mf = (const float*)mask;
-  if (dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
-  if (ix == nullptr) {
-    if (dtype == 0) return launch_single<float>(y, x, af, bf, mf, M, K, N, r, scale, s);
-    return launch_single<__nv_bfloat16>(y, x, af, bf, mf, M, K, N, r, scale, s);
-  }
-  if (dtype == 0)
-    return launch<float>(y, x, ix, af, bf, mf, M, K, N, r, n_adapters, scale, s);
-  return launch<__nv_bfloat16>(y, x, ix, af, bf, mf, M, K, N, r, n_adapters, scale, s);
+  const int A = ix ? n_adapters : 1;
+  if (dtype == 0) return launch_any<float>(y, x, ix, af, bf, mf, (int*)plan, M, K, N, r, A, scale, packed, s);
+  return launch_any<__nv_bfloat16>(y, x, ix, af, bf, mf, (int*)plan, M, K, N, r, A, scale, packed, s);
 }
 
-// The ring depth (all teams' stages) that the single-adapter product takes
-// at these widths on the current device: 1..4 for the resident kernel, 0 for
-// the kernel that reads a and b from L2 per step.
-int repro_sparse_lora_stages(int64_t K, int64_t N, int r, int dtype) {
-  if (K < 0 || N <= 0 || r < 1 || r > kMaxRank || dtype < 0 || dtype > 1) return -1;
-  return team_stages(K, N, r, dtype == 0 ? 4 : 2) * res_teams(rank_pad(r));
+// The ring depth (all teams' stages) of the resident kernel that a launch
+// takes at these widths on the current device (1..4), or 0 where it takes the
+// kernel that reads a and b from L2. n_adapters 0: the single-adapter
+// products (M unused); else the multi-adapter product over M rows.
+int repro_sparse_lora_stages(int64_t M, int64_t K, int64_t N, int r, int n_adapters, int dtype) {
+  if (K < 0 || N <= 0 || M < 0 || r < 1 || r > kMaxRank || n_adapters < 0 || dtype < 0 || dtype > 1) return -1;
+  const int size = dtype == 0 ? 4 : 2;
+  const int stages = n_adapters == 0 ? team_stages(K, N, r, size, 0) : sgmv_stages(M, K, N, r, n_adapters, size);
+  return stages * res_teams(rank_pad(r));
 }
 
 }  // extern "C"

@@ -353,7 +353,7 @@ def fisher_diag_update(fim, g, momentum: float = 0.9):
     return tree_map(one, fim, g)
 
 
-def _lora_product(x, a, b, mask, idx, scale, plain, counter):
+def _lora_product(x, a, b, mask, idx, scale, plain, counter, packed=False):
     """The shared body of the LoRA products: flatten x's leading dimensions
     to rows, run the kernel (or the plain version on the CPU), restore them."""
     lead, K = x.shape[:-1], x.shape[-1]
@@ -363,8 +363,7 @@ def _lora_product(x, a, b, mask, idx, scale, plain, counter):
         return plain(x2).reshape(*lead, N)
     y = torch.empty((x2.shape[0], N), dtype=x.dtype, device=x.device)
     if y.numel():
-        _sl.sparse_lora_launch(y, x2.contiguous(), _f32(a), _f32(b),
-                               None if mask is None else _f32(mask), idx, scale=scale)
+        _sl.sparse_lora_launch(y, x2.contiguous(), _f32(a), _f32(b), _f32(mask), idx, scale=scale, packed=packed)
         counter.launches += 1
     return y.reshape(*lead, N)
 
@@ -380,36 +379,33 @@ def batched_sparse_lora_apply(x, idx, a, b, mask, scale: float = 1.0):
     """Multi-adapter apply: ``y[m] = x[m] @ a[idx[m]] @ (b[idx[m]] ⊙
     mask[idx[m]]) · scale``. x (..., K); idx (...,) any integer dtype;
     a (A, K, r); b (A, r, N); mask (A, N). A row whose index lies outside
-    [0, A) comes out as zeros, as the JAX package's kernel gives it."""
+    [0, A) comes out as zeros, as the JAX package's kernel gives it.
+
+    On the card one launch groups the rows by adapter itself (no host sync,
+    so a CUDA graph can capture the call)."""
     idx2 = idx.reshape(-1)
-    if _on_cuda(idx2):
+    if _on_cuda(idx2) and idx2.dtype != torch.int32:
         # clamped first, so that no index wraps into range as int32
-        idx2 = torch.clamp(idx2, -1, a.shape[0]).to(torch.int32).contiguous()
-    return _lora_product(x, a, b, mask, idx2, scale,
+        idx2 = torch.clamp(idx2, -1, a.shape[0]).to(torch.int32)
+    return _lora_product(x, a, b, mask, idx2.contiguous(), scale,
                          lambda x2: _ref.batched_sparse_lora_matmul_ref(x2, idx2, a, b, mask, scale),
                          batched_sparse_lora_apply)
 
 
 def sparse_lora_apply_packed(x, a, b, mask, scale: float = 1.0):
     """Gather-packed apply: the result of :func:`sparse_lora_apply`, but
-    the frozen columns of ``b`` never reach the product.
+    the frozen columns of ``b`` never reach the product: they come out as
+    exact zeros, whatever ``b`` holds there.
 
-    The kept columns are read from ``mask`` on the host (one sync on the
-    card, as the JAX wrapper needs a concrete mask), gathered from ``b``,
-    multiplied densely by the kernel and scattered into zeros of
-    ``(..., N)``. All columns frozen: zeros, and no launch.
+    On the card it is one launch that reads ``b`` only at the kept columns
+    and writes all of ``(..., N)`` (no host sync, gather or scatter; all
+    columns frozen: a launch that writes zeros). On the CPU the kept columns
+    are gathered, multiplied and scattered into zeros, as the JAX wrapper
+    does.
     """
-    _on_cuda(x)  # a device with neither a kernel nor a plain version raises here
-    keep = torch.nonzero(mask.reshape(-1)).reshape(-1)
-    lead, N = x.shape[:-1], b.shape[1]
-    y = torch.zeros((*lead, N), dtype=x.dtype, device=x.device)
-    if keep.numel() == 0:
-        return y
-    b_packed = b[:, keep]
-    y[..., keep] = _lora_product(
-        x, a, b_packed, None, None, scale,
-        lambda x2: _ref.sparse_lora_matmul_packed_ref(x2, a, b_packed, scale), sparse_lora_apply_packed)
-    return y
+    return _lora_product(x, a, b, mask, None, scale,
+                         lambda x2: _ref.sparse_lora_apply_packed_ref(x2, a, b, mask, scale),
+                         sparse_lora_apply_packed, packed=True)
 
 
 def _fa_input(t):

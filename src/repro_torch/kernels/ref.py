@@ -154,6 +154,17 @@ def sparse_lora_matmul_packed_ref(x, a, b_packed, scale: float = 1.0):
     return (scale * (xa @ b_packed.to(torch.float32))).to(x.dtype)
 
 
+def sparse_lora_apply_packed_ref(x, a, b, mask, scale: float = 1.0):
+    """The whole gather-packed apply (kernel B6 with the JAX wrapper's
+    steps): gather the kept columns of ``b`` (mask != 0), the dense product
+    on them, scattered into zeros of ``(M, N)``. Frozen columns are exact
+    zeros whatever ``b`` holds there."""
+    keep = torch.nonzero(mask.reshape(-1)).reshape(-1)
+    y = torch.zeros((x.shape[0], b.shape[1]), dtype=x.dtype, device=x.device)
+    y[:, keep] = sparse_lora_matmul_packed_ref(x, a, b[:, keep], scale)
+    return y
+
+
 def batched_sparse_lora_matmul_ref(x, idx, a, b, mask, scale: float = 1.0):
     """Multi-adapter product (kernel B7): ``y[m] = scale·(x[m]@a[idx[m]])
     @(b[idx[m]]⊙mask[idx[m]])``. x (M, K); idx (M,) int; a (A, K, r);

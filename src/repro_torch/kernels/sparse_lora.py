@@ -3,15 +3,16 @@
 Ports the TPU kernels ``repro/kernels/sparse_lora.py::sparse_lora_matmul``,
 ``::sparse_lora_matmul_packed`` and ``::batched_sparse_lora_matmul``: one
 CUDA source, ``csrc/sparse_lora.cu``, with its bound and design. The
-masked product, the packed one (no mask) and the multi-adapter one (a row
-index into stacked adapters) are one launch with other arguments. A
-single-adapter launch takes the persistent kernel that keeps a and
-b ⊙ mask in shared memory where they fit (:func:`resident_stages`), the
-kernel that reads them from L2 otherwise; the multi-adapter one always
-takes the latter. The launcher checks the tensors, allocates nothing,
-launches on PyTorch's current stream and raises if the launch is refused.
-The library is built and loaded at the first launch (``kernels/build.py``),
-never at import.
+masked product, the packed one (the kept columns of b, 0 in the frozen
+ones, all of y written by the kernel) and the multi-adapter one (a row
+index into stacked adapters) are one launch with other arguments. A launch
+takes the kernel that keeps a and b ⊙ mask in shared memory where they fit
+(:func:`resident_stages`; for the multi-adapter product an SGMV kernel that
+plans on the device which rows go with which adapter), and the kernel that
+reads them from L2 otherwise. The launcher checks the tensors, allocates
+nothing, launches on PyTorch's current stream and raises if the launch is
+refused. The library is built and loaded at the first launch
+(``kernels/build.py``), never at import.
 """
 from __future__ import annotations
 
@@ -31,22 +32,38 @@ _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    lib.repro_sparse_lora.argtypes = [_P] * 6 + [_I64, _I64, _I64, _I, _I, _I, _F, _P]
+    lib.repro_sparse_lora.argtypes = [_P] * 7 + [_I64, _I64, _I64, _I, _I, _I, _I, _F, _P]
     lib.repro_sparse_lora.restype = _I
-    lib.repro_sparse_lora_stages.argtypes = [_I64, _I64, _I, _I]
+    lib.repro_sparse_lora_stages.argtypes = [_I64, _I64, _I64, _I, _I, _I]
     lib.repro_sparse_lora_stages.restype = _I
     return lib
 
 
-def resident_stages(K: int, N: int, r: int, dtype: torch.dtype) -> int:
-    """The x-tile ring depth (1-4 tiles over its teams) of the persistent
-    single-adapter kernel for these widths on the current CUDA device, or 0
-    where a and b ⊙ mask do not fit its shared memory (rank above 16, or K
-    and N too wide) and a launch takes the kernel that reads them from L2."""
-    stages = library().repro_sparse_lora_stages(K, N, r, _DTYPE_CODES[dtype])
+def resident_stages(K: int, N: int, r: int, dtype: torch.dtype, adapters: int = 0, rows: int = 0) -> int:
+    """The x-tile ring depth (1-4 tiles over its teams) of the kernel that
+    keeps a and b ⊙ mask in shared memory, for these widths on the current
+    CUDA device, or 0 where a launch takes the kernel that reads them from
+    L2. ``adapters`` 0: the single-adapter products (rank above 16, or K and
+    N too wide, take L2). Otherwise the multi-adapter product over ``rows``
+    rows, whose SGMV path also needs at most 1024 adapters and at least 16
+    rows per adapter."""
+    stages = library().repro_sparse_lora_stages(rows, K, N, r, adapters, _DTYPE_CODES[dtype])
     if stages < 0:
-        raise ValueError(f"no kernel for K {K}, N {N}, rank {r}")
+        raise ValueError(f"no kernel for K {K}, N {N}, rank {r}, {adapters} adapters, {rows} rows")
     return stages
+
+
+def sgmv_plan(idx: torch.Tensor, n_adapters: int) -> torch.Tensor:
+    """The plain twin of the SGMV kernel's plan: the rows sorted by segment
+    (an adapter index in [0, A), then every index outside it as segment A),
+    stably, then each segment's first row in that order and the end, as one
+    (M + A + 2,) int32 tensor. It makes no host sync."""
+    idx = idx.reshape(-1).to(torch.int64)
+    seg = torch.where((idx >= 0) & (idx < n_adapters), idx, n_adapters)
+    order = torch.sort(seg, stable=True).indices
+    counts = torch.bincount(seg, minlength=n_adapters + 1)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return torch.cat([order, offsets]).to(torch.int32)
 
 
 def _check(name, t, device, shape, dtype) -> None:
@@ -58,20 +75,26 @@ def _check(name, t, device, shape, dtype) -> None:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
 
 
-def sparse_lora_launch(y, x, a, b, mask=None, idx=None, *, scale: float = 1.0) -> None:
+def sparse_lora_launch(y, x, a, b, mask, idx=None, *, scale: float = 1.0, packed: bool = False,
+                       plan=None) -> None:
     """``y = scale·(x@a)@(b⊙mask)`` row by row, each row with its adapter.
 
     ``x`` (M, K) f32 or bf16 and ``y`` (M, N) of its dtype, not aliasing it.
-    Without ``idx``: ``a`` (K, r), ``b`` (r, N), ``mask`` (N,) or None (the
-    packed product). With ``idx`` (M,) int32: ``a`` (A, K, r), ``b``
-    (A, r, N), ``mask`` (A, N) or None, and a row whose index lies outside
-    [0, A) comes out as zeros. a, b and mask are f32; r is at most
+    Without ``idx``: ``a`` (K, r), ``b`` (r, N), ``mask`` (N,); ``packed``
+    gives b's kept columns (mask != 0) as they are and an exact 0 in every
+    frozen column, whose b is never read. With ``idx`` (M,) int32: ``a``
+    (A, K, r), ``b`` (A, r, N), ``mask`` (A, N), and a row whose index lies
+    outside [0, A) comes out as zeros; ``plan``, an (M + A + 2,) int32
+    tensor, receives the SGMV kernel's plan (:func:`sgmv_plan`), and a launch
+    on the L2 path refuses it. a, b and mask are f32; r is at most
     ``MAX_RANK``; everything is contiguous on x's device.
     """
     if not x.is_cuda or x.dim() != 2 or x.dtype not in _DTYPE_CODES:
         raise ValueError("x must be a (M, K) float32/bfloat16 CUDA tensor")
     M, K = x.shape
     batched = idx is not None
+    if packed and batched:
+        raise ValueError("the packed product has a single adapter")
     lead = (a.shape[0],) if batched and a.dim() == 3 else ()
     if a.dim() != 2 + batched or b.dim() != 2 + batched:
         raise ValueError(f"a and b must be {'(A, K, r) and (A, r, N)' if batched else '(K, r) and (r, N)'}")
@@ -82,18 +105,22 @@ def sparse_lora_launch(y, x, a, b, mask=None, idx=None, *, scale: float = 1.0) -
     _check("y", y, x.device, (M, N), x.dtype)
     _check("a", a, x.device, lead + (K, r), torch.float32)
     _check("b", b, x.device, lead + (r, N), torch.float32)
-    if mask is not None:
-        _check("mask", mask, x.device, lead + (N,), torch.float32)
+    _check("mask", mask, x.device, lead + (N,), torch.float32)
     if batched:
         _check("idx", idx, x.device, (M,), torch.int32)
+    if plan is not None:
+        if not batched:
+            raise ValueError("only the multi-adapter product makes a plan")
+        _check("plan", plan, x.device, (M + lead[0] + 2,), torch.int32)
     if y.data_ptr() == x.data_ptr():
         raise ValueError("y must not alias x")
     if M == 0 or N == 0:
         raise ValueError("an empty output has nothing to launch")
     err = library().repro_sparse_lora(
         y.data_ptr(), x.data_ptr(), idx.data_ptr() if batched else None, a.data_ptr(), b.data_ptr(),
-        mask.data_ptr() if mask is not None else None, M, K, N, r, lead[0] if batched else 1,
-        _DTYPE_CODES[x.dtype], scale, torch.cuda.current_stream(x.device).cuda_stream,
+        mask.data_ptr(), plan.data_ptr() if plan is not None else None, M, K, N, r,
+        lead[0] if batched else 1, _DTYPE_CODES[x.dtype], int(packed), scale,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"sparse-LoRA launch failed with CUDA error {err}")

@@ -470,32 +470,76 @@ def test_sparse_lora_kernel_matches_plain(cuda, M, K, N, r, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N,r", LORA_CASES)
-@pytest.mark.parametrize("rho", [0.0, 0.25, 0.5])
+@pytest.mark.parametrize("rho", [0.0, 0.25, 0.5, 1.0])
 def test_sparse_lora_packed_kernel_matches_plain(cuda, M, K, N, r, rho):
     x, a, b, mask = _lora(cuda, M, K, N, r, torch.bfloat16, rho)
     before = ops.sparse_lora_apply_packed.launches
     y = ops.sparse_lora_apply_packed(x, a, b, mask, 2.0)
-    keep = torch.nonzero(mask).reshape(-1)
-    assert ops.sparse_lora_apply_packed.launches == before + (1 if keep.numel() else 0)
+    assert ops.sparse_lora_apply_packed.launches == before + 1  # all frozen too: the kernel writes the zeros
+    y5 = ops.sparse_lora_apply(x, a, b, mask, 2.0)
     torch.cuda.synchronize()
-    assert_lora_close(y, ops.sparse_lora_apply(x, a, b, mask, 2.0))
+    assert_lora_close(y, y5)
+    keep = torch.nonzero(mask).reshape(-1)
     if keep.numel():
         assert_lora_close(y[:, keep], ref.sparse_lora_matmul_packed_ref(x, a, b[:, keep], 2.0))
+    # the kept columns are B5's bits (b · 1 is b); the frozen ones exactly 0
+    assert torch.equal(y[:, keep], y5[:, keep])
     assert bool((y[:, mask == 0] == 0).all())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N,r,A", [(256, 896, 896, 8, 8), (200, 300, 250, 4, 3), (64, 96, 80, 6, 2),
-                                       (128, 512, 128, 16, 1)])
+@pytest.mark.parametrize("r", [8, 64])  # the resident kernel and the L2 one
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_lora_packed_never_reads_frozen_columns(cuda, r, dtype):
+    """inf and nan in b's frozen columns: B6 still gives exact zeros there,
+    as the JAX packed op does (it gathers only the kept columns), and B5's
+    kept columns elsewhere."""
+    M, K, N = 1000, 896, 896
+    x, a, b, mask = _lora(cuda, M, K, N, r, dtype)
+    frozen = mask == 0
+    bad = b.clone()
+    bad[:, frozen] = float("nan")
+    bad[0, frozen] = float("inf")
+    y = ops.sparse_lora_apply_packed(x, a, bad, mask, 0.5)
+    y5 = ops.sparse_lora_apply(x, a, b, mask, 0.5)
+    torch.cuda.synchronize()
+    assert bool((y[:, frozen] == 0).all())
+    assert torch.equal(y[:, ~frozen], y5[:, ~frozen])
+
+
+BATCHED_CASES = [(256, 896, 896, 8, 8), (200, 300, 250, 4, 3), (64, 96, 80, 6, 2), (128, 512, 128, 16, 1)]
+# A adapters at ranks 4-64, ragged widths and 896: every rank up to 16 takes
+# the SGMV kernel where M >= 16 A (A 64 only at 4096 rows), rank 64 and A 64
+# at 1000 rows the L2 kernel
+BATCHED_PATHS = [(M, K, N, r, A) for A in (1, 3, 8, 64) for r in (4, 8, 16, 64)
+                 for M, K, N in ((1000, 300, 250), (4096, 896, 896))]
+
+
+def _batched(gen, M, K, N, r, A, dtype):
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    a = torch.randn(A, K, r, generator=gen, device="cuda")
+    b = torch.randn(A, r, N, generator=gen, device="cuda")
+    mask = (torch.rand(A, N, generator=gen, device="cuda") < 0.5).float()
+    return x, a, b, mask
+
+
+def _sgmv(M, K, N, r, A, dtype):
+    """Whether the multi-adapter launch takes the SGMV kernel, by its rule."""
+    sgmv = sparse_lora.resident_stages(K, N, r, dtype, adapters=A, rows=M) > 0
+    fits = sparse_lora.resident_stages(K, N, r, dtype) > 0
+    assert sgmv == (fits and A <= 1024 and M >= 16 * A)
+    return sgmv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,r,A", BATCHED_CASES + BATCHED_PATHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_batched_sparse_lora_kernel_matches_plain(cuda, M, K, N, r, A, dtype):
-    x = torch.randn(M, K, generator=cuda, device="cuda").to(dtype)
-    a = torch.randn(A, K, r, generator=cuda, device="cuda")
-    b = torch.randn(A, r, N, generator=cuda, device="cuda")
-    mask = (torch.rand(A, N, generator=cuda, device="cuda") < 0.5).float()
+    x, a, b, mask = _batched(cuda, M, K, N, r, A, dtype)
     idx = torch.randint(0, A, (M,), generator=cuda, device="cuda")
     idx[::7] = A  # out of range: zeros
     idx[3::11] = -1
+    _sgmv(M, K, N, r, A, dtype)
     before = ops.batched_sparse_lora_apply.launches
     y = ops.batched_sparse_lora_apply(x, idx, a, b, mask, 1.5)
     assert ops.batched_sparse_lora_apply.launches == before + 1
@@ -506,10 +550,117 @@ def test_batched_sparse_lora_kernel_matches_plain(cuda, M, K, N, r, A, dtype):
     if A == 1:  # a single adapter is the unbatched product
         ok = ~out
         assert_lora_close(y[ok], ops.sparse_lora_apply(x, a[0], b[0], mask[0], 1.5)[ok])
-    # leading dimensions are flattened and restored
-    y3 = ops.batched_sparse_lora_apply(x.reshape(1, M, K), idx.reshape(1, M), a, b, mask, 1.5)
+    # leading dimensions are flattened and restored; int32 indices as they are
+    y3 = ops.batched_sparse_lora_apply(x.reshape(1, M, K), idx.reshape(1, M).int(), a, b, mask, 1.5)
     torch.cuda.synchronize()
     assert torch.equal(y3.reshape(M, N), y)
+
+
+def _segments(gen, kind, M, A):
+    """Adapter indices of a batch: skewed (3/4 of the rows on adapter 0, the
+    rest spread evenly), adapters 1 and 3 with no row, every row out of
+    range, or -1 and A among the others."""
+    idx = torch.randint(0, A, (M,), generator=gen, device="cuda")
+    if kind == "skewed":
+        idx = torch.where(torch.rand(M, generator=gen, device="cuda") < 0.75, 0, 1 + idx % (A - 1))
+    elif kind == "empty":
+        idx = torch.where((idx == 1) | (idx == 3), 2, idx)
+    elif kind == "all_out":
+        idx = torch.where(idx % 2 == 0, -1, A + idx)
+    elif kind == "mixed_out":
+        idx[::5] = -1
+        idx[2::9] = A
+    return idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["skewed", "empty", "all_out", "mixed_out"])
+# 8000 rows: the plan reads idx in two batches; rank 16 has one team, rank 64
+# takes the L2 kernel
+@pytest.mark.parametrize("M,K,N,r,A", [(1000, 300, 250, 8, 8), (4096, 896, 896, 8, 8), (4096, 896, 896, 16, 64),
+                                       (777, 301, 131, 4, 5), (300, 64, 40, 64, 4), (8000, 896, 896, 8, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_sparse_lora_segments_match_plain(cuda, kind, M, K, N, r, A, dtype):
+    x, a, b, mask = _batched(cuda, M, K, N, r, A, dtype)
+    idx = _segments(cuda, kind, M, A)
+    y = ops.batched_sparse_lora_apply(x, idx, a, b, mask, 0.5)
+    torch.cuda.synchronize()
+    assert_lora_close(y, ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, 0.5))
+    out = (idx < 0) | (idx >= A)
+    assert bool((y[out] == 0).all())
+    frozen = mask[idx.clamp(0, A - 1)] == 0
+    assert bool((y[frozen & ~out[:, None]] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,r", [(4096, 896, 896, 8), (1000, 300, 250, 4), (777, 301, 131, 16),
+                                     (1000, 896, 128, 64)])
+@pytest.mark.parametrize("A", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_sparse_lora_one_adapter_equals_single(cuda, M, K, N, r, A, dtype):
+    """Every row on adapter 0: B5's bits where both take the resident kernel
+    (the same per-tile code), else B5 within the tolerance."""
+    x, a, b, mask = _batched(cuda, M, K, N, r, A, dtype)
+    idx = torch.zeros(M, dtype=torch.int32, device="cuda")
+    y = ops.batched_sparse_lora_apply(x, idx, a, b, mask, 1.5)
+    y5 = ops.sparse_lora_apply(x, a[0], b[0], mask[0], 1.5)
+    torch.cuda.synchronize()
+    if _sgmv(M, K, N, r, A, dtype):
+        assert torch.equal(y, y5)
+    else:
+        assert_lora_close(y, y5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "skewed", "empty", "all_out", "mixed_out"])
+@pytest.mark.parametrize("M,A", [(4096, 8), (1000, 3), (4096, 64), (16 * 132 * 64 + 5, 7)])
+def test_sgmv_plan_matches_twin(cuda, kind, M, A):
+    """The SGMV kernel's plan (rows sorted by segment, stably, and the
+    segments' offsets) equals its plain twin; every row is placed once."""
+    K, N, r = 64, 40, 8
+    x, a, b, mask = _batched(cuda, M, K, N, r, A, torch.bfloat16)
+    idx = _segments(cuda, kind, M, A).int()
+    assert _sgmv(M, K, N, r, A, torch.bfloat16)
+    plan = torch.full((M + A + 2,), -7, dtype=torch.int32, device="cuda")
+    y = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+    sparse_lora.sparse_lora_launch(y, x, a, b, mask, idx, scale=0.5, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(plan, sparse_lora.sgmv_plan(idx, A))
+    assert_lora_close(y, ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, 0.5))
+
+
+def _replays_equal_eager(fn, inputs, fresh):
+    """``fn(*inputs)`` captured in a CUDA graph, replayed after ``fresh``
+    values are copied into the captured inputs: equal to an eager call on
+    them. A host sync inside ``fn`` would fail the capture."""
+    fn(*inputs)  # warm-up: the library built, the kernel's attributes set
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*inputs)
+    for t, v in zip(inputs, fresh):
+        if isinstance(t, torch.Tensor):
+            t.copy_(v)
+    graph.replay()
+    want = fn(*fresh)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [8, 64])
+def test_packed_and_batched_capture_in_a_cuda_graph(cuda, r):
+    M, K, N, A = 1000, 896, 896, 8
+    x, a, b, mask = _lora(cuda, M, K, N, r, torch.bfloat16)
+    x2, a2, b2, mask2 = _lora(cuda, M, K, N, r, torch.bfloat16)
+    before = ops.sparse_lora_apply_packed.launches
+    _replays_equal_eager(lambda *t: ops.sparse_lora_apply_packed(*t, 2.0), [x, a, b, mask], [x2, a2, b2, mask2])
+    assert ops.sparse_lora_apply_packed.launches == before + 3  # warm-up, capture, eager
+    xb, ab, bb, mb = _batched(cuda, M, K, N, r, A, torch.bfloat16)
+    fresh = _batched(cuda, M, K, N, r, A, torch.bfloat16)
+    idx = _segments(cuda, "mixed_out", M, A)
+    _replays_equal_eager(lambda x_, i_, a_, b_, m_: ops.batched_sparse_lora_apply(x_, i_, a_, b_, m_, 2.0),
+                         [xb, idx, ab, bb, mb], [fresh[0], _segments(cuda, "skewed", M, A)] + list(fresh[1:]))
 
 
 # the single-adapter product's two kernels: a and b ⊙ mask resident in

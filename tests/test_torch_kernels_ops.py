@@ -27,6 +27,7 @@ import torch
 from repro.kernels import ops as jops
 
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import sparse_lora
 
 F32_REL = 1e-5  # of the output's largest |value|: f32 sums in another order
 
@@ -155,6 +156,22 @@ def test_sparse_lora_apply_packed_matches_jax(M, K, N, r, rho):
     assert np.all(_np(got)[:, frozen] == 0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sparse_lora_apply_packed_ignores_non_finite_frozen_columns(dtype):
+    """inf and nan in b's frozen columns: the JAX packed op gathers only the
+    kept columns, and so does the port, so both give exact zeros there."""
+    (jx, tx), (ja, ta), (_, tb), (jm, tm) = _lora_inputs(64, 96, 80, 4, dtype, seed=13)
+    frozen = tm.numpy() == 0
+    b = tb.numpy().copy()
+    b[:, frozen] = np.nan
+    b[0, frozen] = np.inf
+    jb, tb = _pair(b)
+    want = jops.sparse_lora_apply_packed(jx, ja, jb, jm, 2.0)
+    got = tops.sparse_lora_apply_packed(tx, ta, tb, tm, 2.0)
+    assert frozen.any() and np.all(_np(got)[:, frozen] == 0) and np.all(_np(want)[:, frozen] == 0)
+    _assert_close(got, want, dtype)
+
+
 def test_sparse_lora_apply_packed_bf16():
     (jx, tx), (ja, ta), (jb, tb), (jm, tm) = _lora_inputs(64, 896, 128, 8, "bfloat16", seed=11)
     got = tops.sparse_lora_apply_packed(tx, ta, tb, tm, 0.5)
@@ -166,6 +183,24 @@ def test_sparse_lora_apply_packed_bf16():
 
 BATCHED_SHAPES = [(128, 512, 128, 8, 1), (128, 512, 128, 4, 4), (64, 96, 80, 4, 3),
                   (200, 1024, 250, 16, 2)]  # tests/test_kernels.py's
+# rows spread at random over the adapters, and batches that group unevenly:
+# skewed to one adapter, adapters with no row, every row out of range
+BATCHED_CASES = [pytest.param(*shape, "random", id="-".join(map(str, shape))) for shape in BATCHED_SHAPES] + [
+    pytest.param(128, 512, 128, 4, 4, "skewed", id="128-512-128-4-4-skewed"),
+    pytest.param(200, 1024, 250, 16, 5, "no_rows_on_1_and_3", id="200-1024-250-16-5-no-rows-on-1-and-3"),
+    pytest.param(64, 96, 80, 4, 3, "all_out_of_range", id="64-96-80-4-3-all-out-of-range"),
+]
+
+
+def _rows_of_kind(idx, kind, A, rng):
+    """Adapter indices of a batch of the given kind, from random ones."""
+    if kind == "skewed":  # 3/4 of the rows on adapter 0, the rest spread evenly
+        return np.where(rng.random(idx.size) < 0.75, 0, 1 + idx % (A - 1)).astype(np.int32)
+    if kind == "no_rows_on_1_and_3":
+        return np.where((idx == 1) | (idx == 3), 2, idx).astype(np.int32)
+    if kind == "all_out_of_range":
+        return np.where(idx % 2 == 0, -1, A + idx).astype(np.int32)
+    return idx
 
 
 def _batched_inputs(M, K, N, r, A, dtype, seed):
@@ -179,16 +214,19 @@ def _batched_inputs(M, K, N, r, A, dtype, seed):
     return _pair(x, dtype), idx, _pair(a), _pair(b), _pair(mask)
 
 
-@pytest.mark.parametrize("M,K,N,r,A", BATCHED_SHAPES)
+@pytest.mark.parametrize("M,K,N,r,A,kind", BATCHED_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_batched_sparse_lora_apply_matches_jax(M, K, N, r, A, dtype):
+def test_batched_sparse_lora_apply_matches_jax(M, K, N, r, A, kind, dtype):
     (jx, tx), idx, (ja, ta), (jb, tb), (jm, tm) = _batched_inputs(M, K, N, r, A, dtype, seed=M + K + A)
+    idx = _rows_of_kind(idx, kind, A, np.random.default_rng(A))
     want = jops.batched_sparse_lora_apply(jx, jnp.asarray(idx), ja, jb, jm, 2.0)
     got = tops.batched_sparse_lora_apply(tx, torch.from_numpy(idx), ta, tb, tm, 2.0)
     assert got.dtype == tx.dtype and tuple(got.shape) == (M, N)
     _assert_close(got, want, dtype)
-    frozen = tm.numpy()[idx] == 0  # each row's own adapter's frozen columns
-    assert np.all(_np(got)[frozen] == 0)
+    out = (idx < 0) | (idx >= A)  # out of range: zero rows
+    assert np.all(_np(got)[out] == 0) and np.all(_np(want)[out] == 0)
+    frozen = tm.numpy()[np.clip(idx, 0, A - 1)] == 0  # each row's own adapter's frozen columns
+    assert np.all(_np(got)[frozen & ~out[:, None]] == 0)
     if A == 1:  # a single adapter is the unbatched product
         _assert_close(got, tops.sparse_lora_apply(tx, ta[0], tb[0], tm[0], 2.0), dtype)
 
@@ -218,6 +256,28 @@ def test_batched_sparse_lora_apply_out_of_range_rows_are_zero(dtype):
     assert np.all(np.asarray(_np(want))[out] == 0)
     assert np.all(_np(got)[out] == 0) and np.any(_np(got)[~out] != 0)
     _assert_close(got, want, dtype)
+
+
+# --- B7's plan: its plain twin against a numpy construction ---
+
+
+@pytest.mark.parametrize("M,A", [(4096, 8), (1000, 3), (777, 64), (5, 2)])
+@pytest.mark.parametrize("kind", ["random", "skewed", "no_rows_on_1_and_3", "all_out_of_range", "int64"])
+def test_sgmv_plan_twin_matches_numpy(M, A, kind):
+    """The rows sorted by segment (an adapter in [0, A), then every index
+    outside it), stably, then each segment's first row and the end: what
+    the SGMV kernel lists on the card (tests/test_torch_cuda.py holds the
+    card's plan to this twin)."""
+    rng = np.random.default_rng(M + A)
+    idx = rng.integers(-1, A + 1, M)
+    if kind == "int64":  # indices that wrap into range as int32
+        idx = np.where(idx % 3 == 0, 2**32 + idx, idx)
+    else:
+        idx = _rows_of_kind(idx.astype(np.int32), kind, A, rng)
+    plan = sparse_lora.sgmv_plan(torch.from_numpy(idx), A)
+    seg = np.where((idx >= 0) & (idx < A), idx, A)
+    want = np.concatenate([np.argsort(seg, kind="stable"), [0], np.cumsum(np.bincount(seg, minlength=A + 1))])
+    assert plan.dtype == torch.int32 and np.array_equal(plan.numpy(), want)
 
 
 # --- dispatch ---
