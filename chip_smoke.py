@@ -56,6 +56,25 @@ device and exits non-zero without one, or if any phase fails:
    version; then their times beside their bounds and shares of them and,
    for B8 (bf16 on the tensor cores, f32 on the CUDA cores), its TFLOP/s
    and ``scaled_dot_product_attention``'s time;
+5d. serving at full width: ``repro_torch.serve.ServeEngine`` on the
+   vectorized run's global LoRA and three of its clients' adapters (4
+   adapters), 12 requests of 128- and 1024-token prompts, budgets 16 and 48,
+   8 slots, a 1152-token cache (ring layout), greedy, one request stopped by
+   an EOS from its own greedy stream, one sampled (temperature 0.8): prefill
+   takes B8 for the prompt attention and B7 (SGMV) for the per-slot LoRA
+   delta, decode B7 (BGMV); each completion held to the training forward
+   over prompt + emitted tokens (no kernel, no cache) at every emitted
+   position within a stated tolerance, greedy tokens off its argmax only at
+   a near-tie, with two controls (the LoRA left out, the next adapter) read
+   on the same measure; a second run with telemetry gives the same tokens
+   bit for bit, its spans nest and its counters equal the completions;
+   per-group prefill, decode-step, TTFT and tokens/s times, the device's
+   busy share of a decode step and of the first prefill group under
+   ``torch.profiler``; B7 (each LoRA target) and B8 held against their
+   plain versions at every shape the path gave them, and B7 at the decode
+   shape and B8 at the first prefill group's beside their bounds;
+5e. phase 5's vectorized run again with ``telemetry=``: its round 0 equals
+   phase 5's bit for bit (stats, comm bytes, global LoRA);
 6. compressed uploads (top-k 0.1, int8 values, error feedback) with
    per-client ranks, random_select/sgd (fused), 1 round on each engine from
    the same seed: equal comm bytes, equal to the wire format recomputed from the GAL mask and ranks,
@@ -66,10 +85,11 @@ device and exits non-zero without one, or if any phase fails:
    the same order);
 8. one JSON line listing the kernels; last, the ok line.
 
-Each path of phases 4-6, 5b and 5c included, is driven with the kernels' launch
+Each path of phases 4-6, 5b, 5c and 5d included, is driven with the kernels' launch
 counts set to 0 just before it and read just after. Float32 matmuls run in
 full f32 (TF32 off for matmuls and cuDNN alike).
 """
+import dataclasses
 import json
 import math
 import subprocess
@@ -186,6 +206,35 @@ DIFFICULTY_RTOL = 0.05
 # host draws) and every layer global, no Fisher scores or FIM masks, which
 # the bf16 forward can tip at a near-tie (phase 5 shows where).
 PHASE6_BASELINE = "random_select"
+# Phase 5d: serving at full width. 12 requests over 4 adapters (the
+# vectorized run's global LoRA and three of its clients'): (prompt length,
+# new-token budget, adapter). Prompts of 128 and 1024 tokens make two shape
+# groups; 8 slots and a 1152-token cache (ring layout under the 8192 window)
+# make the queued four reuse freed slots.
+SERVE_REQUESTS = (
+    (1024, 48, 0), (1024, 16, 1), (1024, 48, 2), (1024, 16, 3),
+    (128, 16, 0), (128, 48, 1), (128, 16, 2), (128, 48, 3),
+    (1024, 16, 1), (1024, 48, 2), (128, 16, 3), (128, 48, 0),
+)
+SERVE_SLOTS, SERVE_CACHE = 8, 1152
+SERVE_EOS = 5  # stopped by an EOS taken from its own greedy stream
+SERVE_SAMPLED, SERVE_TEMPERATURE = 7, 0.8
+# Each completion is held to the training forward (``decoder_forward``: no
+# kernel, blockwise attention, plain LoRA, no cache) over prompt + emitted
+# tokens with the request's own adapter. The served logits differ from it
+# by (a) B7, which keeps x@a in f32 and scales once where the plain LoRA
+# rounds x@a to bf16 and scales in bf16; (b) B8 and decode attention, which
+# sum in other orders than blockwise attention; (c) GEMMs of other shapes
+# (8 decode rows, groups of prompts) rounding bf16 outputs apart. Each can
+# move a layer's output by one bf16 ulp (2^-8); over 24 layers the hidden
+# state drifts about sqrt(24)·2^-8 = 0.02 apart, and a logit, a dot product
+# of it with an embedding row, by that share of its row's scale: held at
+# 0.05 of the row's largest |logit|. A greedy token may differ from the
+# oracle's argmax only where the two lie within that tolerance (a near-tie).
+# The same measure against the forward with the LoRA left out, or with the
+# next adapter, must read above 1 for every request: else the oracle could
+# not fail a served path that dropped or misrouted the per-slot delta.
+SERVE_LOGIT_REL = 0.05
 # The two engines' compressed rounds differ by (a) the bf16 forward, which
 # runs as GEMMs of another shape under the vmap over clients and so moves
 # gradients in their last bf16 bits; (b) top-k, which then flips entries
@@ -1336,6 +1385,340 @@ def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd)
     return times
 
 
+def serve_requests(Request, SamplingParams, cfg, eos=None):
+    """Phase 5d's requests, prompts drawn from a seeded numpy generator."""
+    rng = np.random.default_rng(19)
+    reqs = []
+    for i, (S, budget, adapter) in enumerate(SERVE_REQUESTS):
+        sampling = SamplingParams(
+            max_new_tokens=budget, seed=100 + i,
+            temperature=SERVE_TEMPERATURE if i == SERVE_SAMPLED else 0.0,
+            eos_id=eos if i == SERVE_EOS else None,
+        )
+        reqs.append(Request(tokens=rng.integers(0, cfg.vocab_size, S).astype(np.int32), sampling=sampling,
+                            adapter_id=adapter))
+    return reqs
+
+
+def recording_engine(ServeEngine, model):
+    """A ServeEngine whose model keeps, for every request, the logits from
+    which each of its tokens was drawn: ``logits[(request_id, j)]`` for its
+    token j (prefill gives token 0; the decode of token j-1 gives token j).
+    It reads the slots' positions on the host at every decode step (a sync
+    that leaves the results as they are), and records the prefill groups'
+    shapes."""
+    logits, groups, holder = {}, [], {}
+
+    def prefill(params, lora, batch, cache_len):
+        out, cache, S = model.prefill(params, lora, batch, cache_len)
+        for row, r in enumerate(holder["group"]):
+            logits.setdefault((r.request_id, 0), out[row, -1].clone())
+        return out, cache, S
+
+    def decode_step(params, lora, token, cache, position):
+        out, cache = model.decode_step(params, lora, token, cache, position)
+        pos = position.tolist()
+        for slot, r in holder["engine"].scheduler._busy.items():
+            logits.setdefault((r.request_id, pos[slot] - len(r.tokens) + 1), out[slot, -1].clone())
+        return out, cache
+
+    class Recording(ServeEngine):
+        def _admit_group_body(self, slots, reqs):
+            holder["group"] = reqs
+            groups.append((len(reqs), len(reqs[0].tokens)))
+            super()._admit_group_body(slots, reqs)
+
+    def make(*args, **kw):
+        eng = Recording(dataclasses.replace(model, prefill=prefill, decode_step=decode_step), *args, **kw)
+        holder["engine"] = eng
+        return eng
+
+    return make, logits, groups
+
+
+def serve_oracle(tf, params, adapters, cfg, reqs, comps, logits):
+    """Each completion against the training forward over prompt + emitted
+    tokens with its adapter, at every emitted position (``SERVE_LOGIT_REL``);
+    greedy tokens may differ from the oracle's argmax only at a near-tie.
+    Two controls read the same measure against the forward with the LoRA
+    left out and with the next adapter in place of the request's own: what
+    the check would read if the served path dropped or misrouted the delta.
+    Returns (largest error over the tolerance, near-tie flips, greedy
+    positions whose oracle top two lie within the tolerance, positions,
+    each control's smallest reading over the requests)."""
+    worst, flips, ties, positions = 0.0, 0, 0, 0
+    off, swapped = [], []
+    for r, c in zip(reqs, comps):
+        S = len(r.tokens)
+        seq = torch.as_tensor(np.concatenate([r.tokens, c.tokens[:-1]]).astype(np.int64), device="cuda")
+        got = torch.stack([logits[(c.request_id, j)] for j in range(c.steps)]).float()
+
+        def reading(lora):
+            with torch.no_grad():
+                full, _ = tf.decoder_forward(params, lora, seq[None], cfg)
+            want = full[0, S - 1:S - 1 + c.steps].float()
+            tol = SERVE_LOGIT_REL * want.abs().amax(dim=-1)
+            return want, tol, float(((got - want).abs().amax(dim=-1) / tol).max())
+
+        want, tol, ratio = reading(adapters[r.adapter_id]["layers"])
+        if not bool(torch.isfinite(got).all()) or ratio > 1.0:
+            raise AssertionError(f"serve request {c.request_id}: logits {ratio:.3f}x the tolerance from the oracle")
+        worst = max(worst, ratio)
+        positions += c.steps
+        if r.sampling.temperature == 0.0:
+            served = torch.as_tensor(c.tokens.astype(np.int64), device="cuda")
+            gap = want.amax(dim=-1) - want.gather(1, served[:, None])[:, 0]
+            if bool((gap > tol).any()):
+                raise AssertionError(f"serve request {c.request_id}: a greedy token is no near-tie of the oracle's")
+            flips += int((want.argmax(dim=-1) != served).sum())
+            top2 = want.topk(2, dim=-1).values
+            ties += int((top2[:, 0] - top2[:, 1] <= tol).sum())
+        off.append(reading({})[2])
+        swapped.append(reading(adapters[(r.adapter_id + 1) % len(adapters)]["layers"])[2])
+    return worst, flips, ties, positions, min(off), min(swapped)
+
+
+def profiled(fn, wall_ms):
+    """One call of ``fn`` under ``torch.profiler``: its kernel time, the
+    device's busy share of ``wall_ms`` (the call's time unprofiled), its
+    kernel count, and B7's and B8's shares of the kernel time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in kernels)
+    out = dict(kernel_ms=us / 1e3, busy_share=us / 1e3 / wall_ms, kernels=sum(e.count for e in kernels))
+    for name, key in (("b7", "sparse_lora"), ("b8", "flash_attention")):  # the kernels' names in csrc/
+        out[f"{name}_share"] = sum(e.self_device_time_total for e in kernels if key in e.key) / us if us else 0.0
+    return out
+
+
+def phase_serve(ops, ref, sparse_lora, flash_attention, vec, cfg, model):
+    """Phase 5d: ``ServeEngine`` at full width on the vectorized run's global
+    LoRA and three of its clients' adapters. Run 1 finds the EOS request's
+    stop token in its greedy stream; run 2, the main path, counts the
+    launches and records the served logits for the oracle; run 3, with
+    telemetry, must give run 2's tokens bit for bit and times the serve
+    path. Then B7 and B8 against their plain versions at every serve shape,
+    and timed at the decode shape and the first prefill group's, beside
+    their bounds. Returns the launch counts, the kernels' largest errors
+    and the times."""
+    from repro_torch.lora import gather_adapter_slots
+    from repro_torch.models import transformer as tf
+    from repro_torch.obs import Telemetry, check_spans
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+    from repro_torch.utils.tree import tree_clone
+
+    adapters = [tree_clone(vec.global_lora)] + [tree_clone(vec.clients[i].lora) for i in range(3)]
+    kw = dict(adapters=adapters[1:], cache_len=SERVE_CACHE, num_slots=SERVE_SLOTS,
+              max_new_cap=max(b for _, b, _ in SERVE_REQUESTS))
+
+    def serve(engine, reqs):
+        rids = [engine.submit(r) for r in reqs]
+        comps = {c.request_id: c for c in engine.drain()}
+        return [comps[i] for i in rids]
+
+    t0 = time.perf_counter()
+    probe = serve(ServeEngine(model, vec.params, adapters[0], **kw), serve_requests(Request, SamplingParams, cfg))
+    free = probe[SERVE_EOS].tokens
+    # the stop token: one that first appears at index 3 or later (else the
+    # latest first appearance), so the stream stops mid-way at it
+    firsts = [j for j in range(len(free)) if free[j] not in free[:j]]
+    k = next((j for j in firsts if j >= 3), firsts[-1])
+    eos = int(free[k])
+
+    make, logits, groups = recording_engine(ServeEngine, model)
+    main_reqs = serve_requests(Request, SamplingParams, cfg, eos)
+    with Launches(ops) as run:
+        main = make(vec.params, adapters[0], **kw)
+        comps = serve(main, main_reqs)
+    log(f"serve main run: {len(comps)} completions, prefill groups (requests, prompt length) {groups}, "
+        f"{main.stats}; launches {run.counts}")
+    want = only(flash_attention=cfg.num_layers * main.stats["prefill_calls"],
+                batched_sparse_lora_apply=4 * cfg.num_layers * (main.stats["prefill_calls"] + main.stats["decode_steps"]))
+    if run.counts != want or main.stats["completed"] != len(SERVE_REQUESTS):
+        raise AssertionError(f"the serve run did not go through B8 and B7 as its path says: {run.counts} != {want}")
+    K, r = cfg.d_model, cfg.lora_rank
+    hd = cfg.resolved_head_dim
+    widths = {"wq": cfg.num_heads * hd, "wk": cfg.num_kv_heads * hd}
+    paths = {}
+    for g, S in sorted(set(groups)):
+        paths[f"prefill {g}x{S}"] = {t: sparse_lora.resident_stages(K, N, r, torch.bfloat16, adapters=g, rows=g * S)
+                                     for t, N in widths.items()}
+    paths[f"decode {SERVE_SLOTS}x1"] = {t: sparse_lora.resident_stages(K, N, r, torch.bfloat16, adapters=SERVE_SLOTS,
+                                                                       rows=SERVE_SLOTS) for t, N in widths.items()}
+    log("B7 path by shape (ring depth > 0: SGMV, 0: BGMV):", json.dumps(paths))
+    if any(d == 0 for key, v in paths.items() if key.startswith("prefill") for d in v.values()) or \
+            any(d != 0 for d in paths[f"decode {SERVE_SLOTS}x1"].values()):
+        raise AssertionError("B7 did not take SGMV on prefill and BGMV on decode")
+
+    # completions: budgets, the EOS stop, the sampled stream, the oracle
+    for (S, budget, _), c in zip(SERVE_REQUESTS, comps):
+        if c.prompt_len != S or (c.finish_reason == "length" and c.steps != min(budget, SERVE_CACHE - S)):
+            raise AssertionError(f"serve request {c.request_id}: {c.steps} tokens for budget {budget}")
+    ce = comps[SERVE_EOS]
+    if ce.finish_reason != "eos" or not np.array_equal(ce.tokens, free[:k + 1]):
+        raise AssertionError(f"the EOS request did not stop at its first {eos} ({ce.tokens} vs {free[:k + 1]})")
+    same_sampled = np.array_equal(comps[SERVE_SAMPLED].tokens, probe[SERVE_SAMPLED].tokens)
+    log(f"serve EOS request stopped at token {k} ({eos}); sampled request (T {SERVE_TEMPERATURE}) equal to "
+        f"its stream in run 1, whose co-residents differ after the EOS: {same_sampled}")
+    with Launches(ops) as oracle_run:
+        worst, flips, ties, positions, off, swapped = serve_oracle(tf, vec.params, adapters, cfg, main_reqs, comps,
+                                                                  logits)
+    if any(oracle_run.counts.values()):
+        raise AssertionError(f"the oracle forward launched a kernel: {oracle_run.counts}")
+    log(f"serve vs teacher-forced oracle: {positions} positions, largest logit error {worst:.3f} of the tolerance "
+        f"({SERVE_LOGIT_REL} of a row's largest |logit|); greedy tokens off the oracle's argmax (near-ties): {flips}, "
+        f"of {ties} greedy positions whose oracle top two lie within the tolerance; controls (smallest reading "
+        f"over the requests): LoRA left out {off:.3f}, the next adapter {swapped:.3f}")
+    if off <= 1.0 or swapped <= 1.0:
+        raise AssertionError("the oracle cannot see the adapters: a served path that dropped or misrouted the "
+                             f"LoRA delta would pass it (controls {off:.3f}, {swapped:.3f})")
+    oracle = dict(positions=positions, worst=worst, flips=flips, ties=ties, control_lora_off=off,
+                  control_next_adapter=swapped)
+    del logits
+
+    # run 3: telemetry on, the same tokens bit for bit; its spans time the path
+    tel = Telemetry(run_id="serve")
+    eng = ServeEngine(model, vec.params, adapters[0], telemetry=tel, **kw)
+    comps3 = serve(eng, serve_requests(Request, SamplingParams, cfg, eos))
+    if any(not np.array_equal(a.tokens, b.tokens) or a.finish_reason != b.finish_reason
+           for a, b in zip(comps, comps3)):
+        raise AssertionError("serving with telemetry changed the tokens")
+    check_spans(tel.tracer.events)
+    snap = tel.snapshot()
+    emitted = sum(c.steps for c in comps3)
+    if snap["counters"]["serve.completed"] != len(comps3) or snap["counters"]["serve.tokens_emitted"] != emitted:
+        raise AssertionError(f"serve counters {snap['counters']} do not match {len(comps3)} completions")
+    spans = [e for e in tel.tracer.events if e["type"] == "span"]
+    prefill_ms = [1e3 * e["dur"] for e in spans if e["name"] == "prefill"]
+    segment_s = sum(e["dur"] for e in spans if e["name"] == "segment")
+    if len(prefill_ms) != len(groups):
+        raise AssertionError(f"run 3 made {len(prefill_ms)} prefill groups, run 2 {len(groups)}")
+    ttft = snap["histograms"]["serve.ttft_s"]
+    st = eng._state
+    lora_t = gather_adapter_slots(cfg, eng._stacked, st["aidx"])
+    (g0, S0), gen = groups[0], torch.Generator(device="cuda").manual_seed(5)
+    first = {"tokens": torch.randint(0, cfg.vocab_size, (g0, S0), generator=gen, device="cuda")}
+    lora_g0 = gather_adapter_slots(cfg, eng._stacked, st["aidx"][:g0])
+    with torch.no_grad():
+        step = lambda: model.decode_step(eng.params, lora_t, st["token"], st["cache"], st["pos"])  # noqa: E731
+        step_ms = cuda_ms(step, iters=20, warmup=3)
+        prefill = lambda: model.prefill(eng.params, lora_g0, first, SERVE_CACHE)  # noqa: E731
+        group0_ms = cuda_ms(prefill, iters=3, warmup=1)
+        profiles = {"decode": profiled(step, step_ms), f"prefill {g0}x{S0}": profiled(prefill, group0_ms)}
+    times = dict(
+        prefill_groups=[dict(requests=g, prompt=S, ms=ms) for (g, S), ms in zip(groups, prefill_ms)],
+        decode_steps=eng.stats["decode_steps"], segment_ms_per_step=1e3 * segment_s / eng.stats["decode_steps"],
+        decode_step_ms=step_ms, tokens=emitted, useful_tokens_per_s=snap["gauges"]["serve.useful_tokens_per_s"],
+        ttft_mean_ms=1e3 * ttft["mean"], ttft_max_ms=1e3 * ttft["max"], oracle=oracle,
+        first_group_prefill_ms=group0_ms, profiles=profiles,
+    )
+    log(f"serve times: {json.dumps(times)}; total serve phase so far {time.perf_counter() - t0:.1f} s")
+
+    # B7 and B8 against their plain versions at every shape the serve path
+    # gave them: B7 on the served adapters of each LoRA target (wq and wo
+    # 896 columns wide, wk and wv 128) at each prefill group's shape (SGMV)
+    # and the decode shape (one row a slot, BGMV); B8 at each prefill group's
+    scale = cfg.lora_alpha / cfg.lora_rank
+    H, KVH, w = cfg.num_heads, cfg.num_kv_heads, cfg.attention_window
+    errs = {}
+    for g, S in sorted(set(groups)) + [(SERVE_SLOTS, 1)]:
+        idx = torch.arange(g, dtype=torch.int32, device="cuda").repeat_interleave(S)
+        for t, ab in lora_t["layers"].items():
+            a, b = ab["a"][0][:g].contiguous(), ab["b"][0][:g].contiguous()
+            ones = torch.ones(g, b.shape[-1], device="cuda")
+            x = torch.randn(g * S, a.shape[1], generator=gen, device="cuda").bfloat16()
+            errs[f"B7 {t} {g}x{S}"] = check_lora(ops.batched_sparse_lora_apply(x, idx, a, b, ones, scale),
+                                                 ref.batched_sparse_lora_matmul_ref(x, idx, a, b, ones, scale),
+                                                 f"B7 serve {t} {g}x{S}")
+        if S > 1:
+            q = torch.randn(g, S, H, hd, generator=gen, device="cuda").bfloat16()
+            kk, vv = (torch.randn(g, S, KVH, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
+            errs[f"B8 {g}x{S}"] = check_attention(ops.flash_attention(q, kk, vv, causal=True, window=w),
+                                                  ref.flash_attention_gqa_ref(q, kk, vv, causal=True, window=w),
+                                                  vv, f"B8 serve prefill {g}x{S}")
+    log(f"B7 and B8 vs plain at the serve shapes: within tolerance; max abs err {json.dumps(errs)}")
+
+    def shape_err(kernel, g=None, S=None):
+        return max(e for key, e in errs.items()
+                   if key.startswith(kernel) and (g is None or key.endswith(f" {g}x{S}")))
+
+    # B7 at the decode shape (8 rows, each slot its own adapter: BGMV) and
+    # the first prefill group's (SGMV), timed on the served wq adapters
+    def b7_entry(M, A, per):
+        a = lora_t["layers"]["wq"]["a"][0][:A].contiguous()
+        b = lora_t["layers"]["wq"]["b"][0][:A].contiguous()
+        N = b.shape[-1]
+        ones = torch.ones(A, N, device="cuda")
+        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        y = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+        idx = torch.arange(A, dtype=torch.int32, device="cuda").repeat_interleave(per)
+        launch = lambda _=0: sparse_lora.sparse_lora_launch(y, x, a, b, ones, idx, scale=scale)  # noqa: E731
+        e = dict(rows=M, adapters=A, ring_depth=sparse_lora.resident_stages(K, N, r, torch.bfloat16, adapters=A, rows=M),
+                 max_abs_err=shape_err("B7", A, per), ms=cuda_ms(launch), graph_ms=graph_ms(launch),
+                 wrapper_ms=cuda_ms(lambda: ops.batched_sparse_lora_apply(x, idx, a, b, ones, scale)),
+                 plain_ms=cuda_ms(lambda: ref.batched_sparse_lora_matmul_ref(x, idx, a, b, ones, scale)),
+                 library_ms=None,
+                 **bound_of(2 * M * K + 2 * M * N + 4 * M + 4 * A * (K * r + r * N + N), 2 * M * K * r + 2 * M * r * N))
+        e["bound_share"] = e["bound_ms"] / e["graph_ms"]
+        return e
+
+    b7_decode = b7_entry(SERVE_SLOTS, SERVE_SLOTS, 1)
+    b7_prefill = b7_entry(g0 * S0, g0, S0)
+    # B8 at the first prefill group's shape
+    q = torch.randn(g0, S0, H, hd, generator=gen, device="cuda").bfloat16()
+    kk, vv = (torch.randn(g0, S0, KVH, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    out = torch.empty_like(q)
+    launch = lambda _=0: flash_attention.flash_attention_launch(out, q, kk, vv, causal=True, window=w)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, vv))
+    b8 = dict(max_abs_err=shape_err("B8", g0, S0), ms=cuda_ms(launch, iters=20),
+              graph_ms=graph_ms(launch, calls=5, replays=3),
+              wrapper_ms=cuda_ms(lambda: ops.flash_attention(q, kk, vv, causal=True, window=w), iters=20),
+              plain_ms=cuda_ms(lambda: ref.flash_attention_gqa_ref(q, kk, vv, causal=True, window=w), iters=5),
+              library_ms=library_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=True, enable_gqa=True), False),
+              **attention_bound(g0, S0, H, KVH, hd, True, w, torch.bfloat16))
+    b8.update(tflops=b8["gflop"] / b8["graph_ms"], bound_share=b8["bound_ms"] / b8["graph_ms"])
+    for name, e in ((f"B7 decode {SERVE_SLOTS} rows x {SERVE_SLOTS} adapters", b7_decode),
+                    (f"B7 prefill {g0 * S0} rows x {g0} adapters", b7_prefill), (f"B8 prefill {g0}x{S0}", b8)):
+        log(f"serve shape {name}: device {e['graph_ms']:.4f} ms, {e['bound_share']:.1%} of its bound "
+            f"({e['bound_ms']:.5f} ms, {e['bound_by']}); launcher {e['ms']:.4f}, wrapper {e['wrapper_ms']:.4f}, "
+            f"plain {e['plain_ms']:.4f}, library {e['library_ms']}")
+    times.update(b7_decode=b7_decode, b7_prefill=b7_prefill, b8_prefill=b8)
+    log(f"serve phase: {time.perf_counter() - t0:.1f} s")
+    counts = {n: run.counts[n] for n in ("flash_attention", "batched_sparse_lora_apply")}
+    return counts, {"batched_sparse_lora_apply": shape_err("B7"), "flash_attention": shape_err("B8")}, times
+
+
+def phase_runner_telemetry(make_runner, model, loss_fn, fl, clients, vec, vec_round0, tree_leaves):
+    """Phase 5e: phase 5's vectorized run again with ``telemetry=``: its
+    decisions, round-0 stats, comm bytes and global LoRA equal phase 5's bit
+    for bit, and its trace is well formed."""
+    from repro_torch.obs import Telemetry, check_spans
+
+    tel = Telemetry(run_id="vectorized")
+    vt = make_runner("fibecfed", model, loss_fn, fl, clients, optimizer="adamw", fused_optimizer=True, seed=0,
+                     telemetry=tel)
+    vt.init_phase()
+    stats = vt.run_round(0)
+    stats0, comm0, lora0 = vec_round0
+    same = (stats == stats0 and vt.comm_bytes_per_round == comm0[:1]
+            and np.array_equal(vt.gal_layers, vec.gal_layers)
+            and all(np.array_equal(a.order, b.order) for a, b in zip(vt.clients, vec.clients))
+            and all(torch.equal(a, b) for a, b in zip(tree_leaves(vt.global_lora), tree_leaves(lora0))))
+    check_spans(tel.tracer.events)
+    names = [e["name"] for e in tel.tracer.events if e["type"] == "span"]
+    log(f"vectorized round 0 with telemetry: {json.dumps(stats)}; equal to phase 5's bit for bit: {same}; "
+        f"spans {sorted(set(names))}; counters {tel.snapshot()['counters']}")
+    if not same or names.count("round") != 1 or tel.snapshot()["counters"]["fl.rounds"] != 1:
+        raise AssertionError("telemetry changed the vectorized round, or its trace is incomplete")
+
+
 def keyword_world(vocab_size, data_mod, fl):
     task = data_mod.make_keyword_task(n_samples=256, seq_len=64, vocab_size=vocab_size, seed=0)
     parts = data_mod.dirichlet_partition(task.data["label"], fl.num_devices, fl.dirichlet_alpha, seed=0)
@@ -1521,6 +1904,8 @@ def main() -> int:
             vec_steps += int(stats["padded_steps"])
             log(f"vectorized fibecfed round {t}: {secs:.2f} s, {json.dumps(stats)}")
             check_round(vec, cfg, stats, t)
+            if t == 0:
+                vec_round0 = (stats, list(vec.comm_bytes_per_round), tree_clone(vec.global_lora))
     same = all(np.array_equal(a, c.order) for a, c in zip(fused_decisions[0], vec.clients))
     log(f"vectorized curriculum orders equal to the loop engine's: {same}; GAL layers equal: "
         f"{np.array_equal(fused_decisions[1], vec.gal_layers)}")
@@ -1543,7 +1928,20 @@ def main() -> int:
         launches[name] += attn_counts[name]
     errs.update(attn_errs)
     times.update(phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd))
-    del vec, cases, ssd
+    del cases, ssd
+
+    # --- 5d. serving at full width: B8 on prefill, B7 on the per-slot LoRA ---
+    serve_counts, serve_errs, serve_times = phase_serve(ops, ref, sparse_lora, flash_attention, vec, cfg, model)
+    for name, n in serve_counts.items():
+        launches[name] += n
+        errs[name] = max(errs[name], serve_errs[name])
+    times["batched_sparse_lora_apply"].update(serve_decode=serve_times["b7_decode"],
+                                              serve_prefill=serve_times["b7_prefill"])
+    times["flash_attention"]["serve_prefill"] = serve_times["b8_prefill"]
+
+    # --- 5e. the runner's telemetry= changes no bit of a vectorized round ---
+    phase_runner_telemetry(make_runner, model, loss_fn, fl, clients, vec, vec_round0, tree_leaves)
+    del vec
 
     # --- 6. compressed uploads and per-client ranks, on both engines ---
     comp = CompressionConfig(**COMPRESSION)

@@ -22,7 +22,10 @@ Two interchangeable round engines (``engine=``), as in the JAX package:
   host-side merge and FedAvg.
 
 Both take ``compression=`` (a simulated compressed upload with error
-feedback, kernel B3) and ``client_ranks=`` (per-client LoRA ranks). Host
+feedback, kernel B3), ``client_ranks=`` (per-client LoRA ranks) and
+``telemetry=`` (a :class:`repro_torch.obs.Telemetry`: wall-clock spans of
+the init phase and its steps and of every round, and the ``fl.*`` metrics;
+enabling it changes no bit of a run). Host
 randomness (cohorts, ``random`` difficulty, ``gal_mode="random"``) comes from
 ``np.random.default_rng(seed)`` drawn in the JAX package's order, so the two
 make the same decisions. The port runs on the card unless ``device`` says
@@ -49,6 +52,7 @@ from repro_torch.data.pipeline import gather_batch, make_batches, stack_clients
 from repro_torch.kernels import ops as kops
 from repro_torch.lora import gal_mask_tree, neuron_mask_tree, rank_mask_tree
 from repro_torch.models.model_api import ModelFns
+from repro_torch.obs import ensure as ensure_telemetry
 from repro_torch.optim import make_optimizer
 from repro_torch.train.losses import make_logits_loss
 from repro_torch.utils.tree import tree_clone, tree_leaves, tree_map
@@ -63,7 +67,6 @@ _UNPORTED = {
     "async_cfg": "Queue A item 9 (async engine)",
     "store": "Queue A item 10 (client stores)",
     "hierarchy": "Queue A item 9 (edge aggregation)",
-    "telemetry": "Queue A item 15 (telemetry)",
 }
 _ENGINE_ITEMS = {
     "sharded": "Queue A item 13",
@@ -185,6 +188,9 @@ class FibecFed:
         Args follow the JAX package's ``FibecFed``; those of engines and
         options not ported yet raise ``NotImplementedError``. Besides:
 
+          telemetry: a ``repro_torch.obs.Telemetry``; ``None`` installs the
+            no-op recorder. The JAX runner's ``jit.*_traces`` gauges have no
+            counterpart: the port compiles no programs.
           device: where the model and the LoRA trees live; ``None`` is the
             CUDA device, and an error without one.
           init_params / init_lora: numpy trees (the JAX runner's ``params``
@@ -193,9 +199,10 @@ class FibecFed:
         """
         check_ported(
             engine, fl, mesh=mesh, scenario=scenario, async_cfg=async_cfg, store=store,
-            hierarchy=hierarchy, telemetry=telemetry,
+            hierarchy=hierarchy,
         )
         self.device = resolve_device(device)
+        self.tel = ensure_telemetry(telemetry)
         self.model = model
         self.cfg = model.cfg
         self.loss_fn = loss_fn
@@ -408,10 +415,16 @@ class FibecFed:
         raise ValueError(mode)
 
     def init_phase(self) -> None:
+        with self.tel.span("init_phase", cat="fl", track="server"):
+            self._init_phase_body()
+
+    def _init_phase_body(self) -> None:
         # --- curriculum difficulty (lines 2-5) ---
-        self._compute_difficulty()
+        with self.tel.span("difficulty", cat="fl", track="server"):
+            self._compute_difficulty()
         # --- layer sensitivity scores (Eq. 9-10) ---
-        global_scores, fractions, ns = self._probe_sensitivity()
+        with self.tel.span("sensitivity", cat="fl", track="server"):
+            global_scores, fractions, ns = self._probe_sensitivity()
         # --- server: GAL selection (lines 6-7) ---
         n_star = galmod.gal_layer_count(fractions, ns, len(global_scores), self.fl.mu_global_local)
         self.gal_layers = self._select_layers(global_scores, n_star)
@@ -421,7 +434,8 @@ class FibecFed:
         self._comp_mask_cache = {}
         # --- local update parameter selection (lines 8-10) ---
         if self.sparse_update:
-            self._select_local_masks()
+            with self.tel.span("fim_warmup", cat="fl", track="server"):
+                self._select_local_masks()
         # --- per-client ranks: fold the keep-masks into the update masks ---
         if self.client_ranks is not None:
             self._fold_rank_masks()
@@ -551,6 +565,29 @@ class FibecFed:
         return y
 
     def run_round(self, t: int, lr: Optional[float] = None) -> Dict[str, float]:
+        if not self.tel.enabled:
+            return self._dispatch_round(t, lr)
+        tel = self.tel
+        start = tel.tracer.now()
+        with tel.span("round", cat="fl", track="server", args={"t": t, "engine": self.engine}) as sargs:
+            stats = self._dispatch_round(t, lr)
+            sargs["loss"] = stats.get("loss")
+            sargs["comm_bytes"] = stats.get("comm_bytes")
+        dur = tel.tracer.now() - start
+        m = tel.metrics
+        m.counter("fl.rounds").inc()
+        m.histogram("fl.round_s").observe(dur)
+        if dur > 0.0:
+            m.gauge("fl.rounds_per_s").set(1.0 / dur)
+        loss = stats.get("loss")
+        if loss is not None and not np.isnan(loss):
+            m.histogram("fl.round_loss").observe(loss)
+        if self.comm_bytes_per_round:
+            m.counter("fl.comm_bytes").inc(self.comm_bytes_per_round[-1])
+            m.counter("fl.comm_upload_bytes").inc(self.comm_upload_bytes_per_round[-1])
+        return stats
+
+    def _dispatch_round(self, t: int, lr: Optional[float] = None) -> Dict[str, float]:
         if self.engine == "vectorized":
             return self._run_round_vectorized(t, lr)
         return self._run_round_loop(t, lr)

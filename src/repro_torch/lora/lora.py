@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.utils.tree import tree_map
 
 
 def _attn_dims(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -67,6 +68,31 @@ def _group_offsets(cfg: ModelConfig) -> Dict[str, tuple]:
     if cfg.family == "hybrid":
         return {"mamba": (0, cfg.num_layers), "shared": (cfg.num_layers, 0)}
     return {"layers": (0, cfg.num_layers)}
+
+
+def stack_adapter_trees(adapters) -> Any:
+    """Stack same-shaped LoRA trees along a new leading adapter axis: each
+    leaf (L, d_in, r) becomes (A, L, d_in, r). The registry format of
+    multi-tenant serving."""
+    return tree_map(lambda *ls: torch.stack(ls), *adapters)
+
+
+def gather_adapter_slots(cfg: ModelConfig, stacked, idx: torch.Tensor) -> Any:
+    """Per-slot adapters out of a :func:`stack_adapter_trees` stack.
+
+    ``idx``: (B,) adapter index per batch slot, on the stack's device.
+    Stacked-group leaves (A, L, ...) gather to (B, L, ...) and the layer axis
+    moves back in front, (L, B, ...), so a layer loop slices per-slot
+    (B, ...) leaves that :func:`repro_torch.models.layers.linear` applies row
+    by row. The result is contiguous, so each layer's slice is too.
+    """
+    out = {}
+    for group, (_, n) in _group_offsets(cfg).items():
+        if n:
+            out[group] = tree_map(lambda leaf: leaf[idx].movedim(0, 1).contiguous(), stacked[group])
+        else:
+            out[group] = tree_map(lambda leaf: leaf[idx], stacked[group])
+    return out
 
 
 def gal_mask_tree(cfg: ModelConfig, lora, gal_layers) -> Any:

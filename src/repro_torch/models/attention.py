@@ -1,5 +1,5 @@
-"""GQA attention with causal / sliding-window masks (port of
-``repro.models.attention``, training and prefill paths).
+"""GQA attention with causal / sliding-window masks and KV caches (port of
+``repro.models.attention``).
 
 Plain PyTorch matmul + softmax, as the JAX package leaves this to XLA.
 Scores are f32 and masked with ``NEG_INF``; GQA groups the query heads as
@@ -8,7 +8,10 @@ bounds memory with an online softmax over KV blocks and, with a window,
 visits only the KV span each query block can see. As in the JAX package,
 the model calls no kernel: the hand-written forward kernel for this (B8) is
 reached through ``repro_torch.kernels.ops.flash_attention`` and is held
-against :func:`blockwise_attention` in the tests.
+against :func:`blockwise_attention` in the tests; serving's prefill calls it
+on the card (``models/transformer.py``). Decode attention has one query row
+per slot and a ragged depth per slot; no kernel covers it, and it stays
+plain, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -136,3 +139,49 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, ca
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))  # (B, qb, KVH, G, D)
     return torch.stack(outs, dim=1).reshape(B, S, H, D)
+
+
+def scatter_decode_kv(cache: torch.Tensor, update: torch.Tensor, slot) -> torch.Tensor:
+    """Write a decode step's KV into its cache slot(s), in place; returns
+    ``cache``.
+
+    cache: (B, T, KVH, D); update: (B, 1, KVH, D); ``slot`` a scalar write
+    index (uniform batch) or a (B,) tensor of per-row indices (continuous
+    batching). An index is clamped into [0, T), as the JAX package's
+    dynamic update slice clamps its start.
+    """
+    T = cache.shape[1]
+    slot = torch.clamp(torch.as_tensor(slot, device=cache.device), 0, T - 1)
+    if slot.dim() == 1:
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, slot] = update[:, 0].to(cache.dtype)
+    else:
+        cache.index_copy_(1, slot.reshape(1), update.to(cache.dtype))
+    return cache
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, position, *,
+                     ring: bool = False) -> torch.Tensor:
+    """One-token attention against a cache.
+
+    q: (B, 1, H, D); caches: (B, T, KVH, D). ``position``, the number of
+    tokens before this one, is a scalar (uniform batch) or a (B,) tensor
+    of per-row positions (continuous batching, each slot at its own
+    depth). Slot t is valid when ``t <= position``; for a ring-buffer cache
+    (``ring``, a sliding window) when ``t < min(position + 1, T)``: once
+    the ring is full every slot holds one of the last T positions, and the
+    softmax does not depend on their order.
+    """
+    B, _, H, D = q.shape
+    T, KVH = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, 1, KVH, H // KVH, D)
+    scores = _gqa_scores(qg, k_cache, _scale(D))  # (B, KVH, G, 1, T)
+    slot = torch.arange(T, device=q.device)
+    pos = torch.as_tensor(position, device=q.device)
+    limit = torch.clamp(pos + 1, max=T) if ring else pos + 1
+    valid = slot < limit[..., None]  # (B, T) per slot, (T,) uniform
+    if valid.dim() == 2:
+        valid = valid[:, None, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return _gqa_out(probs, v_cache).reshape(B, 1, H, D)

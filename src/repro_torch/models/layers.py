@@ -7,10 +7,13 @@ carry a leading layer axis on every leaf. Initializers draw from an explicit
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels import ops as kops
 
 
 def init_stacked_dense(gen: torch.Generator, n: int, d_in: int, d_out: int, dtype, device) -> torch.Tensor:
@@ -23,16 +26,50 @@ def init_embed(gen: torch.Generator, vocab: int, d: int, dtype, device) -> torch
     return (torch.randn((vocab, d), generator=gen, device=device) * 0.02).to(dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _slot_rows(slots: int, per_slot: int, n_out: int, device: torch.device):
+    """The per-row adapter index (row m is slot m // per_slot) and the
+    all-ones mask of the multi-adapter kernel, made once per shape and
+    shared by every call (the kernel only reads them)."""
+    idx = torch.arange(slots, dtype=torch.int32, device=device).repeat_interleave(per_slot)
+    return idx, torch.ones((slots, n_out), dtype=torch.float32, device=device)
+
+
+def per_row_lora(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, lora_scale: float) -> torch.Tensor:
+    """``lora_scale · (x[s] @ a[s]) @ b[s]`` for each batch row s: x
+    (B, ..., d_in), a (B, d_in, r), b (B, r, d_out); the result in x's dtype.
+
+    On the card this is the multi-adapter LoRA kernel (B7,
+    ``kernels.ops.batched_sparse_lora_apply``) with slot s as adapter s, row
+    m's index its batch row and every output column kept; it takes a and b
+    in f32 and keeps ``x @ a`` in f32. On the CPU it is the JAX package's
+    einsum pair, a and b cast to x's dtype first.
+    """
+    B, K, N = x.shape[0], x.shape[-1], b.shape[-1]
+    if x.is_cuda:
+        idx, ones = _slot_rows(B, x.numel() // (B * K) if B else 0, N, x.device)
+        return kops.batched_sparse_lora_apply(x, idx, a, b, ones, lora_scale)
+    x3 = x.reshape(B, -1, K)
+    z = torch.bmm(x3, a.to(x.dtype))
+    return (lora_scale * torch.bmm(z, b.to(x.dtype))).reshape(*x.shape[:-1], N)
+
+
 def linear(x: torch.Tensor, p, lora=None, lora_scale: float = 1.0) -> torch.Tensor:
     """``x @ w (+ b)`` with an optional LoRA delta ``(x @ a) @ b * scale``.
 
     x: (..., d_in). p: {"w": (d_in, d_out)[, "b"]}. lora: {"a": (d_in, r),
-    "b": (r, d_out)} or None; its leaves are cast to ``x``'s dtype.
+    "b": (r, d_out)} or None; its leaves are cast to ``x``'s dtype. When the
+    LoRA leaves carry a leading batch axis (a (B, d_in, r), b (B, r, d_out),
+    x (B, ..., d_in)), each batch row gets its own adapter's delta
+    (:func:`per_row_lora`, the multi-tenant serving path).
     """
     y = x @ p["w"]
     if lora is not None:
-        z = x @ lora["a"].to(x.dtype)
-        y = y + lora_scale * (z @ lora["b"].to(x.dtype))
+        if lora["a"].dim() == 3:  # per-slot adapters
+            y = y + per_row_lora(x, lora["a"], lora["b"], lora_scale)
+        else:
+            z = x @ lora["a"].to(x.dtype)
+            y = y + lora_scale * (z @ lora["b"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y

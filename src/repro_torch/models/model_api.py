@@ -6,7 +6,9 @@
 - ``init_lora(generator, device)``: trainable LoRA tree (see repro_torch.lora);
 - ``forward(params, lora, batch)`` -> (logits (B, S, V), aux_loss);
 - ``forward_probe(params, lora, batch, embed_noise=None)`` -> (logits, aux,
-  layer_norms (L, B)), the FibecFed GAL sensitivity probe.
+  layer_norms (L, B)), the FibecFed GAL sensitivity probe;
+- ``init_cache(batch, cache_len, device)`` / ``prefill`` / ``decode_step``
+  for serving.
 """
 from __future__ import annotations
 
@@ -25,6 +27,16 @@ class ModelFns:
     init_lora: Callable[..., Any]
     forward: Callable[..., Any]
     forward_probe: Callable[..., Any]
+    init_cache: Callable[..., Any]  # (batch, cache_len, device) -> cache
+    # (params, lora, batch, cache_len) -> (last logits (B, 1, V), cache, S)
+    prefill: Callable[..., Any]
+    # (params, lora, token, cache, position) -> (logits, cache), the cache
+    # written in place. ``position`` is a scalar (uniform batch) or a (B,)
+    # tensor of per-slot positions (continuous batching). ``lora`` leaves
+    # may carry a per-slot batch axis, a (L, B, d_in, r) and b (L, B, r,
+    # d_out) (see repro_torch.lora.gather_adapter_slots), giving every batch
+    # row its own adapter; unbatched leaves mean one shared adapter.
+    decode_step: Callable[..., Any]
 
 
 def build_model(cfg: ModelConfig) -> ModelFns:
@@ -42,10 +54,20 @@ def build_model(cfg: ModelConfig) -> ModelFns:
             embed_noise=embed_noise, collect_layer_norms=True,
         )
 
+    def prefill(params, lora, batch, cache_len):
+        return _tf.decoder_prefill(params, lora["layers"], batch["tokens"], cfg, cache_len)
+
+    def decode_step(params, lora, token, cache, position):
+        ring = cfg.attention_window is not None and cache["k"].shape[2] <= cfg.attention_window
+        return _tf.decoder_decode_step(params, lora["layers"], token, cfg, cache, position, ring=ring)
+
     return ModelFns(
         cfg=cfg,
         init_params=lambda gen, device: _tf.init_decoder(gen, cfg, device),
         init_lora=lambda gen, device: _init_lora_tree(gen, cfg, device),
         forward=forward,
         forward_probe=forward_probe,
+        init_cache=lambda batch, cache_len, device: _tf.init_kv_cache(cfg, batch, cache_len, device),
+        prefill=prefill,
+        decode_step=decode_step,
     )

@@ -5,7 +5,16 @@ Per-layer weights are stacked on a leading layer axis, as in the JAX
 package, and the layer loop is a Python loop over those slices. LoRA trees
 mirror the stacked layout. Supported knobs: GQA, QKV bias, qk-norm, RoPE,
 parallel residual, RMS/layer norm, SwiGLU/GELU MLP, sliding-window
-attention, logit soft-cap, tied embeddings. Decode caches are not ported yet.
+attention, logit soft-cap, tied embeddings.
+
+Serving: :func:`decoder_prefill` runs a prompt and fills a KV cache (in the
+JAX package's ring layout when a sliding window covers the cache), and
+:func:`decoder_decode_step` decodes one token per row against it, each row
+at its own position. On the card the prompt attention is the flash
+attention kernel (B8, ``kernels.ops.flash_attention``) and LoRA leaves with
+a per-slot batch axis take the multi-adapter kernel (B7, through
+``layers.linear``); on the CPU both are the plain versions the training
+path uses.
 """
 from __future__ import annotations
 
@@ -14,6 +23,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_rope,
@@ -92,28 +102,52 @@ def _project_qkv(x, p, lora, cfg: ModelConfig, lora_scale):
 
 
 def attention_sublayer(x, p, lora, cfg: ModelConfig, positions, *, lora_scale: float,
-                       causal: bool = True):
+                       causal: bool = True, cache=None, cache_position=None, ring: bool = False):
+    """Self-attention over ``x``. Returns ``(out, cache_or_None)``; with
+    ``cache``, a (k_cache, v_cache) pair of (B, T, KVH, D), it decodes one
+    token per row at ``cache_position`` (scalar or (B,)) and writes its KV
+    into the caches in place."""
     q, k, v = _project_qkv(x, p, lora, cfg, lora_scale)
     q = apply_rope(q, positions, theta=cfg.rope_theta, mode=cfg.rope)
     k = apply_rope(k, positions, theta=cfg.rope_theta, mode=cfg.rope)
-    o = attn.blockwise_attention(
-        q, k, v, causal=causal, window=cfg.attention_window,
-        score_dtype=torch_dtype(cfg.attn_score_dtype),
-    )
+    if cache is not None:
+        k_cache, v_cache = cache
+        T = k_cache.shape[1]
+        slot = (cache_position % T) if ring else cache_position
+        attn.scatter_decode_kv(k_cache, k, slot)
+        attn.scatter_decode_kv(v_cache, v, slot)
+        o = attn.decode_attention(q, k_cache, v_cache, cache_position, ring=ring)
+    else:
+        o = attn.blockwise_attention(
+            q, k, v, causal=causal, window=cfg.attention_window,
+            score_dtype=torch_dtype(cfg.attn_score_dtype),
+        )
     B, S = x.shape[0], x.shape[1]
     o = o.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
-    return linear(o, {"w": p["wo"]}, lora.get("wo") if lora else None, lora_scale)
+    out = linear(o, {"w": p["wo"]}, lora.get("wo") if lora else None, lora_scale)
+    return out, cache
 
 
-def decoder_layer(h, p, lora, cfg: ModelConfig, positions, *, lora_scale, causal=True):
-    """One transformer block over one layer's slices. Returns ``h``."""
+def decoder_layer(h, p, lora, cfg: ModelConfig, positions, *, lora_scale, causal=True,
+                  cache=None, cache_position=None, ring=False):
+    """One transformer block over one layer's slices. Returns ``(h,
+    cache_or_None)`` (see :func:`attention_sublayer`)."""
     x = _norm(h, p, "attn_norm", cfg.norm)
-    attn_out = attention_sublayer(x, p, lora, cfg, positions, lora_scale=lora_scale, causal=causal)
+    attn_out, cache = attention_sublayer(x, p, lora, cfg, positions, lora_scale=lora_scale, causal=causal,
+                                         cache=cache, cache_position=cache_position, ring=ring)
     if cfg.parallel_residual:
-        return h + attn_out + apply_mlp(x, p, cfg.mlp, lora, lora_scale)
-    h = h + attn_out
-    x2 = _norm(h, p, "mlp_norm", cfg.norm)
-    return h + apply_mlp(x2, p, cfg.mlp, lora, lora_scale)
+        h = h + attn_out + apply_mlp(x, p, cfg.mlp, lora, lora_scale)
+    else:
+        h = h + attn_out
+        x2 = _norm(h, p, "mlp_norm", cfg.norm)
+        h = h + apply_mlp(x2, p, cfg.mlp, lora, lora_scale)
+    return h, cache
+
+
+def _layer_slices(params, lora, i):
+    p_slice = {k: v[i] for k, v in params["layers"].items()}
+    lora_slice = {t: {n: x[i] for n, x in ab.items()} for t, ab in lora.items()}
+    return p_slice, lora_slice
 
 
 def _lm_logits(h, params, cfg: ModelConfig):
@@ -141,12 +175,10 @@ def decoder_forward(params, lora, tokens: torch.Tensor, cfg: ModelConfig, *,
     if embed_noise is not None:
         h = h + embed_noise.to(h.dtype)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    layer_params = params["layers"]
     norms = []
     for i in range(cfg.num_layers):
-        p_slice = {k: v[i] for k, v in layer_params.items()}
-        lora_slice = {t: {n: x[i] for n, x in ab.items()} for t, ab in lora.items()}
-        h = decoder_layer(h, p_slice, lora_slice, cfg, positions, lora_scale=lora_scale)
+        p_slice, lora_slice = _layer_slices(params, lora, i)
+        h, _ = decoder_layer(h, p_slice, lora_slice, cfg, positions, lora_scale=lora_scale)
         if collect_layer_norms:
             norms.append(torch.sqrt(torch.sum(torch.square(h.to(torch.float32)), dim=(1, 2))))
     logits = _lm_logits(h, params, cfg)
@@ -154,3 +186,70 @@ def decoder_forward(params, lora, tokens: torch.Tensor, cfg: ModelConfig, *,
     if collect_layer_norms:
         return logits, aux, torch.stack(norms)
     return logits, aux
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device, dtype=None):
+    """Zero K and V caches, (num_layers, batch, max_len, KVH, head_dim) each."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prompt_attention(q, k, v, cfg: ModelConfig):
+    """Causal (windowed) attention of a prompt, f32 scores: the flash
+    attention kernel (B8) on the card, :func:`attn.blockwise_attention` on
+    the CPU."""
+    if q.is_cuda:
+        return kops.flash_attention(q, k, v, causal=True, window=cfg.attention_window)
+    return attn.blockwise_attention(q, k, v, causal=True, window=cfg.attention_window)
+
+
+def decoder_prefill(params, lora, tokens: torch.Tensor, cfg: ModelConfig, cache_len: int, *,
+                    lora_scale: Optional[float] = None):
+    """Run the prompt and fill a KV cache. Returns ``(last_logits (B, 1, V),
+    cache, S)``, S the prompt length as a Python int.
+
+    The cache keeps the prompt's last ``min(cache_len, S)`` positions; when
+    a sliding window covers the cache (``cache_len <= window``, the ring
+    layout), position p lives at slot ``p % cache_len``. As in the JAX
+    package, each layer adds the attention and MLP outputs in turn.
+    """
+    lora_scale = lora_scale if lora_scale is not None else cfg.lora_alpha / cfg.lora_rank
+    h = torch.nn.functional.embedding(tokens, params["embed"])
+    B, S = h.shape[0], h.shape[1]
+    positions = torch.arange(S, device=h.device)[None, :]
+    ring = cfg.attention_window is not None and cache_len <= cfg.attention_window
+    cache = init_kv_cache(cfg, B, cache_len, h.device)
+    keep = min(cache_len, S)
+    for i in range(cfg.num_layers):
+        p_slice, lora_slice = _layer_slices(params, lora, i)
+        x = _norm(h, p_slice, "attn_norm", cfg.norm)
+        q, k, v = _project_qkv(x, p_slice, lora_slice, cfg, lora_scale)
+        q = apply_rope(q, positions, theta=cfg.rope_theta, mode=cfg.rope)
+        k = apply_rope(k, positions, theta=cfg.rope_theta, mode=cfg.rope)
+        o = prompt_attention(q, k, v, cfg).reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
+        h = h + linear(o, {"w": p_slice["wo"]}, lora_slice.get("wo"), lora_scale)
+        x2 = _norm(h, p_slice, "mlp_norm", cfg.norm)
+        h = h + apply_mlp(x2, p_slice, cfg.mlp, lora_slice, lora_scale)
+        for name, t in (("k", k), ("v", v)):
+            tail = t[:, S - keep:]
+            if keep == cache_len and ring and S % cache_len:
+                tail = torch.roll(tail, S % cache_len, dims=1)
+            cache[name][i, :, :keep] = tail
+    return _lm_logits(h[:, -1:], params, cfg), cache, S
+
+
+def decoder_decode_step(params, lora, token: torch.Tensor, cfg: ModelConfig, cache, position, *,
+                        lora_scale: Optional[float] = None, ring: bool = False):
+    """One-token step. token: (B, 1) ints; ``position`` a scalar (uniform
+    batch) or a (B,) tensor of per-slot positions. Writes each row's KV into
+    ``cache`` in place; returns ``(logits (B, 1, V), cache)``."""
+    lora_scale = lora_scale if lora_scale is not None else cfg.lora_alpha / cfg.lora_rank
+    h = torch.nn.functional.embedding(token, params["embed"])
+    positions = torch.as_tensor(position, device=h.device).reshape(-1, 1)
+    for i in range(cfg.num_layers):
+        p_slice, lora_slice = _layer_slices(params, lora, i)
+        h, _ = decoder_layer(h, p_slice, lora_slice, cfg, positions, lora_scale=lora_scale,
+                             cache=(cache["k"][i], cache["v"][i]), cache_position=position, ring=ring)
+    return _lm_logits(h, params, cfg), cache

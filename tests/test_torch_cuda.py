@@ -1025,3 +1025,108 @@ def test_fake_compress_tree_k_extremes_match_plain(cuda, ratio):
     kw = dict(qmax=127, topk_ratio=ratio, use_thresh=True)
     y, res = ops.fake_compress(d, r, mk, stacked=True, **kw)
     _assert_compress_tree(d, r, mk, y, res, kw, True)
+
+
+# --- serving: B7 on the per-slot LoRA delta, B8 on prefill attention ---
+
+SERVE_LINEAR_CASES = [  # slots, rows per slot, K, N: decode (one row a slot) and prefill
+    (8, 1, 896, 896), (8, 1, 896, 128), (4, 128, 896, 896), (2, 1024, 896, 128), (3, 5, 64, 40),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,per_slot,K,N", SERVE_LINEAR_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_per_row_linear_takes_b7_and_matches_plain(cuda, slots, per_slot, K, N, dtype):
+    """``layers.linear`` with per-slot adapters (a (B, K, r), b (B, r, N))
+    launches the multi-adapter kernel once: SGMV where a slot has 16 rows
+    or more, BGMV for one row a slot. f32 agrees with the plain branch's
+    einsum pair, bf16 with the kernel's plain twin (the plain branch rounds
+    x @ a to bf16, the kernel keeps it in f32)."""
+    from repro_torch.models.layers import linear
+
+    r = 8
+    x = torch.randn(slots, per_slot, K, generator=cuda, device="cuda").to(dtype)
+    w = (torch.randn(K, N, generator=cuda, device="cuda") / math.sqrt(K)).to(dtype)
+    a = torch.randn(slots, K, r, generator=cuda, device="cuda") / r
+    b = torch.randn(slots, r, N, generator=cuda, device="cuda") * 0.05
+    assert (sparse_lora.resident_stages(K, N, r, dtype, adapters=slots, rows=slots * per_slot) > 0) == \
+        (per_slot >= 16)
+    before = ops.batched_sparse_lora_apply.launches
+    y = linear(x, {"w": w}, {"a": a, "b": b}, 2.0)
+    assert ops.batched_sparse_lora_apply.launches == before + 1
+    base = x @ w
+    if dtype == torch.float32:
+        plain = base + 2.0 * torch.bmm(torch.bmm(x, a), b)
+        torch.cuda.synchronize()
+        assert_lora_close(y - base, plain - base)
+    idx = torch.arange(slots, device="cuda").repeat_interleave(per_slot)
+    twin = ref.batched_sparse_lora_matmul_ref(x.reshape(-1, K), idx, a, b, torch.ones(slots, N, device="cuda"), 2.0)
+    delta = ops.batched_sparse_lora_apply(x, idx.int().reshape(slots, per_slot), a, b,
+                                          torch.ones(slots, N, device="cuda"), 2.0)
+    torch.cuda.synchronize()
+    assert_lora_close(delta.reshape(-1, N), twin)
+    assert torch.equal(y, base + delta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(4, 128), (2, 1024), (1, 77)])
+def test_prefill_attention_takes_b8_and_matches_blockwise(cuda, B, S):
+    """Prefill's prompt attention on the card is one flash-attention launch
+    (bf16, qwen2-0.5b's heads, its 8192 window) and agrees with the plain
+    ``blockwise_attention`` the CPU path runs. Up to 512 tokens that takes
+    its unblocked path, which rounds p to v's dtype before p·v (as the JAX
+    package's ``full_attention`` does) where the kernel keeps p in f32: an
+    output then moves by up to 2^-8 of Σ p·|v| ≤ max |v| beyond the kernel
+    tolerance."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import prompt_attention
+
+    cfg = ARCHS["qwen2-0.5b"]
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = torch.randn(B, S, H, D, generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn(B, S, KVH, D, generator=cuda, device="cuda").bfloat16() for _ in range(2))
+    before = ops.flash_attention.launches
+    out = prompt_attention(q, k, v, cfg)
+    assert ops.flash_attention.launches == before + 1
+    plain = attn.blockwise_attention(q, k, v, causal=True, window=cfg.attention_window)
+    torch.cuda.synchronize()
+    if S > 512:  # the blocked path keeps p in f32, as the kernel does
+        assert_attention_close(out, plain, v)
+        return
+    o, p = out.float(), plain.float()
+    _, e = torch.frexp(torch.maximum(o.abs(), p.abs()))
+    allowed = (1e-5 + 2.0 ** -8) * v.float().abs().max() + torch.ldexp(torch.ones_like(o), e - 8)
+    assert bool(((o - p).abs() <= allowed).all()), float((o - p).abs().max())
+
+
+@pytest.mark.cuda
+def test_short_serve_run_launches_b7_and_b8(cuda):
+    """A few multi-adapter requests through ServeEngine on the card: prefill
+    launches B8 once a layer per group and B7 on every LoRA projection of
+    prefill and decode; every request completes with its budget."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    cfg = dataclasses.replace(ARCHS["qwen2-0.5b"].reduced(head_dim=64), dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init_params(cuda, "cuda")
+    adapters = [model.init_lora(cuda, "cuda") for _ in range(3)]
+    for ad in adapters:
+        for ab in ad["layers"].values():
+            ab["b"].normal_(0.0, 0.05, generator=cuda)
+    eng = ServeEngine(model, params, adapters[0], adapters=adapters[1:], cache_len=96, num_slots=4, max_new_cap=8)
+    prompts = torch.randint(0, cfg.vocab_size, (5, 40), generator=cuda, device="cuda").cpu().numpy()
+    fa0, b70 = ops.flash_attention.launches, ops.batched_sparse_lora_apply.launches
+    for i in range(5):
+        eng.submit(Request(tokens=prompts[i] if i < 3 else prompts[i][:20], adapter_id=i % 3,
+                           sampling=SamplingParams(max_new_tokens=4 + i, temperature=0.8 if i == 1 else 0.0)))
+    comps = eng.drain()
+    assert sorted(c.steps for c in comps) == [4, 5, 6, 7, 8]
+    fa, b7 = ops.flash_attention.launches - fa0, ops.batched_sparse_lora_apply.launches - b70
+    assert fa == cfg.num_layers * eng.stats["prefill_calls"] > 0
+    assert b7 == 4 * cfg.num_layers * (eng.stats["prefill_calls"] + eng.stats["decode_steps"]) > 0

@@ -33,6 +33,8 @@ def _port_files():
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
+    for sub in ("obs", "serve", "launch"):  # the serving slice's packages are covered
+        assert any(f.parent.name == sub for f in files), sub
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files
@@ -79,7 +81,7 @@ def test_runner_without_device_needs_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "kw",
     [{"engine": "sharded"}, {"engine": "async"}, {"store": object()}, {"hierarchy": 2},
-     {"telemetry": object()}, {"mesh": object()}],
+     {"scenario": "straggler"}, {"mesh": object()}],
 )
 def test_unported_engines_and_options_raise(kw):
     from repro_torch.federated import make_runner
