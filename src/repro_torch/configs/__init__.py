@@ -1,15 +1,17 @@
 """Architecture registry of the port (``ARCHS[name]``).
 
-Holds the architectures the port runs so far: the dense decoder family.
+Holds the architectures the port runs so far: qwen2-0.5b (dense decoder)
+and mamba2-1.3b (ssm).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.config import ModelConfig
+from repro_torch.configs.mamba2_1_3b import CONFIG as mamba2_1_3b
 from repro_torch.configs.qwen2_0_5b import CONFIG as qwen2_0_5b
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [qwen2_0_5b]}
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [qwen2_0_5b, mamba2_1_3b]}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -16,7 +16,11 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.transformer import torch_dtype
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_map, tree_map_with_path_str
+
+# base-model leaves the JAX package keeps in f32 whatever the model dtype
+# (the SSM's decay, skip and dt bias)
+F32_LEAVES = ("A_log", "D", "dt_bias")
 
 
 def _tensor(arr, device, dtype=None) -> torch.Tensor:
@@ -31,9 +35,12 @@ def _tensor(arr, device, dtype=None) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Any, cfg: ModelConfig, device) -> Any:
-    """Base-model params; floating leaves are cast to ``cfg.dtype``."""
+    """Base-model params; floating leaves are cast to ``cfg.dtype``, those
+    named in :data:`F32_LEAVES` to f32."""
     dtype = torch_dtype(cfg.dtype)
-    return tree_map(lambda a: _tensor(a, device, dtype), tree)
+    return tree_map_with_path_str(
+        lambda path, a: _tensor(a, device, torch.float32 if path.rsplit("/", 1)[-1] in F32_LEAVES else dtype),
+        tree)
 
 
 def lora_from_numpy(tree: Any, device) -> Any:

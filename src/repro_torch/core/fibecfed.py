@@ -5,8 +5,12 @@ Initialization phase (Alg. 1 lines 1-10):
   * per-device Fisher difficulty score per batch (Formulas 16-17), ascending
     sort (curriculum order);
   * per-device layer sensitivity scores (Eq. 9-10) → server aggregation
-    (Eq. 11) → GAL selection with the configured fraction;
-  * per-device momentum-FIM warmup → neuron masks for local update (§4.3.2).
+    (Eq. 11) → GAL selection with the configured fraction, or the lossless
+    count (``gal_fraction=None``: Lanczos Hessian spectrum and Lipschitz
+    margin per client, :mod:`repro_torch.core.gal`);
+  * per-device momentum-FIM warmup → neuron masks for local update (§4.3.2),
+    keeping the configured ρ or each client's lossless one
+    (``sparse_ratio=None``).
 
 Tuning phase (lines 11-19): sample the cohort, merge the global GAL weights
 into each client's LoRA, curriculum-select batches, run masked local
@@ -96,11 +100,6 @@ def check_ported(engine: str, fl: FibecFedConfig, **options) -> None:
     for name, value in options.items():
         if value is not None:
             raise NotImplementedError(f"{name}= is not ported yet (ROADMAP.md, {_UNPORTED[name]})")
-    if fl.gal_fraction is None or fl.sparse_ratio is None:
-        raise NotImplementedError(
-            "the lossless criteria (gal_fraction=None / sparse_ratio=None) are not "
-            "ported yet (ROADMAP.md, Queue A item 14)"
-        )
 
 
 @dataclasses.dataclass
@@ -114,6 +113,10 @@ class ClientState:
     neuron_mask: Any = None  # update-mask tree (or None = dense)
     difficulty: Optional[np.ndarray] = None
     layer_scores: Optional[np.ndarray] = None
+    # the lossless criterion's keep fraction (gal_fraction=None or
+    # sparse_ratio=None), and what it read: Ritz values and Lipschitz estimate
+    lossless_fraction: float = 1.0
+    lossless: Optional[Dict[str, Any]] = None
     # compression error-feedback residual (loop engine; the vectorized
     # engine keeps one stacked residual tree on the runner)
     ef_residual: Any = None
@@ -145,6 +148,14 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 def _generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed * 1_000_003 + stream)
+
+
+def _lossless_draw(device: torch.device, seed: int, ci: int) -> galmod.Draw:
+    """Client ``ci``'s normal draws for the lossless criterion, from a
+    ``torch.Generator`` of its own seeded from ``seed`` and ``1000 + ci``
+    (the JAX runner folds ``1000 + ci`` into its key)."""
+    gen = _generator(device, seed, 1000 + ci)
+    return lambda j, shape: torch.randn(shape, generator=gen, device=gen.device)
 
 
 def _stack_copies(tree, n: int):
@@ -212,6 +223,7 @@ class FibecFed:
         self.sparse_update = sparse_update
         self.engine = engine
         self.rng = np.random.default_rng(seed)
+        self.seed = seed
 
         if init_params is not None:
             self.params = params_from_numpy(init_params, self.cfg, self.device)
@@ -354,15 +366,24 @@ class FibecFed:
             client.order = curr.order_batches(client.difficulty, self.schedule.strategy)
 
     def _probe_sensitivity(self):
-        """Per-client layer-sensitivity probe, aggregated server-side (Eq. 11).
-        Returns ``(global_scores, fractions, ns)``."""
-        scores_all, ns = [], []
-        for client in self.clients:
+        """Per-client layer-sensitivity probe (Eq. 9-10) and, where a
+        fraction is left to the lossless criterion, its estimate (costly),
+        aggregated server-side (Eq. 11). Returns ``(global_scores,
+        fractions, ns)``."""
+        fl = self.fl
+        scores_all, fractions, ns = [], [], []
+        for ci, client in enumerate(self.clients):
             batch = self._client_batch(client, client.batches[int(client.order[0])])
             client.layer_scores = self._sensitivity(client.lora, batch).cpu().numpy()
             scores_all.append(client.layer_scores)
             ns.append(client.n)
-        fractions = [self.fl.gal_fraction] * len(ns)
+            if fl.gal_fraction is None or fl.sparse_ratio is None:
+                client.lossless = galmod.lossless_criterion(
+                    self.loss_fn, self.params, client.lora, batch, _lossless_draw(self.device, self.seed, ci),
+                    iters=fl.lanczos_iters,
+                )
+                client.lossless_fraction = client.lossless["fraction"]
+            fractions.append(client.lossless_fraction if fl.gal_fraction is None else fl.gal_fraction)
         return galmod.aggregate_layer_scores(scores_all, ns), fractions, ns
 
     def _select_local_masks(self) -> None:
@@ -377,11 +398,17 @@ class FibecFed:
             wdata = {k: v[rows, warm_idx] for k, v in self._stack_data.items()}
             warm = eng.build_fim_warmup_fn(self.loss_fn, fl.fim_momentum)
             fims = warm(self.params, self._stacked_lora, wdata, self._sample_valid[rows, warm_idx])
-            keep = sparsemod.select_neuron_masks(sparsemod.neuron_importance(fims), fl.sparse_ratio)
-            self._stacked_mask = _stack([
-                neuron_mask_tree(self.cfg, self._init_lora, tree_map(lambda x, ci=ci: x[ci], keep))
-                for ci in range(len(self.clients))
-            ])
+            importance = sparsemod.neuron_importance(fims)
+            if fl.sparse_ratio is not None:
+                keep = sparsemod.select_neuron_masks(importance, fl.sparse_ratio)
+                per_client = [tree_map(lambda x, ci=ci: x[ci], keep) for ci in range(len(self.clients))]
+            else:  # each client's lossless ρ
+                per_client = [
+                    sparsemod.select_neuron_masks(tree_map(lambda x, ci=ci: x[ci], importance),
+                                                  client.lossless_fraction)
+                    for ci, client in enumerate(self.clients)
+                ]
+            self._stacked_mask = _stack([neuron_mask_tree(self.cfg, self._init_lora, k) for k in per_client])
             for ci, client in enumerate(self.clients):
                 client.fim = tree_map(lambda x: x[ci], fims)
                 client.neuron_mask = tree_map(lambda x: x[ci], self._stacked_mask)
@@ -394,7 +421,8 @@ class FibecFed:
                 new = fish.fim_diag(self.loss_fn, self.params, client.lora, batch)
                 fim = fish.fim_momentum_update(fim, new, fl.fim_momentum)
             client.fim = fim
-            keep = sparsemod.select_neuron_masks(sparsemod.neuron_importance(fim), fl.sparse_ratio)
+            rho = fl.sparse_ratio if fl.sparse_ratio is not None else client.lossless_fraction
+            keep = sparsemod.select_neuron_masks(sparsemod.neuron_importance(fim), rho)
             client.neuron_mask = neuron_mask_tree(self.cfg, client.lora, keep)
 
     def _select_layers(self, global_scores: np.ndarray, n_star: int) -> np.ndarray:

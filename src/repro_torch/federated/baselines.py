@@ -50,8 +50,8 @@ def make_runner(name: str, model: ModelFns, loss_fn: Callable, fl: FibecFedConfi
     a :class:`repro_torch.federated.CompressionConfig` (``None`` is an exact
     no-op); ``client_ranks`` one LoRA rank per client (``None``: full rank
     everywhere). ``kw`` goes to ``FibecFed`` as it is: ``device``,
-    ``init_params``, ``init_lora``, and the JAX runner's options not ported
-    yet (which raise). Returns an un-initialized runner: call
+    ``init_params``, ``init_lora``, and the JAX runner's
+    options not ported yet (which raise). Returns an un-initialized runner: call
     ``init_phase()`` once, then ``run_round(t)`` per round (or drive it with
     :func:`run_experiment`).
     """

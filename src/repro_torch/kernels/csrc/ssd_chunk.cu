@@ -6,11 +6,15 @@
 //
 // For each group g (batch x chunk x head), with cs = cumsum(a[g, 0, :]):
 //   y[g, i, :] = sum_{j <= i} exp(cs_i - cs_j) * (c_i . b_j) * x[g, j, :]
-// x (G, Q, hd), a (G, 1, Q), b and c (G, Q, N), y (G, Q, hd) in f32. x, b
+// x (G, Q, hd), a (G, 1, Q), b and c (G / heads, Q, N), y (G, Q, hd) in
+// f32; group g reads row g / heads of b and c (the heads of a chunk share
+// them, as Mamba2's single B/C group does; heads = 1 is the TPU kernel's
+// contract, b and c per group). x, b
 // and c share one dtype, f32 or bf16; a is f32 or bf16. The scan, the
 // decays and every sum are f32: the decays reach exp(-200) and below.
 //
-// Bound: memory. Per group it reads x, b, c once and writes y: at Q 128,
+// Bound: memory. Per group it reads x, b, c once and writes y (with
+// heads > 1, b and c once per row of them): at Q 128,
 // N 128, hd 64 that is 197 KB in f32 (118 KB with bf16 inputs) for 3.2
 // MFLOP on the triangle. On the CUDA cores (67 TFLOP/s in f32) those flops
 // alone take 80% of the f32 byte bound, leaving no room for the loads, so
@@ -406,8 +410,8 @@ __device__ __forceinline__ void finish(float (&acc)[kMaxTiles][4], const float* 
 template <typename T, int HT>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 3 : 2)
 ssd_chunk_kernel(float* __restrict__ y, const T* __restrict__ x, const void* __restrict__ a,
-                 const T* __restrict__ b, const T* __restrict__ c, int Q, int hd, int N, int a_bf16,
-                 int vec_bc, int vec_x) {
+                 const T* __restrict__ b, const T* __restrict__ c, int Q, int hd, int N, int heads,
+                 int a_bf16, int vec_bc, int vec_x) {
   using L = Layout<T, HT>;
   extern __shared__ float4 smem4[];
   T* stages = reinterpret_cast<T*>(smem4);  // stage k: c at k * 2 * kMaxQ * LDC, b after it
@@ -417,8 +421,9 @@ ssd_chunk_kernel(float* __restrict__ y, const T* __restrict__ x, const void* __r
   const int64_t g = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   x += g * Q * hd;
-  b += g * Q * N;
-  c += g * Q * N;
+  const int64_t row = blockIdx.x / (unsigned)heads;  // 32-bit division: G < 2^31
+  b += row * Q * N;
+  c += row * Q * N;
   y += g * Q * hd;
 
   // x and the first NS chunks of c and b in flight before anything else,
@@ -507,7 +512,7 @@ bool aligned(const void* p, uintptr_t n) { return ((uintptr_t)p % n) == 0; }
 
 template <typename T, int HT>
 int launch_ht(float* y, const void* x, const void* a, const void* b, const void* c, int64_t G, int Q, int hd,
-              int N, int a_bf16, cudaStream_t stream) {
+              int N, int heads, int a_bf16, cudaStream_t stream) {
   using L = Layout<T, HT>;
   static bool opted_in = false;  // one attribute call per instantiation
   if (!opted_in) {
@@ -519,34 +524,35 @@ int launch_ht(float* y, const void* x, const void* a, const void* b, const void*
   const int vec_bc = N % L::E == 0 && aligned(b, 16) && aligned(c, 16);
   const int vec_x = hd % L::E == 0 && aligned(x, 16);
   ssd_chunk_kernel<T, HT><<<(unsigned)G, kThreads, L::kBytes, stream>>>(
-      y, (const T*)x, a, (const T*)b, (const T*)c, Q, hd, N, a_bf16, vec_bc, vec_x);
+      y, (const T*)x, a, (const T*)b, (const T*)c, Q, hd, N, heads, a_bf16, vec_bc, vec_x);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(float* y, const void* x, const void* a, const void* b, const void* c, int64_t G, int Q, int hd,
-           int N, int a_bf16, cudaStream_t stream) {
-  if (hd <= 64) return launch_ht<T, 8>(y, x, a, b, c, G, Q, hd, N, a_bf16, stream);
-  return launch_ht<T, 16>(y, x, a, b, c, G, Q, hd, N, a_bf16, stream);
+           int N, int heads, int a_bf16, cudaStream_t stream) {
+  if (hd <= 64) return launch_ht<T, 8>(y, x, a, b, c, G, Q, hd, N, heads, a_bf16, stream);
+  return launch_ht<T, 16>(y, x, a, b, c, G, Q, hd, N, heads, a_bf16, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// y: (G, Q, hd) float32, 8-byte aligned; x: (G, Q, hd), b and c: (G, Q, N),
-// all of dtype 0 (float32) or 1 (bfloat16); a: (G, Q) of a_dtype (same
-// codes). All contiguous. Q a multiple of 8 up to 128, hd a multiple of 4
-// up to 128, N >= 1. y must not alias an input.
+// y: (G, Q, hd) float32, 8-byte aligned; x: (G, Q, hd), b and c:
+// (G / heads, Q, N), all of dtype 0 (float32) or 1 (bfloat16); a: (G, Q) of
+// a_dtype (same codes). All contiguous. Q a multiple of 8 up to 128, hd a
+// multiple of 4 up to 128, N >= 1, G a multiple of heads >= 1. y must not
+// alias an input.
 int repro_ssd_chunk(void* y, const void* x, const void* a, const void* b, const void* c, int64_t G,
-                    int Q, int hd, int N, int dtype, int a_dtype, void* stream) {
+                    int Q, int hd, int N, int heads, int dtype, int a_dtype, void* stream) {
   if (G <= 0 || G > 0x7fffffff || Q < 8 || Q > kMaxQ || Q % 8 || hd < 4 || hd > kMaxHd || hd % 4 ||
-      N < 1 || dtype < 0 || dtype > 1 || a_dtype < 0 || a_dtype > 1)
+      N < 1 || heads < 1 || G % heads || dtype < 0 || dtype > 1 || a_dtype < 0 || a_dtype > 1)
     return (int)cudaErrorInvalidValue;
   if (!aligned(y, 8)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>((float*)y, x, a, b, c, G, Q, hd, N, a_dtype, s);
-  return launch<bf16>((float*)y, x, a, b, c, G, Q, hd, N, a_dtype, s);
+  if (dtype == 0) return launch<float>((float*)y, x, a, b, c, G, Q, hd, N, heads, a_dtype, s);
+  return launch<bf16>((float*)y, x, a, b, c, G, Q, hd, N, heads, a_dtype, s);
 }
 
 }  // extern "C"

@@ -442,21 +442,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     return _ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
 
 
-def ssd_chunk_intra(x, a, b, c):
-    """Intra-chunk SSD. x (G, Q, hd), a (G, 1, Q), b/c (G, Q, N) ->
+def ssd_chunk_intra(x, a, b, c, heads: int = 1):
+    """Intra-chunk SSD. x (G, Q, hd), a (G, 1, Q), b/c (G / heads, Q, N) ->
     (G, Q, hd) f32: ``y[g,i] = Σ_{j≤i} exp(cs_i - cs_j)·(c_i·b_j)·x[g,j]``
-    with ``cs = cumsum(a[g,0])``, one kernel launch on the card.
+    with ``cs = cumsum(a[g,0])`` and b, c read at row ``g // heads`` (the
+    heads of a chunk share its b and c), one kernel launch on the card.
+    ``heads=1`` is the JAX kernel's contract: b and c per group.
 
     The kernel takes x, b and c in one dtype (f32 or bf16; otherwise all
     three run in f32, the plain version's first step) and a in f32 or bf16,
     Q a multiple of 8 up to 128 and hd a multiple of 4 up to 128.
     """
+    if heads < 1 or x.shape[0] != heads * b.shape[0]:
+        raise ValueError(f"{x.shape[0]} groups are not {heads} heads for each of b's {b.shape[0]} rows")
     if not _on_cuda(x):
-        return _ref.ssd_chunk_intra_ref(x, a, b, c)
+        return _ref.ssd_chunk_intra_ref(x, a, b, c, heads)
     if not (x.dtype == b.dtype == c.dtype and x.dtype in _sc.DTYPE_CODES):
         x, b, c = _f32(x), _f32(b), _f32(c)
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    _sc.ssd_chunk_launch(y, x.contiguous(), _kernel_float(a), b.contiguous(), c.contiguous())
+    _sc.ssd_chunk_launch(y, x.contiguous(), _kernel_float(a), b.contiguous(), c.contiguous(), heads)
     ssd_chunk_intra.launches += 1
     return y
 

@@ -218,13 +218,15 @@ def flash_attention_gqa_ref(q, k, v, *, causal: bool = True, window=None, q_offs
     return out.reshape(B, H, Sq, D).transpose(1, 2)
 
 
-def ssd_chunk_intra_ref(x, a, b, c):
+def ssd_chunk_intra_ref(x, a, b, c, heads: int = 1):
     """Intra-chunk SSD (kernel B9): x (G, Q, hd), a (G, 1, Q) log decays,
-    b/c (G, Q, N) -> (G, Q, hd) f32, f32 throughout."""
+    b/c (G / heads, Q, N), group g reading row g // heads -> (G, Q, hd) f32,
+    f32 throughout."""
     cs = torch.cumsum(a[:, 0].to(torch.float32), dim=-1)  # (G, Q)
     diff = cs[:, :, None] - cs[:, None, :]
-    Q = x.shape[1]
+    G, Q, hd = x.shape
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    L = torch.exp(torch.where(tri[None], diff, NEG_INF))
+    L = torch.exp(torch.where(tri[None], diff, NEG_INF)).reshape(G // heads, heads, Q, Q)
     scores = torch.einsum("gis,gjs->gij", c.to(torch.float32), b.to(torch.float32))
-    return torch.einsum("gij,gjd->gid", L * scores, x.to(torch.float32))
+    y = torch.einsum("ghij,ghjd->ghid", L * scores[:, None], x.to(torch.float32).reshape(G // heads, heads, Q, hd))
+    return y.reshape(G, Q, hd)

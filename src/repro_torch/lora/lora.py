@@ -2,7 +2,8 @@
 
 The LoRA tree keeps the JAX package's stacked layout, which GAL masks,
 neuron masks, optimizer state and comm accounting all follow:
-``{"layers": {"wq"|"wk"|"wv"|"wo": {"a": (L, d_in, r), "b": (L, r, d_out)}}}``.
+``{"layers": {target: {"a": (L, d_in, r), "b": (L, r, d_out)}}}``, the
+targets wq/wk/wv/wo (dense) or in_proj/out_proj (ssm).
 
 FibecFed works on this tree at two granularities:
 
@@ -34,20 +35,32 @@ def _attn_dims(cfg: ModelConfig) -> Dict[str, tuple]:
     }
 
 
+def _ssm_lora_dims(cfg: ModelConfig) -> Dict[str, tuple]:
+    from repro_torch.models.ssm import ssm_dims  # lazy: breaks the lora <-> models cycle
+
+    dims = ssm_dims(cfg)
+    return {"in_proj": (cfg.d_model, dims["in_dim"]), "out_proj": (dims["d_inner"], cfg.d_model)}
+
+
 def init_lora(generator: torch.Generator, cfg: ModelConfig, device) -> Dict[str, Any]:
-    """``a ~ N(0, 1)/r``, ``b = 0``, f32, stacked over layers (dense family).
+    """``a ~ N(0, 1)/r``, ``b = 0``, f32, stacked over layers: the attention
+    projections of the dense family, in_proj and out_proj of the ssm one.
 
     The draws come from ``generator`` (a ``torch.Generator`` on ``device``);
     they are not the JAX package's ``jax.random`` draws.
     """
-    if cfg.family != "dense":
+    if cfg.family == "dense":
+        dims = _attn_dims(cfg)
+    elif cfg.family == "ssm":
+        dims = _ssm_lora_dims(cfg)
+    else:
         raise NotImplementedError(
             f"LoRA trees for family {cfg.family!r} are not ported yet "
             "(ROADMAP.md, Queue A item 12)"
         )
     rank, L = cfg.lora_rank, cfg.num_layers
     out = {}
-    for t, (d_in, d_out) in sorted(_attn_dims(cfg).items()):
+    for t, (d_in, d_out) in sorted(dims.items()):
         a = torch.randn((L, d_in, rank), generator=generator, device=device) / rank
         out[t] = {"a": a, "b": torch.zeros((L, rank, d_out), device=device)}
     return {"layers": out}

@@ -1,4 +1,4 @@
-"""Model interface of the port (dense family).
+"""Model interface of the port (dense and ssm families).
 
 ``build_model(cfg)`` returns a :class:`ModelFns` bundle:
 
@@ -17,6 +17,7 @@ from typing import Any, Callable
 
 from repro_torch.config import ModelConfig
 from repro_torch.lora import init_lora as _init_lora_tree
+from repro_torch.models import ssm_model as _ssm
 from repro_torch.models import transformer as _tf
 
 
@@ -39,7 +40,31 @@ class ModelFns:
     decode_step: Callable[..., Any]
 
 
+def _ssm_fns(cfg: ModelConfig) -> ModelFns:
+    def forward(params, lora, batch):
+        return _ssm.ssm_forward(params, lora["layers"], batch["tokens"], cfg)
+
+    def forward_probe(params, lora, batch, embed_noise=None):
+        return _ssm.ssm_forward(params, lora["layers"], batch["tokens"], cfg,
+                                embed_noise=embed_noise, collect_layer_norms=True)
+
+    return ModelFns(
+        cfg=cfg,
+        init_params=lambda gen, device: _ssm.init_ssm_model(gen, cfg, device),
+        init_lora=lambda gen, device: _init_lora_tree(gen, cfg, device),
+        forward=forward,
+        forward_probe=forward_probe,
+        init_cache=lambda batch, cache_len, device: _ssm.init_ssm_cache(cfg, batch, cache_len, device),
+        prefill=lambda params, lora, batch, cache_len: _ssm.ssm_prefill(
+            params, lora["layers"], batch["tokens"], cfg, cache_len),
+        decode_step=lambda params, lora, token, cache, position: _ssm.ssm_decode_step(
+            params, lora["layers"], token, cfg, cache, position),
+    )
+
+
 def build_model(cfg: ModelConfig) -> ModelFns:
+    if cfg.family == "ssm":
+        return _ssm_fns(cfg)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue A item 12)"

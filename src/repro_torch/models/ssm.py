@@ -1,5 +1,5 @@
-"""Mamba2 SSD (state-space duality) math, in plain PyTorch (port of the
-framework-free part of ``repro.models.ssm``). [arXiv:2405.21060]
+"""Mamba2 (SSD, state-space duality) blocks, in PyTorch (port of
+``repro.models.ssm``). [arXiv:2405.21060]
 
 Train/prefill uses the chunked SSD algorithm: quadratic attention-like
 computation *within* chunks of length Q plus a linear recurrence over chunk
@@ -7,19 +7,67 @@ states. Decode is the pure recurrence with a constant-size state
 (B, nh, hd, N). The B/C projections are shared across heads (a single
 group, as in the paper).
 
-Like the JAX module, this one calls no kernel: the hand-written intra-chunk
-kernel (B9) is reached through ``repro_torch.kernels.ops.ssd_chunk_intra``
-and is held against :func:`ssd_chunked` at one chunk. The SSM block, its
-initializer and the SSM model are not ported yet.
+The training forward (:func:`mamba2_block`) is plain PyTorch, as the JAX
+package's is. Serving's prefill (:func:`mamba2_prefill`) computes the
+intra-chunk term on the card with the hand-written kernel (B9,
+``repro_torch.kernels.ops.ssd_chunk_intra``), the heads sharing one b and c
+per chunk; on the CPU it runs the same einsums as training. The inter-chunk
+recurrence stays in PyTorch.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import init_stacked_dense, linear, rms_norm
+
 NEG_INF = -1e30
+
+
+def ssm_dims(cfg: ModelConfig) -> Dict[str, int]:
+    s = cfg.ssm
+    d_inner = s.d_inner(cfg.d_model)
+    nheads = s.num_heads(cfg.d_model)
+    conv_ch = d_inner + 2 * s.d_state
+    in_dim = 2 * d_inner + 2 * s.d_state + nheads  # z, x, B, C, dt
+    return dict(d_inner=d_inner, nheads=nheads, conv_ch=conv_ch, in_dim=in_dim)
+
+
+def init_ssm_layers(gen: torch.Generator, n_layers: int, cfg: ModelConfig, dtype, device):
+    """Stacked Mamba2 mixer weights with the JAX package's distributions,
+    drawn from ``gen`` (a generator on ``device``): dense projections
+    N(0, 1/d_in), a depthwise conv N(0, 1/W), A = 1..16 over the heads
+    (``A_log`` its log), dt log-uniform in [1e-3, 0.1] with ``dt_bias`` its
+    inverse softplus, D = 1. ``A_log``, ``D`` and ``dt_bias`` stay f32."""
+    s = cfg.ssm
+    dims = ssm_dims(cfg)
+    nh = dims["nheads"]
+    in_proj = init_stacked_dense(gen, n_layers, cfg.d_model, dims["in_dim"], dtype, device)
+    conv_w = torch.randn((n_layers, s.conv_width, dims["conv_ch"]), generator=gen, device=device)
+    u = torch.rand((n_layers, nh), generator=gen, device=device)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    out_proj = init_stacked_dense(gen, n_layers, dims["d_inner"], cfg.d_model, dtype, device)
+    A = torch.linspace(1.0, 16.0, nh, device=device)[None].repeat(n_layers, 1)
+    return {
+        "in_proj": in_proj,
+        "conv_w": (conv_w / math.sqrt(s.conv_width)).to(dtype),
+        "A_log": torch.log(A),
+        "D": torch.ones((n_layers, nh), dtype=torch.float32, device=device),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),
+        "gate_norm_w": torch.ones((n_layers, dims["d_inner"]), dtype=dtype, device=device),
+        "out_proj": out_proj,
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + e^x)`` as ``logaddexp(x, 0)``, JAX's formula: unlike
+    ``F.softplus`` it does not return x itself above a threshold."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -48,8 +96,14 @@ def ssd_chunked(
     c: torch.Tensor,  # (B, S, N)
     chunk: int,
     initial_state: Optional[torch.Tensor] = None,  # (B, nh, hd, N)
+    *,
+    kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD. Returns (y (B, S, nh, hd) f32, final_state (B, nh, hd, N) f32)."""
+    """Chunked SSD. Returns (y (B, S, nh, hd) f32, final_state (B, nh, hd, N) f32).
+
+    With ``kernel`` the intra-chunk term of CUDA tensors is the B9 kernel
+    (:func:`ssd_intra`); without it, or on the CPU, the plain einsums.
+    """
     B, S, nh, hd = x.shape
     N = b.shape[-1]
     if S % chunk:
@@ -57,7 +111,8 @@ def ssd_chunked(
         # nothing, and the padded outputs are sliced off
         pad = chunk - S % chunk
         y, state = ssd_chunked(F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(a, (0, 0, 0, pad)),
-                               F.pad(b, (0, 0, 0, pad)), F.pad(c, (0, 0, 0, pad)), chunk, initial_state)
+                               F.pad(b, (0, 0, 0, pad)), F.pad(c, (0, 0, 0, pad)), chunk, initial_state,
+                               kernel=kernel)
         return y[:, :S], state
     nc = S // chunk
     xf = x.to(torch.float32).reshape(B, nc, chunk, nh, hd)
@@ -66,9 +121,12 @@ def ssd_chunked(
     cf = c.to(torch.float32).reshape(B, nc, chunk, N)
 
     # intra-chunk (quadratic within the chunk)
-    L = segsum_decay(af.transpose(-1, -2))  # (B, nc, nh, Q, Q)
-    scores = torch.einsum("bkis,bkjs->bkij", cf, bf)  # (B, nc, Q, Q), shared by the heads
-    y_intra = torch.einsum("bkhij,bkij,bkjhd->bkihd", L, scores, xf)
+    if kernel and x.is_cuda:
+        y_intra = ssd_intra(x, af, b, c, chunk)
+    else:
+        L = segsum_decay(af.transpose(-1, -2))  # (B, nc, nh, Q, Q)
+        scores = torch.einsum("bkis,bkjs->bkij", cf, bf)  # (B, nc, Q, Q), shared by the heads
+        y_intra = torch.einsum("bkhij,bkij,bkjhd->bkihd", L, scores, xf)
 
     # chunk states: S_c = Σ_j exp(total - cs_j)·x_j ⊗ b_j
     cs = torch.cumsum(af, dim=2)  # (B, nc, Q, nh)
@@ -91,6 +149,19 @@ def ssd_chunked(
     return (y_intra + y_inter).reshape(B, S, nh, hd), carry
 
 
+def ssd_intra(x: torch.Tensor, af: torch.Tensor, b: torch.Tensor, c: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The intra-chunk term as one B9 launch: x (B, S, nh, hd) in its own
+    dtype, af (B, nc, Q, nh) f32 log decays, b/c (B, S, N) -> (B, nc, Q, nh,
+    hd) f32. Groups run in (batch, chunk, head) order, so the heads of a
+    chunk read its one b and c (``heads=nh``): (B·nc, Q, N) is a view."""
+    B, S, nh, hd = x.shape
+    nc, N = S // chunk, b.shape[-1]
+    xg = x.reshape(B, nc, chunk, nh, hd).permute(0, 1, 3, 2, 4).reshape(B * nc * nh, chunk, hd)
+    ag = af.permute(0, 1, 3, 2).reshape(B * nc * nh, 1, chunk)
+    y = kops.ssd_chunk_intra(xg, ag, b.reshape(B * nc, chunk, N), c.reshape(B * nc, chunk, N), heads=nh)
+    return y.reshape(B, nc, nh, chunk, hd).permute(0, 1, 3, 2, 4)
+
+
 def ssd_decode_step(
     x: torch.Tensor,  # (B, nh, hd), including the dt factor
     a: torch.Tensor,  # (B, nh) log decay
@@ -104,3 +175,78 @@ def ssd_decode_step(
     new_state = state * torch.exp(af)[..., None, None] + torch.einsum("bhd,bn->bhdn", xf, bf)
     y = torch.einsum("bhdn,bn->bhd", new_state, cf)
     return y, new_state
+
+
+def _split_in_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
+    dims = ssm_dims(cfg)
+    di = dims["d_inner"]
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di : di + dims["conv_ch"]]
+    dt = zxbcdt[..., di + dims["conv_ch"] :]
+    return z, xbc, dt
+
+
+def _gated_out(y, z, h, p, lora, lora_scale):
+    """The gated RMSNorm on ``y · silu(z)`` in the model dtype, then the
+    out-projection."""
+    y = rms_norm(y * F.silu(z.to(torch.float32)).to(h.dtype), p["gate_norm_w"])
+    return linear(y, {"w": p["out_proj"]}, lora.get("out_proj") if lora else None, lora_scale)
+
+
+def _mixer(h, p, cfg: ModelConfig, lora, lora_scale, *, kernel: bool):
+    """The Mamba2 mixer over a sequence: (out, conv_tail, final_state)."""
+    s = cfg.ssm
+    dims = ssm_dims(cfg)
+    di, nh, hd, N = dims["d_inner"], dims["nheads"], s.head_dim, s.d_state
+    B, S, _ = h.shape
+    zxbcdt = linear(h, {"w": p["in_proj"]}, lora.get("in_proj") if lora else None, lora_scale)
+    z, xbc_raw, dt = _split_in_proj(zxbcdt, cfg)
+    # the conv's last W-1 inputs, zeros before the prompt's start
+    conv_tail = F.pad(xbc_raw, (0, 0, s.conv_width - 1, 0))[:, S:]
+    xbc = F.silu(causal_conv1d(xbc_raw, p["conv_w"]).to(torch.float32)).to(h.dtype)
+    x, b, c = xbc[..., :di], xbc[..., di : di + N], xbc[..., di + N :]
+    dtf = softplus(dt.to(torch.float32) + p["dt_bias"])  # (B, S, nh)
+    A = -torch.exp(p["A_log"])  # (nh,)
+    xh = x.reshape(B, S, nh, hd)
+    y, state = ssd_chunked(xh * dtf[..., None].to(xh.dtype), A * dtf, b, c, s.chunk_size, kernel=kernel)
+    y = y + p["D"][None, None, :, None] * xh.to(torch.float32)
+    y = y.reshape(B, S, di).to(h.dtype)
+    return _gated_out(y, z, h, p, lora, lora_scale), conv_tail, state
+
+
+def mamba2_block(h: torch.Tensor, p, cfg: ModelConfig, lora=None, lora_scale: float = 1.0) -> torch.Tensor:
+    """The full Mamba2 mixer on the training path (plain PyTorch). h: (B,
+    S, D), already normed; p: one layer's params. Returns (B, S, D)."""
+    return _mixer(h, p, cfg, lora, lora_scale, kernel=False)[0]
+
+
+def mamba2_prefill(h, p, cfg: ModelConfig, lora=None, lora_scale: float = 1.0):
+    """:func:`mamba2_block` that also returns ``(conv_tail (B, W-1,
+    conv_ch), final_state (B, nh, hd, N) f32)`` for the cache; on the card
+    the intra-chunk term is the B9 kernel."""
+    out, conv_tail, state = _mixer(h, p, cfg, lora, lora_scale, kernel=True)
+    return out, (conv_tail, state)
+
+
+def mamba2_decode(h, p, cfg: ModelConfig, cache, lora=None, lora_scale: float = 1.0):
+    """One-token step. h: (B, 1, D); cache: (conv_buf (B, W-1, conv_ch),
+    state (B, nh, hd, N) f32). Returns (out (B, 1, D), (conv_buf, state))."""
+    s = cfg.ssm
+    dims = ssm_dims(cfg)
+    di, nh, hd, N = dims["d_inner"], dims["nheads"], s.head_dim, s.d_state
+    B = h.shape[0]
+    conv_buf, state = cache
+    zxbcdt = linear(h[:, 0], {"w": p["in_proj"]}, lora.get("in_proj") if lora else None, lora_scale)
+    z, xbc_raw, dt = _split_in_proj(zxbcdt, cfg)
+    # the causal conv over [buffer, current]
+    window = torch.cat([conv_buf, xbc_raw[:, None]], dim=1)  # (B, W, ch)
+    conv_out = torch.einsum("bwc,wc->bc", window, p["conv_w"].to(window.dtype))
+    xbc = F.silu(conv_out.to(torch.float32)).to(h.dtype)
+    x, b, c = xbc[..., :di], xbc[..., di : di + N], xbc[..., di + N :]
+    dtf = softplus(dt.to(torch.float32) + p["dt_bias"])  # (B, nh)
+    A = -torch.exp(p["A_log"])
+    xh = x.reshape(B, nh, hd)
+    y, new_state = ssd_decode_step(xh * dtf[..., None].to(xh.dtype), A * dtf, b, c, state)
+    y = y + p["D"][None, :, None] * xh.to(torch.float32)
+    y = y.reshape(B, di).to(h.dtype)
+    return _gated_out(y, z, h, p, lora, lora_scale)[:, None], (window[:, 1:], new_state)

@@ -5,3 +5,4 @@ from repro_torch.optim.optimizers import (
     sgd_init,
     sgd_update,
 )
+from repro_torch.optim.schedule import linear_warmup_cosine

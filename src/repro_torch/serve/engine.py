@@ -160,8 +160,9 @@ class ServeEngine:
       (``adapter_id`` indexes ``[lora, *adapters]``).
 
     ``max_new_cap`` bounds a request's ``max_new_tokens`` (it sizes the
-    per-slot output buffer); budgets are also clamped to the cache's room,
-    ``cache_len - prompt_len``. ``device=None`` is the CUDA device (an error
+    per-slot output buffer); with cached attention (every family but ssm,
+    whose state has a constant size) budgets are also clamped to the
+    cache's room, ``cache_len - prompt_len``. ``device=None`` is the CUDA device (an error
     without one); the params and adapters are moved there.
     """
 
@@ -373,7 +374,8 @@ class ServeEngine:
         budgets = []
         for r in reqs:
             b = min(r.sampling.max_new_tokens, self.max_new_cap)
-            b = min(b, self.cache_len - S)  # cached attention: bounded by the cache's room
+            if cfg.family != "ssm":  # cached attention: bounded by the cache's room
+                b = min(b, self.cache_len - S)
             budgets.append(max(b, 0))
         self._ensure_state(cache_g)
         st = self._state

@@ -55,9 +55,9 @@ def make_prompt_batch(cfg: ModelConfig, rng: Union[torch.Generator, np.random.Ge
                       batch_size: int, prompt_len: int) -> Dict[str, Any]:
     """A random prompt batch, ``{"tokens": (batch_size, prompt_len) int32
     numpy}``. ``rng`` is a ``torch.Generator``, a numpy ``Generator`` or a
-    numpy seed. Only the dense family is ported, which needs no other input
-    (ROADMAP.md, Queue A item 12)."""
-    if cfg.family != "dense":
+    numpy seed. Only the dense and ssm families are ported, which need no
+    other input (ROADMAP.md, Queue A item 12)."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue A item 12)"
         )
@@ -72,7 +72,7 @@ def make_prompt_batch(cfg: ModelConfig, rng: Union[torch.Generator, np.random.Ge
 def requests_from_batch(batch: Dict[str, Any], sampling: Optional[SamplingParams] = None,
                         adapter_ids=None) -> List[Request]:
     """Split a row-stacked batch dict into per-row Requests (exact values).
-    The dense family's prefill reads the tokens alone."""
+    The dense and ssm families' prefill reads the tokens alone."""
     tokens = np.asarray(batch["tokens"])
     sampling = sampling or SamplingParams()
     return [Request(tokens=tokens[i], sampling=sampling,

@@ -31,7 +31,7 @@ def label_token_loss(logits: torch.Tensor, label_tokens: torch.Tensor) -> torch.
 
 def make_logits_loss(cfg: ModelConfig) -> Callable:
     """``loss(logits, batch)``, used by the GAL probe (gradient w.r.t. noise)."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
     def fn(logits, batch: Dict[str, Any]):

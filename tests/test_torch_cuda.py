@@ -1130,3 +1130,108 @@ def test_short_serve_run_launches_b7_and_b8(cuda):
     fa, b7 = ops.flash_attention.launches - fa0, ops.batched_sparse_lora_apply.launches - b70
     assert fa == cfg.num_layers * eng.stats["prefill_calls"] > 0
     assert b7 == 4 * cfg.num_layers * (eng.stats["prefill_calls"] + eng.stats["decode_steps"]) > 0
+
+
+# --- the Mamba2 family: B9 on the SSM prefill scan, B7 at its widths ---
+
+SSD_HEADS_CASES = [(128, 64, 128, 64), (128, 64, 128, 4), (64, 32, 16, 8), (72, 20, 33, 3), (24, 128, 5, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,hd,N,heads", SSD_HEADS_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_shared_bc_matches_plain(cuda, Q, hd, N, heads, dtype):
+    """``heads > 1``: group g reads row g // heads of b and c. The result is
+    held to the plain version, and equals the ``heads=1`` launch on b and c
+    expanded to every group bit for bit (each group does the same work on
+    the same values)."""
+    G = 3 * heads
+    x = torch.randn(G, Q, hd, generator=cuda, device="cuda").to(dtype)
+    b, c = (torch.randn(G // heads, Q, N, generator=cuda, device="cuda").to(dtype) for _ in range(2))
+    a = mamba_decays(cuda, G, Q, heads)
+    before = ops.ssd_chunk_intra.launches
+    y = ops.ssd_chunk_intra(x, a, b, c, heads=heads)
+    assert ops.ssd_chunk_intra.launches == before + 1
+    torch.cuda.synchronize()
+    bx, cx = (t.repeat_interleave(heads, 0) for t in (b, c))
+    assert_ssd_close(y, x, a, bx, cx)
+    assert_ssd_close(ref.ssd_chunk_intra_ref(x, a, b, c, heads), x, a, bx, cx)
+    assert torch.equal(y, ops.ssd_chunk_intra(x, a, bx, cx))
+    with pytest.raises(ValueError):
+        ops.ssd_chunk_intra(x, a, b[:1], c[:1], heads=heads)
+
+
+def _ssm_world(gen, S):
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(ARCHS["mamba2-1.3b"].reduced(), dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init_params(gen, "cuda")
+    lora = model.init_lora(gen, "cuda")
+    for ab in lora["layers"].values():
+        ab["b"].normal_(0.0, 0.05, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=gen, device="cuda")
+    return cfg, model, params, lora, tokens
+
+
+def assert_logits_close(got, want):
+    """bf16 logits of two paths that round each layer's bf16 outputs apart
+    (B9's tensor-core sums against the plain einsums; GEMMs of other
+    shapes): within 0.05 of the row's largest |logit| (chip_smoke.py phase
+    5d's oracle tolerance)."""
+    g, w = got.float(), want.float()
+    scale = w.abs().amax(dim=-1, keepdim=True)
+    assert bool(((g - w).abs() <= 0.05 * scale).all()), float(((g - w).abs() / scale).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [96, 200])
+def test_ssm_prefill_takes_b9_and_matches_forward(cuda, S):
+    """SSM prefill on the card launches B9 once a layer (every chunk of the
+    group in that launch, heads sharing b and c) and its last logits agree
+    with the plain training forward's; three decode steps after it agree
+    with the forward over the prompt and the tokens so far."""
+    cfg, model, params, lora, tokens = _ssm_world(cuda, S)
+    before = ops.ssd_chunk_intra.launches
+    with torch.no_grad():
+        logits, cache, pos = model.prefill(params, lora, {"tokens": tokens}, 16)
+        assert ops.ssd_chunk_intra.launches == before + cfg.num_layers
+        full, _ = model.forward(params, lora, {"tokens": tokens})
+        assert ops.ssd_chunk_intra.launches == before + cfg.num_layers  # training forward: plain
+        assert_logits_close(logits[:, 0], full[:, -1])
+        seq = tokens
+        for _ in range(3):
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            seq = torch.cat([seq, tok], 1)
+            logits, cache = model.decode_step(params, lora, tok, cache, pos)
+            full, _ = model.forward(params, lora, {"tokens": seq})
+            assert_logits_close(logits[:, 0], full[:, -1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,per_slot", [(8, 1), (4, 128), (1, 1024)])
+@pytest.mark.parametrize("K,N", [(2048, 8512), (4096, 2048)], ids=["in_proj", "out_proj"])
+def test_per_row_linear_at_ssm_widths(cuda, slots, per_slot, K, N):
+    """``layers.linear`` with per-slot adapters at mamba2-1.3b's in_proj and
+    out_proj widths (bf16, rank 8), decode and prefill shapes: one B7
+    launch, within the kernel tolerance of its plain twin."""
+    from repro_torch.models.layers import linear
+
+    r = 8
+    x = torch.randn(slots, per_slot, K, generator=cuda, device="cuda").bfloat16()
+    w = (torch.randn(K, N, generator=cuda, device="cuda") / math.sqrt(K)).bfloat16()
+    a = torch.randn(slots, K, r, generator=cuda, device="cuda") / r
+    b = torch.randn(slots, r, N, generator=cuda, device="cuda") * 0.05
+    before = ops.batched_sparse_lora_apply.launches
+    y = linear(x, {"w": w}, {"a": a, "b": b}, 2.0)
+    assert ops.batched_sparse_lora_apply.launches == before + 1
+    idx = torch.arange(slots, device="cuda").repeat_interleave(per_slot)
+    ones = torch.ones(slots, N, device="cuda")
+    twin = ref.batched_sparse_lora_matmul_ref(x.reshape(-1, K), idx, a, b, ones, 2.0)
+    delta = ops.batched_sparse_lora_apply(x, idx.int().reshape(slots, per_slot), a, b, ones, 2.0)
+    torch.cuda.synchronize()
+    assert_lora_close(delta.reshape(-1, N), twin)
+    assert torch.equal(y, x @ w + delta)

@@ -93,12 +93,27 @@ def test_unported_engines_and_options_raise(kw):
 
 @pytest.mark.parametrize("field", ["gal_fraction", "sparse_ratio"])
 def test_lossless_criteria_raise(field):
+    """The lossless criteria, once refused with NotImplementedError, raise
+    nothing now: with the field left to them the runner initializes, every
+    client's criterion ran and its fraction lies in (0, 1], and the GAL
+    layers and neuron masks follow the fractions where the field is None."""
+    from repro_torch.core.gal import gal_layer_count
     from repro_torch.federated import make_runner
 
     model, loss_fn, fl, data = _world()
-    fl = dataclasses.replace(fl, **{field: None})
-    with pytest.raises(NotImplementedError, match="lossless"):
-        make_runner("fibecfed", model, loss_fn, fl, data, device="cpu")
+    fl = dataclasses.replace(fl, lanczos_iters=4, **{field: None})
+    runner = make_runner("fibecfed", model, loss_fn, fl, data, device="cpu")
+    runner.init_phase()
+    fractions = [c.lossless_fraction for c in runner.clients]
+    assert all(c.lossless is not None and 0.0 < c.lossless_fraction <= 1.0 for c in runner.clients)
+    if field == "gal_fraction":
+        n_star = gal_layer_count(fractions, [c.n for c in runner.clients], model.cfg.num_layers, fl.mu_global_local)
+        assert int(runner.gal_layers.sum()) == n_star
+    else:
+        for c in runner.clients:
+            for ab in c.neuron_mask["layers"].values():
+                d_out = ab["b"].shape[-1]
+                assert bool((ab["b"][:, 0].sum(-1) >= max(1, round(c.lossless_fraction * d_out))).all())
 
 
 @pytest.mark.parametrize(
