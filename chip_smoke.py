@@ -39,8 +39,10 @@ device and exits non-zero without one, or if any phase fails:
    zeros there); B7 with a batch skewed to one adapter, adapters with no
    row, every row out of range, every row on adapter 0 (B5's bits), and 64
    random wq-shaped adapters, its on-device plan held to its plain twin;
-   that the main path's widths take the persistent B5 kernel and B7's SGMV
-   kernel; then their times (B6 as the whole call, also in a CUDA graph of
+   B7's few-row path on the clients' adapters of every target at 1, 8
+   (a decode step), 33 and 64 rows; that the main path's widths take the
+   persistent B5 kernel, B7's SGMV kernel and, at few rows, its few-row
+   path; then their times (B6 as the whole call, also in a CUDA graph of
    wrapper calls) and shares of the bound;
 5c. the public entry point's attention and state-space kernels:
    ``flash_attention`` (B8) at qwen2-0.5b's attention width (14 heads, 2 KV
@@ -52,8 +54,9 @@ device and exits non-zero without one, or if any phase fails:
    128, 64 heads: 1024 groups, head_dim 64, state 128) in f32 and bf16,
    with b and c shared by the heads and the Mamba2 initializer's decays,
    plus the JAX tests' small shapes and Q, hd and N off the kernel's tiles
-   (a in f32 and bf16); each within a stated tolerance of its plain
-   version; then their times beside their bounds and shares of them and,
+   (a in f32 and bf16); B8 at stablelm-3b's head_dim 80 (32 heads: bf16
+   4x1024 under the 8192 window, f32 S 2000 window 1000); each within a
+   stated tolerance of its plain version; then their times beside their bounds and shares of them and,
    for B8 (bf16 on the tensor cores, f32 on the CUDA cores), its TFLOP/s
    and ``scaled_dot_product_attention``'s time;
 5d. serving at full width: ``repro_torch.serve.ServeEngine`` on the
@@ -62,7 +65,7 @@ device and exits non-zero without one, or if any phase fails:
    8 slots, a 1152-token cache (ring layout), greedy, one request stopped by
    an EOS from its own greedy stream, one sampled (temperature 0.8): prefill
    takes B8 for the prompt attention and B7 (SGMV) for the per-slot LoRA
-   delta, decode B7 (BGMV); each completion held to the training forward
+   delta, decode B7's few-row path; each completion held to the training forward
    over prompt + emitted tokens (no kernel, no cache) at every emitted
    position within a stated tolerance, greedy tokens off its argmax only at
    a near-tie, with two controls (the LoRA left out, the next adapter) read
@@ -91,10 +94,10 @@ f. the Mamba2 family at full mamba2-1.3b width (48 layers, d 2048, 64
    with phase 5d's 12 requests (one sampled), 8 slots, a cache length
    below the prompts that clamps no budget: prefill takes B9 for the
    intra-chunk scan (the heads sharing b and c) and B7 for the per-slot
-   LoRA of in_proj and out_proj, decode B7; each completion held to the
-   plain training forward within 0.15 of a row's largest |logit| (three
-   times the plain forward's own bf16 noise floor, which the phase
-   measures), with phase 5d's two controls; a
+   LoRA of in_proj and out_proj (BGMV), decode B7's few-row path; each
+   completion held to the f32 training forward within 1.5 times the plain
+   bf16 forward's own distance from it (which the phase measures), with
+   phase 5d's two controls; a
    telemetry run gives the same tokens and times the path (prefill ms per
    group, decode-step ms, TTFT, useful tokens/s, peak memory, the busy
    share under ``torch.profiler``); B9 and B7 held against their plain
@@ -105,9 +108,19 @@ g. the lossless criteria on the card: the loop FibecFed runner with masked
    qwen2-0.5b's width cut to 4 layers, 4 clients, Lanczos 8, one round: each
    client's Ritz values, Lipschitz estimate and fraction, the GAL count from
    the fractions and the neuron masks' ρ;
+h. the rest of the dense family at full width and depth (bf16, seeded
+   init): qwen3-0.6b (28 layers, d 1024, qk-norm) trained 2 rounds on the
+   vectorized engine and served with phase 5d's 12 requests; stablelm-3b
+   (parallel residual, head_dim 80: B8 at D 80) and chatglm3-6b (2 KV
+   heads) served with 4 requests each over 4 seeded adapters; every
+   completion held to its training forward by phase 5d's oracle and
+   controls, B8 against its plain version at every prefill group's shape;
+   FedPrompt on qwen2-0.5b (1 round, evaluate, its exact comm bytes, the
+   prefixed bf16 forward against its f32 twin); each decode step's time,
+   busy share and B7 share for phases 5d, f and h;
 8. one JSON line listing the kernels; last, the ok line.
 
-Each path of phases 4-6, 5b-5d, f and g included, is driven with the kernels' launch
+Each path of phases 4-6, 5b-5d, f, g and h included, is driven with the kernels' launch
 counts set to 0 just before it and read just after. Float32 matmuls run in
 full f32 (TF32 off for matmuls and cuDNN alike).
 """
@@ -170,14 +183,22 @@ KERNELS = {  # name -> what it ports, its source, and its work per element (B1-B
     "sparse_lora_apply": dict(replaces="src/repro/kernels/sparse_lora.py:79", source=SL_SOURCE),
     "sparse_lora_apply_packed": dict(replaces="src/repro/kernels/sparse_lora.py:119", source=SL_SOURCE),
     "batched_sparse_lora_apply": dict(replaces="src/repro/kernels/sparse_lora.py:191", source=SL_SOURCE),
+    # B7's few-row path (at most 64 rows: a decode step), two chained launches
+    "batched_sparse_lora_few_rows": dict(replaces="src/repro/kernels/sparse_lora.py:191", source=SL_SOURCE),
     # B8-B9: phase 5c computes their bytes and flops for the whole call
     "flash_attention": dict(replaces="src/repro/kernels/flash_attention.py:78", source=FA_SOURCE),
+    # B8 at head_dim 80 (stablelm-3b): its launches are those of the paths
+    # whose every attention has D 80
+    "flash_attention_d80": dict(replaces="src/repro/kernels/flash_attention.py:78", source=FA_SOURCE),
     "ssd_chunk_intra": dict(replaces="src/repro/kernels/ssd_chunk.py:40", source=SC_SOURCE),
 }
-# the wrappers of repro_torch.kernels.ops whose launches a path counts
-LAUNCHED = ("masked_adamw_update", "masked_sgd_update", "fake_compress", "fisher_diag_update",
-            "sparse_lora_apply", "sparse_lora_apply_packed", "batched_sparse_lora_apply",
-            "flash_attention", "ssd_chunk_intra")
+# the counts a path reads: name -> (the repro_torch.kernels.ops wrapper, its
+# counter); B7's wrapper counts its few-row path apart
+COUNTERS = {name: (name, "launches") for name in (
+    "masked_adamw_update", "masked_sgd_update", "fake_compress", "fisher_diag_update", "sparse_lora_apply",
+    "sparse_lora_apply_packed", "batched_sparse_lora_apply", "flash_attention", "ssd_chunk_intra")}
+COUNTERS["batched_sparse_lora_few_rows"] = ("batched_sparse_lora_apply", "few_row_launches")
+LAUNCHED = tuple(COUNTERS)
 # Phase 5b: the LoRA layers and row counts it drives. 256 rows are one
 # client's batch (4 sequences of 64 tokens); 4096 a batch of 64 such
 # sequences. The LoRA products sum in another order than the plain
@@ -187,6 +208,7 @@ LAUNCHED = ("masked_adamw_update", "masked_sgd_update", "fake_compress", "fisher
 # those f32 values, at most one bf16 ulp apart.
 OPS_LAYERS = (0, 11, 23)
 OPS_ROWS = (256, 4096)
+FEW_ROWS = (8, 1, 33, 64)  # B7's few-row cases: a decode step's 8 rows, one, up to the path's 64
 LORA_TOL = 1e-4
 LORA_ORDER_REL = 1e-5
 # the single-adapter kernels' ragged cases: ranks on both of its paths,
@@ -206,6 +228,7 @@ LORA_MASKS = {"zero": 0.0, "one": 1.1, "half": 0.5}
 ATTN_REL = 1e-5
 SSD_REL, SSD_CS_REL = 1e-5, 1e-6
 ATTN_HEADS = (14, 2, 64)  # qwen2-0.5b: query heads, KV heads, head_dim
+D80_HEADS = 32  # stablelm-3b: 32 query and KV heads of 80
 ATTN_SLICE = 1024  # query rows per slice of the plain version at S 16384
 SSD_WIDTHS = dict(S=2048, chunk=128, nh=64, hd=64, N=128)  # mamba2-1.3b, one sequence
 SSD_SMALL = ((128, 64, 32), (128, 128, 128), (64, 32, 16))  # the JAX tests' (Q, hd, N)
@@ -299,6 +322,15 @@ SSM_FLOOR_RATIO = 1.5
 # each, and at 24 layers over LOSSLESS_CLIENTS clients they would take a
 # large share of the script's time.
 LOSSLESS_LAYERS, LOSSLESS_ITERS, LOSSLESS_CLIENTS = 4, 8, 4
+# Phase h: stablelm-3b and chatglm3-6b serve these requests (prompt length,
+# budget, adapter) on four seeded adapters whose b is drawn from
+# N(0, DENSE_B_SCALE²): at rank 8 and LoRA scale 2 that moves a projection's
+# output by ~0.3-0.5 of its own scale (x@a sums K values of ~1/8), enough for
+# the "LoRA left out" and "next adapter" controls to read above 1. FedPrompt
+# trains PROMPT_VECTORS soft-prompt vectors.
+DENSE_REQUESTS = ((1024, 16, 0), (1024, 16, 1), (128, 16, 2), (128, 16, 3))
+DENSE_B_SCALE = 0.01
+PROMPT_VECTORS = 16
 # The two engines' compressed rounds differ by (a) the bf16 forward, which
 # runs as GEMMs of another shape under the vmap over clients and so moves
 # gradients in their last bf16 bits; (b) top-k, which then flips entries
@@ -892,7 +924,7 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
     scale = cfg.lora_alpha / cfg.lora_rank
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
     errs = dict.fromkeys(("fisher_diag_update", "sparse_lora_apply", "sparse_lora_apply_packed",
-                          "batched_sparse_lora_apply"), 0.0)
+                          "batched_sparse_lora_apply", "batched_sparse_lora_few_rows"), 0.0)
 
     def note(name, err):
         errs[name] = max(errs[name], err)
@@ -974,6 +1006,22 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
                              ("skewed", skewed_rows(gen, M, 64))):
                 _, e7 = drive_batched(ops, ref, x64, ix, a64, b64, m64, scale, f"A=64 M={M} r={r} {kind}")
                 note("batched_sparse_lora_apply", e7)
+        # B7's few-row path on the clients' adapters of every target: a decode
+        # step's rows, one a client; one row; rows sharing adapters with
+        # indices out of range; up to its 64 rows
+        few = {}
+        for target in ("wq", "wk", "wv", "wo"):
+            aT, bT, mT = adapter_stack(clients, target, OPS_LAYERS[1])
+            KT, NT = aT.shape[1], bT.shape[2]
+            for M in FEW_ROWS:
+                ix = torch.arange(M, device="cuda") % n_ad
+                if M > SERVE_SLOTS:
+                    ix = torch.randint(-1, n_ad + 1, (M,), generator=gen, device="cuda")
+                few[f"{target} M={M}"] = sparse_lora.batched_path(M, KT, NT, cfg.lora_rank, torch.bfloat16, n_ad)
+                for dtype in (torch.bfloat16, torch.float32):
+                    _, e = drive_batched(ops, ref, randn(M, KT).to(dtype), ix, aT, bT, mT, scale,
+                                         f"few rows {target} M={M} {dtype}")
+                    note("batched_sparse_lora_few_rows", e)
         # off any tile grid: ragged M, K and N; ranks whose rows fill no
         # 16-byte load (6) or no power of two (12); random weights
         M, K, N = 200, 300, 250
@@ -1040,6 +1088,9 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
     log("B7 ring depth by shape (0: the L2 kernel):", sgmv)
     if min(list(sgmv.values())[:2]) == 0 or max(list(sgmv.values())[2:]) != 0:
         raise AssertionError(f"a multi-adapter launch took the wrong kernel: {sgmv}")
+    log("B7 path of the few-row cases:", few)
+    if set(few.values()) != {"few_rows"}:
+        raise AssertionError(f"a few-row launch took another kernel: {few}")
     log("single-adapter ring depth by (r, N, dtype) at K 301 (0: a and b read from L2):",
         {f"{r},{n},{str(d)[6:]}": v for (r, n, d), v in paths.items()})
     main_widths = {(client_lora(c0, t, 0)[0].shape[0], client_lora(c0, t, 0)[1].shape[1]) for t in ("wq", "wk")}
@@ -1303,6 +1354,17 @@ def attention_cases(vec, cfg, gen):
     return cases
 
 
+def attention_d80_cases(gen):
+    """Phase 5c's B8 inputs at stablelm-3b's head_dim 80 (32 heads, MHA):
+    bf16 at its 4x1024 serve prefill shape under the model's 8192 window,
+    and f32 at a ragged S 2000 with window 1000."""
+    H, D = D80_HEADS, 80
+    randn = lambda *s, dtype=torch.bfloat16: torch.randn(s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    f32 = dict(dtype=torch.float32)
+    return {"d80_bf16_4x1024_window8192": tuple(randn(4, 1024, H, D) for _ in range(3)) + (True, 8192),
+            "d80_f32_s2000_window1000": tuple(randn(1, 2000, H, D, **f32) for _ in range(3)) + (True, 1000)}
+
+
 def ssd_inputs(gen, dtype, B=1, S=SSD_WIDTHS["S"], heads=1):
     """B9's inputs at mamba2-1.3b's widths, laid out as the model hands them
     to the kernel: groups (batch, chunk, head), b and c shared by the heads,
@@ -1337,21 +1399,33 @@ def ssd_bound(x, a, b, heads):
     return dict(**bound_of(bytes_moved, flops, rate), gflop=flops / 1e9, mb=bytes_moved / 1e6)
 
 
-def phase_attention_ssd(ops, ref, vec, cfg, gen):
+def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
     """Phase 5c: B8 and B9 through ``repro_torch.kernels.ops`` against their
     plain versions. Returns the launch counts, the max abs errors and the
     inputs of the timed cases."""
-    errs = {"flash_attention": 0.0, "ssd_chunk_intra": 0.0}
+    errs = {"flash_attention": 0.0, "flash_attention_d80": 0.0, "ssd_chunk_intra": 0.0}
     cases = attention_cases(vec, cfg, gen)
+    d80 = attention_d80_cases(gen)
     ssd = {"f32": ssd_inputs(gen, torch.float32), "bf16": ssd_inputs(gen, torch.bfloat16)}
+
+    def attention(name, q, k, v, causal, window, key):
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        plain = plain_attention(ref, q, k, v, causal, window)
+        e = check_attention(out, plain, v, f"B8 {name} {tuple(q.shape)} {q.dtype}")
+        log(f"B8 {name}: q {tuple(q.shape)} {q.dtype}, causal {causal}, window {window}: max abs err {e:.3g}")
+        errs[key] = max(errs[key], e)
+
+    with Launches(ops) as run80:
+        for name, case in d80.items():
+            attention(name, *case, "flash_attention_d80")
+    if run80.counts != only(flash_attention=len(d80)):
+        raise AssertionError(f"phase 5c's D 80 cases did not launch B8 once each: {run80.counts}")
+    log(f"B8 D 80 shared memory opted into: bf16 {flash_attention.smem_bytes(80, torch.bfloat16)} bytes, "
+        f"f32 {flash_attention.smem_bytes(80, torch.float32)} (registers: the build's ptxas lines, "
+        f"flash_attention_tc_kernel<80> and flash_attention_kernel<float, 80>)")
     with Launches(ops) as run:
-        for name, (q, k, v, causal, window) in cases.items():
-            out = ops.flash_attention(q, k, v, causal=causal, window=window)
-            plain = plain_attention(ref, q, k, v, causal, window)
-            e = check_attention(out, plain, v, f"B8 {name} {tuple(q.shape)} {q.dtype}")
-            log(f"B8 {name}: q {tuple(q.shape)} {q.dtype}, causal {causal}, window {window}: max abs err {e:.3g}")
-            errs["flash_attention"] = max(errs["flash_attention"], e)
-            del out, plain
+        for name, case in cases.items():
+            attention(name, *case, "flash_attention")
         for name, (x, a, b, c) in ssd.items():
             y = ops.ssd_chunk_intra(x, a, b, c)
             e = check_ssd(y, ref.ssd_chunk_intra_ref(x, a, b, c), ref.ssd_chunk_intra_ref(x.abs(), a, b.abs(), c.abs()),
@@ -1372,7 +1446,9 @@ def phase_attention_ssd(ops, ref, vec, cfg, gen):
     log(f"B8/B9 vs plain: within tolerance; max abs err {errs}; launches, phase 5c: {run.counts}")
     if run.counts != only(flash_attention=len(cases), ssd_chunk_intra=len(ssd) + 2 * len(SSD_SMALL + SSD_RAGGED)):
         raise AssertionError(f"phase 5c did not launch each of its kernels once per case: {run.counts}")
-    return {name: run.counts[name] for name in errs}, errs, cases, ssd
+    counts = {name: run.counts[name] for name in ("flash_attention", "ssd_chunk_intra")}
+    counts["flash_attention_d80"] = run80.counts["flash_attention"]
+    return counts, errs, {**cases, **d80}, ssd
 
 
 def library_ms(fn, big):
@@ -1400,7 +1476,8 @@ def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd)
     the same function (B8: ``scaled_dot_product_attention``; B9: none)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     entries = {}
-    for name in ("s4096_causal", "s16384_window8192", "f32_s2000_window1000_d128"):
+    for name in ("s4096_causal", "s16384_window8192", "f32_s2000_window1000_d128", "d80_bf16_4x1024_window8192",
+                 "d80_f32_s2000_window1000"):
         q, k, v, causal, window = cases[name]
         B, S, H, D = q.shape
         out = torch.empty_like(q)
@@ -1436,7 +1513,9 @@ def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd)
             f"scaled_dot_product_attention {entry['library_ms']} ms")
         entries[name] = entry
     times = {"flash_attention": dict(entries["s4096_causal"], s16384_window8192=entries["s16384_window8192"],
-                                     f32_s2000_window1000_d128=entries["f32_s2000_window1000_d128"])}
+                                     f32_s2000_window1000_d128=entries["f32_s2000_window1000_d128"]),
+             "flash_attention_d80": dict(entries["d80_bf16_4x1024_window8192"],
+                                         f32_s2000_window1000=entries["d80_f32_s2000_window1000"])}
 
     ssd_entries = {}
     for name, (x, a, b, c) in ssd.items():
@@ -1459,11 +1538,12 @@ def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd)
     return times
 
 
-def serve_requests(Request, SamplingParams, cfg, eos=None):
-    """Phase 5d's requests, prompts drawn from a seeded numpy generator."""
+def serve_requests(Request, SamplingParams, cfg, eos=None, spec=SERVE_REQUESTS):
+    """Phase 5d's requests (or ``spec``'s), prompts drawn from a seeded
+    numpy generator."""
     rng = np.random.default_rng(19)
     reqs = []
-    for i, (S, budget, adapter) in enumerate(SERVE_REQUESTS):
+    for i, (S, budget, adapter) in enumerate(spec):
         sampling = SamplingParams(
             max_new_tokens=budget, seed=100 + i,
             temperature=SERVE_TEMPERATURE if i == SERVE_SAMPLED else 0.0,
@@ -1620,10 +1700,25 @@ def profiled(fn, wall_ms):
     return out
 
 
+def forced_b7_launch(sparse_lora, y, x, idx, a, b, mask, scale):
+    """The resident (SGMV) or L2 (BGMV) kernel's launch whatever the row
+    count (a launch without the few-row path's scratch): the kernel a
+    few-row launch took before its own path, timed beside it."""
+    M, K = x.shape
+    A, r, N = b.shape
+    err = sparse_lora.library().repro_sparse_lora(
+        y.data_ptr(), x.data_ptr(), idx.data_ptr(), a.data_ptr(), b.data_ptr(), mask.data_ptr(), None, None, M,
+        K, N, r, A, 1 if x.dtype == torch.bfloat16 else 0, 0, scale, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"B7 launch failed with CUDA error {err}")
+
+
 def b7_serve_entry(ops, ref, sparse_lora, lora_t, target, M, A, per, scale, err, gen):
     """B7 timed at a serve shape: ``M`` rows, ``per`` a slot, on the first
     ``A`` served adapters of ``target`` at layer 0, beside its bound (x, y
-    and the row index once, each adapter's a, b and mask once)."""
+    and the row index once, each adapter's a, b and mask once). Where the
+    launch takes the few-row path, the kernel it took before (``old_*``:
+    BGMV, or SGMV where it fits) is timed on the same inputs beside it."""
     a = lora_t["layers"][target]["a"][0][:A].contiguous()
     b = lora_t["layers"][target]["b"][0][:A].contiguous()
     K, N, r = a.shape[1], b.shape[-1], a.shape[-1]
@@ -1632,7 +1727,7 @@ def b7_serve_entry(ops, ref, sparse_lora, lora_t, target, M, A, per, scale, err,
     y = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
     idx = torch.arange(A, dtype=torch.int32, device="cuda").repeat_interleave(per)
     launch = lambda _=0: sparse_lora.sparse_lora_launch(y, x, a, b, ones, idx, scale=scale)  # noqa: E731
-    e = dict(target=target, rows=M, adapters=A,
+    e = dict(target=target, rows=M, adapters=A, path=sparse_lora.batched_path(M, K, N, r, torch.bfloat16, A),
              ring_depth=sparse_lora.resident_stages(K, N, r, torch.bfloat16, adapters=A, rows=M),
              max_abs_err=err, ms=cuda_ms(launch), graph_ms=graph_ms(launch),
              wrapper_ms=cuda_ms(lambda: ops.batched_sparse_lora_apply(x, idx, a, b, ones, scale)),
@@ -1640,6 +1735,10 @@ def b7_serve_entry(ops, ref, sparse_lora, lora_t, target, M, A, per, scale, err,
              library_ms=None,
              **bound_of(2 * M * K + 2 * M * N + 4 * M + 4 * A * (K * r + r * N + N), 2 * M * K * r + 2 * M * r * N))
     e["bound_share"] = e["bound_ms"] / e["graph_ms"]
+    if e["path"] == "few_rows":
+        old = lambda _=0: forced_b7_launch(sparse_lora, y, x, idx, a, b, ones, scale)  # noqa: E731
+        e.update(old_path="sgmv" if e["ring_depth"] else "bgmv", old_graph_ms=graph_ms(old), old_ms=cuda_ms(old))
+        e.update(old_bound_share=e["bound_ms"] / e["old_graph_ms"], speedup=e["old_graph_ms"] / e["graph_ms"])
     return e
 
 
@@ -1657,8 +1756,9 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
     decode shape, one row a slot), and timed on ``b7_target`` at the decode
     shape and the first group's. Returns a dict: the completions and their
     requests, the prefill groups, the launch counts, the slots' gathered
-    LoRA, B7's errors and ring depths (SGMV > 0, BGMV 0) by shape, the
-    times and a seeded generator for the caller's own checks."""
+    LoRA, B7's errors and paths (``sparse_lora.batched_path``) by shape,
+    the times and a seeded generator for the caller's own checks. Every
+    decode shape must take B7's few-row path."""
     from repro_torch.lora import gather_adapter_slots
     from repro_torch.obs import Telemetry, check_spans
     from repro_torch.serve import ServeEngine
@@ -1666,17 +1766,17 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
 
     t0 = time.perf_counter()
     cfg = model.cfg
-    kw = dict(adapters=adapters[1:], cache_len=cache_len, num_slots=SERVE_SLOTS,
-              max_new_cap=max(b for _, b, _ in SERVE_REQUESTS))
-    make, logits, groups = recording_engine(ServeEngine, model)
     reqs = make_reqs()
+    kw = dict(adapters=adapters[1:], cache_len=cache_len, num_slots=SERVE_SLOTS,
+              max_new_cap=max(r.sampling.max_new_tokens for r in reqs))
+    make, logits, groups = recording_engine(ServeEngine, model)
     with Launches(ops) as run:
         main = make(params, adapters[0], **kw)
         comps = serve_all(main, reqs)
     log(f"{label}serve main run: {len(comps)} completions, prefill groups (requests, prompt length) {groups}, "
         f"{main.stats}; launches {run.counts}")
     want = launches(main.stats)
-    if run.counts != want or main.stats["completed"] != len(SERVE_REQUESTS):
+    if run.counts != want or main.stats["completed"] != len(reqs):
         raise AssertionError(f"the {label}serve run did not go through its kernels as its path says: "
                              f"{run.counts} != {want}")
     with Launches(ops) as oracle_run:
@@ -1733,14 +1833,17 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
         idx = torch.arange(g, dtype=torch.int32, device="cuda").repeat_interleave(S)
         for t, ab in lora_t["layers"].items():
             a, b = ab["a"][0][:g].contiguous(), ab["b"][0][:g].contiguous()
-            paths[f"{t} {g}x{S}"] = sparse_lora.resident_stages(a.shape[1], b.shape[-1], cfg.lora_rank,
-                                                                torch.bfloat16, adapters=g, rows=g * S)
+            paths[f"{t} {g}x{S}"] = sparse_lora.batched_path(g * S, a.shape[1], b.shape[-1], cfg.lora_rank,
+                                                             torch.bfloat16, g)
             ones = torch.ones(g, b.shape[-1], device="cuda")
             x = torch.randn(g * S, a.shape[1], generator=gen, device="cuda").bfloat16()
             errs[f"B7 {t} {g}x{S}"] = check_lora(ops.batched_sparse_lora_apply(x, idx, a, b, ones, scale),
                                                  ref.batched_sparse_lora_matmul_ref(x, idx, a, b, ones, scale),
                                                  f"{label}B7 serve {t} {g}x{S}")
-    log(f"{label}B7 path by shape (ring depth > 0: SGMV, 0: BGMV): {json.dumps(paths)}")
+    log(f"{label}B7 path by shape: {json.dumps(paths)}")
+    decode = {k: v for k, v in paths.items() if k.endswith(f" {SERVE_SLOTS}x1")}
+    if set(decode.values()) != {"few_rows"}:
+        raise AssertionError(f"{label}a decode shape did not take B7's few-row path: {decode}")
 
     def b7_entry(M, A, per):
         return b7_serve_entry(ops, ref, sparse_lora, lora_t, b7_target, M, A, per, scale,
@@ -1751,18 +1854,65 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
                     (f"B7 {b7_target} prefill {g0 * S0} rows x {g0} adapters", times["b7_prefill"])):
         log(f"{label}serve shape {name}: device {e['graph_ms']:.4f} ms, {e['bound_share']:.1%} of its bound "
             f"({e['bound_ms']:.5f} ms, {e['bound_by']}); launcher {e['ms']:.4f}, wrapper {e['wrapper_ms']:.4f}, "
-            f"plain {e['plain_ms']:.4f}")
+            f"plain {e['plain_ms']:.4f}; path {e['path']}"
+            + (f"; the {e['old_path']} kernel it replaced {e['old_graph_ms']:.4f} ms ({e['speedup']:.1f}x)"
+               if "old_graph_ms" in e else ""))
     log(f"{label}serve: {time.perf_counter() - t0:.1f} s")
+    decode_key = f" {SERVE_SLOTS}x1"
     return dict(comps=comps, reqs=reqs, groups=groups, counts=run.counts, lora_t=lora_t, errs=errs, paths=paths,
-                times=times, gen=gen)
+                times=times, gen=gen, b7_err=max(e for k, e in errs.items() if not k.endswith(decode_key)),
+                few_err=max(e for k, e in errs.items() if k.endswith(decode_key)))
+
+
+def b8_serve_checks(ops, ref, flash_attention, cfg, groups, gen, label=""):
+    """B8 against its plain version at every prefill group's shape of a
+    dense model's serve run, and timed at the first group's beside its
+    bound and ``scaled_dot_product_attention``'s time. Returns the errors
+    by shape and the timed entry."""
+    hd = cfg.resolved_head_dim
+    H, KVH, w = cfg.num_heads, cfg.num_kv_heads, cfg.attention_window
+    errs = {}
+    for g, S in sorted(set(groups)):
+        q = torch.randn(g, S, H, hd, generator=gen, device="cuda").bfloat16()
+        kk, vv = (torch.randn(g, S, KVH, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
+        errs[f"{g}x{S}"] = check_attention(ops.flash_attention(q, kk, vv, causal=True, window=w),
+                                           ref.flash_attention_gqa_ref(q, kk, vv, causal=True, window=w),
+                                           vv, f"{label}B8 serve prefill {g}x{S}")
+    g0, S0 = groups[0]
+    q = torch.randn(g0, S0, H, hd, generator=gen, device="cuda").bfloat16()
+    kk, vv = (torch.randn(g0, S0, KVH, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    out = torch.empty_like(q)
+    launch = lambda _=0: flash_attention.flash_attention_launch(out, q, kk, vv, causal=True, window=w)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, vv))
+    b8 = dict(head_dim=hd, max_abs_err=errs[f"{g0}x{S0}"], ms=cuda_ms(launch, iters=20),
+              graph_ms=graph_ms(launch, calls=5, replays=3),
+              wrapper_ms=cuda_ms(lambda: ops.flash_attention(q, kk, vv, causal=True, window=w), iters=20),
+              plain_ms=cuda_ms(lambda: ref.flash_attention_gqa_ref(q, kk, vv, causal=True, window=w), iters=5),
+              library_ms=library_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=True, enable_gqa=True), False),
+              **attention_bound(g0, S0, H, KVH, hd, True, w, torch.bfloat16))
+    b8.update(tflops=b8["gflop"] / b8["graph_ms"], bound_share=b8["bound_ms"] / b8["graph_ms"])
+    log(f"{label}serve shape B8 prefill {g0}x{S0} (D {hd}): device {b8['graph_ms']:.4f} ms, "
+        f"{b8['bound_share']:.1%} of its bound ({b8['bound_ms']:.5f} ms, {b8['bound_by']}); launcher "
+        f"{b8['ms']:.4f}, wrapper {b8['wrapper_ms']:.4f}, plain {b8['plain_ms']:.4f}, library {b8['library_ms']}")
+    return errs, b8
+
+
+def dense_serve_launches(L):
+    """A dense decoder's serve launches by the engine's stats: B8 once a
+    layer per prefill group; B7 on the four attention projections of every
+    layer, SGMV on prefill and the few-row path on decode."""
+    return lambda st: only(flash_attention=L * st["prefill_calls"],
+                           batched_sparse_lora_apply=4 * L * st["prefill_calls"],
+                           batched_sparse_lora_few_rows=4 * L * st["decode_steps"])
 
 
 def phase_serve(ops, ref, sparse_lora, flash_attention, vec, cfg, model):
     """Phase 5d: serving qwen2-0.5b at full width on the vectorized run's
     global LoRA and three of its clients' adapters (``serve_phase``). A
     first run finds the EOS request's stop token in its greedy stream; the
-    main run takes B8 on every prefill group and B7 (SGMV on prefill, BGMV
-    on decode) on the four attention projections, and its completions keep
+    main run takes B8 on every prefill group and B7 (SGMV on prefill, the
+    few-row path on decode) on the four attention projections, and its completions keep
     their budgets (clamped to the cache), the EOS stop and the sampled
     stream. Then B8 against its plain version at every prefill group's
     shape, and timed at the first group's beside its bound. Returns the
@@ -1785,14 +1935,11 @@ def phase_serve(ops, ref, sparse_lora, flash_attention, vec, cfg, model):
     L = cfg.num_layers
     s = serve_phase(ops, ref, sparse_lora, model, vec.params, adapters,
                     lambda: serve_requests(Request, SamplingParams, cfg, eos), cache_len=SERVE_CACHE,
-                    launches=lambda st: only(flash_attention=L * st["prefill_calls"], batched_sparse_lora_apply=4 * L
-                                             * (st["prefill_calls"] + st["decode_steps"])),
-                    oracle=dict(rel=SERVE_LOGIT_REL), b7_target="wq")
+                    launches=dense_serve_launches(L), oracle=dict(rel=SERVE_LOGIT_REL), b7_target="wq")
     comps, groups, times = s["comps"], s["groups"], s["times"]
     log_oracle("", times["oracle"], "the bf16 forward")
-    if any(d == 0 for key, d in s["paths"].items() if not key.endswith(f" {SERVE_SLOTS}x1")) or \
-            any(d != 0 for key, d in s["paths"].items() if key.endswith(f" {SERVE_SLOTS}x1")):
-        raise AssertionError("B7 did not take SGMV on prefill and BGMV on decode")
+    if any(p != "sgmv" for key, p in s["paths"].items() if not key.endswith(f" {SERVE_SLOTS}x1")):
+        raise AssertionError("B7 did not take SGMV on prefill")
     for (S, budget, _), c in zip(SERVE_REQUESTS, comps):
         if c.prompt_len != S or (c.finish_reason == "length" and c.steps != min(budget, SERVE_CACHE - S)):
             raise AssertionError(f"serve request {c.request_id}: {c.steps} tokens for budget {budget}")
@@ -1804,41 +1951,14 @@ def phase_serve(ops, ref, sparse_lora, flash_attention, vec, cfg, model):
         f"its stream in the first run, whose co-residents differ after the EOS: {same_sampled}")
     log(f"serve times: {json.dumps({k: v for k, v in times.items() if not k.startswith('b7')})}")
 
-    # B8 against its plain version at every prefill group's shape
-    hd = cfg.resolved_head_dim
-    H, KVH, w = cfg.num_heads, cfg.num_kv_heads, cfg.attention_window
-    gen, errs = s["gen"], {}
-    for g, S in sorted(set(groups)):
-        q = torch.randn(g, S, H, hd, generator=gen, device="cuda").bfloat16()
-        kk, vv = (torch.randn(g, S, KVH, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
-        errs[f"{g}x{S}"] = check_attention(ops.flash_attention(q, kk, vv, causal=True, window=w),
-                                           ref.flash_attention_gqa_ref(q, kk, vv, causal=True, window=w),
-                                           vv, f"B8 serve prefill {g}x{S}")
+    errs, times["b8_prefill"] = b8_serve_checks(ops, ref, flash_attention, cfg, groups, s["gen"])
     log(f"B7 and B8 vs plain at the serve shapes: within tolerance; max abs err "
         f"{json.dumps({**s['errs'], **{f'B8 {k}': e for k, e in errs.items()}})}")
-    # B8 at the first prefill group's shape
-    g0, S0 = groups[0]
-    q = torch.randn(g0, S0, H, hd, generator=gen, device="cuda").bfloat16()
-    kk, vv = (torch.randn(g0, S0, KVH, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
-    out = torch.empty_like(q)
-    launch = lambda _=0: flash_attention.flash_attention_launch(out, q, kk, vv, causal=True, window=w)  # noqa: E731
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, vv))
-    b8 = dict(max_abs_err=errs[f"{g0}x{S0}"], ms=cuda_ms(launch, iters=20),
-              graph_ms=graph_ms(launch, calls=5, replays=3),
-              wrapper_ms=cuda_ms(lambda: ops.flash_attention(q, kk, vv, causal=True, window=w), iters=20),
-              plain_ms=cuda_ms(lambda: ref.flash_attention_gqa_ref(q, kk, vv, causal=True, window=w), iters=5),
-              library_ms=library_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                  qt, kt, vt, is_causal=True, enable_gqa=True), False),
-              **attention_bound(g0, S0, H, KVH, hd, True, w, torch.bfloat16))
-    b8.update(tflops=b8["gflop"] / b8["graph_ms"], bound_share=b8["bound_ms"] / b8["graph_ms"])
-    log(f"serve shape B8 prefill {g0}x{S0}: device {b8['graph_ms']:.4f} ms, {b8['bound_share']:.1%} of its bound "
-        f"({b8['bound_ms']:.5f} ms, {b8['bound_by']}); launcher {b8['ms']:.4f}, wrapper {b8['wrapper_ms']:.4f}, "
-        f"plain {b8['plain_ms']:.4f}, library {b8['library_ms']}")
-    times["b8_prefill"] = b8
     log(f"serve phase: {time.perf_counter() - t0:.1f} s")
-    counts = {n: s["counts"][n] for n in ("flash_attention", "batched_sparse_lora_apply")}
-    return counts, {"batched_sparse_lora_apply": max(s["errs"].values()), "flash_attention": max(errs.values())}, \
-        times
+    counts = {n: s["counts"][n] for n in ("flash_attention", "batched_sparse_lora_apply",
+                                          "batched_sparse_lora_few_rows")}
+    return counts, {"batched_sparse_lora_apply": s["b7_err"], "flash_attention": max(errs.values()),
+                    "batched_sparse_lora_few_rows": s["few_err"]}, times
 
 
 def phase_runner_telemetry(make_runner, model, loss_fn, fl, clients, vec, vec_round0, tree_leaves):
@@ -1929,8 +2049,9 @@ def phase_ssm(ops, ref, sparse_lora, ssd_chunk, make_runner, data_mod, FibecFedC
     L = cfg.num_layers
     s = serve_phase(ops, ref, sparse_lora, model, params, adapters,
                     lambda: serve_requests(Request, SamplingParams, cfg), cache_len=SSM_CACHE,
-                    launches=lambda st: only(ssd_chunk_intra=L * st["prefill_calls"], batched_sparse_lora_apply=2 * L
-                                             * (st["prefill_calls"] + st["decode_steps"])),
+                    launches=lambda st: only(ssd_chunk_intra=L * st["prefill_calls"],
+                                             batched_sparse_lora_apply=2 * L * st["prefill_calls"],
+                                             batched_sparse_lora_few_rows=2 * L * st["decode_steps"]),
                     oracle=dict(rel=SSM_FLOOR_RATIO, f32=True), b7_target="in_proj", label="mamba2 ")
     groups, times = s["groups"], dict(train=train, **s["times"])
     o = times["oracle"]
@@ -1967,10 +2088,180 @@ def phase_ssm(ops, ref, sparse_lora, ssd_chunk, make_runner, data_mod, FibecFedC
         f"{b9['ms']:.4f}, wrapper {b9['wrapper_ms']:.4f}, plain {b9['plain_ms']:.4f}")
     times["b9_prefill"] = b9
     log(f"phase f: {time.perf_counter() - t0:.1f} s")
-    counts = {n: s["counts"][n] for n in ("ssd_chunk_intra", "batched_sparse_lora_apply")}
+    counts = {n: s["counts"][n] for n in ("ssd_chunk_intra", "batched_sparse_lora_apply",
+                                          "batched_sparse_lora_few_rows")}
     counts["masked_adamw_update_stacked"] = train_run.counts["masked_adamw_update"]
-    return counts, {"ssd_chunk_intra": max(errs.values()), "batched_sparse_lora_apply": max(s["errs"].values())}, \
-        times
+    return counts, {"ssd_chunk_intra": max(errs.values()), "batched_sparse_lora_apply": s["b7_err"],
+                    "batched_sparse_lora_few_rows": s["few_err"]}, times
+
+
+def dense_adapters(model, gen):
+    """Four seeded adapters of a model that trains none here: a as
+    ``init_lora`` draws it, b from N(0, DENSE_B_SCALE²) (an all-zero b would
+    leave the LoRA out, and the oracle's first control would read 0)."""
+    adapters = []
+    for _ in range(4):
+        lora = model.init_lora(gen, "cuda")
+        for ab in lora["layers"].values():
+            ab["b"].normal_(0.0, DENSE_B_SCALE, generator=gen)
+        adapters.append(lora)
+    return adapters
+
+
+def phase_dense_family(ops, ref, sparse_lora, flash_attention, make_runner, data_mod, FibecFedConfig, ARCHS,
+                       build_model, make_loss_fn, FedPrompt):
+    """Phase h: the rest of the dense family at full width and depth, bf16
+    from a seeded torch init.
+    (i) qwen3-0.6b: the default vectorized FibecFed/AdamW for 2 rounds on
+    phase 4-5's keyword task (8 clients, cohort 4, batch 4), then
+    ``serve_phase`` with phase 5d's 12 requests on its global LoRA and
+    three clients' adapters (B8 behind qk-norm at D 128; B7 SGMV on
+    prefill, the few-row path on decode).
+    (ii) stablelm-3b (parallel residual, LayerNorm, D 80: B8 at D 80) and
+    chatglm3-6b (2 KV heads, QKV bias, half RoPE), serving only: 4 requests
+    each (prompts of 128 and 1024 tokens, budgets 16) over 4 seeded
+    adapters; each model freed before the next is built.
+    Every served logit is held to its training forward by phase 5d's
+    oracle (0.05 of a row's largest |logit|), with both controls above 1;
+    B8 against its plain version at every prefill group's shape.
+    (iii) FedPrompt on full qwen2-0.5b: 1 round (cohort 4, 16 prompt
+    vectors), ``evaluate``, the exact comm bytes, and the prefixed forward's
+    last logits held to the same forward in f32 at phase 5d's tolerance.
+    Returns the launch counts, the largest errors and the times."""
+    from repro_torch.serve import Request, SamplingParams
+    from repro_torch.utils.tree import tree_clone, tree_map
+
+    t_phase = time.perf_counter()
+    counts = dict.fromkeys(("masked_adamw_update_stacked", "flash_attention", "flash_attention_d80",
+                            "batched_sparse_lora_apply", "batched_sparse_lora_few_rows"), 0)
+    errs = dict.fromkeys(("flash_attention", "flash_attention_d80", "batched_sparse_lora_apply",
+                          "batched_sparse_lora_few_rows"), 0.0)
+    times = {}
+
+    def served(name, s, b8_key, b8_errs):
+        n = ARCHS[name].num_layers
+        counts[b8_key] += s["counts"]["flash_attention"]
+        counts["batched_sparse_lora_apply"] += s["counts"]["batched_sparse_lora_apply"]
+        counts["batched_sparse_lora_few_rows"] += s["counts"]["batched_sparse_lora_few_rows"]
+        errs[b8_key] = max(errs[b8_key], max(b8_errs.values()))
+        errs["batched_sparse_lora_apply"] = max(errs["batched_sparse_lora_apply"], s["b7_err"])
+        errs["batched_sparse_lora_few_rows"] = max(errs["batched_sparse_lora_few_rows"], s["few_err"])
+        log_oracle(f"{name} ", s["times"]["oracle"], "the bf16 forward")
+        prof = s["times"]["profiles"]["decode"]
+        log(f"{name} ({n} layers): decode step {s['times']['decode_step_ms']:.2f} ms, busy {prof['busy_share']:.1%}, "
+            f"B7 {prof['b7_share']:.1%} of its {prof['kernel_ms']:.2f} ms of kernels; useful tokens/s "
+            f"{s['times']['useful_tokens_per_s']:.1f}; TTFT mean {s['times']['ttft_mean_ms']:.1f} ms")
+
+    # (i) qwen3-0.6b: train, then serve
+    t0 = time.perf_counter()
+    cfg = ARCHS["qwen3-0.6b"]
+    model = build_model(cfg)
+    fl = FibecFedConfig(num_devices=8, devices_per_round=4, rounds=2, batch_size=4)
+    clients = keyword_world(cfg.vocab_size, data_mod, fl)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with Launches(ops) as train_run:
+        vec = make_runner("fibecfed", model, make_loss_fn(model), fl, clients, optimizer="adamw",
+                          fused_optimizer=True, seed=0)
+        if vec.engine != "vectorized":
+            raise AssertionError(f"qwen3: the default engine is {vec.engine!r}")
+        _, init_s = timed(vec.init_phase)
+        steps, round_s = 0, []
+        for t in range(fl.rounds):
+            stats, secs = timed(lambda: vec.run_round(t))
+            steps += int(stats["padded_steps"])
+            round_s.append(secs)
+            log(f"qwen3-0.6b vectorized fibecfed round {t}: {secs:.2f} s, {json.dumps(stats)}")
+            check_round(vec, cfg, stats, t)
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"qwen3-0.6b vectorized fibecfed: init_phase {init_s:.2f} s, gal layers "
+        f"{np.flatnonzero(vec.gal_layers).tolist()}; peak {train_peak:.2f} GiB; launches {train_run.counts} over "
+        f"{steps} padded steps")
+    if train_run.counts != only(masked_adamw_update=steps) or steps == 0:
+        raise AssertionError("the qwen3 vectorized run did not launch the AdamW kernel once per step")
+    counts["masked_adamw_update_stacked"] += steps
+    adapters = [tree_clone(vec.global_lora)] + [tree_clone(vec.clients[i].lora) for i in range(3)]
+    params = vec.params
+    times["qwen3-0.6b"] = dict(train=dict(init_s=init_s, round_s=round_s, padded_steps=steps, peak_gib=train_peak))
+    del vec
+    torch.cuda.empty_cache()
+    s = serve_phase(ops, ref, sparse_lora, model, params, adapters,
+                    lambda: serve_requests(Request, SamplingParams, cfg), cache_len=SERVE_CACHE,
+                    launches=dense_serve_launches(cfg.num_layers), oracle=dict(rel=SERVE_LOGIT_REL),
+                    b7_target="wq", label="qwen3-0.6b ")
+    for (S, budget, _), c in zip(SERVE_REQUESTS, s["comps"]):
+        if c.prompt_len != S or c.finish_reason != "length" or c.steps != min(budget, SERVE_CACHE - S):
+            raise AssertionError(f"qwen3 serve request {c.request_id}: {c.steps} tokens for budget {budget}")
+    b8_errs, b8 = b8_serve_checks(ops, ref, flash_attention, cfg, s["groups"], s["gen"], "qwen3-0.6b ")
+    served("qwen3-0.6b", s, "flash_attention", b8_errs)
+    times["qwen3-0.6b"].update(s["times"], b8_prefill=b8, seconds=time.perf_counter() - t0)
+    del params, adapters, s, model
+    torch.cuda.empty_cache()
+
+    # (ii) stablelm-3b and chatglm3-6b: serving only, seeded adapters
+    for name in ("stablelm-3b", "chatglm3-6b"):
+        t0 = time.perf_counter()
+        cfg = ARCHS[name]
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        params = model.init_params(gen, "cuda")
+        adapters = dense_adapters(model, gen)
+        s = serve_phase(ops, ref, sparse_lora, model, params, adapters,
+                        lambda: serve_requests(Request, SamplingParams, cfg, spec=DENSE_REQUESTS),
+                        cache_len=SERVE_CACHE, launches=dense_serve_launches(cfg.num_layers),
+                        oracle=dict(rel=SERVE_LOGIT_REL), b7_target="wq", label=f"{name} ")
+        for (S, budget, _), c in zip(DENSE_REQUESTS, s["comps"]):
+            if c.prompt_len != S or c.finish_reason != "length" or c.steps != budget:
+                raise AssertionError(f"{name} serve request {c.request_id}: {c.steps} tokens for budget {budget}")
+        b8_key = "flash_attention_d80" if cfg.resolved_head_dim == 80 else "flash_attention"
+        b8_errs, b8 = b8_serve_checks(ops, ref, flash_attention, cfg, s["groups"], s["gen"], f"{name} ")
+        served(name, s, b8_key, b8_errs)
+        times[name] = dict(s["times"], b8_prefill=b8, seconds=time.perf_counter() - t0)
+        del params, adapters, s, model
+        torch.cuda.empty_cache()
+
+    # (iii) FedPrompt on full qwen2-0.5b
+    t0 = time.perf_counter()
+    cfg = ARCHS["qwen2-0.5b"]
+    model = build_model(cfg)
+    fl = FibecFedConfig(num_devices=8, devices_per_round=4, rounds=1, batch_size=4)
+    clients = keyword_world(cfg.vocab_size, data_mod, fl)
+    test = data_mod.make_keyword_task(n_samples=64, seq_len=64, vocab_size=cfg.vocab_size, seed=1).data
+    test = {k: v for k, v in test.items() if k != "label"}
+    with Launches(ops) as run:
+        fp = FedPrompt(model, fl, clients, n_prompt=PROMPT_VECTORS, seed=0)
+        stats, round_s = timed(lambda: fp.run_round(0))
+        acc, eval_s = timed(lambda: fp.evaluate(test, batch_size=32))
+    want_bytes = 2 * fl.devices_per_round * PROMPT_VECTORS * cfg.d_model * 4
+    log(f"FedPrompt (qwen2-0.5b, cohort {fl.devices_per_round}, {PROMPT_VECTORS} prompt vectors): round 0 "
+        f"{round_s:.2f} s, loss {stats['loss']:.6f}; comm bytes {fp.comm_bytes_per_round} (2·4·16·896·4 = "
+        f"{want_bytes}); evaluate accuracy {acc:.4f} on {len(test['tokens'])} samples ({eval_s:.2f} s); "
+        f"launches {run.counts}")
+    if fp.comm_bytes_per_round != [want_bytes] or not isinstance(fp.comm_bytes_per_round[0], int) \
+            or not math.isfinite(stats["loss"]) or not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"FedPrompt: comm bytes {fp.comm_bytes_per_round}, loss {stats['loss']}, acc {acc}")
+    if any(run.counts.values()):
+        raise AssertionError(f"FedPrompt launched a kernel (its forward is plain, as in JAX): {run.counts}")
+    # the prefixed forward (bf16) against the same forward in f32, params widened
+    batch = {k: torch.as_tensor(v[:4], device="cuda").long() for k, v in test.items()}
+    prefix = fp.prompt[None].expand(4, *fp.prompt.shape)
+    with torch.no_grad():
+        got, _ = model.forward(fp.params, fp.lora, {**batch, "prefix_embeds": prefix.bfloat16()})
+        want, _ = model.forward(tree_map(lambda x: x.float(), fp.params), fp.lora, {**batch, "prefix_embeds": prefix})
+    got, want = got[:, -1].float(), want[:, -1].float()
+    if got.shape != (4, cfg.vocab_size) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"FedPrompt prefixed logits: {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+    rel = float(((got - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)).max())
+    log(f"FedPrompt prefixed forward (bf16) vs f32 at the last position: {rel:.4f} of a row's largest |logit| "
+        f"(tolerance {SERVE_LOGIT_REL}: {rel / SERVE_LOGIT_REL:.3f} of it)")
+    if rel > SERVE_LOGIT_REL:
+        raise AssertionError("FedPrompt's prefixed bf16 forward is beyond the tolerance from its f32 forward")
+    times["fedprompt"] = dict(round_s=round_s, loss=stats["loss"], comm_bytes=fp.comm_bytes_per_round[0],
+                              accuracy=acc, eval_s=eval_s, f32_rel=rel, seconds=time.perf_counter() - t0)
+    del fp, model
+    torch.cuda.empty_cache()
+    log(f"phase h: {time.perf_counter() - t_phase:.1f} s")
+    return counts, errs, times
 
 
 def phase_lossless(ops, make_runner, data_mod, FibecFedConfig, ARCHS, build_model, make_loss_fn):
@@ -2078,15 +2369,15 @@ class Launches:
     """The kernels' launch counts over one path: zeroed on entry, read on exit."""
 
     def __init__(self, ops):
-        self.fns = {name: getattr(ops, name) for name in LAUNCHED}
+        self.fns = {name: (getattr(ops, fn), attr) for name, (fn, attr) in COUNTERS.items()}
 
     def __enter__(self):
-        for fn in self.fns.values():
-            fn.launches = 0
+        for fn, attr in self.fns.values():
+            setattr(fn, attr, 0)
         return self
 
     def __exit__(self, *exc):
-        self.counts = {name: fn.launches for name, fn in self.fns.items()}
+        self.counts = {name: getattr(fn, attr) for name, (fn, attr) in self.fns.items()}
         return False
 
 
@@ -2108,7 +2399,7 @@ def main() -> int:
     from repro_torch import data as data_mod
     from repro_torch.config import FibecFedConfig
     from repro_torch.configs import ARCHS
-    from repro_torch.federated import CompressionConfig, make_runner
+    from repro_torch.federated import CompressionConfig, FedPrompt, make_runner
     from repro_torch.kernels import (build, compress, fisher_diag, flash_attention, masked_update, ops, ref,
                                      sparse_lora, ssd_chunk)
     from repro_torch.models import build_model
@@ -2234,7 +2525,7 @@ def main() -> int:
     times.update(phase_ops_timing(ops, ref, fisher_diag, sparse_lora, vec, cfg, gen, tree_leaves, tree_map))
 
     # --- 5c. attention (B8) and the SSD intra-chunk scan (B9) ---
-    attn_counts, attn_errs, cases, ssd = phase_attention_ssd(ops, ref, vec, cfg, gen)
+    attn_counts, attn_errs, cases, ssd = phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen)
     for name in attn_counts:
         launches[name] += attn_counts[name]
     errs.update(attn_errs)
@@ -2246,8 +2537,8 @@ def main() -> int:
     for name, n in serve_counts.items():
         launches[name] += n
         errs[name] = max(errs[name], serve_errs[name])
-    times["batched_sparse_lora_apply"].update(serve_decode=serve_times["b7_decode"],
-                                              serve_prefill=serve_times["b7_prefill"])
+    times["batched_sparse_lora_apply"]["serve_prefill"] = serve_times["b7_prefill"]
+    times["batched_sparse_lora_few_rows"] = {k: v for k, v in serve_times["b7_decode"].items() if k != "max_abs_err"}
     times["flash_attention"]["serve_prefill"] = serve_times["b8_prefill"]
 
     # --- 5e. the runner's telemetry= changes no bit of a vectorized round ---
@@ -2325,13 +2616,37 @@ def main() -> int:
     for name, e in ssm_errs.items():
         errs[name] = max(errs[name], e)
     times["ssd_chunk_intra"]["ssm_serve_prefill"] = ssm_times["b9_prefill"]
-    times["batched_sparse_lora_apply"].update(ssm_serve_decode=ssm_times["b7_decode"],
-                                              ssm_serve_prefill=ssm_times["b7_prefill"])
+    times["batched_sparse_lora_apply"]["ssm_serve_prefill"] = ssm_times["b7_prefill"]
+    times["batched_sparse_lora_few_rows"]["ssm_serve_decode"] = ssm_times["b7_decode"]
 
     # --- g. the lossless criteria (gal_fraction = sparse_ratio = None) ---
     for name, n in phase_lossless(ops, make_runner, data_mod, FibecFedConfig, ARCHS, build_model,
                                   make_loss_fn).items():
         launches[name] += n
+
+    # --- h. the rest of the dense family: qwen3-0.6b trained and served,
+    # stablelm-3b (B8 at D 80) and chatglm3-6b served, FedPrompt ---
+    dense_counts, dense_errs, dense_times = phase_dense_family(
+        ops, ref, sparse_lora, flash_attention, make_runner, data_mod, FibecFedConfig, ARCHS, build_model,
+        make_loss_fn, FedPrompt)
+    for name, n in dense_counts.items():
+        launches[name] += n
+    for name, e in dense_errs.items():
+        errs[name] = max(errs[name], e)
+    for name in ("qwen3-0.6b", "stablelm-3b", "chatglm3-6b"):
+        times["batched_sparse_lora_few_rows"][f"{name}_serve_decode"] = dense_times[name]["b7_decode"]
+        times["batched_sparse_lora_apply"][f"{name}_serve_prefill"] = dense_times[name]["b7_prefill"]
+    times["flash_attention"]["qwen3-0.6b_serve_prefill"] = dense_times["qwen3-0.6b"]["b8_prefill"]
+    times["flash_attention"]["chatglm3-6b_serve_prefill"] = dense_times["chatglm3-6b"]["b8_prefill"]
+    times["flash_attention_d80"]["stablelm-3b_serve_prefill"] = dense_times["stablelm-3b"]["b8_prefill"]
+    decode = {"qwen2-0.5b (5d)": serve_times, "mamba2-1.3b (f)": ssm_times,
+              **{f"{n} (h)": dense_times[n] for n in ("qwen3-0.6b", "stablelm-3b", "chatglm3-6b")}}
+    for name, t in decode.items():
+        prof, b7 = t["profiles"]["decode"], t["b7_decode"]
+        log(f"decode step, {name}: {t['decode_step_ms']:.2f} ms, busy {prof['busy_share']:.1%}, B7 "
+            f"{prof['b7_share']:.1%} of {prof['kernel_ms']:.2f} ms of kernels; B7 few-row at its decode shape "
+            f"{b7['graph_ms']:.4f} ms, the {b7.get('old_path')} kernel {b7.get('old_graph_ms')} ms")
+    log("phase h times:", json.dumps(dense_times))
 
     # --- 8. kernel list, card, ok ---
     if any(n == 0 for n in launches.values()):

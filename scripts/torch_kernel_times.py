@@ -9,10 +9,12 @@ ctypes call). B9 runs at mamba2-1.3b's widths (1024 groups, f32 and bf16
 inputs); B5 at 4096 bf16 rows of qwen2-0.5b's wq (K 896, N 896) and wk
 (N 128) with rank 8, random weights and a rho 0.5 neuron mask, B6 (the
 whole call) at wq, and B7 over 8 wq-shaped adapters (rows at random,
-skewed, all on one adapter, all out of range) and 64. Prints each
-time beside its byte bound and, last, one JSON line with every number.
-With ``--repeat n`` every case is timed n times in turns, so that the
-spread within one card shows.
+skewed, all on one adapter, all out of range) and 64; B7's few-row path
+beside the BGMV kernel at the decode shapes of the served configs (8 rows,
+one adapter each, rank 8) and at 16-64 rows of qwen2-0.5b's wq over 8
+adapters. Prints each time beside its byte bound and, last, one JSON line
+with every number. With ``--repeat n`` every case is timed n times in
+turns, so that the spread within one card shows.
 
     python3 scripts/torch_kernel_times.py [--repeat 3]
 """
@@ -28,7 +30,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels import build, ref, sparse_lora, ssd_chunk  # noqa: E402
+from repro_torch.kernels import build, flash_attention, ref, sparse_lora, ssd_chunk  # noqa: E402
 
 
 def ssd_cases(gen):
@@ -111,6 +113,64 @@ def lora_cases(gen):
     return cases
 
 
+# decode shapes: (name, K, N) of one LoRA target at 8 rows; then rows of
+# qwen2-0.5b's wq over 8 adapters (below SGMV's 16 rows an adapter)
+FEW_SHAPES = (("qwen2_wq", 896, 896), ("qwen2_wk", 896, 128), ("mamba2_in_proj", 2048, 8512),
+              ("mamba2_out_proj", 4096, 2048), ("qwen3_wq", 1024, 2048), ("stablelm_wq", 2560, 2560),
+              ("chatglm3_wq", 4096, 4096))
+FEW_ROWS = ((16, 8), (32, 8), (64, 8))
+
+
+def few_cases(gen):
+    """B7 at few rows: the few-row path and the kernel it replaced on the
+    same inputs (copies of x, y and the adapters: more than the L2 holds)."""
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    r, scale = 8, 2.0
+    shapes = [(f"{name}_m8", 8, K, N, 8) for name, K, N in FEW_SHAPES]
+    shapes += [(f"qwen2_wq_m{M}_a{A}", M, 896, 896, A) for M, A in FEW_ROWS]
+    cases = {}
+    for name, M, K, N, A in shapes:
+        copies = max(2, min(16, int(4 * cs.L2_BYTES / (4 * A * (K * r + 2 * r * N)))))
+        ins = []
+        for _ in range(copies):
+            a, b = randn(A, K, r) * 0.05, randn(A, r, N) * 0.05
+            ins.append((randn(M, K).bfloat16(), a, b, torch.ones(A, N, device="cuda"),
+                        torch.empty(M, N, dtype=torch.bfloat16, device="cuda")))
+        idx = (torch.arange(M, device="cuda") % A).int()
+        for path in ("few", "old"):
+            def launch(i=0, path=path, ins=ins, idx=idx):
+                x, a, b, mask, y = ins[i % len(ins)]
+                if path == "few":
+                    assert sparse_lora.sparse_lora_launch(y, x, a, b, mask, idx, scale=scale) == "few_rows"
+                else:
+                    cs.forced_b7_launch(sparse_lora, y, x, idx, a, b, mask, scale)
+            launch()
+            x, a, b, mask, y = ins[0]
+            err = cs.check_lora(y, ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, scale), f"{name} {path}")
+            bound = cs.bound_of(2 * M * K + 2 * M * N + 4 * M + 4 * A * (K * r + r * N + N),
+                                2 * M * K * r + 2 * M * r * N)
+            cases[f"{'few' if path == 'few' else 'bgmv'}_{name}"] = (launch, bound, err)
+    return cases
+
+
+def flash_cases(gen):
+    """B8 at stablelm-3b's head_dim 80 (32 heads, MHA) on a 4x1024 prefill,
+    bf16 and f32, beside D 64 at the same shape."""
+    cases = {}
+    for name, D, dtype in (("d80_bf16", 80, torch.bfloat16), ("d64_bf16", 64, torch.bfloat16),
+                           ("d80_f32", 80, torch.float32)):
+        q, k, v = (torch.randn(4, 1024, 32, D, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        out = torch.empty_like(q)
+        launch = lambda _=0, q=q, k=k, v=v, out=out: flash_attention.flash_attention_launch(  # noqa: E731
+            out, q, k, v, causal=True, window=8192)
+        launch()
+        err = cs.check_attention(out, ref.flash_attention_gqa_ref(q, k, v, causal=True, window=8192), v,
+                                 f"B8 {name}")
+        bound = cs.attention_bound(4, 1024, 32, 32, D, True, 8192, dtype)
+        cases[f"flash_{name}"] = (launch, bound, err)
+    return cases
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeat", type=int, default=1)
@@ -118,11 +178,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_times: no CUDA device", file=sys.stderr)
         return 1
-    for module in (ssd_chunk, sparse_lora):
+    for module in (ssd_chunk, sparse_lora, flash_attention):
         _, report = build.compile_cuda(module.SOURCE)
         print(f"{module.SOURCE.name}:\n" + "\n".join(cs.ptxas_summary(report)), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = {**ssd_cases(gen), **lora_cases(gen)}
+    cases = {**ssd_cases(gen), **lora_cases(gen), **few_cases(gen), **flash_cases(gen)}
     torch.cuda.synchronize()
     results = {name: dict(max_abs_err=err, **bound, graph_ms=[], ms=[]) for name, (_, bound, err) in cases.items()}
     for _ in range(args.repeat):

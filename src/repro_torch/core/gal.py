@@ -50,6 +50,12 @@ def adversarial_perturbation(g_in: torch.Tensor, gamma: float, p: float = 2.0) -
     return eps.to(g_in.dtype)
 
 
+def embedding_grad(loss_from_noise: Callable[[torch.Tensor], torch.Tensor], noise_shape: Tuple[int, ...],
+                   dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """Gradient of the loss at zero embedding noise."""
+    return grad(loss_from_noise)(torch.zeros(noise_shape, dtype=dtype, device=device))
+
+
 def layer_sensitivity_scores(probe_fn: Callable[..., Any],
                              loss_fn_from_logits: Callable[[torch.Tensor, Any], torch.Tensor],
                              params, lora, batch, *, gamma: float, p: float = 2.0,
@@ -64,7 +70,7 @@ def layer_sensitivity_scores(probe_fn: Callable[..., Any],
         logits, _, _ = probe_fn(params, lora, batch, noise)
         return loss_fn_from_logits(logits, batch)
 
-    g = grad(loss_of_noise)(torch.zeros(noise_shape, dtype=torch.float32, device=device))
+    g = embedding_grad(loss_of_noise, noise_shape, device=device)
     eps = adversarial_perturbation(g, gamma, p)
     with torch.no_grad():
         _, _, norms_clean = probe_fn(params, lora, batch, None)
@@ -178,6 +184,14 @@ def lossless_criterion(loss_fn: Callable, params, lora, batch, draw: Draw, *, it
     idx = np.nonzero(np.diff(eigs) > 4.0 * lip)[0]
     r = int(idx[0] + 1) if len(idx) else 0
     return {"eigs": eigs, "lipschitz": lip, "fraction": float(1.0 - r / len(eigs))}
+
+
+def lossless_rank_fraction(loss_fn: Callable, params, lora, batch, draw: Draw, *, iters: int = 16) -> float:
+    """(1 − r/R) from the first eigengap > 4·Lipschitz (paper §4.3.1): the
+    fraction of layers/neurons to keep, 1.0 when no gap clears the margin.
+    :func:`lossless_criterion`'s fraction; ``draw`` takes the place of the
+    JAX package's key."""
+    return lossless_criterion(loss_fn, params, lora, batch, draw, iters=iters)["fraction"]
 
 
 def select_gal_layers(global_scores: np.ndarray, n_star: int) -> np.ndarray:

@@ -1,5 +1,5 @@
 """Host-side batching utilities (numpy only; a copy of the parts of
-``repro.data.pipeline`` that the port's engines use).
+``repro.data.pipeline`` that the port uses).
 
 Besides the per-batch index helpers of the loop engine, this module builds
 the *padded fixed-shape* client stack of the vectorized engine: every
@@ -11,7 +11,7 @@ mask, so masked reductions reproduce the ragged originals exactly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
 
@@ -23,11 +23,14 @@ def bucket_size(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
 
-def make_batches(n: int, batch_size: int) -> List[np.ndarray]:
-    """Contiguous index batches [0..n), the last one ragged. The FL sim
-    scores and sorts these."""
+def make_batches(n: int, batch_size: int, *, drop_remainder: bool = False) -> List[np.ndarray]:
+    """Contiguous index batches [0..n), the last one ragged unless
+    ``drop_remainder`` drops it. The FL sim scores and sorts these."""
     ids = np.arange(n)
-    return [ids[i : i + batch_size] for i in range(0, n, batch_size)]
+    batches = [ids[i : i + batch_size] for i in range(0, n, batch_size)]
+    if drop_remainder and batches and len(batches[-1]) < batch_size:
+        batches = batches[:-1]
+    return batches
 
 
 def gather_batch(data: Dict[str, np.ndarray], idx: np.ndarray) -> Dict[str, np.ndarray]:
@@ -90,3 +93,15 @@ def stack_clients(client_data: Sequence[Dict[str, np.ndarray]], batch_size: int)
         n_batches=np.asarray([ids.shape[0] for _, _, ids, _ in per_client]),
         n_samples=np.asarray([n for _, n, _, _ in per_client]),
     )
+
+
+def batch_iterator(data: Dict[str, np.ndarray], batch_size: int, *, seed: int = 0,
+                   epochs: int = 1) -> Iterator[Dict[str, np.ndarray]]:
+    """Shuffled full batches, ``epochs`` passes, each a permutation drawn
+    from ``np.random.default_rng(seed)`` (the JAX package's order)."""
+    n = len(next(iter(data.values())))
+    rng = np.random.default_rng(seed)
+    for _ in range(epochs):
+        perm = rng.permutation(n)
+        for i in range(0, n - batch_size + 1, batch_size):
+            yield gather_batch(data, perm[i : i + batch_size])

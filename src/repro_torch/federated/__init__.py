@@ -5,3 +5,4 @@ from repro_torch.federated.compress import (
     leaf_upload_bytes,
     topk_k,
 )
+from repro_torch.federated.prompt_tuning import FedPrompt

@@ -124,10 +124,39 @@
 // The TPU kernels' padding to 128/512 tiles has no counterpart: ragged M, N
 // and K are masked here.
 //
-// C interface (loaded with ctypes): repro_sparse_lora returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// arguments it does not take; repro_sparse_lora_stages says which kernel a
-// launch takes (the resident kernel's ring depth, or 0).
+// sparse_lora_few_rows_xa_kernel + sparse_lora_few_rows_y_kernel: the
+// multi-adapter product with at most kFewMaxRows (64) rows that the SGMV kernel does not take (fewer than
+// 16 rows an adapter), a decode step's shape (one row a serving slot, each
+// slot its own adapter). BGMV would give all of them one block, so one
+// SM of 132 would read every adapter's a and b (at mamba2-1.3b's in_proj,
+// K 2048, N 8512, rank 8, 8 adapters: 3.1 MB, 0.94 µs of HBM time, and the
+// BGMV kernel took 0.227 ms). The work is split in two launches over the
+// whole card instead:
+//   1. xa = x @ a[idx], split over K: block s takes a slice of K (at most
+//      64 slices) for every row and writes f32 partials (M x r a slice) to a
+//      scratch the wrapper allocates; a warp takes a row, its lanes k's and
+//      rank quads, and reads a with 16-byte loads.
+//   2. y = scale · xa @ (b[idx] ⊙ mask[idx]), split over N: a thread owns
+//      4 columns (1 at ranks above 16) of one distinct adapter of the rows,
+//      so rows that share an adapter read its columns once, with 16-byte
+//      loads. It is launched with programmatic stream serialization: its
+//      blocks start while the first phase runs, list the rows' adapters and
+//      load b ⊙ mask, then wait (griddepcontrol.wait) for the partials, sum
+//      the splits of their rows in a fixed order (a warp a row and rank
+//      quad) and write y.
+// Both launches are enqueued with no host sync, so a CUDA graph captures
+// them (the graph keeps the programmatic edge). A row out of range is
+// exactly 0; a masked column is 0 for finite b (b · 0 summed). Bound:
+// memory; the least time is a, b and mask of the adapters in use, x and y
+// over the HBM rate; what is left is two dependent launches' latency.
+//
+// C interface (loaded with ctypes): repro_sparse_lora picks the kernel and
+// launches it, returning cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments it does not take;
+// repro_sparse_lora_stages gives the resident kernel's ring depth (0 where
+// a launch reads a and b from L2), and repro_sparse_lora_path which kernel
+// a multi-adapter launch takes and the floats of the few-row path's
+// scratch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1122,11 +1151,328 @@ int launch_resident(void* y, const void* x, const int* idx, const float* a, cons
   return (int)cudaGetLastError();
 }
 
+// ---- few rows, many adapters: the decode shape, spread over the card ----
+
+constexpr int kFewMaxRows = 64;     // the largest M this path takes
+constexpr int kFewThreads = 256;
+constexpr int kFewMaxSplits = 64;   // K-splits of the first phase at most
+
+int few_rank_pad(int r) { return r <= 4 ? 4 : r <= 8 ? 8 : r <= 16 ? 16 : r <= 32 ? 32 : 64; }
+
+// Programmatic dependent launch (sm_90): the first phase lets the second be
+// scheduled at once; the second runs what needs only the inputs, then waits
+// for the whole first grid and its writes.
+__device__ __forceinline__ void pdl_trigger() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+// The first phase's K-split: kc values of k a block (a multiple of the k
+// lanes of a warp, 128 / RP), at most kFewMaxSplits blocks.
+int64_t few_split_k(int64_t K, int RP) {
+  const int64_t kl = 128 / RP;
+  const int64_t steps = (K + kl - 1) / kl;
+  const int64_t per = (steps + kFewMaxSplits - 1) / kFewMaxSplits;
+  return (per < 1 ? 1 : per) * kl;
+}
+int few_splits(int64_t K, int RP) {
+  const int64_t kc = few_split_k(K, RP);
+  const int64_t s = (K + kc - 1) / kc;
+  return (int)(s < 1 ? 1 : s);
+}
+
+// Phase 1: part[s][m][0..RP) = x[m, ks] @ a[idx[m], ks, :] over block s's
+// slice ks of K, in f32 (0 for a row out of range and rank entries >= r).
+// Warp w takes rows w, w + 8, ...; lane (kl, q) the k's kl, kl + KL, ... of
+// the slice and rank entries [4q, 4q + 4): a warp reads 32 16-byte pieces
+// of a, contiguous; a shuffle sum over the KL lanes that share q leaves the
+// row's partial.
+template <typename T, int RP>
+__global__ void __launch_bounds__(kFewThreads)
+    sparse_lora_few_rows_xa_kernel(float* __restrict__ part, const T* __restrict__ x,
+                                   const int* __restrict__ idx, const float* __restrict__ a, int M, int64_t K,
+                                   int r, int A, int64_t kc, bool a_vec) {
+  pdl_trigger();
+  constexpr int Q = RP / 4, KL = 32 / Q;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = lane % Q, kl = lane / Q;
+  const int64_t k0 = (int64_t)blockIdx.x * kc, k1 = K < k0 + kc ? K : k0 + kc;
+  for (int m = warp; m < M; m += kFewThreads / 32) {  // warp-uniform
+    const int v = idx[m];
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (v >= 0 && v < A) {
+      const float* ap = a + (int64_t)v * K * r + 4 * q;
+      const T* xp = x + (int64_t)m * K;
+#pragma unroll 4
+      for (int64_t k = k0 + kl; k < k1; k += KL) {
+        const float xv = to_f32(xp[k]);
+        float av[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (a_vec) {
+          if (4 * q < r) {
+            const float4 t = *reinterpret_cast<const float4*>(ap + k * r);
+            av[0] = t.x; av[1] = t.y; av[2] = t.z; av[3] = t.w;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) av[c] = 4 * q + c < r ? ap[k * r + c] : 0.0f;
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[c] = fmaf(xv, av[c], acc[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int off = Q; off < 32; off <<= 1) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+    if (kl == 0)
+      *reinterpret_cast<float4*>(part + ((int64_t)blockIdx.x * M + m) * RP + 4 * q) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+}
+
+// four neighbouring values of y in one store (16 bytes f32, 8 bf16)
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Phase 2: y[m, n] = scale · xa[m] @ (b ⊙ mask)[idx[m], :, n]. An item is
+// (d, g): the d-th distinct adapter of the rows (in order of its first
+// row) and CW neighbouring columns from g·CW; item i of the grid is
+// (i / groups, i % groups), so a block covers one or two adapters of a
+// wide N. Before its wait a thread lists the adapters and loads its
+// item's b ⊙ mask (rows that share an adapter read it once), while the
+// first phase runs. After it, the block sums the partials of its
+// adapters' rows (a warp a (row, rank quad), its lanes over the splits,
+// then a shuffle sum: a fixed order), and each thread writes its columns
+// of those rows; items of the first adapter also write the zero rows of
+// indices out of range.
+template <typename T, int RP, int CW>
+__global__ void __launch_bounds__(kFewThreads)
+    sparse_lora_few_rows_y_kernel(T* __restrict__ y, const float* __restrict__ part,
+                                  const int* __restrict__ idx, const float* __restrict__ b,
+                                  const float* __restrict__ mask, int M, int64_t N, int r, int A, int splits,
+                                  float scale, bool vec) {
+  constexpr int RQ = RP / 4;
+  __shared__ int ad_s[kFewMaxRows];    // a row's adapter, -1 out of range
+  __shared__ int dist_s[kFewMaxRows];  // the distinct adapters
+  __shared__ int rowd_s[kFewMaxRows];  // a row's place in dist_s, -1 out of range
+  __shared__ int nd_s;
+  __shared__ __align__(16) float xa_s[kFewMaxRows][RP];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid < M) {
+    const int v = idx[tid];
+    ad_s[tid] = (v >= 0 && v < A) ? v : -1;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int base = 0;
+    for (int c = 0; c < kFewMaxRows; c += 32) {  // warp-uniform; the ballot outside any condition
+      const int m = c + lane;
+      int ad = -1;
+      bool first = false;
+      if (m < M) {
+        ad = ad_s[m];
+        first = ad >= 0;
+        for (int j = 0; j < m && first; ++j) first = ad_s[j] != ad;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, first);
+      if (first) dist_s[base + __popc(bal & ((1u << lane) - 1u))] = ad;
+      base += __popc(bal);
+    }
+    if (lane == 0) nd_s = base;
+  }
+  __syncthreads();
+  const int nd = nd_s;
+  if (tid < M) {
+    int d = -1;
+    for (int j = 0; j < nd && d < 0; ++j)
+      if (dist_s[j] == ad_s[tid]) d = j;
+    rowd_s[tid] = d;
+  }
+  const int64_t groups = (N + CW - 1) / CW;
+  const int64_t item = (int64_t)blockIdx.x * kFewThreads + tid;
+  const int d = (int)(item / groups);
+  const int64_t n0 = (item % groups) * CW;
+  const bool live = d < nd;
+  float bm[RP][CW];
+#pragma unroll
+  for (int rr = 0; rr < RP; ++rr)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) bm[rr][c] = 0.0f;
+  if (live) {
+    const int ad = dist_s[d];
+    const float* bp = b + (int64_t)ad * r * N + n0;
+    const float* mp = mask + (int64_t)ad * N + n0;
+    bool done = false;
+    if constexpr (CW == 4) {
+      if (vec) {
+        const float4 mk = *reinterpret_cast<const float4*>(mp);
+#pragma unroll
+        for (int rr = 0; rr < RP; ++rr) {
+          if (rr < r) {
+            const float4 t = *reinterpret_cast<const float4*>(bp + (int64_t)rr * N);
+            bm[rr][0] = t.x * mk.x;
+            bm[rr][1] = t.y * mk.y;
+            bm[rr][2] = t.z * mk.z;
+            bm[rr][3] = t.w * mk.w;
+          }
+        }
+        done = true;
+      }
+    }
+    if (!done) {
+      float mk[CW];
+#pragma unroll
+      for (int c = 0; c < CW; ++c) mk[c] = n0 + c < N ? mp[c] : 0.0f;
+#pragma unroll
+      for (int rr = 0; rr < RP; ++rr)
+#pragma unroll
+        for (int c = 0; c < CW; ++c)
+          if (rr < r && n0 + c < N) bm[rr][c] = bp[(int64_t)rr * N + c] * mk[c];
+    }
+  }
+  pdl_wait();  // the first phase's partials have landed
+  __syncthreads();  // rowd_s
+
+  const int64_t first_item = (int64_t)blockIdx.x * kFewThreads;
+  const int d_lo = (int)(first_item / groups);
+  const int d_hi = (int)((first_item + kFewThreads - 1) / groups);
+  for (int e = warp; e < M * RQ; e += kFewThreads / 32) {  // warp-uniform
+    const int m = e / RQ, qq = e % RQ;
+    const int rd = rowd_s[m];
+    if (rd < d_lo || rd > d_hi) continue;
+    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int s = lane; s < splits; s += 32) {
+      const float4 t = *reinterpret_cast<const float4*>(part + ((int64_t)s * M + m) * RP + 4 * qq);
+      sum.x += t.x; sum.y += t.y; sum.z += t.z; sum.w += t.w;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sum.x += __shfl_xor_sync(0xffffffffu, sum.x, off);
+      sum.y += __shfl_xor_sync(0xffffffffu, sum.y, off);
+      sum.z += __shfl_xor_sync(0xffffffffu, sum.z, off);
+      sum.w += __shfl_xor_sync(0xffffffffu, sum.w, off);
+    }
+    if (lane == 0) *reinterpret_cast<float4*>(&xa_s[m][4 * qq]) = sum;
+  }
+  __syncthreads();
+
+  if (d >= (nd > 0 ? nd : 1)) return;
+  for (int m = 0; m < M; ++m) {
+    const int rd = rowd_s[m];
+    if (rd != d && !(rd < 0 && d == 0)) continue;
+    float out[CW];
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      float s = 0.0f;
+      if (rd >= 0) {
+#pragma unroll
+        for (int rr = 0; rr < RP; ++rr) s = fmaf(xa_s[m][rr], bm[rr][c], s);
+        s *= scale;
+      }
+      out[c] = s;
+    }
+    T* yp = y + (int64_t)m * N + n0;
+    bool stored = false;
+    if constexpr (CW == 4) {
+      if (vec) {
+        store4(yp, out);
+        stored = true;
+      }
+    }
+    if (!stored) {
+#pragma unroll
+      for (int c = 0; c < CW; ++c)
+        if (n0 + c < N) yp[c] = from_f32<T>(out[c]);
+    }
+  }
+}
+
+template <typename T, int RP>
+int launch_few_rank(void* y, const void* x, const int* idx, const float* a, const float* b, const float* mask,
+                    float* part, int M, int64_t K, int64_t N, int r, int A, float scale, cudaStream_t stream) {
+  constexpr int CW = RP <= 16 ? 4 : 1;  // columns a thread owns: b ⊙ mask stays in RP·CW registers
+  const int64_t kc = few_split_k(K, RP);
+  const int splits = few_splits(K, RP);
+  const bool a_vec = r % 4 == 0 && aligned(a, 16);
+  const bool vec = N % 4 == 0 && aligned(b, 16) && aligned(mask, 16) && aligned(y, 4 * sizeof(T));
+  sparse_lora_few_rows_xa_kernel<T, RP><<<(unsigned)splits, kFewThreads, 0, stream>>>(part, (const T*)x, idx, a,
+                                                                                      M, K, r, A, kc, a_vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t groups = (N + CW - 1) / CW;
+  const int64_t items = (int64_t)(M < A ? M : A) * groups;
+  const int64_t blocks = (items + kFewThreads - 1) / kFewThreads;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kFewThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, sparse_lora_few_rows_y_kernel<T, RP, CW>, (T*)y, (const float*)part, idx, b,
+                           mask, M, N, r, A, splits, scale, vec);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_few(void* y, const void* x, const int* idx, const float* a, const float* b, const float* mask,
+               float* part, int M, int64_t K, int64_t N, int r, int A, float scale, cudaStream_t stream) {
+#define REPRO_FEW(RP) \
+  return launch_few_rank<T, RP>(y, x, idx, a, b, mask, part, M, K, N, r, A, scale, stream)
+  switch (few_rank_pad(r)) {
+    case 4: REPRO_FEW(4);
+    case 8: REPRO_FEW(8);
+    case 16: REPRO_FEW(16);
+    case 32: REPRO_FEW(32);
+    default: REPRO_FEW(64);
+  }
+#undef REPRO_FEW
+}
+
+// The multi-adapter product's kernel at these widths: the resident (SGMV)
+// kernel where sgmv_stages > 0 (its ring depth in *stages), else the
+// few-row path at most kFewMaxRows rows (its scratch floats in *scratch),
+// else the L2 (BGMV) kernel.
+enum Path { kPathL2 = 0, kPathResident = 1, kPathFew = 2 };
+
+Path route(int64_t M, int64_t K, int64_t N, int r, int A, int size, int* stages, int64_t* scratch) {
+  *stages = sgmv_stages(M, K, N, r, A, size);
+  *scratch = 0;
+  if (*stages > 0) return kPathResident;
+  if (M < 1 || M > kFewMaxRows || A < 1) return kPathL2;
+  const int RP = few_rank_pad(r);
+  *scratch = (int64_t)few_splits(K, RP) * M * RP;
+  return kPathFew;
+}
+
 template <typename T>
 int launch_any(void* y, const void* x, const int* idx, const float* a, const float* b, const float* mask, int* plan,
-               int64_t M, int64_t K, int64_t N, int r, int A, float scale, bool packed, cudaStream_t stream) {
+               float* scratch, int64_t M, int64_t K, int64_t N, int r, int A, float scale, bool packed,
+               cudaStream_t stream) {
   const int size = (int)sizeof(T);
-  const int stages = idx ? sgmv_stages(M, K, N, r, A, size) : team_stages(K, N, r, size, 0);
+  int stages = 0;
+  int64_t floats = 0;
+  Path path = kPathL2;
+  if (idx)
+    path = route(M, K, N, r, A, size, &stages, &floats);
+  else
+    stages = team_stages(K, N, r, size, 0);
+  // the scratch only on the few-row path; without it, that path's launch takes the L2 kernel
+  if (scratch != nullptr && (path != kPathFew || plan != nullptr || !aligned(scratch, 16)))
+    return (int)cudaErrorInvalidValue;
+  if (path == kPathFew && scratch != nullptr)
+    return launch_few<T>(y, x, idx, a, b, mask, scratch, (int)M, K, N, r, A, scale, stream);
   if (stages == 0) {
     if (plan != nullptr) return (int)cudaErrorInvalidValue;  // the L2 kernel makes no plan
     return launch<T>(y, x, idx, a, b, mask, M, K, N, r, idx ? A : 1, scale, packed, stream);
@@ -1157,20 +1503,25 @@ extern "C" {
 // adapter only): the kept columns of b as they are, 0 in the frozen ones.
 // plan (M + A + 2,) int32 or null (the multi-adapter product on the SGMV
 // path only): the rows in the order sorted by segment, then each segment's
-// first row in that order, and the end.
+// first row in that order, and the end. scratch (16-byte aligned, the
+// floats repro_sparse_lora_path gives) or null (the multi-adapter product
+// on the few-row path only): that path's partials of x @ a; a launch of the
+// few-row path's widths without it takes the L2 kernel.
 int repro_sparse_lora(void* y, const void* x, const void* idx, const void* a, const void* b, const void* mask,
-                      void* plan, int64_t M, int64_t K, int64_t N, int r, int n_adapters, int dtype, int packed,
-                      float scale, void* stream) {
+                      void* plan, void* scratch, int64_t M, int64_t K, int64_t N, int r, int n_adapters, int dtype,
+                      int packed, float scale, void* stream) {
   if (M <= 0 || N <= 0 || K < 0 || r < 1 || r > kMaxRank || n_adapters < 1 || mask == nullptr)
     return (int)cudaErrorInvalidValue;
   if ((M + kRows - 1) / kRows > 2147483647LL || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
-  if (idx != nullptr ? packed != 0 : plan != nullptr) return (int)cudaErrorInvalidValue;
+  if (idx != nullptr ? packed != 0 : plan != nullptr || scratch != nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* ix = (const int*)idx;
   const float *af = (const float*)a, *bf = (const float*)b, *mf = (const float*)mask;
+  float* part = (float*)scratch;
   const int A = ix ? n_adapters : 1;
-  if (dtype == 0) return launch_any<float>(y, x, ix, af, bf, mf, (int*)plan, M, K, N, r, A, scale, packed, s);
-  return launch_any<__nv_bfloat16>(y, x, ix, af, bf, mf, (int*)plan, M, K, N, r, A, scale, packed, s);
+  if (dtype == 0)
+    return launch_any<float>(y, x, ix, af, bf, mf, (int*)plan, part, M, K, N, r, A, scale, packed, s);
+  return launch_any<__nv_bfloat16>(y, x, ix, af, bf, mf, (int*)plan, part, M, K, N, r, A, scale, packed, s);
 }
 
 // The ring depth (all teams' stages) of the resident kernel that a launch
@@ -1182,6 +1533,18 @@ int repro_sparse_lora_stages(int64_t M, int64_t K, int64_t N, int r, int n_adapt
   const int size = dtype == 0 ? 4 : 2;
   const int stages = n_adapters == 0 ? team_stages(K, N, r, size, 0) : sgmv_stages(M, K, N, r, n_adapters, size);
   return stages * res_teams(rank_pad(r));
+}
+
+// The kernel a multi-adapter launch of M rows takes at these widths on the
+// current device: 0 the L2 (BGMV) kernel, 1 the resident (SGMV) kernel, 2
+// the few-row path, which takes *scratch floats of scratch (0 on the
+// others); -1 for widths no launch takes.
+int repro_sparse_lora_path(int64_t M, int64_t K, int64_t N, int r, int n_adapters, int dtype, int64_t* scratch) {
+  if (K < 0 || N <= 0 || M <= 0 || r < 1 || r > kMaxRank || n_adapters < 1 || dtype < 0 || dtype > 1 ||
+      scratch == nullptr)
+    return -1;
+  int stages = 0;
+  return (int)route(M, K, N, r, n_adapters, dtype == 0 ? 4 : 2, &stages, scratch);
 }
 
 }  // extern "C"

@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels.build import CSRC, load_library
 
 SOURCE = CSRC / "flash_attention.cu"
-HEAD_DIMS = (64, 128)  # the kernel's instantiations
+HEAD_DIMS = (64, 80, 128)  # the kernel's instantiations (80: stablelm-3b)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -31,7 +31,18 @@ def library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     lib.repro_flash_attention.argtypes = [_P] * 4 + [_I] * 8 + [_F, _P]
     lib.repro_flash_attention.restype = _I
+    lib.repro_flash_attention_smem.argtypes = [_I, _I]
+    lib.repro_flash_attention_smem.restype = _I
     return lib
+
+
+def smem_bytes(D: int, dtype: torch.dtype) -> int:
+    """The dynamic shared memory a launch at head_dim ``D`` in ``dtype``
+    opts into (bytes)."""
+    n = library().repro_flash_attention_smem(D, DTYPE_CODES[dtype])
+    if n < 0:
+        raise ValueError(f"head_dim {D} has no kernel (only {HEAD_DIMS})")
+    return n
 
 
 def check_shape(q_shape, kv_shape) -> None:

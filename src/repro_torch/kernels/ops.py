@@ -363,8 +363,11 @@ def _lora_product(x, a, b, mask, idx, scale, plain, counter, packed=False):
         return plain(x2).reshape(*lead, N)
     y = torch.empty((x2.shape[0], N), dtype=x.dtype, device=x.device)
     if y.numel():
-        _sl.sparse_lora_launch(y, x2.contiguous(), _f32(a), _f32(b), _f32(mask), idx, scale=scale, packed=packed)
-        counter.launches += 1
+        if _sl.sparse_lora_launch(y, x2.contiguous(), _f32(a), _f32(b), _f32(mask), idx, scale=scale,
+                                  packed=packed) == "few_rows":
+            counter.few_row_launches += 1
+        else:
+            counter.launches += 1
     return y.reshape(*lead, N)
 
 
@@ -382,7 +385,11 @@ def batched_sparse_lora_apply(x, idx, a, b, mask, scale: float = 1.0):
     [0, A) comes out as zeros, as the JAX package's kernel gives it.
 
     On the card one launch groups the rows by adapter itself (no host sync,
-    so a CUDA graph can capture the call)."""
+    so a CUDA graph can capture the call), counted in ``launches``; a call
+    of at most ``sparse_lora.FEW_MAX_ROWS`` rows that the SGMV kernel does
+    not take (``sparse_lora.batched_path``) takes the few-row path instead
+    (two chained launches spread over the card, no host sync), counted once
+    in ``few_row_launches``."""
     idx2 = idx.reshape(-1)
     if _on_cuda(idx2) and idx2.dtype != torch.int32:
         # clamped first, so that no index wraps into range as int32
@@ -420,7 +427,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     q-shaped, in q's dtype; query head h reads KV head ``h // (H // KVH)``.
 
     On the card one kernel launch reads the three tensors in place, for any
-    S (a ragged last tile is masked in the kernel); D must be 64 or 128.
+    S (a ragged last tile is masked in the kernel); D must be 64, 80 or 128.
     bf16 inputs run on the tensor cores (a bf16 view off a 16-byte boundary
     is first copied), f32 on the CUDA cores; both keep the scores and p in
     f32.
@@ -472,5 +479,6 @@ fisher_diag_update.launches = 0
 sparse_lora_apply.launches = 0
 sparse_lora_apply_packed.launches = 0
 batched_sparse_lora_apply.launches = 0
+batched_sparse_lora_apply.few_row_launches = 0
 flash_attention.launches = 0
 ssd_chunk_intra.launches = 0

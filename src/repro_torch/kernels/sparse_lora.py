@@ -9,10 +9,16 @@ index into stacked adapters) are one launch with other arguments. A launch
 takes the kernel that keeps a and b ⊙ mask in shared memory where they fit
 (:func:`resident_stages`; for the multi-adapter product an SGMV kernel that
 plans on the device which rows go with which adapter), and the kernel that
-reads them from L2 otherwise. The launcher checks the tensors, allocates
-nothing, launches on PyTorch's current stream and raises if the launch is
-refused. The library is built and loaded at the first launch
-(``kernels/build.py``), never at import.
+reads them from L2 otherwise. A multi-adapter product of at most
+``FEW_MAX_ROWS`` rows (a decode step) that the SGMV kernel does not take
+(fewer than 16 rows an adapter) takes the few-row path instead: two
+launches, x @ a split over K and the second product split over N, chained
+with programmatic dependent launch (:func:`batched_path` says which path a
+launch takes). The launcher checks the tensors, allocates nothing but the
+few-row path's small f32 scratch (through PyTorch's caching allocator),
+launches on PyTorch's current stream and raises if a launch is refused.
+The library is built and loaded at the first launch (``kernels/build.py``),
+never at import.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from repro_torch.kernels.build import CSRC, load_library
 
 SOURCE = CSRC / "sparse_lora.cu"
 MAX_RANK = 64  # the kernel's largest rank (csrc/sparse_lora.cu, kMaxRank)
+FEW_MAX_ROWS = 64  # the few-row path's largest M (csrc/sparse_lora.cu, kFewMaxRows)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 
@@ -32,11 +39,36 @@ _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    lib.repro_sparse_lora.argtypes = [_P] * 7 + [_I64, _I64, _I64, _I, _I, _I, _I, _F, _P]
+    lib.repro_sparse_lora.argtypes = [_P] * 8 + [_I64, _I64, _I64, _I, _I, _I, _I, _F, _P]
     lib.repro_sparse_lora.restype = _I
     lib.repro_sparse_lora_stages.argtypes = [_I64, _I64, _I64, _I, _I, _I]
     lib.repro_sparse_lora_stages.restype = _I
+    lib.repro_sparse_lora_path.argtypes = [_I64, _I64, _I64, _I, _I, _I, ctypes.POINTER(_I64)]
+    lib.repro_sparse_lora_path.restype = _I
     return lib
+
+
+_PATHS = ("bgmv", "sgmv", "few_rows")  # repro_sparse_lora_path's codes
+
+
+@functools.lru_cache(maxsize=None)
+def _route(M: int, K: int, N: int, r: int, dtype_code: int, adapters: int, device: int) -> tuple[str, int]:
+    """The kernel a multi-adapter launch takes on CUDA device ``device``
+    (the current one) and the f32 values of its scratch (0 but on the
+    few-row path), asked once a shape."""
+    scratch = _I64(0)
+    code = library().repro_sparse_lora_path(M, K, N, r, adapters, dtype_code, ctypes.byref(scratch))
+    if code < 0:
+        raise ValueError(f"no kernel for K {K}, N {N}, rank {r}, {adapters} adapters, {M} rows")
+    return _PATHS[code], scratch.value
+
+
+def batched_path(M: int, K: int, N: int, r: int, dtype: torch.dtype, adapters: int) -> str:
+    """Which kernel a multi-adapter launch of these widths takes on the
+    current CUDA device: ``"sgmv"`` (the resident kernel, where
+    :func:`resident_stages` > 0), else ``"few_rows"`` (at most
+    ``FEW_MAX_ROWS`` rows) or ``"bgmv"`` (the L2 kernel)."""
+    return _route(M, K, N, r, _DTYPE_CODES[dtype], adapters, torch.cuda.current_device())[0]
 
 
 def resident_stages(K: int, N: int, r: int, dtype: torch.dtype, adapters: int = 0, rows: int = 0) -> int:
@@ -46,7 +78,9 @@ def resident_stages(K: int, N: int, r: int, dtype: torch.dtype, adapters: int = 
     L2. ``adapters`` 0: the single-adapter products (rank above 16, or K and
     N too wide, take L2). Otherwise the multi-adapter product over ``rows``
     rows, whose SGMV path also needs at most 1024 adapters and at least 16
-    rows per adapter."""
+    rows per adapter (a multi-adapter launch that this leaves on the L2
+    kernel takes the few-row path at most ``FEW_MAX_ROWS`` rows:
+    :func:`batched_path`)."""
     stages = library().repro_sparse_lora_stages(rows, K, N, r, adapters, _DTYPE_CODES[dtype])
     if stages < 0:
         raise ValueError(f"no kernel for K {K}, N {N}, rank {r}, {adapters} adapters, {rows} rows")
@@ -76,7 +110,7 @@ def _check(name, t, device, shape, dtype) -> None:
 
 
 def sparse_lora_launch(y, x, a, b, mask, idx=None, *, scale: float = 1.0, packed: bool = False,
-                       plan=None) -> None:
+                       plan=None) -> str:
     """``y = scale·(x@a)@(b⊙mask)`` row by row, each row with its adapter.
 
     ``x`` (M, K) f32 or bf16 and ``y`` (M, N) of its dtype, not aliasing it.
@@ -86,8 +120,10 @@ def sparse_lora_launch(y, x, a, b, mask, idx=None, *, scale: float = 1.0, packed
     (A, K, r), ``b`` (A, r, N), ``mask`` (A, N), and a row whose index lies
     outside [0, A) comes out as zeros; ``plan``, an (M + A + 2,) int32
     tensor, receives the SGMV kernel's plan (:func:`sgmv_plan`), and a launch
-    on the L2 path refuses it. a, b and mask are f32; r is at most
-    ``MAX_RANK``; everything is contiguous on x's device.
+    on the L2 path or the few-row path refuses it. a, b and mask are f32;
+    r is at most ``MAX_RANK``; everything is contiguous on x's device.
+    Returns the multi-adapter launch's path (:func:`batched_path`), "" for
+    a single adapter.
     """
     if not x.is_cuda or x.dim() != 2 or x.dtype not in _DTYPE_CODES:
         raise ValueError("x must be a (M, K) float32/bfloat16 CUDA tensor")
@@ -116,11 +152,16 @@ def sparse_lora_launch(y, x, a, b, mask, idx=None, *, scale: float = 1.0, packed
         raise ValueError("y must not alias x")
     if M == 0 or N == 0:
         raise ValueError("an empty output has nothing to launch")
+    path, few = _route(M, K, N, r, _DTYPE_CODES[x.dtype], lead[0], x.get_device()) if batched else ("", 0)
+    if few and plan is not None:
+        raise ValueError(f"the few-row path ({M} rows) makes no plan")
+    scratch = torch.empty(few, dtype=torch.float32, device=x.device) if few else None
     err = library().repro_sparse_lora(
         y.data_ptr(), x.data_ptr(), idx.data_ptr() if batched else None, a.data_ptr(), b.data_ptr(),
-        mask.data_ptr(), plan.data_ptr() if plan is not None else None, M, K, N, r,
-        lead[0] if batched else 1, _DTYPE_CODES[x.dtype], int(packed), scale,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        mask.data_ptr(), plan.data_ptr() if plan is not None else None,
+        scratch.data_ptr() if few else None, M, K, N, r, lead[0] if batched else 1, _DTYPE_CODES[x.dtype],
+        int(packed), scale, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"sparse-LoRA launch failed with CUDA error {err}")
+    return path

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def _attn_dims(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -66,6 +66,14 @@ def init_lora(generator: torch.Generator, cfg: ModelConfig, device) -> Dict[str,
     return {"layers": out}
 
 
+def zeros_like_lora(lora) -> Any:
+    return tree_map(torch.zeros_like, lora)
+
+
+def lora_param_count(lora) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(lora))
+
+
 def lora_num_logical_layers(cfg: ModelConfig) -> int:
     if cfg.family in ("encdec", "audio"):
         return cfg.encoder_layers + cfg.num_layers
@@ -81,6 +89,21 @@ def _group_offsets(cfg: ModelConfig) -> Dict[str, tuple]:
     if cfg.family == "hybrid":
         return {"mamba": (0, cfg.num_layers), "shared": (cfg.num_layers, 0)}
     return {"layers": (0, cfg.num_layers)}
+
+
+def lora_layer_index_tree(cfg: ModelConfig, lora) -> Any:
+    """A tree matching ``lora`` whose leaves are int64 tensors of per-slice
+    layer ids: (L, 1, ...) for a stacked group, a scalar for an unstacked one."""
+    out = {}
+    for group, (offset, n) in _group_offsets(cfg).items():
+        idx = torch.arange(offset, offset + n) if n else torch.tensor(offset)
+
+        def mk(leaf, idx=idx, stacked=bool(n)):
+            ids = idx.to(leaf.device)
+            return ids.reshape((len(idx),) + (1,) * (leaf.dim() - 1)) if stacked else ids
+
+        out[group] = tree_map(mk, lora[group])
+    return out
 
 
 def stack_adapter_trees(adapters) -> Any:

@@ -4,7 +4,9 @@
 
 - ``init_params(generator, device)``: frozen base model;
 - ``init_lora(generator, device)``: trainable LoRA tree (see repro_torch.lora);
-- ``forward(params, lora, batch)`` -> (logits (B, S, V), aux_loss);
+- ``forward(params, lora, batch)`` -> (logits (B, S, V), aux_loss); a
+  dense batch may carry ``prefix_embeds`` (B, P, D), prepended to the
+  token embeddings (S then counts P), as in the JAX package;
 - ``forward_probe(params, lora, batch, embed_noise=None)`` -> (logits, aux,
   layer_norms (L, B)), the FibecFed GAL sensitivity probe;
 - ``init_cache(batch, cache_len, device)`` / ``prefill`` / ``decode_step``
@@ -71,16 +73,18 @@ def build_model(cfg: ModelConfig) -> ModelFns:
         )
 
     def forward(params, lora, batch):
-        return _tf.decoder_forward(params, lora["layers"], batch["tokens"], cfg)
+        return _tf.decoder_forward(params, lora["layers"], batch["tokens"], cfg,
+                                   prefix_embeds=batch.get("prefix_embeds"))
 
     def forward_probe(params, lora, batch, embed_noise=None):
         return _tf.decoder_forward(
-            params, lora["layers"], batch["tokens"], cfg,
+            params, lora["layers"], batch["tokens"], cfg, prefix_embeds=batch.get("prefix_embeds"),
             embed_noise=embed_noise, collect_layer_norms=True,
         )
 
     def prefill(params, lora, batch, cache_len):
-        return _tf.decoder_prefill(params, lora["layers"], batch["tokens"], cfg, cache_len)
+        return _tf.decoder_prefill(params, lora["layers"], batch["tokens"], cfg, cache_len,
+                                   prefix_embeds=batch.get("prefix_embeds"))
 
     def decode_step(params, lora, token, cache, position):
         ring = cfg.attention_window is not None and cache["k"].shape[2] <= cfg.attention_window

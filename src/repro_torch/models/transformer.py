@@ -135,13 +135,17 @@ def decoder_layer(h, p, lora, cfg: ModelConfig, positions, *, lora_scale, causal
     x = _norm(h, p, "attn_norm", cfg.norm)
     attn_out, cache = attention_sublayer(x, p, lora, cfg, positions, lora_scale=lora_scale, causal=causal,
                                          cache=cache, cache_position=cache_position, ring=ring)
+    return _residual(h, x, attn_out, p, lora, cfg, lora_scale), cache
+
+
+def _residual(h, x, attn_out, p, lora, cfg: ModelConfig, lora_scale):
+    """A block's residual step after attention: ``h`` plus ``attn_out`` and
+    the MLP, the MLP over the attention's input ``x`` under
+    ``cfg.parallel_residual``, else over the normed ``h + attn_out``."""
     if cfg.parallel_residual:
-        h = h + attn_out + apply_mlp(x, p, cfg.mlp, lora, lora_scale)
-    else:
-        h = h + attn_out
-        x2 = _norm(h, p, "mlp_norm", cfg.norm)
-        h = h + apply_mlp(x2, p, cfg.mlp, lora, lora_scale)
-    return h, cache
+        return h + attn_out + apply_mlp(x, p, cfg.mlp, lora, lora_scale)
+    h = h + attn_out
+    return h + apply_mlp(_norm(h, p, "mlp_norm", cfg.norm), p, cfg.mlp, lora, lora_scale)
 
 
 def _layer_slices(params, lora, i):
@@ -159,19 +163,31 @@ def _lm_logits(h, params, cfg: ModelConfig):
     return soft_cap(h @ w.to(h.dtype), cfg.logit_soft_cap)
 
 
+def _embed_inputs(params, tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings (B, S, D), with ``prefix_embeds`` (B, P, D), cast to
+    the embedding dtype, prepended: (B, P + S, D)."""
+    h = torch.nn.functional.embedding(tokens, params["embed"])
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    return h
+
+
 def decoder_forward(params, lora, tokens: torch.Tensor, cfg: ModelConfig, *,
+                    prefix_embeds: Optional[torch.Tensor] = None,
                     lora_scale: Optional[float] = None,
                     embed_noise: Optional[torch.Tensor] = None,
                     collect_layer_norms: bool = False):
-    """Training/eval forward. Returns ``(logits (B, S, V), aux_loss)``.
+    """Training/eval forward. Returns ``(logits (B, S_total, V), aux_loss)``,
+    S_total the prefix's P (``prefix_embeds`` (B, P, D), prepended to the
+    token embeddings: FedPrompt's soft prompt) plus the tokens' S.
 
-    ``embed_noise`` (B, S, D) is added to the embedding output (the FibecFed
-    GAL-sensitivity probe, paper Eq. 6-9). With ``collect_layer_norms`` the
-    per-layer per-sample Frobenius norms of the hidden states come back as a
-    third output (num_layers, B).
+    ``embed_noise`` (B, S_total, D) is added to the embedding output (the
+    FibecFed GAL-sensitivity probe, paper Eq. 6-9). With
+    ``collect_layer_norms`` the per-layer per-sample Frobenius norms of the
+    hidden states come back as a third output (num_layers, B).
     """
     lora_scale = lora_scale if lora_scale is not None else cfg.lora_alpha / cfg.lora_rank
-    h = torch.nn.functional.embedding(tokens, params["embed"])
+    h = _embed_inputs(params, tokens, prefix_embeds)
     if embed_noise is not None:
         h = h + embed_noise.to(h.dtype)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
@@ -206,17 +222,23 @@ def prompt_attention(q, k, v, cfg: ModelConfig):
 
 
 def decoder_prefill(params, lora, tokens: torch.Tensor, cfg: ModelConfig, cache_len: int, *,
+                    prefix_embeds: Optional[torch.Tensor] = None,
                     lora_scale: Optional[float] = None):
     """Run the prompt and fill a KV cache. Returns ``(last_logits (B, 1, V),
-    cache, S)``, S the prompt length as a Python int.
+    cache, S)``, S the prompt length (``prefix_embeds``' P included, as in
+    :func:`decoder_forward`) as a Python int.
 
     The cache keeps the prompt's last ``min(cache_len, S)`` positions; when
     a sliding window covers the cache (``cache_len <= window``, the ring
-    layout), position p lives at slot ``p % cache_len``. As in the JAX
-    package, each layer adds the attention and MLP outputs in turn.
+    layout), position p lives at slot ``p % cache_len``. Each layer ends in
+    :func:`decoder_layer`'s residual step, ``cfg.parallel_residual``
+    included: the JAX package's prefill always adds the attention and MLP
+    outputs in turn (ROADMAP.md §C, C8), so for a parallel-residual model
+    (stablelm-3b) its prompt would run another network than its decode
+    steps and forward.
     """
     lora_scale = lora_scale if lora_scale is not None else cfg.lora_alpha / cfg.lora_rank
-    h = torch.nn.functional.embedding(tokens, params["embed"])
+    h = _embed_inputs(params, tokens, prefix_embeds)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
     ring = cfg.attention_window is not None and cache_len <= cfg.attention_window
@@ -229,9 +251,8 @@ def decoder_prefill(params, lora, tokens: torch.Tensor, cfg: ModelConfig, cache_
         q = apply_rope(q, positions, theta=cfg.rope_theta, mode=cfg.rope)
         k = apply_rope(k, positions, theta=cfg.rope_theta, mode=cfg.rope)
         o = prompt_attention(q, k, v, cfg).reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
-        h = h + linear(o, {"w": p_slice["wo"]}, lora_slice.get("wo"), lora_scale)
-        x2 = _norm(h, p_slice, "mlp_norm", cfg.norm)
-        h = h + apply_mlp(x2, p_slice, cfg.mlp, lora_slice, lora_scale)
+        attn_out = linear(o, {"w": p_slice["wo"]}, lora_slice.get("wo"), lora_scale)
+        h = _residual(h, x, attn_out, p_slice, lora_slice, cfg, lora_scale)
         for name, t in (("k", k), ("v", v)):
             tail = t[:, S - keep:]
             if keep == cache_len and ring and S % cache_len:

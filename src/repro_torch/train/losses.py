@@ -4,6 +4,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict
 
 import torch
+from torch.func import vmap
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.model_api import ModelFns
@@ -21,6 +22,11 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, text_offset: int = 0) ->
     """Mean next-token CE over the text region starting at ``text_offset``."""
     pred = logits[:, text_offset : text_offset + tokens.shape[1] - 1]
     return torch.mean(_xent(pred, tokens[:, 1:]))
+
+
+def cls_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE of class logits (B, C) against labels (B,)."""
+    return torch.mean(_xent(logits, labels))
 
 
 def label_token_loss(logits: torch.Tensor, label_tokens: torch.Tensor) -> torch.Tensor:
@@ -69,4 +75,30 @@ def make_loss_fn(model: ModelFns) -> Callable:
         return torch.sum(per * m) / denom + aux
 
     loss_fn.masked = masked
+    return loss_fn
+
+
+def per_sample_losses(loss_fn: Callable, params, lora, batch: Dict[str, Any]) -> torch.Tensor:
+    """(B,) per-sample losses from a mean-over-samples batch ``loss_fn``:
+    the loss of each singleton-batch slice, under ``torch.func.vmap``. For
+    every loss here the batch loss is the mean of these values (all samples
+    of a batch share one sequence length)."""
+    return vmap(lambda s: loss_fn(params, lora, s))({k: v[:, None] for k, v in batch.items()})
+
+
+def masked_mean_loss(loss_fn: Callable, params, lora, batch: Dict[str, Any], sample_mask) -> torch.Tensor:
+    """Batch loss restricted to ``sample_mask``'s (B,) valid samples."""
+    per = per_sample_losses(loss_fn, params, lora, batch)
+    m = sample_mask.to(torch.float32)
+    return torch.sum(per * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def make_label_token_loss(model: ModelFns) -> Callable:
+    """``(params, lora, batch) -> scalar``: the label-token CE whatever the
+    batch holds besides ``label_token``."""
+
+    def loss_fn(params, lora, batch: Dict[str, Any]):
+        logits, aux = model.forward(params, lora, batch)
+        return label_token_loss(logits, batch["label_token"]) + aux
+
     return loss_fn

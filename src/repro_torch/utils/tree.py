@@ -122,3 +122,8 @@ def tree_add(a: Any, b: Any) -> Any:
 
 def tree_scale(tree: Any, s) -> Any:
     return tree_map(lambda x: x * s, tree)
+
+
+def tree_l2_norm(tree: Any) -> torch.Tensor:
+    """The f32 L2 norm of all leaves together."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)))

@@ -515,6 +515,22 @@ BATCHED_PATHS = [(M, K, N, r, A) for A in (1, 3, 8, 64) for r in (4, 8, 16, 64)
                  for M, K, N in ((1000, 300, 250), (4096, 896, 896))]
 
 
+def _b7_launches():
+    """B7's launches on both of its counters: the resident and L2 kernels'
+    (``launches``) and the few-row path's (``few_row_launches``)."""
+    fn = ops.batched_sparse_lora_apply
+    return fn.launches, fn.few_row_launches
+
+
+def _b7_counted(before, M, K, N, r, A, dtype):
+    """One call since ``before``, on the counter of the path it took."""
+    few = sparse_lora.batched_path(M, K, N, r, dtype, A) == "few_rows"
+    sgmv = sparse_lora.resident_stages(K, N, r, dtype, adapters=A, rows=M) > 0
+    assert few == (M <= sparse_lora.FEW_MAX_ROWS and not sgmv)
+    launches, few_launches = _b7_launches()
+    assert (launches - before[0], few_launches - before[1]) == ((0, 1) if few else (1, 0))
+
+
 def _batched(gen, M, K, N, r, A, dtype):
     x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
     a = torch.randn(A, K, r, generator=gen, device="cuda")
@@ -540,9 +556,9 @@ def test_batched_sparse_lora_kernel_matches_plain(cuda, M, K, N, r, A, dtype):
     idx[::7] = A  # out of range: zeros
     idx[3::11] = -1
     _sgmv(M, K, N, r, A, dtype)
-    before = ops.batched_sparse_lora_apply.launches
+    before = _b7_launches()
     y = ops.batched_sparse_lora_apply(x, idx, a, b, mask, 1.5)
-    assert ops.batched_sparse_lora_apply.launches == before + 1
+    _b7_counted(before, M, K, N, r, A, dtype)
     torch.cuda.synchronize()
     assert_lora_close(y, ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, 1.5))
     out = (idx < 0) | (idx >= A)
@@ -663,6 +679,118 @@ def test_packed_and_batched_capture_in_a_cuda_graph(cuda, r):
                          [xb, idx, ab, bb, mb], [fresh[0], _segments(cuda, "skewed", M, A)] + list(fresh[1:]))
 
 
+# the few-row path (at most FEW_MAX_ROWS rows, fewer than 16 an adapter):
+# decode widths of the served configs and ragged ones, one row to 64, ranks
+# 1-64, adapters shared by rows, out of range and owning no row
+FEW_CASES = [  # M, K, N, A
+    (8, 896, 896, 8), (8, 2048, 8512, 8), (8, 4096, 2048, 8), (1, 896, 128, 1), (8, 2560, 2560, 4),
+    (8, 1024, 2048, 8), (33, 300, 250, 5), (64, 896, 896, 64), (64, 7, 5, 5), (17, 4096, 13696, 6),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,A", FEW_CASES)
+@pytest.mark.parametrize("r", [1, 8, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_few_row_path_matches_plain(cuda, M, K, N, A, r, dtype):
+    x, a, b, mask = _batched(cuda, M, K, N, r, A, dtype)
+    idx = torch.randint(0, A, (M,), generator=cuda, device="cuda")
+    if M > 2:
+        idx[1] = A  # out of range: zeros
+        idx[2] = -1
+    assert sparse_lora.batched_path(M, K, N, r, dtype, A) == "few_rows"
+    before = _b7_launches()
+    y = ops.batched_sparse_lora_apply(x, idx, a, b, mask, 1.5)
+    _b7_counted(before, M, K, N, r, A, dtype)
+    torch.cuda.synchronize()
+    assert_lora_close(y, ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, 1.5))
+    out = (idx < 0) | (idx >= A)
+    assert bool((y[out] == 0).all())
+    frozen = mask[idx.clamp(0, A - 1)] == 0
+    assert bool((y[frozen & ~out[:, None]] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["skewed", "empty", "all_out", "mixed_out"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_few_row_path_segments_match_plain(cuda, kind, dtype):
+    M, K, N, r, A = 64, 896, 896, 8, 8
+    x, a, b, mask = _batched(cuda, M, K, N, r, A, dtype)
+    idx = _segments(cuda, kind, M, A)
+    y = ops.batched_sparse_lora_apply(x, idx, a, b, mask, 0.5)
+    torch.cuda.synchronize()
+    assert_lora_close(y, ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, 0.5))
+    assert bool((y[(idx < 0) | (idx >= A)] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 8, 16, 64])
+def test_few_row_path_captures_in_a_cuda_graph(cuda, r):
+    """Both launches (the second behind the first with programmatic stream
+    serialization) are captured and replayed on fresh inputs."""
+    M, K, N, A = 8, 2048, 8512, 8
+    xb, ab, bb, mb = _batched(cuda, M, K, N, r, A, torch.bfloat16)
+    fresh = _batched(cuda, M, K, N, r, A, torch.bfloat16)
+    idx = torch.arange(M, device="cuda", dtype=torch.int32)
+    idx[3] = A
+    fresh_idx = torch.randint(0, A, (M,), generator=cuda, device="cuda", dtype=torch.int32)
+    before = _b7_launches()
+    _replays_equal_eager(lambda x_, i_, a_, b_, m_: ops.batched_sparse_lora_apply(x_, i_, a_, b_, m_, 2.0),
+                         [xb, idx, ab, bb, mb], [fresh[0], fresh_idx] + list(fresh[1:]))
+    assert _b7_launches()[1] == before[1] + 3  # warm-up, capture, eager
+
+
+@pytest.mark.cuda
+def test_b7_entry_takes_the_few_row_path_with_its_scratch(cuda):
+    """One C entry picks B7's path: at the few-row widths a launch without
+    the scratch takes the L2 kernel (the kernel timed beside the path), and
+    a scratch is refused where the path takes none."""
+    lib = sparse_lora.library()
+
+    def launch(y, x, idx, a, b, mask, scratch):
+        M, K = x.shape
+        A, r, N = b.shape
+        return lib.repro_sparse_lora(y.data_ptr(), x.data_ptr(), idx.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                     mask.data_ptr(), None, scratch.data_ptr() if scratch is not None else None,
+                                     M, K, N, r, A, 1, 0, 1.5, torch.cuda.current_stream().cuda_stream)
+
+    x, a, b, mask = _batched(cuda, 8, 896, 896, 8, 8, torch.bfloat16)
+    idx = torch.arange(8, dtype=torch.int32, device="cuda")
+    y = torch.empty(8, 896, dtype=torch.bfloat16, device="cuda")
+    assert launch(y, x, idx, a, b, mask, None) == 0
+    torch.cuda.synchronize()
+    assert_lora_close(y, ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, 1.5))
+    scratch = torch.empty(1 << 16, device="cuda")
+    x, a, b, mask = _batched(cuda, 64, 896, 896, 8, 4, torch.bfloat16)
+    idx = torch.arange(4, dtype=torch.int32, device="cuda").repeat_interleave(16)
+    assert sparse_lora.batched_path(64, 896, 896, 8, torch.bfloat16, 4) == "sgmv"
+    assert launch(torch.empty(64, 896, dtype=torch.bfloat16, device="cuda"), x, idx, a, b, mask, scratch) != 0
+
+
+@pytest.mark.cuda
+def test_decode_shapes_take_the_few_row_path(cuda):
+    """A decode step's per-slot LoRA (8 slots, one row each, rank 8) at every
+    served config's widths takes the few-row path; 65 rows do not, nor 64
+    rows on 4 adapters where the SGMV kernel stages them."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.lora import init_lora
+
+    gen = torch.Generator().manual_seed(0)
+    for name, cfg in ARCHS.items():
+        lora = init_lora(gen, cfg, "cpu")["layers"]
+        for target, ab in lora.items():
+            K, N = ab["a"].shape[1], ab["b"].shape[2]
+            for dtype in (torch.float32, torch.bfloat16):
+                assert sparse_lora.batched_path(8, K, N, cfg.lora_rank, dtype, 8) == "few_rows", (name, target)
+                assert sparse_lora.batched_path(65, K, N, cfg.lora_rank, dtype, 8) != "few_rows", (name, target)
+    assert sparse_lora.batched_path(64, 896, 896, 8, torch.bfloat16, 4) == "sgmv"
+    with pytest.raises(ValueError, match="plan"):
+        x, a, b, mask = _batched(cuda, 8, 64, 40, 8, 2, torch.bfloat16)
+        sparse_lora.sparse_lora_launch(torch.empty(8, 40, dtype=torch.bfloat16, device="cuda"), x, a, b, mask,
+                                       torch.zeros(8, dtype=torch.int32, device="cuda"),
+                                       plan=torch.empty(12, dtype=torch.int32, device="cuda"))
+
+
 # the single-adapter product's two kernels: a and b ⊙ mask resident in
 # shared memory (rank up to 16 where they fit) or read from L2 (rank 64)
 LORA_MASKS = {"zero": 0.0, "one": 1.1, "half": 0.5}
@@ -757,6 +885,10 @@ FLASH_CASES = [  # B, S, H, KVH, D, causal, window
     (1, 200, 4, 2, 64, False, 50),
     (3, 1, 2, 1, 64, True, None),
     (1, 70, 6, 3, 64, True, 9000),  # a window longer than the sequence
+    # D 80 (stablelm-3b: 32 heads, MHA), ragged S, with and without the window
+    (1, 300, 4, 4, 80, True, None),
+    (2, 256, 4, 2, 80, True, 100),
+    (1, 200, 4, 4, 80, False, None),
 ]
 
 
@@ -784,6 +916,21 @@ def test_flash_attention_query_slices_match_whole(cuda):
              for r in range(0, 384, 128)]
     torch.cuda.synchronize()
     assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
+@pytest.mark.cuda
+def test_flash_attention_head_dim_80_opts_into_its_shared_memory(cuda):
+    """D 80 stages Q and two K/V stages of 64 rows x 160 bytes (bf16: 51200
+    bytes, over the 48 KB default) and the f32 kernel's tiles (80448)."""
+    assert flash_attention.smem_bytes(80, torch.bfloat16) == (64 + 4 * 64) * 80 * 2
+    assert flash_attention.smem_bytes(80, torch.float32) == (80 * 68 + 80 * 65 + 64 * 80 + 64 * 68) * 4
+    q = torch.randn(1, 1024, 32, 80, generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn(1, 1024, 32, 80, generator=cuda, device="cuda").bfloat16() for _ in range(2))
+    out = ops.flash_attention(q, k, v, causal=True, window=8192)
+    torch.cuda.synchronize()
+    assert_attention_close(out, ref.flash_attention_gqa_ref(q, k, v, causal=True, window=8192), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.smem_bytes(96, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -822,7 +969,7 @@ def test_flash_attention_tensor_core_kernel_matches_plain(cuda, B, S, H, KVH, D,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,KVH,D,causal,window", [FLASH_TC_CASES[i] for i in (0, 1, 2, 6, 11, 13)])
+@pytest.mark.parametrize("B,S,H,KVH,D,causal,window", [FLASH_TC_CASES[i] for i in (0, 1, 2, 6, 14, 16, 10)])
 def test_flash_attention_kernels_agree(cuda, B, S, H, KVH, D, causal, window):
     """The same bf16 inputs through the tensor-core kernel and, cast to
     f32, through the CUDA-core kernel agree within the attention tolerance."""
@@ -1052,9 +1199,9 @@ def test_per_row_linear_takes_b7_and_matches_plain(cuda, slots, per_slot, K, N, 
     b = torch.randn(slots, r, N, generator=cuda, device="cuda") * 0.05
     assert (sparse_lora.resident_stages(K, N, r, dtype, adapters=slots, rows=slots * per_slot) > 0) == \
         (per_slot >= 16)
-    before = ops.batched_sparse_lora_apply.launches
+    before = _b7_launches()
     y = linear(x, {"w": w}, {"a": a, "b": b}, 2.0)
-    assert ops.batched_sparse_lora_apply.launches == before + 1
+    _b7_counted(before, slots * per_slot, K, N, r, slots, dtype)
     base = x @ w
     if dtype == torch.float32:
         plain = base + 2.0 * torch.bmm(torch.bmm(x, a), b)
@@ -1121,13 +1268,13 @@ def test_short_serve_run_launches_b7_and_b8(cuda):
             ab["b"].normal_(0.0, 0.05, generator=cuda)
     eng = ServeEngine(model, params, adapters[0], adapters=adapters[1:], cache_len=96, num_slots=4, max_new_cap=8)
     prompts = torch.randint(0, cfg.vocab_size, (5, 40), generator=cuda, device="cuda").cpu().numpy()
-    fa0, b70 = ops.flash_attention.launches, ops.batched_sparse_lora_apply.launches
+    fa0, b70 = ops.flash_attention.launches, sum(_b7_launches())
     for i in range(5):
         eng.submit(Request(tokens=prompts[i] if i < 3 else prompts[i][:20], adapter_id=i % 3,
                            sampling=SamplingParams(max_new_tokens=4 + i, temperature=0.8 if i == 1 else 0.0)))
     comps = eng.drain()
     assert sorted(c.steps for c in comps) == [4, 5, 6, 7, 8]
-    fa, b7 = ops.flash_attention.launches - fa0, ops.batched_sparse_lora_apply.launches - b70
+    fa, b7 = ops.flash_attention.launches - fa0, sum(_b7_launches()) - b70
     assert fa == cfg.num_layers * eng.stats["prefill_calls"] > 0
     assert b7 == 4 * cfg.num_layers * (eng.stats["prefill_calls"] + eng.stats["decode_steps"]) > 0
 
@@ -1225,9 +1372,9 @@ def test_per_row_linear_at_ssm_widths(cuda, slots, per_slot, K, N):
     w = (torch.randn(K, N, generator=cuda, device="cuda") / math.sqrt(K)).bfloat16()
     a = torch.randn(slots, K, r, generator=cuda, device="cuda") / r
     b = torch.randn(slots, r, N, generator=cuda, device="cuda") * 0.05
-    before = ops.batched_sparse_lora_apply.launches
+    before = _b7_launches()
     y = linear(x, {"w": w}, {"a": a, "b": b}, 2.0)
-    assert ops.batched_sparse_lora_apply.launches == before + 1
+    _b7_counted(before, slots * per_slot, K, N, r, slots, torch.bfloat16)
     idx = torch.arange(slots, device="cuda").repeat_interleave(per_slot)
     ones = torch.ones(slots, N, device="cuda")
     twin = ref.batched_sparse_lora_matmul_ref(x.reshape(-1, K), idx, a, b, ones, 2.0)
