@@ -55,7 +55,10 @@ device and exits non-zero without one, or if any phase fails:
    with b and c shared by the heads and the Mamba2 initializer's decays,
    plus the JAX tests' small shapes and Q, hd and N off the kernel's tiles
    (a in f32 and bf16); B8 at stablelm-3b's head_dim 80 (32 heads: bf16
-   4x1024 under the 8192 window, f32 S 2000 window 1000); each within a
+   4x1024 under the 8192 window, f32 S 2000 window 1000) and at zamba2-7b's
+   head_dim 112 (32 heads: bf16 4x1024 causal, f32 S 2000 window 1000); B9
+   at zamba2-7b's 4x1024 (112 heads sharing b and c, head_dim 64, state 64;
+   f32 and bf16); each within a
    stated tolerance of its plain version; then their times beside their bounds and shares of them and,
    for B8 (bf16 on the tensor cores, f32 on the CUDA cores), its TFLOP/s
    and ``scaled_dot_product_attention``'s time;
@@ -117,14 +120,31 @@ h. the rest of the dense family at full width and depth (bf16, seeded
    controls, B8 against its plain version at every prefill group's shape;
    FedPrompt on qwen2-0.5b (1 round, evaluate, its exact comm bytes, the
    prefixed bf16 forward against its f32 twin); each decode step's time,
-   busy share and B7 share for phases 5d, f and h;
+   busy share and B7 share for phases 5d, f, h and i;
+i. the MoE family and the zamba2 hybrid at full width (bf16, seeded init):
+   granite-moe-3b-a800m (32 layers, 40 experts top-8) trained 2 rounds on
+   the vectorized engine (no vmap fallback) and served with phase 5d's 12
+   requests; llama4-maverick-400b-a17b (128 experts top-1 and a shared
+   expert) cut to one layer and served 4 requests; both held by the MoE
+   oracle (``MOE_LOGIT_REL``: prefill's last logits against the training
+   forward over the group's prompts, each decode step against the same
+   step teacher-forced on a copy of its cache, B7 and B8 plain; phase 5d's
+   two controls; the (token, expert) assignments that differ counted);
+   zamba2-7b (81 layers, 13 applications of the shared block) served with
+   5d's 12 requests (B9 on every Mamba layer's prefill, B8 at D 112 on each
+   application, B7 on both LoRA groups, the few-row path on decode) and
+   held by phase f's oracle; zamba2-7b's width cut to 12 layers trained 1
+   round (B1 over the shared block's unstacked LoRA group); B7, B8 and B9
+   against their plain versions at every served shape;
 8. one JSON line listing the kernels; last, the ok line.
 
-Each path of phases 4-6, 5b-5d, f, g and h included, is driven with the kernels' launch
+Each path of phases 4-6, 5b-5d, f, g, h and i included, is driven with the kernels' launch
 counts set to 0 just before it and read just after. Float32 matmuls run in
 full f32 (TF32 off for matmuls and cuDNN alike).
 """
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -190,6 +210,8 @@ KERNELS = {  # name -> what it ports, its source, and its work per element (B1-B
     # B8 at head_dim 80 (stablelm-3b): its launches are those of the paths
     # whose every attention has D 80
     "flash_attention_d80": dict(replaces="src/repro/kernels/flash_attention.py:78", source=FA_SOURCE),
+    # B8 at head_dim 112 (zamba2-7b's shared attention), likewise
+    "flash_attention_d112": dict(replaces="src/repro/kernels/flash_attention.py:78", source=FA_SOURCE),
     "ssd_chunk_intra": dict(replaces="src/repro/kernels/ssd_chunk.py:40", source=SC_SOURCE),
 }
 # the counts a path reads: name -> (the repro_torch.kernels.ops wrapper, its
@@ -229,8 +251,11 @@ ATTN_REL = 1e-5
 SSD_REL, SSD_CS_REL = 1e-5, 1e-6
 ATTN_HEADS = (14, 2, 64)  # qwen2-0.5b: query heads, KV heads, head_dim
 D80_HEADS = 32  # stablelm-3b: 32 query and KV heads of 80
+D112_HEADS = 32  # zamba2-7b's shared attention: 32 query and KV heads of 112
 ATTN_SLICE = 1024  # query rows per slice of the plain version at S 16384
 SSD_WIDTHS = dict(S=2048, chunk=128, nh=64, hd=64, N=128)  # mamba2-1.3b, one sequence
+# zamba2-7b's Mamba layers at its 4x1024 serve prefill: 112 heads of 64 sharing b and c, state 64
+ZAMBA2_SSD = dict(B=4, S=1024, chunk=128, nh=112, hd=64, N=64)
 SSD_SMALL = ((128, 64, 32), (128, 128, 128), (64, 32, 16))  # the JAX tests' (Q, hd, N)
 # B9 off the main shape: Q, hd and N with and without padding to the kernel's tiles
 SSD_RAGGED = tuple((Q, hd, N) for Q in (8, 24, 64, 128) for hd in (4, 20, 64, 128) for N in (1, 5, 128))
@@ -331,6 +356,40 @@ LOSSLESS_LAYERS, LOSSLESS_ITERS, LOSSLESS_CLIENTS = 4, 8, 4
 DENSE_REQUESTS = ((1024, 16, 0), (1024, 16, 1), (128, 16, 2), (128, 16, 3))
 DENSE_B_SCALE = 0.01
 PROMPT_VECTORS = 16
+# Phase i: the MoE family and the zamba2 hybrid at full width, bf16 from a
+# seeded torch init. granite-moe-3b-a800m (32 layers, 40 experts top-8) is
+# trained as phase h trains qwen3-0.6b and served with phase 5d's requests;
+# llama4-maverick-400b-a17b, cut to LLAMA4_LAYERS layer (one layer's 128
+# experts of 5120 x 8192 are 32.2 GB in bf16; the whole model would be
+# ~800 GB), is served phase h's DENSE_REQUESTS; zamba2-7b (81 layers, 13
+# applications of the shared block) is served phase 5d's requests, and
+# trained at its width cut to ZAMBA2_TRAIN_LAYERS layers (two applications).
+#
+# The MoE oracle. A decode step routes the 8 slots as one group (capacity
+# 2 an expert at granite's 40 experts, top-8), and a prefill group routes
+# each prompt in groups of 512 tokens: an expert choice at a near-tie, or a
+# queue position at the capacity's edge, can move with a ulp of a hidden
+# state, and then a token's FFN takes another expert. So a served logit is
+# held to a forward that runs the same network on the same inputs, batched
+# as the path batched them: (1) each prefill group's last logits against the
+# training forward (no cache) over the group's prompts with its per-slot
+# adapters; (2) each decode step against the same step, teacher-forced on a
+# copy of the same cache, tokens and positions; in both the kernels (B7, B8)
+# replaced by their plain versions on the card. Each at MOE_LOGIT_REL of a
+# row's largest |logit| (phase 5d's measure); a greedy token off the
+# oracle's argmax only at a near-tie. (3) Phase 5d's two controls on the
+# same measures: the LoRA left out and the next adapter, above 1 for every
+# request. The (token, expert) assignments that differ between the served
+# and the oracle run are counted and printed.
+MOE_LOGIT_REL = 0.05
+LLAMA4_LAYERS = 1
+ZAMBA2_TRAIN_LAYERS = 12
+ZAMBA2_CLIENTS = 8
+# zamba2-7b's served logits are held to the f32 training forward as phase
+# f holds mamba2-1.3b's: within SSM_FLOOR_RATIO times the plain bf16
+# forward's own distance from it, measured in the run (81 layers of a
+# random init amplify a ulp as mamba2's 48 do).
+HYBRID_FLOOR_RATIO = SSM_FLOOR_RATIO
 # The two engines' compressed rounds differ by (a) the bf16 forward, which
 # runs as GEMMs of another shape under the vmap over clients and so moves
 # gradients in their last bf16 bits; (b) top-k, which then flips entries
@@ -1365,15 +1424,27 @@ def attention_d80_cases(gen):
             "d80_f32_s2000_window1000": tuple(randn(1, 2000, H, D, **f32) for _ in range(3)) + (True, 1000)}
 
 
-def ssd_inputs(gen, dtype, B=1, S=SSD_WIDTHS["S"], heads=1):
+def attention_d112_cases(gen):
+    """Phase 5c's B8 inputs at zamba2-7b's head_dim 112 (32 heads, MHA): bf16
+    at its 4x1024 serve prefill shape, causal with no window (the shared
+    block has none), and f32 at a ragged S 2000 with window 1000."""
+    H, D = D112_HEADS, 112
+    randn = lambda *s, dtype=torch.bfloat16: torch.randn(s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    f32 = dict(dtype=torch.float32)
+    return {"d112_bf16_4x1024_causal": tuple(randn(4, 1024, H, D) for _ in range(3)) + (True, None),
+            "d112_f32_s2000_window1000": tuple(randn(1, 2000, H, D, **f32) for _ in range(3)) + (True, 1000)}
+
+
+def ssd_inputs(gen, dtype, B=1, S=SSD_WIDTHS["S"], heads=1, widths=SSD_WIDTHS):
     """B9's inputs at mamba2-1.3b's widths, laid out as the model hands them
     to the kernel: groups (batch, chunk, head), b and c shared by the heads,
     x already scaled by dt, decays a = -exp(A_log)·dt with A from 1 to 16
     over the heads and dt log-uniform in [1e-3, 0.1], as the initializer
     draws them. ``heads=1`` expands b and c to every group (the JAX
     kernel's contract); ``heads=nh`` keeps one row a chunk, as the model's
-    prefill launches it."""
-    Q, nh, hd, N = (SSD_WIDTHS[k] for k in ("chunk", "nh", "hd", "N"))
+    prefill launches it. ``widths`` gives the chunk, heads, head_dim and
+    state (zamba2-7b's: ``ZAMBA2_SSD``)."""
+    Q, nh, hd, N = (widths[k] for k in ("chunk", "nh", "hd", "N"))
     nc = S // Q
     A = torch.linspace(1.0, 16.0, nh, device="cuda")
     u = torch.rand(B, S, nh, generator=gen, device="cuda")
@@ -1403,10 +1474,17 @@ def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
     """Phase 5c: B8 and B9 through ``repro_torch.kernels.ops`` against their
     plain versions. Returns the launch counts, the max abs errors and the
     inputs of the timed cases."""
-    errs = {"flash_attention": 0.0, "flash_attention_d80": 0.0, "ssd_chunk_intra": 0.0}
+    errs = {"flash_attention": 0.0, "flash_attention_d80": 0.0, "flash_attention_d112": 0.0, "ssd_chunk_intra": 0.0}
     cases = attention_cases(vec, cfg, gen)
     d80 = attention_d80_cases(gen)
-    ssd = {"f32": ssd_inputs(gen, torch.float32), "bf16": ssd_inputs(gen, torch.bfloat16)}
+    d112 = attention_d112_cases(gen)
+    # name -> (x, a, b, c, heads): mamba2-1.3b's widths with b and c per
+    # group, and zamba2-7b's with its 112 heads sharing them
+    zb, znh = ZAMBA2_SSD["B"], ZAMBA2_SSD["nh"]
+    ssd = {"f32": ssd_inputs(gen, torch.float32) + (1,), "bf16": ssd_inputs(gen, torch.bfloat16) + (1,),
+           "zamba2_f32": ssd_inputs(gen, torch.float32, B=zb, S=ZAMBA2_SSD["S"], heads=znh, widths=ZAMBA2_SSD) + (znh,),
+           "zamba2_bf16": ssd_inputs(gen, torch.bfloat16, B=zb, S=ZAMBA2_SSD["S"], heads=znh, widths=ZAMBA2_SSD)
+           + (znh,)}
 
     def attention(name, q, k, v, causal, window, key):
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -1423,14 +1501,22 @@ def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
     log(f"B8 D 80 shared memory opted into: bf16 {flash_attention.smem_bytes(80, torch.bfloat16)} bytes, "
         f"f32 {flash_attention.smem_bytes(80, torch.float32)} (registers: the build's ptxas lines, "
         f"flash_attention_tc_kernel<80> and flash_attention_kernel<float, 80>)")
+    with Launches(ops) as run112:
+        for name, case in d112.items():
+            attention(name, *case, "flash_attention_d112")
+    if run112.counts != only(flash_attention=len(d112)):
+        raise AssertionError(f"phase 5c's D 112 cases did not launch B8 once each: {run112.counts}")
+    log(f"B8 D 112 shared memory opted into: bf16 {flash_attention.smem_bytes(112, torch.bfloat16)} bytes, "
+        f"f32 {flash_attention.smem_bytes(112, torch.float32)} (registers: the build's ptxas lines, "
+        f"flash_attention_tc_kernel<112> and flash_attention_kernel<float, 112>)")
     with Launches(ops) as run:
         for name, case in cases.items():
             attention(name, *case, "flash_attention")
-        for name, (x, a, b, c) in ssd.items():
-            y = ops.ssd_chunk_intra(x, a, b, c)
-            e = check_ssd(y, ref.ssd_chunk_intra_ref(x, a, b, c), ref.ssd_chunk_intra_ref(x.abs(), a, b.abs(), c.abs()),
-                          a, f"B9 {name}")
-            log(f"B9 mamba2-1.3b {name}: x {tuple(x.shape)}, b/c {tuple(b.shape)}: max abs err {e:.3g}")
+        for name, (x, a, b, c, heads) in ssd.items():
+            y = ops.ssd_chunk_intra(x, a, b, c, heads=heads)
+            e = check_ssd(y, ref.ssd_chunk_intra_ref(x, a, b, c, heads),
+                          ref.ssd_chunk_intra_ref(x.abs(), a, b.abs(), c.abs(), heads), a, f"B9 {name}")
+            log(f"B9 {name}: x {tuple(x.shape)}, b/c {tuple(b.shape)}, heads {heads}: max abs err {e:.3g}")
             errs["ssd_chunk_intra"] = max(errs["ssd_chunk_intra"], e)
         for Q, hd, N in SSD_SMALL + SSD_RAGGED:
             for dtype in (torch.float32, torch.bfloat16):
@@ -1448,7 +1534,8 @@ def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
         raise AssertionError(f"phase 5c did not launch each of its kernels once per case: {run.counts}")
     counts = {name: run.counts[name] for name in ("flash_attention", "ssd_chunk_intra")}
     counts["flash_attention_d80"] = run80.counts["flash_attention"]
-    return counts, errs, {**cases, **d80}, ssd
+    counts["flash_attention_d112"] = run112.counts["flash_attention"]
+    return counts, errs, {**cases, **d80, **d112}, ssd
 
 
 def library_ms(fn, big):
@@ -1477,7 +1564,7 @@ def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     entries = {}
     for name in ("s4096_causal", "s16384_window8192", "f32_s2000_window1000_d128", "d80_bf16_4x1024_window8192",
-                 "d80_f32_s2000_window1000"):
+                 "d80_f32_s2000_window1000", "d112_bf16_4x1024_causal", "d112_f32_s2000_window1000"):
         q, k, v, causal, window = cases[name]
         B, S, H, D = q.shape
         out = torch.empty_like(q)
@@ -1515,27 +1602,52 @@ def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd)
     times = {"flash_attention": dict(entries["s4096_causal"], s16384_window8192=entries["s16384_window8192"],
                                      f32_s2000_window1000_d128=entries["f32_s2000_window1000_d128"]),
              "flash_attention_d80": dict(entries["d80_bf16_4x1024_window8192"],
-                                         f32_s2000_window1000=entries["d80_f32_s2000_window1000"])}
+                                         f32_s2000_window1000=entries["d80_f32_s2000_window1000"]),
+             "flash_attention_d112": dict(entries["d112_bf16_4x1024_causal"],
+                                          f32_s2000_window1000=entries["d112_f32_s2000_window1000"])}
 
     ssd_entries = {}
-    for name, (x, a, b, c) in ssd.items():
+    for name, (x, a, b, c, heads) in ssd.items():
         y = torch.empty(x.shape, dtype=torch.float32, device="cuda")
-        launch = lambda _=0: ssd_chunk.ssd_chunk_launch(y, x, a, b, c)  # noqa: E731
+        launch = lambda _=0: ssd_chunk.ssd_chunk_launch(y, x, a, b, c, heads)  # noqa: E731
         G = x.shape[0]
         ssd_entries[name] = dict(
             ms=cuda_ms(launch), graph_ms=graph_ms(launch, calls=5, replays=3),
-            wrapper_ms=cuda_ms(lambda: ops.ssd_chunk_intra(x, a, b, c)),
-            plain_ms=cuda_ms(lambda: ref.ssd_chunk_intra_ref(x, a, b, c), iters=10, warmup=1),
+            wrapper_ms=cuda_ms(lambda: ops.ssd_chunk_intra(x, a, b, c, heads=heads)),
+            plain_ms=cuda_ms(lambda: ref.ssd_chunk_intra_ref(x, a, b, c, heads), iters=10, warmup=1),
             # no single call; the plain version is the nearest einsum chain
-            library_ms=None, **ssd_bound(x, a, b, 1),
+            library_ms=None, heads=heads, state=b.shape[-1], **ssd_bound(x, a, b, heads),
         )
         e = ssd_entries[name]
         e["bound_share"] = e["bound_ms"] / e["graph_ms"]
-        log(f"B9 {name} ({G} groups): device {e['graph_ms']:.4f} ms, {e['bound_share']:.1%} of its bound "
-            f"({e['bound_ms']:.4f} ms, {e['bound_by']}); launcher {e['ms']:.4f}")
-    times["ssd_chunk_intra"] = dict(ssd_entries["f32"], bf16=ssd_entries["bf16"])
+        log(f"B9 {name} ({G} groups, heads {heads}, state {b.shape[-1]}): device {e['graph_ms']:.4f} ms, "
+            f"{e['bound_share']:.1%} of its bound ({e['bound_ms']:.4f} ms, {e['bound_by']}); launcher {e['ms']:.4f}, "
+            f"plain {e['plain_ms']:.4f}")
+    times["ssd_chunk_intra"] = dict(ssd_entries["f32"], bf16=ssd_entries["bf16"], zamba2_f32=ssd_entries["zamba2_f32"],
+                                    zamba2_bf16=ssd_entries["zamba2_bf16"])
     log("B8/B9 times:", json.dumps(times))
     return times
+
+
+def lora_left_out(lora):
+    """A LoRA tree with every group empty: the base model alone."""
+    return {group: {} for group in lora}
+
+
+def slot_leaves(lora_t):
+    """The per-slot LoRA factors of the first layer of every target of a
+    gathered tree: name -> (a (B, d_in, r), b (B, r, d_out)). A stacked
+    group's leaves are (L, B, ...), an unstacked one's (the hybrid's shared
+    block) (B, ...); targets outside the "layers" group are named
+    "group/target"."""
+    out = {}
+    for group, targets in lora_t.items():
+        for t, ab in targets.items():
+            a, b = ab["a"], ab["b"]
+            if a.dim() == 4:
+                a, b = a[0], b[0]
+            out[t if group == "layers" else f"{group}/{t}"] = (a, b)
+    return out
 
 
 def serve_requests(Request, SamplingParams, cfg, eos=None, spec=SERVE_REQUESTS):
@@ -1623,15 +1735,15 @@ def serve_oracle(model, params, adapters, reqs, comps, logits, rel, f32=False):
 
         def at(p, lora, S=S, c=c, seq=seq):
             with torch.no_grad():
-                full, _ = model.forward(p, {"layers": lora}, {"tokens": seq[None]})
+                full, _ = model.forward(p, lora, {"tokens": seq[None]})
             return full[0, S - 1:S - 1 + c.steps].float()
 
         got = torch.stack([logits[(c.request_id, j)] for j in range(c.steps)]).float()
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"serve request {c.request_id}: non-finite logits")
-        own, nxt = adapters[r.adapter_id]["layers"], adapters[(r.adapter_id + 1) % len(adapters)]["layers"]
-        rows.append((r, c, got, at(ref_params, own), at(params, own) if f32 else None, at(ref_params, {}),
-                     at(ref_params, nxt)))
+        own, nxt = adapters[r.adapter_id], adapters[(r.adapter_id + 1) % len(adapters)]
+        rows.append((r, c, got, at(ref_params, own), at(params, own) if f32 else None,
+                     at(ref_params, lora_left_out(own)), at(ref_params, nxt)))
     del ref_params
 
     def err(x, want):
@@ -1719,8 +1831,8 @@ def b7_serve_entry(ops, ref, sparse_lora, lora_t, target, M, A, per, scale, err,
     and the row index once, each adapter's a, b and mask once). Where the
     launch takes the few-row path, the kernel it took before (``old_*``:
     BGMV, or SGMV where it fits) is timed on the same inputs beside it."""
-    a = lora_t["layers"][target]["a"][0][:A].contiguous()
-    b = lora_t["layers"][target]["b"][0][:A].contiguous()
+    a, b = slot_leaves(lora_t)[target]
+    a, b = a[:A].contiguous(), b[:A].contiguous()
     K, N, r = a.shape[1], b.shape[-1], a.shape[-1]
     ones = torch.ones(A, N, device="cuda")
     x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
@@ -1743,12 +1855,14 @@ def b7_serve_entry(ops, ref, sparse_lora, lora_t, target, M, A, per, scale, err,
 
 
 def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, cache_len, launches, oracle,
-                b7_target, label=""):
-    """Serving at full width, shared by phases 5d and f: ``ServeEngine`` on
-    ``adapters[0]`` with the others as tenants, ``SERVE_SLOTS`` slots. The
+                b7_target, label="", recorder=None):
+    """Serving at full width, shared by phases 5d, f, h and i: ``ServeEngine``
+    on ``adapters[0]`` with the others as tenants, ``SERVE_SLOTS`` slots. The
     main run serves ``make_reqs()``, counts the launches (they must equal
     ``launches(stats)``) and records the served logits, which
-    ``serve_oracle(**oracle)`` holds to the training forward. A run with
+    ``serve_oracle(**oracle)`` holds to the training forward (or, with a
+    ``recorder`` that checks the path as it runs, ``oracle(reqs, comps,
+    record)`` sums up what it recorded: phase i's MoE oracle). A run with
     telemetry must give the same tokens bit for bit; its spans time the
     path, and a decode step and the first prefill group are profiled. Then
     B7 against its plain version on the served adapters of every LoRA
@@ -1769,7 +1883,7 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
     reqs = make_reqs()
     kw = dict(adapters=adapters[1:], cache_len=cache_len, num_slots=SERVE_SLOTS,
               max_new_cap=max(r.sampling.max_new_tokens for r in reqs))
-    make, logits, groups = recording_engine(ServeEngine, model)
+    make, logits, groups = (recorder or recording_engine)(ServeEngine, model)
     with Launches(ops) as run:
         main = make(params, adapters[0], **kw)
         comps = serve_all(main, reqs)
@@ -1780,7 +1894,8 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
         raise AssertionError(f"the {label}serve run did not go through its kernels as its path says: "
                              f"{run.counts} != {want}")
     with Launches(ops) as oracle_run:
-        o = serve_oracle(model, params, adapters, reqs, comps, logits, **oracle)
+        o = (oracle(reqs, comps, logits) if callable(oracle)
+             else serve_oracle(model, params, adapters, reqs, comps, logits, **oracle))
     if any(oracle_run.counts.values()):
         raise AssertionError(f"the oracle forward launched a kernel: {oracle_run.counts}")
     del logits
@@ -1831,8 +1946,8 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
     errs, paths = {}, {}
     for g, S in sorted(set(groups)) + [(SERVE_SLOTS, 1)]:
         idx = torch.arange(g, dtype=torch.int32, device="cuda").repeat_interleave(S)
-        for t, ab in lora_t["layers"].items():
-            a, b = ab["a"][0][:g].contiguous(), ab["b"][0][:g].contiguous()
+        for t, (a, b) in slot_leaves(lora_t).items():
+            a, b = a[:g].contiguous(), b[:g].contiguous()
             paths[f"{t} {g}x{S}"] = sparse_lora.batched_path(g * S, a.shape[1], b.shape[-1], cfg.lora_rank,
                                                              torch.bfloat16, g)
             ones = torch.ones(g, b.shape[-1], device="cuda")
@@ -1998,8 +2113,6 @@ def phase_ssm(ops, ref, sparse_lora, ssd_chunk, make_runner, data_mod, FibecFedC
     from it (``SSM_FLOOR_RATIO``). Then B9 against its plain version at
     every prefill group's shape, and timed at the 4x1024 group's. Returns
     the launch counts, the kernels' largest errors and the times."""
-    import warnings
-
     from repro_torch.models.ssm import ssm_dims
     from repro_torch.serve import Request, SamplingParams
     from repro_torch.utils.tree import tree_clone
@@ -2008,41 +2121,10 @@ def phase_ssm(ops, ref, sparse_lora, ssd_chunk, make_runner, data_mod, FibecFedC
     cfg = ARCHS["mamba2-1.3b"]
     model = build_model(cfg)
     fl = FibecFedConfig(num_devices=SSM_CLIENTS, devices_per_round=SSM_CLIENTS, rounds=SSM_ROUNDS, batch_size=4)
-    clients = keyword_world(cfg.vocab_size, data_mod, fl)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    # a vmap without a batching rule for an op would fall back to a loop
-    # over the clients, and warn
-    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
-    with Launches(ops) as train_run, warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        vec = make_runner("fibecfed", model, make_loss_fn(model), fl, clients, optimizer="adamw",
-                          fused_optimizer=True, seed=0)
-        if vec.engine != "vectorized" or fl.gal_fraction is None or fl.sparse_ratio is None:
-            raise AssertionError("phase f trains on the default engine with pinned fractions")
-        _, init_s = timed(vec.init_phase)
-        log(f"mamba2-1.3b vectorized fibecfed init_phase: {init_s:.2f} s; "
-            f"gal layers {np.flatnonzero(vec.gal_layers).tolist()}")
-        steps, round_s = 0, []
-        for t in range(fl.rounds):
-            stats, secs = timed(lambda: vec.run_round(t))
-            steps += int(stats["padded_steps"])
-            round_s.append(secs)
-            log(f"mamba2-1.3b vectorized fibecfed round {t}: {secs:.2f} s, {json.dumps(stats)}")
-            check_round(vec, cfg, stats, t)
-    torch._C._functorch._set_vmap_fallback_warning_enabled(False)
-    fallbacks = [str(w.message) for w in caught if "batching rule" in str(w.message)]
-    train_peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"mamba2-1.3b training: launches {train_run.counts} over {steps} padded steps; peak device memory "
-        f"{train_peak:.2f} GiB; vmap fallbacks {len(fallbacks)} {fallbacks[:2]}")
-    if train_run.counts != only(masked_adamw_update=steps) or steps == 0:
-        raise AssertionError("the mamba2 vectorized run did not launch the AdamW kernel once per step")
-    if fallbacks:
-        raise AssertionError("the stacked engine fell back to a loop over the clients")
+    vec, train = train_vectorized("mamba2-1.3b", cfg, model, make_runner, make_loss_fn, fl,
+                                  keyword_world(cfg.vocab_size, data_mod, fl), ops)
     params = vec.params
     adapters = [tree_clone(vec.global_lora)] + [tree_clone(vec.clients[i].lora) for i in range(3)]
-    train = dict(init_s=init_s, round_s=round_s, padded_steps=steps, peak_gib=train_peak,
-                 gal_layers=int(np.sum(vec.gal_layers)))
     del vec
     torch.cuda.empty_cache()
 
@@ -2090,7 +2172,7 @@ def phase_ssm(ops, ref, sparse_lora, ssd_chunk, make_runner, data_mod, FibecFedC
     log(f"phase f: {time.perf_counter() - t0:.1f} s")
     counts = {n: s["counts"][n] for n in ("ssd_chunk_intra", "batched_sparse_lora_apply",
                                           "batched_sparse_lora_few_rows")}
-    counts["masked_adamw_update_stacked"] = train_run.counts["masked_adamw_update"]
+    counts["masked_adamw_update_stacked"] = train["padded_steps"]
     return counts, {"ssd_chunk_intra": max(errs.values()), "batched_sparse_lora_apply": s["b7_err"],
                     "batched_sparse_lora_few_rows": s["few_err"]}, times
 
@@ -2102,8 +2184,9 @@ def dense_adapters(model, gen):
     adapters = []
     for _ in range(4):
         lora = model.init_lora(gen, "cuda")
-        for ab in lora["layers"].values():
-            ab["b"].normal_(0.0, DENSE_B_SCALE, generator=gen)
+        for targets in lora.values():
+            for ab in targets.values():
+                ab["b"].normal_(0.0, DENSE_B_SCALE, generator=gen)
         adapters.append(lora)
     return adapters
 
@@ -2157,32 +2240,12 @@ def phase_dense_family(ops, ref, sparse_lora, flash_attention, make_runner, data
     cfg = ARCHS["qwen3-0.6b"]
     model = build_model(cfg)
     fl = FibecFedConfig(num_devices=8, devices_per_round=4, rounds=2, batch_size=4)
-    clients = keyword_world(cfg.vocab_size, data_mod, fl)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    with Launches(ops) as train_run:
-        vec = make_runner("fibecfed", model, make_loss_fn(model), fl, clients, optimizer="adamw",
-                          fused_optimizer=True, seed=0)
-        if vec.engine != "vectorized":
-            raise AssertionError(f"qwen3: the default engine is {vec.engine!r}")
-        _, init_s = timed(vec.init_phase)
-        steps, round_s = 0, []
-        for t in range(fl.rounds):
-            stats, secs = timed(lambda: vec.run_round(t))
-            steps += int(stats["padded_steps"])
-            round_s.append(secs)
-            log(f"qwen3-0.6b vectorized fibecfed round {t}: {secs:.2f} s, {json.dumps(stats)}")
-            check_round(vec, cfg, stats, t)
-    train_peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"qwen3-0.6b vectorized fibecfed: init_phase {init_s:.2f} s, gal layers "
-        f"{np.flatnonzero(vec.gal_layers).tolist()}; peak {train_peak:.2f} GiB; launches {train_run.counts} over "
-        f"{steps} padded steps")
-    if train_run.counts != only(masked_adamw_update=steps) or steps == 0:
-        raise AssertionError("the qwen3 vectorized run did not launch the AdamW kernel once per step")
-    counts["masked_adamw_update_stacked"] += steps
+    vec, train = train_vectorized("qwen3-0.6b", cfg, model, make_runner, make_loss_fn, fl,
+                                  keyword_world(cfg.vocab_size, data_mod, fl), ops)
+    counts["masked_adamw_update_stacked"] += train["padded_steps"]
     adapters = [tree_clone(vec.global_lora)] + [tree_clone(vec.clients[i].lora) for i in range(3)]
     params = vec.params
-    times["qwen3-0.6b"] = dict(train=dict(init_s=init_s, round_s=round_s, padded_steps=steps, peak_gib=train_peak))
+    times["qwen3-0.6b"] = dict(train=train)
     del vec
     torch.cuda.empty_cache()
     s = serve_phase(ops, ref, sparse_lora, model, params, adapters,
@@ -2264,6 +2327,399 @@ def phase_dense_family(ops, ref, sparse_lora, flash_attention, make_runner, data
     return counts, errs, times
 
 
+@contextlib.contextmanager
+def plain_kernels(ops, ref):
+    """B7 and B8 swapped for their plain versions on the card for the
+    duration: the model reaches both through ``repro_torch.kernels.ops``'s
+    attributes. The plain versions launch no kernel and count nothing."""
+    saved = ops.batched_sparse_lora_apply, ops.flash_attention
+
+    def b7(x, idx, a, b, mask, scale=1.0):
+        K, N = x.shape[-1], b.shape[-1]
+        y = ref.batched_sparse_lora_matmul_ref(x.reshape(-1, K), idx.reshape(-1), a, b, mask, scale)
+        return y.reshape(*x.shape[:-1], N)
+
+    def b8(q, k, v, *, causal=True, window=None):
+        return ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
+
+    ops.batched_sparse_lora_apply, ops.flash_attention = b7, b8
+    try:
+        yield
+    finally:
+        ops.batched_sparse_lora_apply, ops.flash_attention = saved
+
+
+@contextlib.contextmanager
+def routing_log(moe_mod):
+    """Every MoE routing's kept (token, expert) assignments, (..., G, E)
+    bools, in call order, while the block runs."""
+    calls, route = [], moe_mod.route
+
+    def recorded(*args, **kw):
+        out = route(*args, **kw)
+        calls.append(out[0].sum(dim=-1) > 0)
+        return out
+
+    moe_mod.route = recorded
+    try:
+        yield calls
+    finally:
+        moe_mod.route = route
+
+
+def moe_recorder(ops, ref, moe_mod, rel):
+    """Phase i's MoE oracle as a ``serve_phase`` recorder: a ServeEngine
+    whose model checks each prefill group and each decode step as it serves
+    them (the MoE oracle at ``MOE_LOGIT_REL``): prefill's last logits against
+    the training forward over the group's prompts with the group's per-slot
+    adapters, a decode step against the same step teacher-forced on a copy
+    of its cache, both with B7 and B8 plain (``plain_kernels``); each also
+    with the LoRA left out and with the next adapter (the controls). It
+    counts the (token, expert) assignments that differ between the served
+    and the oracle run. Returns ``(make, record, groups)``; ``record`` goes
+    to :func:`moe_oracle`."""
+
+    def make_recorder(ServeEngine, model):
+        from repro_torch.lora import gather_adapter_slots
+        from repro_torch.utils.tree import tree_clone
+
+        record = dict(rows=[], assign={"prefill": [0, 0], "decode": [0, 0]})
+        groups, holder = [], {}
+
+        def err(x, want):
+            return float((x.float() - want.float()).abs().max() / want.float().abs().max())
+
+        def note(kind, req, got, want, off, nxt):
+            got, want = got.float(), want.float()
+            top2 = want.topk(2).values
+            tol = rel * float(want.abs().max())
+            record["rows"].append(dict(
+                kind=kind, request=req.request_id, greedy=req.sampling.temperature == 0.0, err=err(got, want),
+                off=err(got, off), next=err(got, nxt), flip=int(got.argmax()) != int(want.argmax()),
+                gap=float(want.max() - want[got.argmax()]), tie=float(top2[0] - top2[1]) <= tol, tol=tol))
+
+        def count(kind, served, plain, rows=None):
+            if len(served) != len(plain):
+                raise AssertionError(f"MoE oracle: {len(served)} served routings against {len(plain)}")
+            for a, b in zip(served, plain):
+                if rows is not None:  # a decode step routes its B rows as one group: (1, 1, B, E)
+                    a, b = a[..., rows, :], b[..., rows, :]
+                record["assign"][kind][0] += int((a != b).sum())
+                record["assign"][kind][1] += int(a.sum())
+
+        def next_lora(eng, ids):
+            return gather_adapter_slots(model.cfg, eng._stacked, (ids + 1) % len(eng.adapters))
+
+        def prefill(params, lora, batch, cache_len):
+            eng, reqs = holder["engine"], holder["group"]
+            with routing_log(moe_mod) as served:
+                out, cache, S = model.prefill(params, lora, batch, cache_len)
+            ids = torch.tensor([r.adapter_id for r in reqs], dtype=torch.int64, device=out.device)
+            with torch.no_grad(), plain_kernels(ops, ref):
+                with routing_log(moe_mod) as plain:
+                    want = model.forward(params, lora, batch)[0][:, -1]
+                off = model.forward(params, lora_left_out(lora), batch)[0][:, -1]
+                nxt = model.forward(params, next_lora(eng, ids), batch)[0][:, -1]
+            count("prefill", served, plain)
+            for row, r in enumerate(reqs):
+                note("prefill", r, out[row, -1], want[row], off[row], nxt[row])
+            return out, cache, S
+
+        def decode_step(params, lora, token, cache, position):
+            eng = holder["engine"]
+            busy = sorted(eng.scheduler._busy.items())
+            rows = torch.tensor([slot for slot, _ in busy], dtype=torch.int64, device=token.device)
+            with torch.no_grad(), plain_kernels(ops, ref):
+                with routing_log(moe_mod) as plain:
+                    want = model.decode_step(params, lora, token, tree_clone(cache), position)[0][:, -1]
+                off = model.decode_step(params, lora_left_out(lora), token, tree_clone(cache), position)[0][:, -1]
+                nxt = model.decode_step(params, next_lora(eng, eng._state["aidx"]), token, tree_clone(cache),
+                                        position)[0][:, -1]
+            with routing_log(moe_mod) as served:
+                out, cache = model.decode_step(params, lora, token, cache, position)
+            count("decode", served, plain, rows)
+            for slot, r in busy:
+                note("decode", r, out[slot, -1], want[slot], off[slot], nxt[slot])
+            return out, cache
+
+        class Recording(ServeEngine):
+            def _admit_group_body(self, slots, reqs):
+                holder["group"] = reqs
+                groups.append((len(reqs), len(reqs[0].tokens)))
+                super()._admit_group_body(slots, reqs)
+
+        def make(*args, **kw):
+            eng = Recording(dataclasses.replace(model, prefill=prefill, decode_step=decode_step), *args, **kw)
+            holder["engine"] = eng
+            return eng
+
+        return make, record, groups
+
+    return make_recorder
+
+
+def moe_oracle(rel):
+    """Sums up a :func:`moe_recorder` run in ``serve_oracle``'s keys (errors
+    and controls as shares of the tolerance, the prefill rows apart from
+    the decode steps), with the differing (token, expert) assignments;
+    raises where a row is beyond the tolerance, a greedy token is off the
+    oracle's argmax beyond a near-tie, or a control reads at most 1."""
+
+    def summary(reqs, comps, record):
+        rows = record["rows"]
+        if not rows or not all(math.isfinite(r["err"]) for r in rows):
+            raise AssertionError("MoE oracle: no rows, or a non-finite logit")
+        out = dict(positions=len(rows), worst=max(r["err"] for r in rows) / rel, tolerance=rel,
+                   worst_prefill=max((r["err"] for r in rows if r["kind"] == "prefill"), default=0.0) / rel,
+                   worst_decode=max((r["err"] for r in rows if r["kind"] == "decode"), default=0.0) / rel,
+                   flips=sum(r["flip"] for r in rows if r["greedy"]), ties=sum(r["tie"] for r in rows if r["greedy"]),
+                   assignments={k: dict(differ=d, kept=n) for k, (d, n) in record["assign"].items()})
+        if out["worst"] > 1.0:
+            raise AssertionError(f"MoE oracle: logits {out['worst']:.3f}x the tolerance from the oracle run")
+        if any(r["greedy"] and r["flip"] and r["gap"] > r["tol"] for r in rows):
+            raise AssertionError("MoE oracle: a greedy token is no near-tie of the oracle's")
+        per_req = {}
+        for r in rows:
+            e = per_req.setdefault(r["request"], [0.0, 0.0])
+            e[0], e[1] = max(e[0], r["off"] / rel), max(e[1], r["next"] / rel)
+        out.update(control_lora_off=min(v[0] for v in per_req.values()),
+                   control_next_adapter=min(v[1] for v in per_req.values()), requests=len(per_req))
+        if len(per_req) != len(reqs):
+            raise AssertionError(f"MoE oracle: {len(per_req)} requests checked of {len(reqs)}")
+        return out
+
+    return summary
+
+
+def train_vectorized(name, cfg, model, make_runner, make_loss_fn, fl, clients, ops):
+    """The default vectorized FibecFed/AdamW (fused: stacked B1) for
+    ``fl.rounds`` rounds: the engine's vmap over the cohort must find a
+    batching rule for every op (a fallback to a loop over the clients
+    warns), each step launch B1 once and each round move exactly the
+    recomputed comm bytes. Returns the runner and its times."""
+    import warnings
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with Launches(ops) as run, warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            vec = make_runner("fibecfed", model, make_loss_fn(model), fl, clients, optimizer="adamw",
+                              fused_optimizer=True, seed=0)
+            if vec.engine != "vectorized" or fl.gal_fraction is None or fl.sparse_ratio is None:
+                raise AssertionError(f"{name} trains on the default engine with pinned fractions")
+            _, init_s = timed(vec.init_phase)
+            steps, round_s = 0, []
+            for t in range(fl.rounds):
+                stats, secs = timed(lambda: vec.run_round(t))
+                steps += int(stats["padded_steps"])
+                round_s.append(secs)
+                log(f"{name} vectorized fibecfed round {t}: {secs:.2f} s, {json.dumps(stats)}")
+                check_round(vec, cfg, stats, t)
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    fallbacks = [str(w.message) for w in caught if "batching rule" in str(w.message)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{name} vectorized fibecfed ({fl.num_devices} clients, cohort {fl.devices_per_round}): init_phase "
+        f"{init_s:.2f} s, gal layers {np.flatnonzero(vec.gal_layers).tolist()} of {len(vec.gal_layers)}; peak "
+        f"{peak:.2f} GiB; launches {run.counts} over {steps} padded steps; vmap fallbacks {len(fallbacks)} "
+        f"{fallbacks[:2]}")
+    if run.counts != only(masked_adamw_update=steps) or steps == 0:
+        raise AssertionError(f"the {name} vectorized run did not launch the AdamW kernel once per step")
+    if fallbacks:
+        raise AssertionError(f"the {name} stacked engine fell back to a loop over the clients")
+    return vec, dict(init_s=init_s, round_s=round_s, padded_steps=steps, peak_gib=peak,
+                     gal_layers=np.flatnonzero(vec.gal_layers).tolist(), clients=fl.num_devices,
+                     cohort=fl.devices_per_round, layers=cfg.num_layers)
+
+
+def phase_moe_hybrid(ops, ref, sparse_lora, flash_attention, ssd_chunk, make_runner, data_mod, FibecFedConfig,
+                     ARCHS, build_model, make_loss_fn):
+    """Phase i: the MoE family and the zamba2 hybrid at full width, bf16 from
+    a seeded torch init.
+    (i) granite-moe-3b-a800m (32 layers, 40 experts top-8, 24/8 heads of 64):
+    the default vectorized FibecFed/AdamW for 2 rounds on phase 4-5's keyword
+    task (8 clients, cohort 4, batch 4), then ``serve_phase`` with phase 5d's
+    12 requests (one EOS stop, one sampled) on its global LoRA and three
+    clients' adapters: B8 (D 64) on prefill, B7 on the attention LoRA
+    (SGMV on prefill, the few-row path on decode), held by the MoE oracle.
+    (ii) llama4-maverick-400b-a17b at full width, cut to LLAMA4_LAYERS
+    layer (128 experts top-1 and a shared expert): 4 requests over 4
+    seeded adapters, B8 at D 128, the MoE oracle.
+    (iii) zamba2-7b at full width and depth: phase 5d's 12 requests over 4
+    seeded adapters: B9 (112 heads sharing b and c, state 64) on every
+    Mamba layer's prefill scan, B8 at D 112 on each application of the
+    shared block, B7 on in_proj/out_proj and the shared block's attention
+    (the few-row path on decode); phase f's oracle against the f32 forward.
+    (iv) zamba2-7b's width cut to ZAMBA2_TRAIN_LAYERS layers (two
+    applications of the shared block): the vectorized FibecFed/AdamW, cohort
+    4 of ZAMBA2_CLIENTS clients, 1 round: B1 over a tree with the shared
+    block's unstacked group.
+    B7, B8 and B9 are held against their plain versions at every shape the
+    served paths gave them. Returns the launch counts, the largest errors
+    and the times."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.ssm import ssm_dims
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+    from repro_torch.utils.tree import tree_clone, tree_leaves
+
+    free_memory()
+    t_phase = time.perf_counter()
+    counts = dict.fromkeys(("masked_adamw_update_stacked", "flash_attention", "flash_attention_d112",
+                            "batched_sparse_lora_apply", "batched_sparse_lora_few_rows", "ssd_chunk_intra"), 0)
+    errs = dict.fromkeys(("flash_attention", "flash_attention_d112", "batched_sparse_lora_apply",
+                          "batched_sparse_lora_few_rows", "ssd_chunk_intra"), 0.0)
+    times = {}
+
+    def served(name, s, b8_key, b8_errs):
+        for k in ("batched_sparse_lora_apply", "batched_sparse_lora_few_rows"):
+            counts[k] += s["counts"][k]
+        counts[b8_key] += s["counts"]["flash_attention"]
+        errs[b8_key] = max(errs[b8_key], max(b8_errs.values()))
+        errs["batched_sparse_lora_apply"] = max(errs["batched_sparse_lora_apply"], s["b7_err"])
+        errs["batched_sparse_lora_few_rows"] = max(errs["batched_sparse_lora_few_rows"], s["few_err"])
+        prof = s["times"]["profiles"]["decode"]
+        log(f"{name}: decode step {s['times']['decode_step_ms']:.2f} ms, busy {prof['busy_share']:.1%}, B7 "
+            f"{prof['b7_share']:.1%} of its {prof['kernel_ms']:.2f} ms of kernels; useful tokens/s "
+            f"{s['times']['useful_tokens_per_s']:.1f}; TTFT mean {s['times']['ttft_mean_ms']:.1f} ms; serve peak "
+            f"{s['times']['serve_peak_gib']:.2f} GiB; B7 path by shape {json.dumps(s['paths'])}")
+
+    def moe_served(name, o):
+        log_oracle(f"{name} ", o, f"the same network with B7/B8 plain, batched as served, within {MOE_LOGIT_REL}")
+        a = o["assignments"]
+        log(f"{name} (token, expert) assignments differing from the oracle run: prefill {a['prefill']['differ']} "
+            f"of {a['prefill']['kept']} kept, decode {a['decode']['differ']} of {a['decode']['kept']}")
+
+    moe_kw = dict(oracle=moe_oracle(MOE_LOGIT_REL), recorder=moe_recorder(ops, ref, moe_mod, MOE_LOGIT_REL))
+
+    # (i) granite-moe-3b-a800m: train, then serve
+    t0 = time.perf_counter()
+    cfg = ARCHS["granite-moe-3b-a800m"]
+    model = build_model(cfg)
+    fl = FibecFedConfig(num_devices=8, devices_per_round=4, rounds=2, batch_size=4)
+    vec, train = train_vectorized("granite-moe-3b-a800m", cfg, model, make_runner, make_loss_fn, fl,
+                                  keyword_world(cfg.vocab_size, data_mod, fl), ops)
+    counts["masked_adamw_update_stacked"] += train["padded_steps"]
+    params = vec.params
+    adapters = [tree_clone(vec.global_lora)] + [tree_clone(vec.clients[i].lora) for i in range(3)]
+    del vec
+    free_memory()
+    probe = serve_all(ServeEngine(model, params, adapters[0], adapters=adapters[1:], cache_len=SERVE_CACHE,
+                                  num_slots=SERVE_SLOTS, max_new_cap=max(b for _, b, _ in SERVE_REQUESTS)),
+                      serve_requests(Request, SamplingParams, cfg))
+    free = probe[SERVE_EOS].tokens
+    firsts = [j for j in range(len(free)) if free[j] not in free[:j]]
+    k = next((j for j in firsts if j >= 3), firsts[-1])
+    eos = int(free[k])
+    s = serve_phase(ops, ref, sparse_lora, model, params, adapters,
+                    lambda: serve_requests(Request, SamplingParams, cfg, eos), cache_len=SERVE_CACHE,
+                    launches=dense_serve_launches(cfg.num_layers), b7_target="wq", label="granite ", **moe_kw)
+    for (S, budget, _), c in zip(SERVE_REQUESTS, s["comps"]):
+        if c.prompt_len != S or (c.finish_reason == "length" and c.steps != min(budget, SERVE_CACHE - S)):
+            raise AssertionError(f"granite serve request {c.request_id}: {c.steps} tokens for budget {budget}")
+    ce = s["comps"][SERVE_EOS]
+    if ce.finish_reason != "eos" or not np.array_equal(ce.tokens, free[:k + 1]):
+        raise AssertionError(f"granite: the EOS request did not stop at its first {eos} ({ce.tokens} vs {free[:k + 1]})")
+    moe_served("granite", s["times"]["oracle"])
+    b8_errs, b8 = b8_serve_checks(ops, ref, flash_attention, cfg, s["groups"], s["gen"], "granite ")
+    served("granite-moe-3b-a800m", s, "flash_attention", b8_errs)
+    times["granite-moe-3b-a800m"] = dict(s["times"], train=train, b8_prefill=b8, seconds=time.perf_counter() - t0)
+    del params, adapters, s, model, probe
+    free_memory()
+
+    # (ii) llama4-maverick-400b-a17b, full width, depth cut: serving only
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(ARCHS["llama4-maverick-400b-a17b"], num_layers=LLAMA4_LAYERS)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    params = model.init_params(gen, "cuda")
+    adapters = dense_adapters(model, gen)
+    log(f"llama4 ({cfg.num_layers} layer): {sum(x.numel() for x in tree_leaves(params)) / 1e9:.2f} B params, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    s = serve_phase(ops, ref, sparse_lora, model, params, adapters,
+                    lambda: serve_requests(Request, SamplingParams, cfg, spec=DENSE_REQUESTS), cache_len=SERVE_CACHE,
+                    launches=dense_serve_launches(cfg.num_layers), b7_target="wq", label="llama4 ", **moe_kw)
+    for (S, budget, _), c in zip(DENSE_REQUESTS, s["comps"]):
+        if c.prompt_len != S or c.finish_reason != "length" or c.steps != budget:
+            raise AssertionError(f"llama4 serve request {c.request_id}: {c.steps} tokens for budget {budget}")
+    moe_served("llama4", s["times"]["oracle"])
+    b8_errs, b8 = b8_serve_checks(ops, ref, flash_attention, cfg, s["groups"], s["gen"], "llama4 ")
+    served("llama4-maverick-400b-a17b", s, "flash_attention", b8_errs)
+    times["llama4-maverick-400b-a17b"] = dict(s["times"], b8_prefill=b8, layers=cfg.num_layers,
+                                              seconds=time.perf_counter() - t0)
+    del params, adapters, s, model
+    free_memory()
+
+    # (iii) zamba2-7b at full width and depth: serving
+    t0 = time.perf_counter()
+    cfg = ARCHS["zamba2-7b"]
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    params = model.init_params(gen, "cuda")
+    adapters = dense_adapters(model, gen)
+    L, n_apps = cfg.num_layers, cfg.num_layers // cfg.hybrid_period
+    b7_calls = 2 * L + 4 * n_apps  # in_proj and out_proj of every Mamba layer; wq-wo of every application
+    log(f"zamba2-7b: {sum(x.numel() for x in tree_leaves(params)) / 1e9:.2f} B params, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; {n_apps} applications of the shared block")
+    s = serve_phase(ops, ref, sparse_lora, model, params, adapters,
+                    lambda: serve_requests(Request, SamplingParams, cfg), cache_len=SERVE_CACHE,
+                    launches=lambda st: only(ssd_chunk_intra=L * st["prefill_calls"],
+                                             flash_attention=n_apps * st["prefill_calls"],
+                                             batched_sparse_lora_apply=b7_calls * st["prefill_calls"],
+                                             batched_sparse_lora_few_rows=b7_calls * st["decode_steps"]),
+                    oracle=dict(rel=HYBRID_FLOOR_RATIO, f32=True), b7_target="mamba/in_proj", label="zamba2 ")
+    o = s["times"]["oracle"]
+    log(f"zamba2 plain bf16 forward against the f32 one at the served positions (the floor): {o['floor']:.4f} of "
+        f"a row's largest |logit|; the served path held within {HYBRID_FLOOR_RATIO}x it")
+    log_oracle("zamba2 ", o, f"the f32 forward, within {HYBRID_FLOOR_RATIO}x the bf16 forward's floor")
+    for (S, budget, _), c in zip(SERVE_REQUESTS, s["comps"]):
+        if c.prompt_len != S or c.finish_reason != "length" or c.steps != min(budget, SERVE_CACHE - S):
+            raise AssertionError(f"zamba2 serve request {c.request_id}: {c.steps} tokens for budget {budget}")
+    b8_errs, b8 = b8_serve_checks(ops, ref, flash_attention, cfg, s["groups"], s["gen"], "zamba2 ")
+    served("zamba2-7b", s, "flash_attention_d112", b8_errs)
+    counts["ssd_chunk_intra"] += s["counts"]["ssd_chunk_intra"]
+    nh, gen = ssm_dims(cfg)["nheads"], s["gen"]
+    b9_errs = {}
+    for g, S in sorted(set(s["groups"])):
+        x, a, b, c = ssd_inputs(gen, torch.bfloat16, B=g, S=S, heads=nh, widths=ZAMBA2_SSD)
+        b9_errs[f"{g}x{S}"] = check_ssd(ops.ssd_chunk_intra(x, a, b, c, heads=nh),
+                                        ref.ssd_chunk_intra_ref(x, a, b, c, nh),
+                                        ref.ssd_chunk_intra_ref(x.abs(), a, b.abs(), c.abs(), nh), a,
+                                        f"zamba2 B9 serve prefill {g}x{S}")
+    errs["ssd_chunk_intra"] = max(errs["ssd_chunk_intra"], max(b9_errs.values()))
+    log(f"zamba2 B9 (heads {nh}, state {cfg.ssm.d_state}) and B7 vs plain at the serve shapes: within tolerance; "
+        f"max abs err {json.dumps({**{f'B9 {k}': e for k, e in b9_errs.items()}, **s['errs']})}")
+    times["zamba2-7b"] = dict(s["times"], b8_prefill=b8, seconds=time.perf_counter() - t0)
+    del params, adapters, s, model
+    free_memory()
+
+    # (iv) zamba2-7b's width, depth cut: training over the unstacked group
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(ARCHS["zamba2-7b"], num_layers=ZAMBA2_TRAIN_LAYERS)
+    model = build_model(cfg)
+    fl = FibecFedConfig(num_devices=ZAMBA2_CLIENTS, devices_per_round=4, rounds=1, batch_size=4)
+    vec, train = train_vectorized(f"zamba2-7b ({cfg.num_layers} layers)", cfg, model, make_runner, make_loss_fn,
+                                  fl, keyword_world(cfg.vocab_size, data_mod, fl), ops)
+    counts["masked_adamw_update_stacked"] += train["padded_steps"]
+    shared = {t: ab["b"].shape for t, ab in vec.global_lora["shared"].items()}
+    log(f"zamba2 training: LoRA groups {sorted(vec.global_lora)}, the shared block's unstacked b {shared}; "
+        f"GAL layers {train['gal_layers']} (the shared block is logical layer {cfg.num_layers})")
+    times["zamba2-7b_train"] = dict(train, seconds=time.perf_counter() - t0)
+    del vec, model
+    free_memory()
+    log(f"phase i: {time.perf_counter() - t_phase:.1f} s")
+    return counts, errs, times
+
+
+def free_memory():
+    """Collect the reference cycles a served engine leaves (its model's
+    prefill and decode hooks refer back to it), then return the cached
+    blocks to the card, so the next model starts from an empty card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_lossless(ops, make_runner, data_mod, FibecFedConfig, ARCHS, build_model, make_loss_fn):
     """Phase g: the lossless criteria on the card. The loop runner with masked
     SGD (fused: B2 per client step), ``gal_fraction=None`` and
@@ -2326,12 +2782,17 @@ def keyword_world(vocab_size, data_mod, fl):
     return [{k: v[i] for k, v in task.data.items() if k != "label"} for i in parts]
 
 
-def leaf_values_per_layer(lora):
-    """Values of each LoRA leaf in one layer (leaves stacked (L, ...)), in
-    the tree's leaf order."""
+def gal_values_per_leaf(cfg, lora, gal_layers):
+    """Values of each LoRA leaf that lie in GAL layers, in the tree's leaf
+    order: a stacked leaf (L, ...) counts its GAL layers' slices, an
+    unstacked one (the hybrid's shared block, one logical layer) all of its
+    values when its layer is a GAL layer."""
+    from repro_torch.lora import lora_layer_index_tree
     from repro_torch.utils.tree import tree_leaves
 
-    return [leaf[0].numel() for leaf in tree_leaves(lora)]
+    gal = np.asarray(gal_layers, bool)
+    return [int(gal[ids.cpu().numpy().reshape(-1)].sum()) * (leaf.numel() // ids.numel())
+            for leaf, ids in zip(tree_leaves(lora), tree_leaves(lora_layer_index_tree(cfg, lora)))]
 
 
 def expected_comm_bytes(cfg, lora, gal_layers, chosen, compression=None, ranks=None):
@@ -2341,11 +2802,10 @@ def expected_comm_bytes(cfg, lora, gal_layers, chosen, compression=None, ranks=N
     from repro_torch.federated.compress import leaf_upload_bytes
 
     total = up = 0
-    n_gal = int(np.sum(gal_layers))
     for ci in chosen:
         rank = cfg.lora_rank if ranks is None else ranks[ci]
-        for per_layer in leaf_values_per_layer(lora):
-            n = n_gal * per_layer * rank // cfg.lora_rank
+        for values in gal_values_per_leaf(cfg, lora, gal_layers):
+            n = values * rank // cfg.lora_rank
             u = leaf_upload_bytes(n, 4, compression)
             total += 4 * n + u
             up += u
@@ -2639,14 +3099,35 @@ def main() -> int:
     times["flash_attention"]["qwen3-0.6b_serve_prefill"] = dense_times["qwen3-0.6b"]["b8_prefill"]
     times["flash_attention"]["chatglm3-6b_serve_prefill"] = dense_times["chatglm3-6b"]["b8_prefill"]
     times["flash_attention_d80"]["stablelm-3b_serve_prefill"] = dense_times["stablelm-3b"]["b8_prefill"]
+    log("phase h times:", json.dumps(dense_times))
+
+    # --- i. the MoE family (granite-moe-3b-a800m trained and served,
+    # llama4-maverick-400b-a17b served at one layer) and the zamba2 hybrid
+    # (served at full depth: B9, B8 at D 112 and B7 on one path; trained at
+    # 12 layers over the unstacked shared group) ---
+    mh_counts, mh_errs, mh_times = phase_moe_hybrid(
+        ops, ref, sparse_lora, flash_attention, ssd_chunk, make_runner, data_mod, FibecFedConfig, ARCHS, build_model,
+        make_loss_fn)
+    for name, n in mh_counts.items():
+        launches[name] += n
+    for name, e in mh_errs.items():
+        errs[name] = max(errs[name], e)
+    for name in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "zamba2-7b"):
+        times["batched_sparse_lora_few_rows"][f"{name}_serve_decode"] = mh_times[name]["b7_decode"]
+        times["batched_sparse_lora_apply"][f"{name}_serve_prefill"] = mh_times[name]["b7_prefill"]
+    times["flash_attention"]["granite-moe-3b-a800m_serve_prefill"] = mh_times["granite-moe-3b-a800m"]["b8_prefill"]
+    times["flash_attention"]["llama4-maverick-400b-a17b_serve_prefill"] = \
+        mh_times["llama4-maverick-400b-a17b"]["b8_prefill"]
+    times["flash_attention_d112"]["zamba2-7b_serve_prefill"] = mh_times["zamba2-7b"]["b8_prefill"]
     decode = {"qwen2-0.5b (5d)": serve_times, "mamba2-1.3b (f)": ssm_times,
-              **{f"{n} (h)": dense_times[n] for n in ("qwen3-0.6b", "stablelm-3b", "chatglm3-6b")}}
+              **{f"{n} (h)": dense_times[n] for n in ("qwen3-0.6b", "stablelm-3b", "chatglm3-6b")},
+              **{f"{n} (i)": mh_times[n] for n in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "zamba2-7b")}}
     for name, t in decode.items():
         prof, b7 = t["profiles"]["decode"], t["b7_decode"]
         log(f"decode step, {name}: {t['decode_step_ms']:.2f} ms, busy {prof['busy_share']:.1%}, B7 "
             f"{prof['b7_share']:.1%} of {prof['kernel_ms']:.2f} ms of kernels; B7 few-row at its decode shape "
             f"{b7['graph_ms']:.4f} ms, the {b7.get('old_path')} kernel {b7.get('old_graph_ms')} ms")
-    log("phase h times:", json.dumps(dense_times))
+    log("phase i times:", json.dumps(mh_times))
 
     # --- 8. kernel list, card, ok ---
     if any(n == 0 for n in launches.values()):

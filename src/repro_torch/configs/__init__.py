@@ -1,7 +1,9 @@
 """Architecture registry of the port (``ARCHS[name]``).
 
 Holds the architectures the port runs so far: the dense decoders
-qwen2-0.5b, qwen3-0.6b, stablelm-3b and chatglm3-6b, and mamba2-1.3b (ssm).
+qwen2-0.5b, qwen3-0.6b, stablelm-3b and chatglm3-6b, the MoE decoders
+granite-moe-3b-a800m and llama4-maverick-400b-a17b, mamba2-1.3b (ssm) and
+zamba2-7b (hybrid).
 """
 from __future__ import annotations
 
@@ -9,13 +11,17 @@ from typing import Dict
 
 from repro_torch.config import ModelConfig
 from repro_torch.configs.chatglm3_6b import CONFIG as chatglm3_6b
+from repro_torch.configs.granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
+from repro_torch.configs.llama4_maverick_400b_a17b import CONFIG as llama4_maverick_400b_a17b
 from repro_torch.configs.mamba2_1_3b import CONFIG as mamba2_1_3b
 from repro_torch.configs.qwen2_0_5b import CONFIG as qwen2_0_5b
 from repro_torch.configs.qwen3_0_6b import CONFIG as qwen3_0_6b
 from repro_torch.configs.stablelm_3b import CONFIG as stablelm_3b
+from repro_torch.configs.zamba2_7b import CONFIG as zamba2_7b
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in [qwen2_0_5b, qwen3_0_6b, stablelm_3b, chatglm3_6b, mamba2_1_3b]
+    c.name: c for c in [qwen2_0_5b, qwen3_0_6b, stablelm_3b, chatglm3_6b, granite_moe_3b_a800m,
+                        llama4_maverick_400b_a17b, mamba2_1_3b, zamba2_7b]
 }
 
 

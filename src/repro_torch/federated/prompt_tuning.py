@@ -2,7 +2,8 @@
 port of ``repro.federated.prompt_tuning``).
 
 Instead of LoRA, each client trains a soft prompt (n_prompt, d_model)
-prepended to the input embeddings (the dense forward's ``prefix_embeds``);
+prepended to the input embeddings (the decoder forward's ``prefix_embeds``,
+dense or moe);
 the server FedAvgs the prompt, weighted by the clients' sample counts. Far
 fewer parameters than LoRA (the paper's Table 13 comm numbers) but lower
 accuracy (Table 1).
@@ -49,7 +50,7 @@ class FedPrompt:
         device, an error without one). ``init_params`` / ``init_prompt``:
         numpy arrays to start from (the JAX runner's ``params`` and
         ``prompt``)."""
-        if model.cfg.family != "dense":
+        if model.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"prompt tuning on family {model.cfg.family!r} is not ported yet (ROADMAP.md, Queue A item 12)")
         self.model = model

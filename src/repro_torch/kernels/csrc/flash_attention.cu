@@ -54,10 +54,12 @@
 // hi + lo is within 2^-18·p of p, so an output moves by at most 3.8e-6 of
 // max|v|; a single rounding of p to bf16 (2^-9) would not meet the
 // attention tolerance of 1e-5·max|v|. Shared memory: Q plus two stages of K
-// and V, 40 KB at D 64, 50 KB at D 80 and 80 KB at D 128. D 80
-// (stablelm-3b) is 10 chunks of 16 bytes a row: 5 k-steps of 16 for q·kᵀ
-// and 10 output tiles of 8 for p·v, with its own swizzle (swz); nothing is
-// padded to 128, which would move 60% more bytes.
+// and V, 40 KB at D 64, 50 KB at D 80, 70 KB at D 112 and 80 KB at D 128.
+// D 80 (stablelm-3b) is 10 chunks of 16 bytes a row: 5 k-steps of 16 for
+// q·kᵀ and 10 output tiles of 8 for p·v; D 112 (zamba2-7b) 14 chunks: 7
+// k-steps and 14 output tiles. Both take the swizzle of rows whose chunk
+// count is 2 mod 4 (swz); nothing is padded to 128, which would move 60%
+// (D 80) or 14% (D 112) more bytes and do as much more work.
 //
 // f32: the CUDA cores. The query tile is staged once in shared memory,
 // transposed; each KV tile in its range is staged in turn (k transposed, v
@@ -65,8 +67,8 @@
 // strided by 16, so that 16 lanes read 16 neighbouring words) and 8 rows x
 // D/16 columns of the accumulator; the 16 lanes that share rows reduce the
 // row max and sum with shuffles. p goes through shared memory (transposed)
-// to the p.v product. Shared memory: 66 KB at D 64, 79 KB at D 80, 116 KB
-// at D 128.
+// to the p.v product. Shared memory: 66 KB at D 64, 79 KB at D 80, 103 KB
+// at D 112, 116 KB at D 128.
 //
 // Both take their dynamic shared memory through the opt-in attribute.
 // Later: wgmma with P from registers, TMA-fed K/V tiles with mbarriers and a
@@ -302,16 +304,18 @@ __device__ __forceinline__ void split_bf16x2(float p0, float p1, uint32_t& hi, u
 }
 
 // element offset of 16-byte chunk c of row r in a tile with D values per
-// row. ldmatrix reads one chunk column of 8 neighbouring rows; the swizzle
-// puts those 8 chunks in 8 different groups of 4 banks, and keeps every
-// chunk inside its own row. D 64 and 128 (8 and 16 chunks a row, rows of a
-// multiple of 128 bytes): c ^ (r % 8). D 80 (10 chunks, 160 bytes: row r
-// starts at bank group 2r mod 8, so rows r and r + 4 start on the same
-// group): c ^ ((r / 4) % 2), which swaps the chunks of each pair in rows
-// 4-7 of 8, giving rows r and r + 4 groups of opposite parity.
+// row. ldmatrix reads one chunk column of 8 neighbouring rows (the first a
+// multiple of 8); the swizzle puts those 8 chunks in 8 different groups of 4
+// banks, and keeps every chunk inside its own row. D 64 and 128 (8 and 16
+// chunks a row, rows of a multiple of 128 bytes): c ^ (r % 8). D 80 and 112
+// (C = 10 and 14 chunks, C = 2 mod 4): row r starts at bank group C·r mod 8,
+// which runs through the 4 even groups in rows 0-3 (0, 2, 4, 6 at D 80; 0,
+// 6, 4, 2 at D 112) and again in rows 4-7. c ^ ((r / 4) % 2) swaps the
+// chunks of each pair in rows 4-7 of 8, moving them to the 4 odd groups;
+// C is even, so the swapped chunk stays in its row.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
-  static_assert(D % 64 == 0 || D == 80, "no swizzle for this head_dim");
+  static_assert(D % 64 == 0 || (D % 16 == 0 && (D / 8) % 4 == 2), "no swizzle for this head_dim");
   if constexpr (D % 64 == 0) return r * D + ((c ^ (r & 7)) << 3);
   return r * D + ((c ^ ((r >> 2) & 1)) << 3);
 }
@@ -521,24 +525,26 @@ extern "C" {
 
 // out, q: (B, S, H, D); k, v: (B, S, KVH, D); contiguous, all of dtype 0
 // (float32, on the CUDA cores) or 1 (bfloat16, on the tensor cores, every
-// pointer 16-byte aligned). D 64, 80 or 128; H a multiple of KVH; window 0 for
+// pointer 16-byte aligned). D 64, 80, 112 or 128; H a multiple of KVH; window 0 for
 // none, else >= 1. scale is 1/sqrt(D) in float32. out must not alias an
 // input.
 int repro_flash_attention(void* out, const void* q, const void* k, const void* v, int B, int S,
                           int H, int KVH, int D, int causal, int window, int dtype, float scale,
                           void* stream) {
   if (B < 1 || B > 65535 || S < 1 || H < 1 || H > 65535 || KVH < 1 || H % KVH || window < 0 ||
-      dtype < 0 || dtype > 1 || (D != 64 && D != 80 && D != 128))
+      dtype < 0 || dtype > 1 || (D != 64 && D != 80 && D != 112 && D != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     if (D == 64) return launch<float, 64>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
     if (D == 80) return launch<float, 80>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
+    if (D == 112) return launch<float, 112>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
     return launch<float, 128>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
   }
   if (!(aligned16(out) && aligned16(q) && aligned16(k) && aligned16(v))) return (int)cudaErrorMisalignedAddress;
   if (D == 64) return launch_tc<64>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
   if (D == 80) return launch_tc<80>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
+  if (D == 112) return launch_tc<112>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
   return launch_tc<128>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
 }
 
@@ -548,10 +554,12 @@ int repro_flash_attention_smem(int D, int dtype) {
   if (dtype == 0) {
     if (D == 64) return smem_floats<64>() * (int)sizeof(float);
     if (D == 80) return smem_floats<80>() * (int)sizeof(float);
+    if (D == 112) return smem_floats<112>() * (int)sizeof(float);
     if (D == 128) return smem_floats<128>() * (int)sizeof(float);
   } else if (dtype == 1) {
     if (D == 64) return tc_smem_bytes<64>();
     if (D == 80) return tc_smem_bytes<80>();
+    if (D == 112) return tc_smem_bytes<112>();
     if (D == 128) return tc_smem_bytes<128>();
   }
   return -1;

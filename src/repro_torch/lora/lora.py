@@ -3,7 +3,10 @@
 The LoRA tree keeps the JAX package's stacked layout, which GAL masks,
 neuron masks, optimizer state and comm accounting all follow:
 ``{"layers": {target: {"a": (L, d_in, r), "b": (L, r, d_out)}}}``, the
-targets wq/wk/wv/wo (dense) or in_proj/out_proj (ssm).
+targets wq/wk/wv/wo (dense, moe) or in_proj/out_proj (ssm); the hybrid's is
+``{"mamba": stacked (L) in_proj/out_proj, "shared": unstacked (d_in, r) /
+(r, d_out) wq/wk/wv/wo}``, its shared attention block one logical layer
+after the L Mamba layers.
 
 FibecFed works on this tree at two granularities:
 
@@ -42,28 +45,36 @@ def _ssm_lora_dims(cfg: ModelConfig) -> Dict[str, tuple]:
     return {"in_proj": (cfg.d_model, dims["in_dim"]), "out_proj": (dims["d_inner"], cfg.d_model)}
 
 
+def _target_stack(generator: torch.Generator, n_layers: int, dims: Dict[str, tuple], rank: int, device):
+    """``{target: {"a", "b"}}``, stacked over ``n_layers`` (0: unstacked)."""
+    lead = (n_layers,) if n_layers else ()
+    out = {}
+    for t, (d_in, d_out) in sorted(dims.items()):
+        a = torch.randn(lead + (d_in, rank), generator=generator, device=device) / rank
+        out[t] = {"a": a, "b": torch.zeros(lead + (rank, d_out), device=device)}
+    return out
+
+
 def init_lora(generator: torch.Generator, cfg: ModelConfig, device) -> Dict[str, Any]:
-    """``a ~ N(0, 1)/r``, ``b = 0``, f32, stacked over layers: the attention
-    projections of the dense family, in_proj and out_proj of the ssm one.
+    """``a ~ N(0, 1)/r``, ``b = 0``, f32: the attention projections of the
+    dense and moe families (the routed and shared experts stay frozen, as
+    the JAX package's code has it), in_proj and out_proj of the ssm one,
+    stacked over layers; for the hybrid, the Mamba layers' stacked and the
+    shared block's attention unstacked.
 
     The draws come from ``generator`` (a ``torch.Generator`` on ``device``);
     they are not the JAX package's ``jax.random`` draws.
     """
-    if cfg.family == "dense":
-        dims = _attn_dims(cfg)
-    elif cfg.family == "ssm":
-        dims = _ssm_lora_dims(cfg)
-    else:
-        raise NotImplementedError(
-            f"LoRA trees for family {cfg.family!r} are not ported yet "
-            "(ROADMAP.md, Queue A item 12)"
-        )
     rank, L = cfg.lora_rank, cfg.num_layers
-    out = {}
-    for t, (d_in, d_out) in sorted(dims.items()):
-        a = torch.randn((L, d_in, rank), generator=generator, device=device) / rank
-        out[t] = {"a": a, "b": torch.zeros((L, rank, d_out), device=device)}
-    return {"layers": out}
+    if cfg.family in ("dense", "moe"):
+        return {"layers": _target_stack(generator, L, _attn_dims(cfg), rank, device)}
+    if cfg.family == "ssm":
+        return {"layers": _target_stack(generator, L, _ssm_lora_dims(cfg), rank, device)}
+    if cfg.family == "hybrid":
+        return {"mamba": _target_stack(generator, L, _ssm_lora_dims(cfg), rank, device),
+                "shared": _target_stack(generator, 0, _attn_dims(cfg), rank, device)}
+    raise NotImplementedError(
+        f"LoRA trees for family {cfg.family!r} are not ported yet (ROADMAP.md, Queue A item 12)")
 
 
 def zeros_like_lora(lora) -> Any:

@@ -17,9 +17,10 @@ from repro_torch.kernels import ops as kops
 
 
 def init_stacked_dense(gen: torch.Generator, n: int, d_in: int, d_out: int, dtype, device) -> torch.Tensor:
-    """N(0, 1/d_in) weights drawn in f32, cast to ``dtype``."""
-    w = torch.randn((n, d_in, d_out), generator=gen, device=device) / math.sqrt(d_in)
-    return w.to(dtype)
+    """N(0, 1/d_in) weights drawn in f32, cast to ``dtype``. The scaling is
+    in place: zamba2-7b's stacked in_proj is 16.9 GB in f32."""
+    w = torch.randn((n, d_in, d_out), generator=gen, device=device)
+    return w.div_(math.sqrt(d_in)).to(dtype)
 
 
 def init_embed(gen: torch.Generator, vocab: int, d: int, dtype, device) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Dense decoder-only transformer (port of the dense branch of
-``repro.models.transformer``).
+"""Decoder-only transformer, dense and MoE (port of the dense and moe
+branches of ``repro.models.transformer``).
 
 Per-layer weights are stacked on a leading layer axis, as in the JAX
 package, and the layer loop is a Python loop over those slices. LoRA trees
 mirror the stacked layout. Supported knobs: GQA, QKV bias, qk-norm, RoPE,
-parallel residual, RMS/layer norm, SwiGLU/GELU MLP, sliding-window
-attention, logit soft-cap, tied embeddings.
+parallel residual, RMS/layer norm, SwiGLU/GELU MLP, an MoE FFN (with a
+shared expert, :mod:`repro_torch.models.moe`), sliding-window attention,
+logit soft-cap, tied embeddings.
 
 Serving: :func:`decoder_prefill` runs a prompt and fills a KV cache (in the
 JAX package's ring layout when a sliding window covers the cache), and
@@ -35,6 +36,7 @@ from repro_torch.models.layers import (
     soft_cap,
 )
 from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.models.moe import apply_moe, init_moe
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -65,7 +67,10 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig, device) -> Dict[str, An
         layers[f"{name}_w"] = torch.ones((L, D), dtype=dtype, device=device)
         if cfg.norm == "layernorm":
             layers[f"{name}_b"] = torch.zeros((L, D), dtype=dtype, device=device)
-    layers.update(init_mlp(gen, L, D, cfg.d_ff, cfg.mlp, dtype, device))
+    if cfg.family == "moe":
+        layers.update(init_moe(gen, L, D, cfg.moe, dtype, device))
+    else:
+        layers.update(init_mlp(gen, L, D, cfg.d_ff, cfg.mlp, dtype, device))
     params = {
         "embed": init_embed(gen, cfg.vocab_size, D, dtype, device),
         "layers": layers,
@@ -129,23 +134,36 @@ def attention_sublayer(x, p, lora, cfg: ModelConfig, positions, *, lora_scale: f
 
 
 def decoder_layer(h, p, lora, cfg: ModelConfig, positions, *, lora_scale, causal=True,
-                  cache=None, cache_position=None, ring=False):
+                  cache=None, cache_position=None, ring=False, sample_weight=None):
     """One transformer block over one layer's slices. Returns ``(h,
-    cache_or_None)`` (see :func:`attention_sublayer`)."""
+    aux_loss, cache_or_None)`` (see :func:`attention_sublayer`; the aux loss
+    is the MoE router's, None for a dense FFN)."""
     x = _norm(h, p, "attn_norm", cfg.norm)
     attn_out, cache = attention_sublayer(x, p, lora, cfg, positions, lora_scale=lora_scale, causal=causal,
                                          cache=cache, cache_position=cache_position, ring=ring)
-    return _residual(h, x, attn_out, p, lora, cfg, lora_scale), cache
+    h, aux = _residual(h, x, attn_out, p, lora, cfg, lora_scale, sample_weight)
+    return h, aux, cache
 
 
-def _residual(h, x, attn_out, p, lora, cfg: ModelConfig, lora_scale):
-    """A block's residual step after attention: ``h`` plus ``attn_out`` and
-    the MLP, the MLP over the attention's input ``x`` under
-    ``cfg.parallel_residual``, else over the normed ``h + attn_out``."""
+def _ffn(x, p, cfg: ModelConfig, lora, lora_scale, sample_weight=None):
+    """The block's FFN: ``(out, aux_loss)``, the MoE's (``sample_weight``
+    (B,) restricting its aux loss to valid samples) or the MLP's with no
+    aux loss (None)."""
+    if cfg.family == "moe":
+        return apply_moe(x, p, cfg.moe, sample_weight=sample_weight)
+    return apply_mlp(x, p, cfg.mlp, lora, lora_scale), None
+
+
+def _residual(h, x, attn_out, p, lora, cfg: ModelConfig, lora_scale, sample_weight=None):
+    """A block's residual step after attention: ``(h, aux_loss)``, ``h``
+    plus ``attn_out`` and the FFN, the FFN over the attention's input ``x``
+    under ``cfg.parallel_residual``, else over the normed ``h + attn_out``."""
     if cfg.parallel_residual:
-        return h + attn_out + apply_mlp(x, p, cfg.mlp, lora, lora_scale)
+        out, aux = _ffn(x, p, cfg, lora, lora_scale, sample_weight)
+        return h + attn_out + out, aux
     h = h + attn_out
-    return h + apply_mlp(_norm(h, p, "mlp_norm", cfg.norm), p, cfg.mlp, lora, lora_scale)
+    out, aux = _ffn(_norm(h, p, "mlp_norm", cfg.norm), p, cfg, lora, lora_scale, sample_weight)
+    return h + out, aux
 
 
 def _layer_slices(params, lora, i):
@@ -176,7 +194,8 @@ def decoder_forward(params, lora, tokens: torch.Tensor, cfg: ModelConfig, *,
                     prefix_embeds: Optional[torch.Tensor] = None,
                     lora_scale: Optional[float] = None,
                     embed_noise: Optional[torch.Tensor] = None,
-                    collect_layer_norms: bool = False):
+                    collect_layer_norms: bool = False,
+                    sample_weight: Optional[torch.Tensor] = None):
     """Training/eval forward. Returns ``(logits (B, S_total, V), aux_loss)``,
     S_total the prefix's P (``prefix_embeds`` (B, P, D), prepended to the
     token embeddings: FedPrompt's soft prompt) plus the tokens' S.
@@ -185,6 +204,9 @@ def decoder_forward(params, lora, tokens: torch.Tensor, cfg: ModelConfig, *,
     FibecFed GAL-sensitivity probe, paper Eq. 6-9). With
     ``collect_layer_norms`` the per-layer per-sample Frobenius norms of the
     hidden states come back as a third output (num_layers, B).
+    ``sample_weight`` (B,) restricts the MoE load-balance aux loss (the sum
+    over layers) to valid samples (padded-batch training); logits are
+    unaffected.
     """
     lora_scale = lora_scale if lora_scale is not None else cfg.lora_alpha / cfg.lora_rank
     h = _embed_inputs(params, tokens, prefix_embeds)
@@ -192,13 +214,16 @@ def decoder_forward(params, lora, tokens: torch.Tensor, cfg: ModelConfig, *,
         h = h + embed_noise.to(h.dtype)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     norms = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.num_layers):
         p_slice, lora_slice = _layer_slices(params, lora, i)
-        h, _ = decoder_layer(h, p_slice, lora_slice, cfg, positions, lora_scale=lora_scale)
+        h, aux_l, _ = decoder_layer(h, p_slice, lora_slice, cfg, positions, lora_scale=lora_scale,
+                                    sample_weight=sample_weight)
+        if aux_l is not None:
+            aux = aux + aux_l
         if collect_layer_norms:
             norms.append(torch.sqrt(torch.sum(torch.square(h.to(torch.float32)), dim=(1, 2))))
     logits = _lm_logits(h, params, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if collect_layer_norms:
         return logits, aux, torch.stack(norms)
     return logits, aux
@@ -252,7 +277,7 @@ def decoder_prefill(params, lora, tokens: torch.Tensor, cfg: ModelConfig, cache_
         k = apply_rope(k, positions, theta=cfg.rope_theta, mode=cfg.rope)
         o = prompt_attention(q, k, v, cfg).reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
         attn_out = linear(o, {"w": p_slice["wo"]}, lora_slice.get("wo"), lora_scale)
-        h = _residual(h, x, attn_out, p_slice, lora_slice, cfg, lora_scale)
+        h, _ = _residual(h, x, attn_out, p_slice, lora_slice, cfg, lora_scale)
         for name, t in (("k", k), ("v", v)):
             tail = t[:, S - keep:]
             if keep == cache_len and ring and S % cache_len:
@@ -271,6 +296,6 @@ def decoder_decode_step(params, lora, token: torch.Tensor, cfg: ModelConfig, cac
     positions = torch.as_tensor(position, device=h.device).reshape(-1, 1)
     for i in range(cfg.num_layers):
         p_slice, lora_slice = _layer_slices(params, lora, i)
-        h, _ = decoder_layer(h, p_slice, lora_slice, cfg, positions, lora_scale=lora_scale,
-                             cache=(cache["k"][i], cache["v"][i]), cache_position=position, ring=ring)
+        h, _, _ = decoder_layer(h, p_slice, lora_slice, cfg, positions, lora_scale=lora_scale,
+                                cache=(cache["k"][i], cache["v"][i]), cache_position=position, ring=ring)
     return _lm_logits(h, params, cfg), cache

@@ -29,7 +29,7 @@ class SamplingParams:
 class Request:
     """One prompt. ``tokens``: (S,) int; ``extras``: per-row family inputs
     (the JAX package's field; the scheduler groups by their shapes, and the
-    dense family, the one ported, takes none). ``request_id`` and
+    ported families take none). ``request_id`` and
     ``submit_time`` are stamped by ``ServeEngine.submit``."""
 
     tokens: np.ndarray
@@ -55,9 +55,9 @@ def make_prompt_batch(cfg: ModelConfig, rng: Union[torch.Generator, np.random.Ge
                       batch_size: int, prompt_len: int) -> Dict[str, Any]:
     """A random prompt batch, ``{"tokens": (batch_size, prompt_len) int32
     numpy}``. ``rng`` is a ``torch.Generator``, a numpy ``Generator`` or a
-    numpy seed. Only the dense and ssm families are ported, which need no
-    other input (ROADMAP.md, Queue A item 12)."""
-    if cfg.family not in ("dense", "ssm"):
+    numpy seed. The ported families (dense, moe, ssm, hybrid) need no other
+    input (ROADMAP.md, Queue A item 12)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue A item 12)"
         )
@@ -72,7 +72,7 @@ def make_prompt_batch(cfg: ModelConfig, rng: Union[torch.Generator, np.random.Ge
 def requests_from_batch(batch: Dict[str, Any], sampling: Optional[SamplingParams] = None,
                         adapter_ids=None) -> List[Request]:
     """Split a row-stacked batch dict into per-row Requests (exact values).
-    The dense and ssm families' prefill reads the tokens alone."""
+    The ported families' prefill reads the tokens alone."""
     tokens = np.asarray(batch["tokens"])
     sampling = sampling or SamplingParams()
     return [Request(tokens=tokens[i], sampling=sampling,

@@ -37,8 +37,8 @@ def label_token_loss(logits: torch.Tensor, label_tokens: torch.Tensor) -> torch.
 
 def make_logits_loss(cfg: ModelConfig) -> Callable:
     """``loss(logits, batch)``, used by the GAL probe (gradient w.r.t. noise)."""
-    if cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue A item 12)")
 
     def fn(logits, batch: Dict[str, Any]):
         if "label_token" in batch:
@@ -55,15 +55,20 @@ def make_loss_fn(model: ModelFns) -> Callable:
     sample_mask)``: the same loss restricted to the mask's valid samples
     with one batched forward (per-sample CE weighted by the mask). It equals
     the plain loss of the ragged sub-batch, which is what lets the
-    vectorized engine train on padded fixed-shape batches.
+    vectorized engine train on padded fixed-shape batches. For moe the mask
+    also reaches the router as per-sample weights, so the load-balance aux
+    loss of a padded batch equals its ragged original's too.
     """
     logits_loss = make_logits_loss(model.cfg)
+    moe = model.cfg.family == "moe"
 
     def loss_fn(params, lora, batch: Dict[str, Any]):
         logits, aux = model.forward(params, lora, batch)
         return logits_loss(logits, batch) + aux
 
     def masked(params, lora, batch: Dict[str, Any], sample_mask):
+        if moe:
+            batch = dict(batch, sample_mask=sample_mask)
         logits, aux = model.forward(params, lora, batch)
         m = sample_mask.to(torch.float32)
         denom = torch.clamp(torch.sum(m), min=1.0)

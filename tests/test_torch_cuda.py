@@ -318,6 +318,30 @@ def test_adamw_tree_lora_one_launch_matches_plain(cuda, stacked, mixed, lr_kind,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [False, True])
+def test_adamw_tree_hybrid_groups_match_plain(cuda, stacked):
+    """zamba2-7b's LoRA at full width over 2 Mamba layers: the stacked (L, d,
+    r) in_proj/out_proj leaves and the shared block's unstacked (d, r)
+    wq-wo leaves in one tree, one client or 4 stacked, masked: one launch,
+    every leaf bit for bit."""
+    lead = (K,) if stacked else ()
+    shapes = {}
+    for t, (d_in, d_out) in {"in_proj": (3584, 14576), "out_proj": (7168, 3584)}.items():
+        shapes.update({f"mamba_{t}_a": lead + (2, d_in, 8), f"mamba_{t}_b": lead + (2, 8, d_out)})
+    for t in ("wq", "wk", "wv", "wo"):
+        shapes.update({f"shared_{t}_a": lead + (3584, 8), f"shared_{t}_b": lead + (8, 3584)})
+    f32 = dict.fromkeys(shapes, torch.float32)
+    t = torch.tensor([0, 3, 7, 1], dtype=torch.int32, device="cuda") if stacked else \
+        torch.tensor(2, dtype=torch.int32, device="cuda")
+    params, grads, st, masks = _adamw_tree_case(cuda, shapes, f32, f32, dict.fromkeys(shapes, True), t)
+    active = torch.tensor([1.0, 0.0, 1.0, 1.0], device="cuda") if stacked else None
+    before = ops.masked_adamw_update.launches
+    new_p, new_st = ops.masked_adamw_update(grads, st, params, 1e-3, masks, active, wd=0.01)
+    assert ops.masked_adamw_update.launches == before + 1
+    _assert_adamw_tree(new_p, new_st, params, grads, st, masks, 1e-3, active)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("active", [None, 0.0, 1.0])
 def test_adamw_tree_ragged_mixed_leaves_match_plain(cuda, active):
     """Leaves of 1, 3, 1000 and 2049 elements, every mix of f32 and bf16
@@ -513,6 +537,11 @@ BATCHED_CASES = [(256, 896, 896, 8, 8), (200, 300, 250, 4, 3), (64, 96, 80, 6, 2
 # at 1000 rows the L2 kernel
 BATCHED_PATHS = [(M, K, N, r, A) for A in (1, 3, 8, 64) for r in (4, 8, 16, 64)
                  for M, K, N in ((1000, 300, 250), (4096, 896, 896))]
+# prefill at the new families' widths, rank 8: zamba2-7b's in_proj and
+# out_proj (a and b too wide to stage: BGMV) and shared block, llama4's wq
+# and wk, granite's wq and wk, 4 prompts of 1024 tokens over 4 adapters
+BATCHED_PATHS += [(4096, K, N, 8, 4) for K, N in ((3584, 14576), (7168, 3584), (3584, 3584), (5120, 5120),
+                                                   (5120, 1024), (1536, 1536), (1536, 512))]
 
 
 def _b7_launches():
@@ -685,6 +714,8 @@ def test_packed_and_batched_capture_in_a_cuda_graph(cuda, r):
 FEW_CASES = [  # M, K, N, A
     (8, 896, 896, 8), (8, 2048, 8512, 8), (8, 4096, 2048, 8), (1, 896, 128, 1), (8, 2560, 2560, 4),
     (8, 1024, 2048, 8), (33, 300, 250, 5), (64, 896, 896, 64), (64, 7, 5, 5), (17, 4096, 13696, 6),
+    # zamba2-7b's in_proj, out_proj and shared block; llama4's wq and wk
+    (8, 3584, 14576, 8), (8, 7168, 3584, 8), (8, 3584, 3584, 8), (8, 5120, 5120, 4), (8, 5120, 1024, 4),
 ]
 
 
@@ -770,16 +801,17 @@ def test_b7_entry_takes_the_few_row_path_with_its_scratch(cuda):
 @pytest.mark.cuda
 def test_decode_shapes_take_the_few_row_path(cuda):
     """A decode step's per-slot LoRA (8 slots, one row each, rank 8) at every
-    served config's widths takes the few-row path; 65 rows do not, nor 64
-    rows on 4 adapters where the SGMV kernel stages them."""
+    served config's widths (every LoRA group's targets, the hybrid's
+    unstacked shared block included) takes the few-row path; 65 rows do
+    not, nor 64 rows on 4 adapters where the SGMV kernel stages them."""
     from repro_torch.configs import ARCHS
     from repro_torch.lora import init_lora
 
     gen = torch.Generator().manual_seed(0)
     for name, cfg in ARCHS.items():
-        lora = init_lora(gen, cfg, "cpu")["layers"]
-        for target, ab in lora.items():
-            K, N = ab["a"].shape[1], ab["b"].shape[2]
+        targets = [(t, ab) for group in init_lora(gen, cfg, "cpu").values() for t, ab in group.items()]
+        for target, ab in targets:
+            K, N = ab["a"].shape[-2], ab["b"].shape[-1]
             for dtype in (torch.float32, torch.bfloat16):
                 assert sparse_lora.batched_path(8, K, N, cfg.lora_rank, dtype, 8) == "few_rows", (name, target)
                 assert sparse_lora.batched_path(65, K, N, cfg.lora_rank, dtype, 8) != "few_rows", (name, target)
@@ -889,6 +921,10 @@ FLASH_CASES = [  # B, S, H, KVH, D, causal, window
     (1, 300, 4, 4, 80, True, None),
     (2, 256, 4, 2, 80, True, 100),
     (1, 200, 4, 4, 80, False, None),
+    # D 112 (zamba2-7b: 32 heads, MHA, no window), ragged S, with and without a window
+    (1, 300, 4, 4, 112, True, None),
+    (2, 256, 4, 2, 112, True, 100),
+    (1, 200, 4, 4, 112, False, None),
 ]
 
 
@@ -934,6 +970,21 @@ def test_flash_attention_head_dim_80_opts_into_its_shared_memory(cuda):
 
 
 @pytest.mark.cuda
+def test_flash_attention_head_dim_112_opts_into_its_shared_memory(cuda):
+    """D 112 stages Q and two K/V stages of 64 rows x 224 bytes (bf16: 71680
+    bytes) and the f32 kernel's tiles (105664); zamba2-7b's prefill shape
+    (32 heads, causal, no window) in bf16 and f32."""
+    assert flash_attention.smem_bytes(112, torch.bfloat16) == (64 + 4 * 64) * 112 * 2
+    assert flash_attention.smem_bytes(112, torch.float32) == (112 * 68 + 112 * 65 + 64 * 112 + 64 * 68) * 4
+    for dtype, S in ((torch.bfloat16, 1024), (torch.float32, 333)):
+        q = torch.randn(2, S, 32, 112, generator=cuda, device="cuda").to(dtype)
+        k, v = (torch.randn(2, S, 32, 112, generator=cuda, device="cuda").to(dtype) for _ in range(2))
+        out = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert_attention_close(out, ref.flash_attention_gqa_ref(q, k, v, causal=True), v)
+
+
+@pytest.mark.cuda
 def test_flash_attention_mixed_dtypes_and_refusals(cuda):
     q = torch.randn(1, 130, 4, 64, generator=cuda, device="cuda").bfloat16()
     k, v = (torch.randn(1, 130, 2, 64, generator=cuda, device="cuda") for _ in range(2))
@@ -969,7 +1020,7 @@ def test_flash_attention_tensor_core_kernel_matches_plain(cuda, B, S, H, KVH, D,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,KVH,D,causal,window", [FLASH_TC_CASES[i] for i in (0, 1, 2, 6, 14, 16, 10)])
+@pytest.mark.parametrize("B,S,H,KVH,D,causal,window", [FLASH_TC_CASES[i] for i in (0, 1, 2, 6, 17, 19, 10, 13)])
 def test_flash_attention_kernels_agree(cuda, B, S, H, KVH, D, causal, window):
     """The same bf16 inputs through the tensor-core kernel and, cast to
     f32, through the CUDA-core kernel agree within the attention tolerance."""
@@ -1281,7 +1332,8 @@ def test_short_serve_run_launches_b7_and_b8(cuda):
 
 # --- the Mamba2 family: B9 on the SSM prefill scan, B7 at its widths ---
 
-SSD_HEADS_CASES = [(128, 64, 128, 64), (128, 64, 128, 4), (64, 32, 16, 8), (72, 20, 33, 3), (24, 128, 5, 2)]
+SSD_HEADS_CASES = [(128, 64, 128, 64), (128, 64, 128, 4), (64, 32, 16, 8), (72, 20, 33, 3), (24, 128, 5, 2),
+                   (128, 64, 64, 112)]  # the last: zamba2-7b's chunk, head_dim, state and heads
 
 
 @pytest.mark.cuda
