@@ -136,9 +136,21 @@ i. the MoE family and the zamba2 hybrid at full width (bf16, seeded init):
    held by phase f's oracle; zamba2-7b's width cut to 12 layers trained 1
    round (B1 over the shared block's unstacked LoRA group); B7, B8 and B9
    against their plain versions at every served shape;
+j. the last families at full width (bf16, seeded init): whisper-large-v3
+   (32 + 32 layers) and paligemma-3b (18 layers, 256 prefix rows) served
+   with phase 5d's 12 requests, each with its own seeded frame or patch
+   embeddings (B8 bidirectional over whisper's 1500 frames and causal over
+   its prompt, B8 at D 256 over paligemma's prefix and prompt, B7 on every
+   LoRA group, the few-row path on decode), held by phase 5d's oracle with
+   a third control (the next request's embeddings); each trained 1 round
+   at its width cut to 4 + 4 and 4 layers (B1); roberta-large (24 layers)
+   trained 2 rounds (B1), its Fisher difficulty held to the loop engine's,
+   its class accuracy from ``evaluate``; phase 5c also holds and times B8
+   at D 256 (paligemma's 4x1280, f32 S 2000) and bidirectional at
+   whisper's encoder and roberta's widths;
 8. one JSON line listing the kernels; last, the ok line.
 
-Each path of phases 4-6, 5b-5d, f, g, h and i included, is driven with the kernels' launch
+Each path of phases 4-6, 5b-5d, f, g, h, i and j included, is driven with the kernels' launch
 counts set to 0 just before it and read just after. Float32 matmuls run in
 full f32 (TF32 off for matmuls and cuDNN alike).
 """
@@ -212,6 +224,8 @@ KERNELS = {  # name -> what it ports, its source, and its work per element (B1-B
     "flash_attention_d80": dict(replaces="src/repro/kernels/flash_attention.py:78", source=FA_SOURCE),
     # B8 at head_dim 112 (zamba2-7b's shared attention), likewise
     "flash_attention_d112": dict(replaces="src/repro/kernels/flash_attention.py:78", source=FA_SOURCE),
+    # B8 at head_dim 256 (paligemma-3b), likewise
+    "flash_attention_d256": dict(replaces="src/repro/kernels/flash_attention.py:78", source=FA_SOURCE),
     "ssd_chunk_intra": dict(replaces="src/repro/kernels/ssd_chunk.py:40", source=SC_SOURCE),
 }
 # the counts a path reads: name -> (the repro_torch.kernels.ops wrapper, its
@@ -252,6 +266,12 @@ SSD_REL, SSD_CS_REL = 1e-5, 1e-6
 ATTN_HEADS = (14, 2, 64)  # qwen2-0.5b: query heads, KV heads, head_dim
 D80_HEADS = 32  # stablelm-3b: 32 query and KV heads of 80
 D112_HEADS = 32  # zamba2-7b's shared attention: 32 query and KV heads of 112
+D256_HEADS = (8, 1)  # paligemma-3b: 8 query heads of 256 over 1 KV head
+D256_SHAPE = (4, 1280)  # its serve prefill group: 4 prompts of 1024 tokens after 256 prefix rows
+# B8 bidirectional (causal=False) at the encoders' widths: whisper-large-v3's
+# encoder (4 requests of 1500 frames, 20 heads of 64: a ragged last tile)
+# and roberta-large's (4 sequences of 512 tokens, 16 heads of 64)
+BIDIRECTIONAL = {"whisper_encoder": (4, 1500, 20), "roberta": (4, 512, 16)}
 ATTN_SLICE = 1024  # query rows per slice of the plain version at S 16384
 SSD_WIDTHS = dict(S=2048, chunk=128, nh=64, hd=64, N=128)  # mamba2-1.3b, one sequence
 # zamba2-7b's Mamba layers at its 4x1024 serve prefill: 112 heads of 64 sharing b and c, state 64
@@ -390,6 +410,34 @@ ZAMBA2_CLIENTS = 8
 # forward's own distance from it, measured in the run (81 layers of a
 # random init amplify a ulp as mamba2's 48 do).
 HYBRID_FLOOR_RATIO = SSM_FLOOR_RATIO
+# Phase j: the last families at full width, bf16 from a seeded torch init.
+# whisper-large-v3 (32 encoder + 32 decoder layers) and paligemma-3b (18
+# layers, 256 prefix rows) serve phase 5d's 12 requests, each with its own
+# seeded frame (N(0, 1), 1500 x 1280) or patch (N(0, 1), 256 x 2048)
+# embeddings, over four seeded adapters (phase h's: b from N(0,
+# DENSE_B_SCALE²)), 8 slots, one EOS and one sampled request. whisper's
+# cache is phase 5d's 1152 tokens; paligemma's PALIGEMMA_CACHE holds a
+# 1024-token prompt's 1280 positions with room for its budget. Each is
+# held by phase 5d's oracle (SERVE_LOGIT_REL of a row's largest |logit|
+# against the training forward over the prompt, its extras and the emitted
+# tokens) and its two controls, plus a third: the forward with the next
+# request's extras, above 1 (else the oracle could not fail a path that
+# mixed up the requests' frames or patches). Then each trains 1 round on
+# the vectorized engine at its width, cut in depth (whisper to
+# WHISPER_TRAIN_LAYERS encoder and as many decoder layers, paligemma to
+# PALIGEMMA_TRAIN_LAYERS), on the keyword task with seeded extras
+# (FAMILY_SAMPLES samples over 8 clients, cohort 4, batch FAMILY_BATCH: the
+# Fisher difficulty holds the per-sample gradients of 8 clients' batches at
+# once, whisper's of 1500-frame encoders, paligemma's of 320 positions of
+# 257216-wide logits). roberta-large (24 layers) trains
+# ROBERTA_ROUNDS rounds on the keyword task relabelled to its 2 classes
+# (``labels``), its Fisher difficulty held to the loop engine's as phase 5
+# holds qwen2-0.5b's.
+PALIGEMMA_CACHE = 1408
+WHISPER_TRAIN_LAYERS = 4
+PALIGEMMA_TRAIN_LAYERS = 4
+FAMILY_SAMPLES, FAMILY_BATCH = 64, 2
+ROBERTA_ROUNDS = 2
 # The two engines' compressed rounds differ by (a) the bf16 forward, which
 # runs as GEMMs of another shape under the vmap over clients and so moves
 # gradients in their last bf16 bits; (b) top-k, which then flips entries
@@ -1435,6 +1483,27 @@ def attention_d112_cases(gen):
             "d112_f32_s2000_window1000": tuple(randn(1, 2000, H, D, **f32) for _ in range(3)) + (True, 1000)}
 
 
+def attention_d256_cases(gen):
+    """Phase 5c's B8 inputs at paligemma-3b's head_dim 256 (8 query heads
+    over 1 KV head): bf16 at its 4x1280 serve prefill shape under the
+    model's 8192 window, and f32 at a ragged S 2000 with window 1000."""
+    (H, KVH), (B, S) = D256_HEADS, D256_SHAPE
+    randn = lambda *s, dtype=torch.bfloat16: torch.randn(s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    f32 = dict(dtype=torch.float32)
+    return {"d256_bf16_4x1280_window8192": (randn(B, S, H, 256), randn(B, S, KVH, 256), randn(B, S, KVH, 256), True,
+                                            8192),
+            "d256_f32_s2000_window1000": (randn(1, 2000, H, 256, **f32), randn(1, 2000, KVH, 256, **f32),
+                                          randn(1, 2000, KVH, 256, **f32), True, 1000)}
+
+
+def attention_bidirectional_cases(gen):
+    """Phase 5c's B8 inputs without a mask (``causal=False``) at the
+    encoders' widths (``BIDIRECTIONAL``), bf16, head_dim 64."""
+    return {f"{name}_bf16_{B}x{S}_bidirectional": tuple(torch.randn(B, S, H, 64, generator=gen, device="cuda").bfloat16()
+                                                        for _ in range(3)) + (False, None)
+            for name, (B, S, H) in BIDIRECTIONAL.items()}
+
+
 def ssd_inputs(gen, dtype, B=1, S=SSD_WIDTHS["S"], heads=1, widths=SSD_WIDTHS):
     """B9's inputs at mamba2-1.3b's widths, laid out as the model hands them
     to the kernel: groups (batch, chunk, head), b and c shared by the heads,
@@ -1474,10 +1543,12 @@ def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
     """Phase 5c: B8 and B9 through ``repro_torch.kernels.ops`` against their
     plain versions. Returns the launch counts, the max abs errors and the
     inputs of the timed cases."""
-    errs = {"flash_attention": 0.0, "flash_attention_d80": 0.0, "flash_attention_d112": 0.0, "ssd_chunk_intra": 0.0}
-    cases = attention_cases(vec, cfg, gen)
+    errs = {"flash_attention": 0.0, "flash_attention_d80": 0.0, "flash_attention_d112": 0.0,
+            "flash_attention_d256": 0.0, "ssd_chunk_intra": 0.0}
+    cases = {**attention_cases(vec, cfg, gen), **attention_bidirectional_cases(gen)}
     d80 = attention_d80_cases(gen)
     d112 = attention_d112_cases(gen)
+    d256 = attention_d256_cases(gen)
     # name -> (x, a, b, c, heads): mamba2-1.3b's widths with b and c per
     # group, and zamba2-7b's with its 112 heads sharing them
     zb, znh = ZAMBA2_SSD["B"], ZAMBA2_SSD["nh"]
@@ -1509,6 +1580,14 @@ def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
     log(f"B8 D 112 shared memory opted into: bf16 {flash_attention.smem_bytes(112, torch.bfloat16)} bytes, "
         f"f32 {flash_attention.smem_bytes(112, torch.float32)} (registers: the build's ptxas lines, "
         f"flash_attention_tc_kernel<112> and flash_attention_kernel<float, 112>)")
+    with Launches(ops) as run256:
+        for name, case in d256.items():
+            attention(name, *case, "flash_attention_d256")
+    if run256.counts != only(flash_attention=len(d256)):
+        raise AssertionError(f"phase 5c's D 256 cases did not launch B8 once each: {run256.counts}")
+    log(f"B8 D 256 shared memory opted into: bf16 {flash_attention.smem_bytes(256, torch.bfloat16)} bytes, "
+        f"f32 {flash_attention.smem_bytes(256, torch.float32)} (registers: the build's ptxas lines, "
+        f"flash_attention_tc_kernel<256> and flash_attention_kernel<float, 256>)")
     with Launches(ops) as run:
         for name, case in cases.items():
             attention(name, *case, "flash_attention")
@@ -1535,7 +1614,8 @@ def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
     counts = {name: run.counts[name] for name in ("flash_attention", "ssd_chunk_intra")}
     counts["flash_attention_d80"] = run80.counts["flash_attention"]
     counts["flash_attention_d112"] = run112.counts["flash_attention"]
-    return counts, errs, {**cases, **d80, **d112}, ssd
+    counts["flash_attention_d256"] = run256.counts["flash_attention"]
+    return counts, errs, {**cases, **d80, **d112, **d256}, ssd
 
 
 def library_ms(fn, big):
@@ -1555,56 +1635,67 @@ def library_ms(fn, big):
         return None
 
 
-def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd):
-    """B8 and B9 timed on phase 5c's inputs: ``ms`` the kernel through its
+def attention_timing(ops, ref, flash_attention, name, q, k, v, causal, window):
+    """One of phase 5c's B8 cases timed: ``ms`` the kernel through its
     launcher, ``graph_ms`` its device time from a CUDA graph of launches,
     ``wrapper_ms`` the ops wrapper, ``plain_ms`` the plain version (by slices
-    of query rows at S 16384), ``library_ms`` one PyTorch call that computes
-    the same function (B8: ``scaled_dot_product_attention``; B9: none)."""
+    of query rows at S 16384), ``library_ms`` ``scaled_dot_product_attention``
+    on the same function, its TFLOP/s and share of its bound."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    entries = {}
-    for name in ("s4096_causal", "s16384_window8192", "f32_s2000_window1000_d128", "d80_bf16_4x1024_window8192",
-                 "d80_f32_s2000_window1000", "d112_bf16_4x1024_causal", "d112_f32_s2000_window1000"):
-        q, k, v, causal, window = cases[name]
-        B, S, H, D = q.shape
-        out = torch.empty_like(q)
-        launch = lambda _=0: flash_attention.flash_attention_launch(out, q, k, v, causal=causal,  # noqa: E731
-                                                                       window=window)
-        big = S > 4096
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        entry = dict(
-            ms=cuda_ms(launch, iters=5 if big else 20, warmup=1),
-            graph_ms=graph_ms(launch, calls=2 if big else 5, replays=3),
-            wrapper_ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
-                               iters=5 if big else 20, warmup=1),
-            plain_ms=cuda_ms(lambda: plain_attention(ref, q, k, v, causal, window), iters=2, warmup=1),
-            **attention_bound(B, S, H, k.shape[2], D, causal, window, q.dtype),
-        )
-        if window is None or window >= S:
-            entry["library_ms"] = library_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), big)
-        else:
-            # the same function as one call: the causal window as a boolean mask
-            pos = torch.arange(S, device="cuda")
-            band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-            entry["library_ms"] = library_ms(lambda: sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True), big)
-            # beside it, the causal call without the window: more work, the flash path
-            entry["library_causal_ms"] = library_ms(
-                lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), big)
-            del band
-        # the attention's own operations per second, and the share of the
-        # bound (bf16 tensor cores, or the f32 line) that the device time reaches
-        entry["tflops"] = entry["gflop"] / entry["graph_ms"]
-        entry["bound_share"] = entry["bound_ms"] / entry["graph_ms"]
-        log(f"B8 {name} {q.dtype}: device {entry['graph_ms']:.4f} ms, {entry['tflops']:.1f} TFLOP/s, "
-            f"{entry['bound_share']:.1%} of its bound ({entry['bound_ms']:.4f} ms); "
-            f"scaled_dot_product_attention {entry['library_ms']} ms")
-        entries[name] = entry
+    B, S, H, D = q.shape
+    out = torch.empty_like(q)
+    launch = lambda _=0: flash_attention.flash_attention_launch(out, q, k, v, causal=causal,  # noqa: E731
+                                                                   window=window)
+    big = S > 4096
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    entry = dict(
+        ms=cuda_ms(launch, iters=5 if big else 20, warmup=1),
+        graph_ms=graph_ms(launch, calls=2 if big else 5, replays=3),
+        wrapper_ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
+                           iters=5 if big else 20, warmup=1),
+        plain_ms=cuda_ms(lambda: plain_attention(ref, q, k, v, causal, window), iters=2, warmup=1),
+        **attention_bound(B, S, H, k.shape[2], D, causal, window, q.dtype),
+    )
+    if window is None or window >= S:
+        entry["library_ms"] = library_ms(lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True), big)
+    else:
+        # the same function as one call: the causal window as a boolean mask
+        pos = torch.arange(S, device="cuda")
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        entry["library_ms"] = library_ms(lambda: sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True), big)
+        # beside it, the causal call without the window: more work, the flash path
+        entry["library_causal_ms"] = library_ms(
+            lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), big)
+        del band
+    # the attention's own operations per second, and the share of the
+    # bound (bf16 tensor cores, or the f32 line) that the device time reaches
+    entry["tflops"] = entry["gflop"] / entry["graph_ms"]
+    entry["bound_share"] = entry["bound_ms"] / entry["graph_ms"]
+    log(f"B8 {name} {q.dtype}: device {entry['graph_ms']:.4f} ms, {entry['tflops']:.1f} TFLOP/s, "
+        f"{entry['bound_share']:.1%} of its bound ({entry['bound_ms']:.4f} ms); "
+        f"scaled_dot_product_attention {entry['library_ms']} ms")
+    return entry
+
+
+def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd):
+    """B8 and B9 timed on phase 5c's inputs (B8: ``attention_timing``; B9:
+    ``ms`` the kernel through its launcher, ``graph_ms`` its device time
+    from a CUDA graph, ``wrapper_ms``, ``plain_ms``, and no library call)."""
+    bidirectional = [f"{name}_bf16_{B}x{S}_bidirectional" for name, (B, S, _) in BIDIRECTIONAL.items()]
+    entries = {name: attention_timing(ops, ref, flash_attention, name, *cases[name]) for name in
+               ["s4096_causal", "s16384_window8192", "f32_s2000_window1000_d128", "d80_bf16_4x1024_window8192",
+                "d80_f32_s2000_window1000", "d112_bf16_4x1024_causal", "d112_f32_s2000_window1000",
+                "d256_bf16_4x1280_window8192", "d256_f32_s2000_window1000"] + bidirectional}
     times = {"flash_attention": dict(entries["s4096_causal"], s16384_window8192=entries["s16384_window8192"],
                                      f32_s2000_window1000_d128=entries["f32_s2000_window1000_d128"]),
              "flash_attention_d80": dict(entries["d80_bf16_4x1024_window8192"],
                                          f32_s2000_window1000=entries["d80_f32_s2000_window1000"]),
              "flash_attention_d112": dict(entries["d112_bf16_4x1024_causal"],
-                                          f32_s2000_window1000=entries["d112_f32_s2000_window1000"])}
+                                          f32_s2000_window1000=entries["d112_f32_s2000_window1000"]),
+             "flash_attention_d256": dict(entries["d256_bf16_4x1280_window8192"],
+                                          f32_s2000_window1000=entries["d256_f32_s2000_window1000"])}
+    for name in bidirectional:
+        times["flash_attention"][name] = entries[name]
 
     ssd_entries = {}
     for name, (x, a, b, c, heads) in ssd.items():
@@ -1650,10 +1741,33 @@ def slot_leaves(lora_t):
     return out
 
 
+def prefix_rows(cfg):
+    """The positions before a request's tokens: a vlm's prefix rows."""
+    return cfg.num_prefix_embeddings if cfg.family == "vlm" else 0
+
+
+def request_extras(cfg):
+    """``extras(i)``: request i's own seeded N(0, 1) frame (encoder-decoder)
+    or patch (vlm) embeddings, bf16 on the card; None for the other
+    families."""
+    shape = {"audio": ("encoder_embeds", cfg.encoder_seq_len), "encdec": ("encoder_embeds", cfg.encoder_seq_len),
+             "vlm": ("prefix_embeds", cfg.num_prefix_embeddings)}.get(cfg.family)
+    if shape is None:
+        return None
+
+    def extras(i):
+        gen = torch.Generator(device="cuda").manual_seed(1000 + i)
+        return {shape[0]: torch.randn(shape[1], cfg.d_model, generator=gen, device="cuda").bfloat16()}
+
+    return extras
+
+
 def serve_requests(Request, SamplingParams, cfg, eos=None, spec=SERVE_REQUESTS):
     """Phase 5d's requests (or ``spec``'s), prompts drawn from a seeded
-    numpy generator."""
+    numpy generator, each with its own extras where the family takes them
+    (``request_extras``)."""
     rng = np.random.default_rng(19)
+    extras = request_extras(cfg)
     reqs = []
     for i, (S, budget, adapter) in enumerate(spec):
         sampling = SamplingParams(
@@ -1662,7 +1776,7 @@ def serve_requests(Request, SamplingParams, cfg, eos=None, spec=SERVE_REQUESTS):
             eos_id=eos if i == SERVE_EOS else None,
         )
         reqs.append(Request(tokens=rng.integers(0, cfg.vocab_size, S).astype(np.int32), sampling=sampling,
-                            adapter_id=adapter))
+                            adapter_id=adapter, extras=extras(i) if extras else None))
     return reqs
 
 
@@ -1671,9 +1785,10 @@ def recording_engine(ServeEngine, model):
     which each of its tokens was drawn: ``logits[(request_id, j)]`` for its
     token j (prefill gives token 0; the decode of token j-1 gives token j).
     It reads the slots' positions on the host at every decode step (a sync
-    that leaves the results as they are), and records the prefill groups'
-    shapes."""
+    that leaves the results as they are; a vlm's positions count its prefix
+    rows), and records the prefill groups' shapes."""
     logits, groups, holder = {}, [], {}
+    first_pos = prefix_rows(model.cfg)
 
     def prefill(params, lora, batch, cache_len):
         out, cache, S = model.prefill(params, lora, batch, cache_len)
@@ -1685,7 +1800,7 @@ def recording_engine(ServeEngine, model):
         out, cache = model.decode_step(params, lora, token, cache, position)
         pos = position.tolist()
         for slot, r in holder["engine"].scheduler._busy.items():
-            logits.setdefault((r.request_id, pos[slot] - len(r.tokens) + 1), out[slot, -1].clone())
+            logits.setdefault((r.request_id, pos[slot] - first_pos - len(r.tokens) + 1), out[slot, -1].clone())
         return out, cache
 
     class Recording(ServeEngine):
@@ -1722,20 +1837,26 @@ def serve_oracle(model, params, adapters, reqs, comps, logits, rel, f32=False):
     the served logits against the oracle with the LoRA left out and with
     the next adapter in place of the request's own: what the check would
     read if the served path dropped or misrouted the delta; each must read
-    above 1 for every request. Returns the readings, errors and controls as
-    shares of the tolerance (the prefill's token and the decode steps'
-    apart)."""
+    above 1 for every request. Requests with ``extras`` (frame or patch
+    embeddings) feed them to the forward, and a third control reads the
+    forward with the next request's extras. Returns the readings, errors
+    and controls as shares of the tolerance (the prefill's token and the
+    decode steps' apart)."""
     from repro_torch.utils.tree import tree_map
 
     ref_params = tree_map(lambda x: x.float(), params) if f32 else params
+    dtype = torch.float32 if f32 else torch.bfloat16
+    P = prefix_rows(model.cfg)
     rows = []
-    for r, c in zip(reqs, comps):
-        S = len(r.tokens)
+    for i, (r, c) in enumerate(zip(reqs, comps)):
+        S = P + len(r.tokens)
         seq = torch.as_tensor(np.concatenate([r.tokens, c.tokens[:-1]]).astype(np.int64), device="cuda")
+        other = reqs[(i + 1) % len(reqs)].extras
 
-        def at(p, lora, S=S, c=c, seq=seq):
+        def at(p, lora, extras=r.extras, S=S, c=c, seq=seq):
+            batch = {"tokens": seq[None], **{k: v[None].to(dtype) for k, v in (extras or {}).items()}}
             with torch.no_grad():
-                full, _ = model.forward(p, lora, {"tokens": seq[None]})
+                full, _ = model.forward(p, lora, batch)
             return full[0, S - 1:S - 1 + c.steps].float()
 
         got = torch.stack([logits[(c.request_id, j)] for j in range(c.steps)]).float()
@@ -1743,17 +1864,18 @@ def serve_oracle(model, params, adapters, reqs, comps, logits, rel, f32=False):
             raise AssertionError(f"serve request {c.request_id}: non-finite logits")
         own, nxt = adapters[r.adapter_id], adapters[(r.adapter_id + 1) % len(adapters)]
         rows.append((r, c, got, at(ref_params, own), at(params, own) if f32 else None,
-                     at(ref_params, lora_left_out(own)), at(ref_params, nxt)))
+                     at(ref_params, lora_left_out(own)), at(ref_params, nxt),
+                     at(ref_params, own, other) if other else None))
     del ref_params
 
     def err(x, want):
         return (x - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)
 
-    floor = max(float(err(plain, want).max()) for _, _, _, want, plain, _, _ in rows) if f32 else None
+    floor = max(float(err(plain, want).max()) for _, _, _, want, plain, _, _, _ in rows) if f32 else None
     tol_rel = rel * floor if f32 else rel
     out = dict(positions=0, worst=0.0, worst_prefill=0.0, worst_decode=0.0, flips=0, ties=0)
-    off, swapped = [], []
-    for r, c, got, want, _, want_off, want_next in rows:
+    off, swapped, mixed = [], [], []
+    for r, c, got, want, _, want_off, want_next, want_other in rows:
         e = err(got, want) / tol_rel
         if float(e.max()) > 1.0:
             raise AssertionError(f"serve request {c.request_id}: logits {float(e.max()):.3f}x the tolerance "
@@ -1774,7 +1896,11 @@ def serve_oracle(model, params, adapters, reqs, comps, logits, rel, f32=False):
             out["ties"] += int((top2[:, 0] - top2[:, 1] <= tol).sum())
         off.append(float((err(got, want_off) / tol_rel).max()))
         swapped.append(float((err(got, want_next) / tol_rel).max()))
+        if want_other is not None:
+            mixed.append(float((err(got, want_other) / tol_rel).max()))
     out.update(control_lora_off=min(off), control_next_adapter=min(swapped), tolerance=tol_rel)
+    if mixed:
+        out["control_other_extras"] = min(mixed)
     if f32:
         out["floor"] = floor
     return out
@@ -1786,11 +1912,15 @@ def log_oracle(label, o, what):
         f"{o['worst_prefill']:.3f}, decode {o['worst_decode']:.3f}); greedy tokens off the oracle's argmax "
         f"(near-ties): {o['flips']}, of {o['ties']} greedy positions whose oracle top two lie within the "
         f"tolerance; controls (smallest reading over the requests): LoRA left out {o['control_lora_off']:.3f}, "
-        f"the next adapter {o['control_next_adapter']:.3f}")
+        f"the next adapter {o['control_next_adapter']:.3f}"
+        + (f", the next request's extras {o['control_other_extras']:.3f}" if "control_other_extras" in o else ""))
     if o["control_lora_off"] <= 1.0 or o["control_next_adapter"] <= 1.0:
         raise AssertionError(f"the {label}oracle cannot see the adapters: a served path that dropped or misrouted "
                              f"the LoRA delta would pass it ({o['control_lora_off']:.3f}, "
                              f"{o['control_next_adapter']:.3f})")
+    if o.get("control_other_extras", 2.0) <= 1.0:
+        raise AssertionError(f"the {label}oracle cannot see the requests' extras: a served path that mixed them up "
+                             f"would pass it ({o['control_other_extras']:.3f})")
 
 
 def profiled(fn, wall_ms):
@@ -1922,7 +2052,8 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
     st = eng._state
     lora_t = gather_adapter_slots(cfg, eng._stacked, st["aidx"])
     (g0, S0), gen = groups[0], torch.Generator(device="cuda").manual_seed(5)
-    first = {"tokens": torch.randint(0, cfg.vocab_size, (g0, S0), generator=gen, device="cuda")}
+    first = {"tokens": torch.randint(0, cfg.vocab_size, (g0, S0), generator=gen, device="cuda"),
+             **{k: torch.stack([r.extras[k] for r in reqs[:g0]]) for k in reqs[0].extras or {}}}
     lora_g0 = gather_adapter_slots(cfg, eng._stacked, st["aidx"][:g0])
     cache = tree_clone(st["cache"])  # decode writes its cache in place
     with torch.no_grad():
@@ -1979,35 +2110,38 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
                 few_err=max(e for k, e in errs.items() if k.endswith(decode_key)))
 
 
-def b8_serve_checks(ops, ref, flash_attention, cfg, groups, gen, label=""):
+def b8_serve_checks(ops, ref, flash_attention, cfg, groups, gen, label="", causal=True):
     """B8 against its plain version at every prefill group's shape of a
-    dense model's serve run, and timed at the first group's beside its
-    bound and ``scaled_dot_product_attention``'s time. Returns the errors
-    by shape and the timed entry."""
+    dense model's serve run (``groups``: (requests, positions), a vlm's
+    prefix rows included), and timed at the first group's beside its bound
+    and ``scaled_dot_product_attention``'s time. ``causal=False``: an
+    encoder's attention, no mask. Returns the errors by shape and the
+    timed entry."""
     hd = cfg.resolved_head_dim
-    H, KVH, w = cfg.num_heads, cfg.num_kv_heads, cfg.attention_window
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    w = cfg.attention_window if causal else None
     errs = {}
     for g, S in sorted(set(groups)):
         q = torch.randn(g, S, H, hd, generator=gen, device="cuda").bfloat16()
         kk, vv = (torch.randn(g, S, KVH, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
-        errs[f"{g}x{S}"] = check_attention(ops.flash_attention(q, kk, vv, causal=True, window=w),
-                                           ref.flash_attention_gqa_ref(q, kk, vv, causal=True, window=w),
+        errs[f"{g}x{S}"] = check_attention(ops.flash_attention(q, kk, vv, causal=causal, window=w),
+                                           ref.flash_attention_gqa_ref(q, kk, vv, causal=causal, window=w),
                                            vv, f"{label}B8 serve prefill {g}x{S}")
     g0, S0 = groups[0]
     q = torch.randn(g0, S0, H, hd, generator=gen, device="cuda").bfloat16()
     kk, vv = (torch.randn(g0, S0, KVH, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
     out = torch.empty_like(q)
-    launch = lambda _=0: flash_attention.flash_attention_launch(out, q, kk, vv, causal=True, window=w)  # noqa: E731
+    launch = lambda _=0: flash_attention.flash_attention_launch(out, q, kk, vv, causal=causal, window=w)  # noqa: E731
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, vv))
-    b8 = dict(head_dim=hd, max_abs_err=errs[f"{g0}x{S0}"], ms=cuda_ms(launch, iters=20),
+    b8 = dict(head_dim=hd, causal=causal, max_abs_err=errs[f"{g0}x{S0}"], ms=cuda_ms(launch, iters=20),
               graph_ms=graph_ms(launch, calls=5, replays=3),
-              wrapper_ms=cuda_ms(lambda: ops.flash_attention(q, kk, vv, causal=True, window=w), iters=20),
-              plain_ms=cuda_ms(lambda: ref.flash_attention_gqa_ref(q, kk, vv, causal=True, window=w), iters=5),
+              wrapper_ms=cuda_ms(lambda: ops.flash_attention(q, kk, vv, causal=causal, window=w), iters=20),
+              plain_ms=cuda_ms(lambda: ref.flash_attention_gqa_ref(q, kk, vv, causal=causal, window=w), iters=5),
               library_ms=library_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                  qt, kt, vt, is_causal=True, enable_gqa=True), False),
-              **attention_bound(g0, S0, H, KVH, hd, True, w, torch.bfloat16))
+                  qt, kt, vt, is_causal=causal, enable_gqa=True), False),
+              **attention_bound(g0, S0, H, KVH, hd, causal, w, torch.bfloat16))
     b8.update(tflops=b8["gflop"] / b8["graph_ms"], bound_share=b8["bound_ms"] / b8["graph_ms"])
-    log(f"{label}serve shape B8 prefill {g0}x{S0} (D {hd}): device {b8['graph_ms']:.4f} ms, "
+    log(f"{label}serve shape B8 prefill {g0}x{S0} (D {hd}, causal {causal}): device {b8['graph_ms']:.4f} ms, "
         f"{b8['bound_share']:.1%} of its bound ({b8['bound_ms']:.5f} ms, {b8['bound_by']}); launcher "
         f"{b8['ms']:.4f}, wrapper {b8['wrapper_ms']:.4f}, plain {b8['plain_ms']:.4f}, library {b8['library_ms']}")
     return errs, b8
@@ -2037,15 +2171,8 @@ def phase_serve(ops, ref, sparse_lora, flash_attention, vec, cfg, model):
 
     adapters = [tree_clone(vec.global_lora)] + [tree_clone(vec.clients[i].lora) for i in range(3)]
     t0 = time.perf_counter()
-    probe = serve_all(ServeEngine(model, vec.params, adapters[0], adapters=adapters[1:], cache_len=SERVE_CACHE,
-                                  num_slots=SERVE_SLOTS, max_new_cap=max(b for _, b, _ in SERVE_REQUESTS)),
-                      serve_requests(Request, SamplingParams, cfg))
-    free = probe[SERVE_EOS].tokens
-    # the stop token: one that first appears at index 3 or later (else the
-    # latest first appearance), so the stream stops mid-way at it
-    firsts = [j for j in range(len(free)) if free[j] not in free[:j]]
-    k = next((j for j in firsts if j >= 3), firsts[-1])
-    eos = int(free[k])
+    eos, stop, probe = eos_from_probe(ServeEngine, model, vec.params, adapters,
+                                      serve_requests(Request, SamplingParams, cfg), SERVE_CACHE)
 
     L = cfg.num_layers
     s = serve_phase(ops, ref, sparse_lora, model, vec.params, adapters,
@@ -2059,10 +2186,10 @@ def phase_serve(ops, ref, sparse_lora, flash_attention, vec, cfg, model):
         if c.prompt_len != S or (c.finish_reason == "length" and c.steps != min(budget, SERVE_CACHE - S)):
             raise AssertionError(f"serve request {c.request_id}: {c.steps} tokens for budget {budget}")
     ce = comps[SERVE_EOS]
-    if ce.finish_reason != "eos" or not np.array_equal(ce.tokens, free[:k + 1]):
-        raise AssertionError(f"the EOS request did not stop at its first {eos} ({ce.tokens} vs {free[:k + 1]})")
+    if ce.finish_reason != "eos" or not np.array_equal(ce.tokens, stop):
+        raise AssertionError(f"the EOS request did not stop at its first {eos} ({ce.tokens} vs {stop})")
     same_sampled = np.array_equal(comps[SERVE_SAMPLED].tokens, probe[SERVE_SAMPLED].tokens)
-    log(f"serve EOS request stopped at token {k} ({eos}); sampled request (T {SERVE_TEMPERATURE}) equal to "
+    log(f"serve EOS request stopped at token {len(stop) - 1} ({eos}); sampled request (T {SERVE_TEMPERATURE}) equal to "
         f"its stream in the first run, whose co-residents differ after the EOS: {same_sampled}")
     log(f"serve times: {json.dumps({k: v for k, v in times.items() if not k.startswith('b7')})}")
 
@@ -2605,13 +2732,8 @@ def phase_moe_hybrid(ops, ref, sparse_lora, flash_attention, ssd_chunk, make_run
     adapters = [tree_clone(vec.global_lora)] + [tree_clone(vec.clients[i].lora) for i in range(3)]
     del vec
     free_memory()
-    probe = serve_all(ServeEngine(model, params, adapters[0], adapters=adapters[1:], cache_len=SERVE_CACHE,
-                                  num_slots=SERVE_SLOTS, max_new_cap=max(b for _, b, _ in SERVE_REQUESTS)),
-                      serve_requests(Request, SamplingParams, cfg))
-    free = probe[SERVE_EOS].tokens
-    firsts = [j for j in range(len(free)) if free[j] not in free[:j]]
-    k = next((j for j in firsts if j >= 3), firsts[-1])
-    eos = int(free[k])
+    eos, stop, probe = eos_from_probe(ServeEngine, model, params, adapters,
+                                      serve_requests(Request, SamplingParams, cfg), SERVE_CACHE)
     s = serve_phase(ops, ref, sparse_lora, model, params, adapters,
                     lambda: serve_requests(Request, SamplingParams, cfg, eos), cache_len=SERVE_CACHE,
                     launches=dense_serve_launches(cfg.num_layers), b7_target="wq", label="granite ", **moe_kw)
@@ -2619,8 +2741,8 @@ def phase_moe_hybrid(ops, ref, sparse_lora, flash_attention, ssd_chunk, make_run
         if c.prompt_len != S or (c.finish_reason == "length" and c.steps != min(budget, SERVE_CACHE - S)):
             raise AssertionError(f"granite serve request {c.request_id}: {c.steps} tokens for budget {budget}")
     ce = s["comps"][SERVE_EOS]
-    if ce.finish_reason != "eos" or not np.array_equal(ce.tokens, free[:k + 1]):
-        raise AssertionError(f"granite: the EOS request did not stop at its first {eos} ({ce.tokens} vs {free[:k + 1]})")
+    if ce.finish_reason != "eos" or not np.array_equal(ce.tokens, stop):
+        raise AssertionError(f"granite: the EOS request did not stop at its first {eos} ({ce.tokens} vs {stop})")
     moe_served("granite", s["times"]["oracle"])
     b8_errs, b8 = b8_serve_checks(ops, ref, flash_attention, cfg, s["groups"], s["gen"], "granite ")
     served("granite-moe-3b-a800m", s, "flash_attention", b8_errs)
@@ -2709,6 +2831,238 @@ def phase_moe_hybrid(ops, ref, sparse_lora, flash_attention, ssd_chunk, make_run
     del vec, model
     free_memory()
     log(f"phase i: {time.perf_counter() - t_phase:.1f} s")
+    return counts, errs, times
+
+
+def family_world(cfg, data_mod, fl, n_samples):
+    """``n_samples`` samples of the keyword task (64 tokens) over
+    ``fl.num_devices`` clients, with the family's inputs: seeded N(0, 1)
+    frame (encoder-decoder) or patch (vlm) embeddings as f32 numpy (the
+    runner casts them to the model's dtype), or, for the encoder, the
+    task's label mod ``num_classes`` as ``labels`` in place of the label
+    token."""
+    task = data_mod.make_keyword_task(n_samples=n_samples, seq_len=64, vocab_size=cfg.vocab_size, seed=0)
+    data = {"tokens": task.data["tokens"], "label_token": task.data["label_token"]}
+    rng = np.random.default_rng(3)
+    if cfg.family in ("audio", "encdec"):
+        data["encoder_embeds"] = rng.standard_normal((n_samples, cfg.encoder_seq_len, cfg.d_model), dtype=np.float32)
+    if cfg.family == "vlm":
+        data["prefix_embeds"] = rng.standard_normal((n_samples, cfg.num_prefix_embeddings, cfg.d_model),
+                                                    dtype=np.float32)
+    if cfg.family == "encoder":
+        data = {"tokens": task.data["tokens"], "labels": (task.data["label"] % cfg.num_classes).astype(np.int32)}
+    parts = data_mod.dirichlet_partition(task.data["label"], fl.num_devices, fl.dirichlet_alpha, seed=0)
+    return [{k: v[i] for k, v in data.items()} for i in parts]
+
+
+def eos_from_probe(ServeEngine, model, params, adapters, reqs, cache_len):
+    """Phase 5d's EOS: serve ``reqs`` once; the EOS request's stop token is
+    one that first appears at index 3 or later of its greedy stream (else
+    the latest first appearance), so the stream stops mid-way at it.
+    Returns the token, the stream up to it and the probe's completions."""
+    probe = serve_all(ServeEngine(model, params, adapters[0], adapters=adapters[1:], cache_len=cache_len,
+                                  num_slots=SERVE_SLOTS, max_new_cap=max(r.sampling.max_new_tokens for r in reqs)),
+                      reqs)
+    free = probe[SERVE_EOS].tokens
+    firsts = [j for j in range(len(free)) if free[j] not in free[:j]]
+    k = next((j for j in firsts if j >= 3), firsts[-1])
+    return int(free[k]), free[:k + 1], probe
+
+
+def phase_last_families(ops, ref, sparse_lora, flash_attention, make_runner, data_mod, FibecFedConfig, ARCHS,
+                        build_model, make_loss_fn):
+    """Phase j: the encoder-decoder, vlm and encoder families at full width,
+    bf16 from a seeded torch init.
+    (i) whisper-large-v3 (32 encoder + 32 decoder layers, 20 heads of 64,
+    1500 frames): ``serve_phase`` with phase 5d's 12 requests, each with its
+    own frame embeddings, over 4 seeded adapters, cache 1152, one EOS stop,
+    one sampled: on prefill B8 bidirectional over the encoder and causal
+    over the prompt, B7 on the encoder's and the decoder's LoRA (cwk/cwv
+    over the encoder's output); on decode B7's few-row path (self- and
+    cross-attention's wq/wo). Phase 5d's oracle with a third control (the
+    next request's frames). B8 (both masks) and B7 (at the encoder's row
+    counts too) against their plain versions at the served shapes.
+    (ii) its width cut to WHISPER_TRAIN_LAYERS + WHISPER_TRAIN_LAYERS
+    layers: the vectorized FibecFed/AdamW (stacked B1), cohort 4 of 8, 1
+    round; its GAL layers over the 8 logical layers.
+    (iii) paligemma-3b (18 layers, 8 heads of 256 over 1 KV head, 256 prefix
+    rows): as (i) with patch embeddings and a PALIGEMMA_CACHE-token cache:
+    B8 at D 256 and B7 on prefill, the few-row path on decode.
+    (iv) its width cut to PALIGEMMA_TRAIN_LAYERS layers trained as (ii).
+    (v) roberta-large at full depth: the vectorized FibecFed/AdamW for
+    ROBERTA_ROUNDS rounds on the keyword task relabelled to 2 classes over 8
+    clients, cohort 4; its Fisher difficulty scores held to the loop
+    engine's; ``evaluate``'s class accuracy on held-out samples.
+    Returns the launch counts, the largest errors and the times."""
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    free_memory()
+    t_phase = time.perf_counter()
+    counts = dict.fromkeys(("masked_adamw_update_stacked", "flash_attention", "flash_attention_d256",
+                            "batched_sparse_lora_apply", "batched_sparse_lora_few_rows"), 0)
+    errs = dict.fromkeys(("flash_attention", "flash_attention_d256", "batched_sparse_lora_apply",
+                          "batched_sparse_lora_few_rows"), 0.0)
+    times = {}
+
+    def served(name, s, b8_key, b8_errs):
+        for k in ("batched_sparse_lora_apply", "batched_sparse_lora_few_rows"):
+            counts[k] += s["counts"][k]
+        counts[b8_key] += s["counts"]["flash_attention"]
+        errs[b8_key] = max(errs[b8_key], max(b8_errs.values()))
+        errs["batched_sparse_lora_apply"] = max(errs["batched_sparse_lora_apply"], s["b7_err"])
+        errs["batched_sparse_lora_few_rows"] = max(errs["batched_sparse_lora_few_rows"], s["few_err"])
+        log_oracle(f"{name} ", s["times"]["oracle"], "the bf16 forward")
+        prof = s["times"]["profiles"]["decode"]
+        log(f"{name}: decode step {s['times']['decode_step_ms']:.2f} ms, busy {prof['busy_share']:.1%}, B7 "
+            f"{prof['b7_share']:.1%} of its {prof['kernel_ms']:.2f} ms of kernels; useful tokens/s "
+            f"{s['times']['useful_tokens_per_s']:.1f}; TTFT mean {s['times']['ttft_mean_ms']:.1f} ms; serve peak "
+            f"{s['times']['serve_peak_gib']:.2f} GiB; B7 path by shape {json.dumps(s['paths'])}")
+
+    def check_served(name, s, stop, eos, room):
+        """Budgets clamped to the cache's ``room(prompt length)``, the EOS
+        request stopped at its stop token."""
+        for (S, budget, _), c in zip(SERVE_REQUESTS, s["comps"]):
+            if c.prompt_len != S or (c.finish_reason == "length" and c.steps != min(budget, room(S))):
+                raise AssertionError(f"{name} serve request {c.request_id}: {c.steps} tokens for budget {budget}")
+        ce = s["comps"][SERVE_EOS]
+        if ce.finish_reason != "eos" or not np.array_equal(ce.tokens, stop):
+            raise AssertionError(f"{name}: the EOS request did not stop at its first {eos} ({ce.tokens} vs {stop})")
+
+    def train(name, cfg, fl, n_samples):
+        model = build_model(cfg)
+        vec, out = train_vectorized(name, cfg, model, make_runner, make_loss_fn, fl,
+                                    family_world(cfg, data_mod, fl, n_samples), ops)
+        counts["masked_adamw_update_stacked"] += out["padded_steps"]
+        log(f"{name}: GAL layers {out['gal_layers']} of {len(vec.gal_layers)} logical layers")
+        return vec, out
+
+    # (i) whisper-large-v3 at full width and depth: serving
+    t0 = time.perf_counter()
+    cfg = ARCHS["whisper-large-v3"]
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    params = model.init_params(gen, "cuda")
+    adapters = dense_adapters(model, gen)
+    Le, Ld = cfg.encoder_layers, cfg.num_layers
+    eos, stop, _ = eos_from_probe(ServeEngine, model, params, adapters,
+                                  serve_requests(Request, SamplingParams, cfg), SERVE_CACHE)
+    free_memory()
+    s = serve_phase(ops, ref, sparse_lora, model, params, adapters,
+                    lambda: serve_requests(Request, SamplingParams, cfg, eos), cache_len=SERVE_CACHE,
+                    # B8 over each encoder layer (bidirectional) and each decoder layer's
+                    # prompt (causal); B7 on the encoder's wq-wo and the decoder's wq-wo
+                    # and cwq-cwo at prefill, its few-row path on wq-wo and cwq/cwo a step
+                    launches=lambda st: only(flash_attention=(Le + Ld) * st["prefill_calls"],
+                                             batched_sparse_lora_apply=(4 * Le + 8 * Ld) * st["prefill_calls"],
+                                             batched_sparse_lora_few_rows=6 * Ld * st["decode_steps"]),
+                    oracle=dict(rel=SERVE_LOGIT_REL), b7_target="decoder/wq", label="whisper ")
+    check_served("whisper", s, stop, eos, lambda S: SERVE_CACHE - S)
+    dec_errs, b8 = b8_serve_checks(ops, ref, flash_attention, cfg, s["groups"], s["gen"], "whisper decoder ")
+    enc_errs, b8_enc = b8_serve_checks(ops, ref, flash_attention, cfg,
+                                       [(g, cfg.encoder_seq_len) for g, _ in s["groups"]], s["gen"],
+                                       "whisper encoder ", causal=False)
+    # B7 at the row counts of the encoder's output: its own targets and the
+    # decoder's cross-attention K/V projections
+    scale, gen = cfg.lora_alpha / cfg.lora_rank, s["gen"]
+    b7_enc = {}
+    for g in sorted({g for g, _ in s["groups"]}):
+        idx = torch.arange(g, dtype=torch.int32, device="cuda").repeat_interleave(cfg.encoder_seq_len)
+        for t, (a, b) in slot_leaves(s["lora_t"]).items():
+            if t.startswith("encoder/") or t in ("decoder/cwk", "decoder/cwv"):
+                a, b = a[:g].contiguous(), b[:g].contiguous()
+                ones = torch.ones(g, b.shape[-1], device="cuda")
+                x = torch.randn(g * cfg.encoder_seq_len, a.shape[1], generator=gen, device="cuda").bfloat16()
+                b7_enc[f"B7 {t} {g}x{cfg.encoder_seq_len}"] = check_lora(
+                    ops.batched_sparse_lora_apply(x, idx, a, b, ones, scale),
+                    ref.batched_sparse_lora_matmul_ref(x, idx, a, b, ones, scale), f"whisper B7 serve {t}")
+    errs["batched_sparse_lora_apply"] = max(errs["batched_sparse_lora_apply"], max(b7_enc.values()))
+    log(f"whisper B7 and B8 vs plain at the serve shapes: within tolerance; max abs err "
+        f"{json.dumps({**s['errs'], **b7_enc, **{f'B8 decoder {k}': e for k, e in dec_errs.items()}, **{f'B8 encoder {k}': e for k, e in enc_errs.items()}})}")
+    served("whisper-large-v3", s, "flash_attention", {**dec_errs, **enc_errs})
+    times["whisper-large-v3"] = dict(s["times"], b8_prefill=b8, b8_encoder=b8_enc, seconds=time.perf_counter() - t0)
+    del params, adapters, s, model
+    free_memory()
+
+    # (ii) whisper's width, depth cut: training
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(ARCHS["whisper-large-v3"], num_layers=WHISPER_TRAIN_LAYERS,
+                              encoder_layers=WHISPER_TRAIN_LAYERS)
+    fl = FibecFedConfig(num_devices=8, devices_per_round=4, rounds=1, batch_size=FAMILY_BATCH)
+    vec, out = train(f"whisper-large-v3 ({cfg.encoder_layers} + {cfg.num_layers} layers)", cfg, fl, FAMILY_SAMPLES)
+    times["whisper-large-v3_train"] = dict(out, seconds=time.perf_counter() - t0)
+    del vec
+    free_memory()
+
+    # (iii) paligemma-3b at full width and depth: serving
+    t0 = time.perf_counter()
+    cfg = ARCHS["paligemma-3b"]
+    P = cfg.num_prefix_embeddings
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    params = model.init_params(gen, "cuda")
+    adapters = dense_adapters(model, gen)
+    eos, stop, _ = eos_from_probe(ServeEngine, model, params, adapters,
+                                  serve_requests(Request, SamplingParams, cfg), PALIGEMMA_CACHE)
+    free_memory()
+    s = serve_phase(ops, ref, sparse_lora, model, params, adapters,
+                    lambda: serve_requests(Request, SamplingParams, cfg, eos), cache_len=PALIGEMMA_CACHE,
+                    launches=dense_serve_launches(cfg.num_layers), oracle=dict(rel=SERVE_LOGIT_REL), b7_target="wq",
+                    label="paligemma ")
+    check_served("paligemma", s, stop, eos, lambda S: PALIGEMMA_CACHE - P - S)
+    b8_errs, b8 = b8_serve_checks(ops, ref, flash_attention, cfg, [(g, P + S) for g, S in s["groups"]], s["gen"],
+                                  "paligemma ")
+    log(f"paligemma B7 and B8 (D {cfg.resolved_head_dim}) vs plain at the serve shapes: within tolerance; max abs err "
+        f"{json.dumps({**s['errs'], **{f'B8 {k}': e for k, e in b8_errs.items()}})}")
+    served("paligemma-3b", s, "flash_attention_d256", b8_errs)
+    times["paligemma-3b"] = dict(s["times"], b8_prefill=b8, seconds=time.perf_counter() - t0)
+    del params, adapters, s, model
+    free_memory()
+
+    # (iv) paligemma's width, depth cut: training on prefix rows
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(ARCHS["paligemma-3b"], num_layers=PALIGEMMA_TRAIN_LAYERS)
+    fl = FibecFedConfig(num_devices=8, devices_per_round=4, rounds=1, batch_size=FAMILY_BATCH)
+    vec, out = train(f"paligemma-3b ({cfg.num_layers} layers)", cfg, fl, FAMILY_SAMPLES)
+    times["paligemma-3b_train"] = dict(out, seconds=time.perf_counter() - t0)
+    del vec
+    free_memory()
+
+    # (v) roberta-large at full width and depth: the loop engine's Fisher
+    # difficulty, then the vectorized engine's training and evaluate
+    t0 = time.perf_counter()
+    cfg = ARCHS["roberta-large"]
+    model = build_model(cfg)
+    fl = FibecFedConfig(num_devices=8, devices_per_round=4, rounds=ROBERTA_ROUNDS, batch_size=4)
+    clients = family_world(cfg, data_mod, fl, 256)
+    with Launches(ops) as run:
+        loop = make_runner("fibecfed", model, make_loss_fn(model), fl, clients, optimizer="adamw",
+                           fused_optimizer=True, engine="loop", seed=0)
+        _, loop_s = timed(loop._compute_difficulty)
+    if any(run.counts.values()):
+        raise AssertionError(f"roberta's Fisher difficulty launched a kernel: {run.counts}")
+    loop_difficulty = [c.difficulty.copy() for c in loop.clients]
+    del loop
+    free_memory()
+    vec, out = train_vectorized("roberta-large", cfg, model, make_runner, make_loss_fn, fl, clients, ops)
+    counts["masked_adamw_update_stacked"] += out["padded_steps"]
+    gap, swaps, spread = difficulty_gap(loop_difficulty, [c.difficulty for c in vec.clients])
+    log(f"roberta-large vectorized vs loop Fisher difficulty per batch ({loop_s:.2f} s on the loop engine): largest "
+        f"relative gap {gap:.4g} (limit {DIFFICULTY_RTOL}); {swaps} batch pairs ordered differently, their loop "
+        f"scores at most {spread:.4g} apart (relative)")
+    if gap > DIFFICULTY_RTOL or spread > 2 * gap:
+        raise AssertionError("roberta's vectorized difficulty scores disagree with the loop engine's")
+    task = data_mod.make_keyword_task(n_samples=64, seq_len=64, vocab_size=cfg.vocab_size, seed=1)
+    test = {"tokens": task.data["tokens"], "labels": (task.data["label"] % cfg.num_classes).astype(np.int32)}
+    with Launches(ops) as run:
+        acc, eval_s = timed(lambda: vec.evaluate(test, batch_size=32))
+    log(f"roberta-large evaluate: class accuracy {acc:.4f} on {len(test['labels'])} samples ({eval_s:.2f} s); "
+        f"launches {run.counts}")
+    if not 0.0 <= acc <= 1.0 or any(run.counts.values()):
+        raise AssertionError(f"roberta evaluate: accuracy {acc}, launches {run.counts}")
+    times["roberta-large_train"] = dict(out, difficulty_gap=gap, accuracy=acc, seconds=time.perf_counter() - t0)
+    del vec, model
+    free_memory()
+    log(f"phase j: {time.perf_counter() - t_phase:.1f} s")
     return counts, errs, times
 
 
@@ -3119,15 +3473,34 @@ def main() -> int:
     times["flash_attention"]["llama4-maverick-400b-a17b_serve_prefill"] = \
         mh_times["llama4-maverick-400b-a17b"]["b8_prefill"]
     times["flash_attention_d112"]["zamba2-7b_serve_prefill"] = mh_times["zamba2-7b"]["b8_prefill"]
+    log("phase i times:", json.dumps(mh_times))
+
+    # --- j. the last families: whisper-large-v3 (B8 bidirectional on the
+    # encoder, causal on the prompt, B7 on both LoRA groups) and paligemma-3b
+    # (B8 at D 256) served and trained at a cut depth; roberta-large trained ---
+    last_counts, last_errs, last_times = phase_last_families(
+        ops, ref, sparse_lora, flash_attention, make_runner, data_mod, FibecFedConfig, ARCHS, build_model,
+        make_loss_fn)
+    for name, n in last_counts.items():
+        launches[name] += n
+    for name, e in last_errs.items():
+        errs[name] = max(errs[name], e)
+    for name in ("whisper-large-v3", "paligemma-3b"):
+        times["batched_sparse_lora_few_rows"][f"{name}_serve_decode"] = last_times[name]["b7_decode"]
+        times["batched_sparse_lora_apply"][f"{name}_serve_prefill"] = last_times[name]["b7_prefill"]
+    times["flash_attention"]["whisper-large-v3_serve_prefill"] = last_times["whisper-large-v3"]["b8_prefill"]
+    times["flash_attention"]["whisper-large-v3_serve_encoder"] = last_times["whisper-large-v3"]["b8_encoder"]
+    times["flash_attention_d256"]["paligemma-3b_serve_prefill"] = last_times["paligemma-3b"]["b8_prefill"]
+    log("phase j times:", json.dumps(last_times))
     decode = {"qwen2-0.5b (5d)": serve_times, "mamba2-1.3b (f)": ssm_times,
               **{f"{n} (h)": dense_times[n] for n in ("qwen3-0.6b", "stablelm-3b", "chatglm3-6b")},
-              **{f"{n} (i)": mh_times[n] for n in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "zamba2-7b")}}
+              **{f"{n} (i)": mh_times[n] for n in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "zamba2-7b")},
+              **{f"{n} (j)": last_times[n] for n in ("whisper-large-v3", "paligemma-3b")}}
     for name, t in decode.items():
         prof, b7 = t["profiles"]["decode"], t["b7_decode"]
         log(f"decode step, {name}: {t['decode_step_ms']:.2f} ms, busy {prof['busy_share']:.1%}, B7 "
             f"{prof['b7_share']:.1%} of {prof['kernel_ms']:.2f} ms of kernels; B7 few-row at its decode shape "
             f"{b7['graph_ms']:.4f} ms, the {b7.get('old_path')} kernel {b7.get('old_graph_ms')} ms")
-    log("phase i times:", json.dumps(mh_times))
 
     # --- 8. kernel list, card, ok ---
     if any(n == 0 for n in launches.values()):

@@ -2,7 +2,8 @@
 
 A copy of the model and FL configuration of the JAX package
 (``repro.config``), kept here so that the port imports nothing of it.
-Every architecture is one :class:`ModelConfig`; the FL / FibecFed
+Every architecture is one :class:`ModelConfig` and each input shape one
+:class:`InputShape`; the FL / FibecFed
 hyper-parameters live in :class:`FibecFedConfig` (paper Table 8).
 """
 from __future__ import annotations
@@ -100,6 +101,11 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def supports_long_context(self) -> bool:
+        """long_500k decodes need sub-quadratic attention (SSM/hybrid or SWA)."""
+        return self.family in ("ssm", "hybrid") or self.attention_window is not None
+
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family variant for CPU tests (as ``repro.config``)."""
         small: Dict = dict(
@@ -138,6 +144,16 @@ class ModelConfig:
         if nkv and nh % nkv:
             small["num_kv_heads"] = 1
         return dataclasses.replace(self, **small)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned global input shapes (``configs.INPUT_SHAPES``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
 
 
 @dataclass(frozen=True)

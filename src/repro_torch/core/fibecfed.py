@@ -56,6 +56,7 @@ from repro_torch.data.pipeline import gather_batch, make_batches, stack_clients
 from repro_torch.kernels import ops as kops
 from repro_torch.lora import gal_mask_tree, neuron_mask_tree, rank_mask_tree
 from repro_torch.models.model_api import ModelFns
+from repro_torch.models.transformer import torch_dtype
 from repro_torch.obs import ensure as ensure_telemetry
 from repro_torch.optim import make_optimizer
 from repro_torch.train.losses import make_logits_loss
@@ -137,11 +138,13 @@ class ClientState:
         self._lora_view = None
 
 
-def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A numpy batch on ``device``; integer arrays become int64 indices."""
+def to_device(batch: Dict[str, np.ndarray], device, dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """A numpy batch on ``device``; integer arrays become int64 indices, and
+    float arrays (a vlm's ``prefix_embeds``, an encoder-decoder's
+    ``encoder_embeds``) take ``dtype``, the model's, where it is given."""
     return {
         k: torch.as_tensor(v, device=device).to(torch.int64)
-        if np.issubdtype(v.dtype, np.integer) else torch.as_tensor(v, device=device)
+        if np.issubdtype(v.dtype, np.integer) else torch.as_tensor(v, device=device, dtype=dtype)
         for k, v in batch.items()
     }
 
@@ -216,6 +219,7 @@ class FibecFed:
         self.tel = ensure_telemetry(telemetry)
         self.model = model
         self.cfg = model.cfg
+        self._data_dtype = torch_dtype(self.cfg.dtype)  # float client data (prefix/encoder embeds)
         self.loss_fn = loss_fn
         self.fl = fl
         self.difficulty_metric = difficulty_metric
@@ -281,7 +285,7 @@ class FibecFed:
         if vectorized:
             C = len(self.clients)
             stack = stack_clients(client_data, fl.batch_size)
-            self._stack_data = to_device(stack.data, self.device)
+            self._stack_data = to_device(stack.data, self.device, self._data_dtype)
             self._sample_valid = torch.as_tensor(stack.sample_valid, device=self.device)
             self._stacked_lora = _stack_copies(lora0, C)
             self._stacked_opt = _stack_copies(self.opt_init(lora0), C)
@@ -309,7 +313,7 @@ class FibecFed:
     # ------------------------------------------------------------------
 
     def _client_batch(self, client: ClientState, batch_ids: np.ndarray) -> Dict[str, torch.Tensor]:
-        return to_device(gather_batch(client.data, batch_ids), self.device)
+        return to_device(gather_batch(client.data, batch_ids), self.device, self._data_dtype)
 
     def _train_step(self, lora, opt_state, batch, lr, mask):
         grads, loss = grad_and_value(lambda lo: self.loss_fn(self.params, lo, batch))(lora)
@@ -318,7 +322,8 @@ class FibecFed:
 
     def _sensitivity(self, lora, batch) -> torch.Tensor:
         """Layer-sensitivity probe (Eq. 9-10) on one batch."""
-        B, S = batch["tokens"].shape
+        B, T = batch["tokens"].shape
+        S = T + (self.cfg.num_prefix_embeddings if self.cfg.family == "vlm" else 0)
         return galmod.layer_sensitivity_scores(
             self.model.forward_probe, make_logits_loss(self.cfg), self.params, lora, batch,
             gamma=self.fl.noise_budget, p=self.fl.norm_p, noise_shape=(B, S, self.cfg.d_model),
@@ -731,16 +736,19 @@ class FibecFed:
 
     def evaluate(self, data: Dict[str, np.ndarray], batch_size: int = 32) -> float:
         """Accuracy with the *server* model (GAL part global, the rest as
-        initialized)."""
+        initialized): the next token's argmax against ``label_token``, or
+        for the encoder family the class argmax against ``labels``."""
         n = len(next(iter(data.values())))
         correct, total = 0, 0
         with torch.no_grad():
             for i in range(0, n, batch_size):
                 ids = np.arange(i, min(i + batch_size, n))
-                batch = to_device(gather_batch(data, ids), self.device)
+                batch = to_device(gather_batch(data, ids), self.device, self._data_dtype)
                 logits, _ = self.model.forward(self.params, self.global_lora, batch)
-                pred = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
-                gold = data["label_token"][ids]
+                if self.cfg.family == "encoder":  # class logits against the labels
+                    pred, gold = torch.argmax(logits, dim=-1).cpu().numpy(), data["labels"][ids]
+                else:
+                    pred, gold = torch.argmax(logits[:, -1], dim=-1).cpu().numpy(), data["label_token"][ids]
                 correct += int((pred == gold).sum())
                 total += len(gold)
         return correct / max(total, 1)

@@ -3,7 +3,7 @@ port of ``repro.federated.prompt_tuning``).
 
 Instead of LoRA, each client trains a soft prompt (n_prompt, d_model)
 prepended to the input embeddings (the decoder forward's ``prefix_embeds``,
-dense or moe);
+dense, moe or vlm: there the soft prompt takes the patch embeddings' place);
 the server FedAvgs the prompt, weighted by the clients' sample counts. Far
 fewer parameters than LoRA (the paper's Table 13 comm numbers) but lower
 accuracy (Table 1).
@@ -50,9 +50,8 @@ class FedPrompt:
         device, an error without one). ``init_params`` / ``init_prompt``:
         numpy arrays to start from (the JAX runner's ``params`` and
         ``prompt``)."""
-        if model.cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"prompt tuning on family {model.cfg.family!r} is not ported yet (ROADMAP.md, Queue A item 12)")
+        if model.cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError("prompt tuning needs a decoder")
         self.model = model
         self.fl = fl
         self.device = resolve_device(device)

@@ -1,4 +1,4 @@
-// Causal / sliding-window flash attention (forward), written for Hopper
+// Causal / sliding-window / bidirectional flash attention (forward), written for Hopper
 // (sm_90a).
 //
 // Replaces the TPU kernel
@@ -54,7 +54,11 @@
 // hi + lo is within 2^-18·p of p, so an output moves by at most 3.8e-6 of
 // max|v|; a single rounding of p to bf16 (2^-9) would not meet the
 // attention tolerance of 1e-5·max|v|. Shared memory: Q plus two stages of K
-// and V, 40 KB at D 64, 50 KB at D 80, 70 KB at D 112 and 80 KB at D 128.
+// and V, 40 KB at D 64, 50 KB at D 80, 70 KB at D 112, 80 KB at D 128 and
+// 160 KB at D 256 (paligemma-3b; one block an SM). At D 256 the output
+// accumulator alone is 128 registers a thread, and Q's fragments would add
+// 64: Q stays in shared memory and each k-step of q·kᵀ ldmatrixes its
+// fragment there (FlashAttention-2's choice at large head dims).
 // D 80 (stablelm-3b) is 10 chunks of 16 bytes a row: 5 k-steps of 16 for
 // q·kᵀ and 10 output tiles of 8 for p·v; D 112 (zamba2-7b) 14 chunks: 7
 // k-steps and 14 output tiles. Both take the swizzle of rows whose chunk
@@ -68,7 +72,7 @@
 // D/16 columns of the accumulator; the 16 lanes that share rows reduce the
 // row max and sum with shuffles. p goes through shared memory (transposed)
 // to the p.v product. Shared memory: 66 KB at D 64, 79 KB at D 80, 103 KB
-// at D 112, 116 KB at D 128.
+// at D 112, 116 KB at D 128, 214 KB at D 256 (one block an SM).
 //
 // Both take their dynamic shared memory through the opt-in attribute.
 // Later: wgmma with P from registers, TMA-fed K/V tiles with mbarriers and a
@@ -371,7 +375,11 @@ flash_attention_tc_kernel(bf16* __restrict__ out, const bf16* __restrict__ q, co
   load_tile<D>(sv, vb, kv_row, t_lo * kBK, S);
   cp_async_commit();
 
-  uint32_t qf[KS][4];
+  // Q's A fragments stay in registers up to D 128; at D 256 they would take
+  // 64 registers beside the 128 of the output accumulator, so each k-step
+  // ldmatrixes its fragment from the staged Q tile instead
+  constexpr bool kQRegs = D <= 128;
+  uint32_t qf[kQRegs ? KS : 1][4];
   float acc[DT][4];
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
@@ -387,11 +395,13 @@ flash_attention_tc_kernel(bf16* __restrict__ out, const bf16* __restrict__ q, co
     cp_async_commit();  // empty on the last tile: one group per tile all the same
     cp_async_wait<1>();  // this tile's copies (and Q's, with the first) have landed
     __syncthreads();
-    if (tile == t_lo) {
+    if constexpr (kQRegs) {
+      if (tile == t_lo) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(smem_u32(sq + swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))), qf[ks][0], qf[ks][1],
-                qf[ks][2], qf[ks][3]);
+        for (int ks = 0; ks < KS; ++ks)
+          ldsm_x4(smem_u32(sq + swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))), qf[ks][0], qf[ks][1],
+                  qf[ks][2], qf[ks][3]);
+      }
     }
 
     // s = q.k^T: 8 fragments of 16 rows x 8 keys
@@ -401,13 +411,19 @@ flash_attention_tc_kernel(bf16* __restrict__ out, const bf16* __restrict__ q, co
     for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+        qa[0] = qf[ks][0], qa[1] = qf[ks][1], qa[2] = qf[ks][2], qa[3] = qf[ks][3];
+      } else {
+        ldsm_x4(smem_u32(sq + swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))), qa[0], qa[1], qa[2], qa[3]);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t b0, b1, b2, b3;
         const int key = 16 * np + (lane & 7) + ((lane >> 4) << 3);
         ldsm_x4(smem_u32(kt + swz<D>(key, 2 * ks + ((lane >> 3) & 1))), b0, b1, b2, b3);
-        mma_bf16(s[2 * np], qf[ks], b0, b1);
-        mma_bf16(s[2 * np + 1], qf[ks], b2, b3);
+        mma_bf16(s[2 * np], qa, b0, b1);
+        mma_bf16(s[2 * np + 1], qa, b2, b3);
       }
     }
 
@@ -525,27 +541,29 @@ extern "C" {
 
 // out, q: (B, S, H, D); k, v: (B, S, KVH, D); contiguous, all of dtype 0
 // (float32, on the CUDA cores) or 1 (bfloat16, on the tensor cores, every
-// pointer 16-byte aligned). D 64, 80, 112 or 128; H a multiple of KVH; window 0 for
+// pointer 16-byte aligned). D 64, 80, 112, 128 or 256; H a multiple of KVH; window 0 for
 // none, else >= 1. scale is 1/sqrt(D) in float32. out must not alias an
 // input.
 int repro_flash_attention(void* out, const void* q, const void* k, const void* v, int B, int S,
                           int H, int KVH, int D, int causal, int window, int dtype, float scale,
                           void* stream) {
   if (B < 1 || B > 65535 || S < 1 || H < 1 || H > 65535 || KVH < 1 || H % KVH || window < 0 ||
-      dtype < 0 || dtype > 1 || (D != 64 && D != 80 && D != 112 && D != 128))
+      dtype < 0 || dtype > 1 || (D != 64 && D != 80 && D != 112 && D != 128 && D != 256))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     if (D == 64) return launch<float, 64>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
     if (D == 80) return launch<float, 80>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
     if (D == 112) return launch<float, 112>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
-    return launch<float, 128>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
+    if (D == 128) return launch<float, 128>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
+    return launch<float, 256>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
   }
   if (!(aligned16(out) && aligned16(q) && aligned16(k) && aligned16(v))) return (int)cudaErrorMisalignedAddress;
   if (D == 64) return launch_tc<64>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
   if (D == 80) return launch_tc<80>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
   if (D == 112) return launch_tc<112>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
-  return launch_tc<128>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
+  if (D == 128) return launch_tc<128>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
+  return launch_tc<256>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
 }
 
 // The dynamic shared memory a launch at this head_dim and dtype opts into,
@@ -556,11 +574,13 @@ int repro_flash_attention_smem(int D, int dtype) {
     if (D == 80) return smem_floats<80>() * (int)sizeof(float);
     if (D == 112) return smem_floats<112>() * (int)sizeof(float);
     if (D == 128) return smem_floats<128>() * (int)sizeof(float);
+    if (D == 256) return smem_floats<256>() * (int)sizeof(float);
   } else if (dtype == 1) {
     if (D == 64) return tc_smem_bytes<64>();
     if (D == 80) return tc_smem_bytes<80>();
     if (D == 112) return tc_smem_bytes<112>();
     if (D == 128) return tc_smem_bytes<128>();
+    if (D == 256) return tc_smem_bytes<256>();
   }
   return -1;
 }

@@ -21,7 +21,8 @@ import torch
 from repro_torch.kernels.build import CSRC, load_library
 
 SOURCE = CSRC / "flash_attention.cu"
-HEAD_DIMS = (64, 80, 112, 128)  # the kernel's instantiations (80: stablelm-3b, 112: zamba2-7b)
+# the kernel's instantiations (80: stablelm-3b, 112: zamba2-7b, 256: paligemma-3b)
+HEAD_DIMS = (64, 80, 112, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 

@@ -427,8 +427,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     q-shaped, in q's dtype; query head h reads KV head ``h // (H // KVH)``.
 
     On the card one kernel launch reads the three tensors in place, for any
-    S (a ragged last tile is masked in the kernel); D must be 64, 80, 112 or
-    128.
+    S (a ragged last tile is masked in the kernel); D must be 64, 80, 112,
+    128 or 256.
     bf16 inputs run on the tensor cores (a bf16 view off a 16-byte boundary
     is first copied), f32 on the CUDA cores; both keep the scores and p in
     f32.

@@ -4,7 +4,10 @@
 
 On the card (the default) it runs the full configuration; ``--device cpu``
 runs the reduced one, as the JAX launcher does on one host device. The
-weights are random, drawn from ``--seed``.
+weights are random, drawn from ``--seed``; a vlm's prefix and an
+encoder-decoder's frames are zeros (``make_prompt_batch``). An encoder-only
+model (roberta-large) has no decode path: the launcher exits with its
+error.
 """
 import argparse
 import time
@@ -39,8 +42,11 @@ def main(argv=None):
     batch = make_prompt_batch(cfg, args.seed, args.batch, args.prompt_len)
     engine = ServeEngine(model, params, lora, cache_len=args.prompt_len + args.new_tokens, device=device)
     t0 = time.perf_counter()
-    res = engine.generate(batch, max_new_tokens=args.new_tokens, temperature=args.temperature,
-                          seed=args.seed)
+    try:
+        res = engine.generate(batch, max_new_tokens=args.new_tokens, temperature=args.temperature,
+                              seed=args.seed)
+    except NotImplementedError as err:  # the encoder family: no decode path
+        raise SystemExit(f"{args.arch}: {err}") from err
     dt = time.perf_counter() - t0
     print(f"{args.arch}: {res.steps} steps x batch {args.batch} in {dt:.1f}s on {device}")
     print(res.tokens)

@@ -3,7 +3,10 @@
 The LoRA tree keeps the JAX package's stacked layout, which GAL masks,
 neuron masks, optimizer state and comm accounting all follow:
 ``{"layers": {target: {"a": (L, d_in, r), "b": (L, r, d_out)}}}``, the
-targets wq/wk/wv/wo (dense, moe) or in_proj/out_proj (ssm); the hybrid's is
+targets wq/wk/wv/wo (dense, moe, vlm, encoder) or in_proj/out_proj (ssm);
+the encoder-decoder's ``{"encoder": wq..wo (Le), "decoder": wq..wo and the
+cross-attention's cwq..cwo (Ld)}``, its Le + Ld logical layers the
+encoder's first; the hybrid's is
 ``{"mamba": stacked (L) in_proj/out_proj, "shared": unstacked (d_in, r) /
 (r, d_out) wq/wk/wv/wo}``, its shared attention block one logical layer
 after the L Mamba layers.
@@ -57,24 +60,29 @@ def _target_stack(generator: torch.Generator, n_layers: int, dims: Dict[str, tup
 
 def init_lora(generator: torch.Generator, cfg: ModelConfig, device) -> Dict[str, Any]:
     """``a ~ N(0, 1)/r``, ``b = 0``, f32: the attention projections of the
-    dense and moe families (the routed and shared experts stay frozen, as
-    the JAX package's code has it), in_proj and out_proj of the ssm one,
-    stacked over layers; for the hybrid, the Mamba layers' stacked and the
-    shared block's attention unstacked.
+    dense, moe, vlm and encoder families (the routed and shared experts
+    stay frozen, as the JAX package's code has it), in_proj and out_proj of
+    the ssm one, stacked over layers; for the hybrid, the Mamba layers'
+    stacked and the shared block's attention unstacked; for the
+    encoder-decoder, the encoder's attention (Le) and the decoder's self-
+    and cross-attention (Ld) apart.
 
     The draws come from ``generator`` (a ``torch.Generator`` on ``device``);
     they are not the JAX package's ``jax.random`` draws.
     """
     rank, L = cfg.lora_rank, cfg.num_layers
-    if cfg.family in ("dense", "moe"):
-        return {"layers": _target_stack(generator, L, _attn_dims(cfg), rank, device)}
+    if cfg.family in ("encdec", "audio"):
+        attn = _attn_dims(cfg)
+        return {"encoder": _target_stack(generator, cfg.encoder_layers, attn, rank, device),
+                "decoder": _target_stack(generator, L, {**attn, **{f"c{k}": v for k, v in attn.items()}}, rank,
+                                         device)}
     if cfg.family == "ssm":
         return {"layers": _target_stack(generator, L, _ssm_lora_dims(cfg), rank, device)}
     if cfg.family == "hybrid":
         return {"mamba": _target_stack(generator, L, _ssm_lora_dims(cfg), rank, device),
                 "shared": _target_stack(generator, 0, _attn_dims(cfg), rank, device)}
-    raise NotImplementedError(
-        f"LoRA trees for family {cfg.family!r} are not ported yet (ROADMAP.md, Queue A item 12)")
+    # dense / moe / vlm / encoder
+    return {"layers": _target_stack(generator, L, _attn_dims(cfg), rank, device)}
 
 
 def zeros_like_lora(lora) -> Any:

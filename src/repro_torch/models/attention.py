@@ -161,7 +161,7 @@ def scatter_decode_kv(cache: torch.Tensor, update: torch.Tensor, slot) -> torch.
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, position, *,
-                     ring: bool = False) -> torch.Tensor:
+                     ring: bool = False, window: Optional[int] = None) -> torch.Tensor:
     """One-token attention against a cache.
 
     q: (B, 1, H, D); caches: (B, T, KVH, D). ``position``, the number of
@@ -170,7 +170,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     depth). Slot t is valid when ``t <= position``; for a ring-buffer cache
     (``ring``, a sliding window) when ``t < min(position + 1, T)``: once
     the ring is full every slot holds one of the last T positions, and the
-    softmax does not depend on their order.
+    softmax does not depend on their order. A flat cache (slot t holds
+    position t) longer than a sliding ``window`` also masks the slots at
+    or before ``position - window``, as the training forward does; the JAX
+    package's decode does not (ROADMAP.md §C, C10). A ring holds no more
+    than the window, so it needs no such mask.
     """
     B, _, H, D = q.shape
     T, KVH = k_cache.shape[1], k_cache.shape[2]
@@ -180,6 +184,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     pos = torch.as_tensor(position, device=q.device)
     limit = torch.clamp(pos + 1, max=T) if ring else pos + 1
     valid = slot < limit[..., None]  # (B, T) per slot, (T,) uniform
+    if window is not None and not ring:
+        valid = valid & (slot > pos[..., None] - window)
     if valid.dim() == 2:
         valid = valid[:, None, None, None, :]
     scores = torch.where(valid, scores, NEG_INF)

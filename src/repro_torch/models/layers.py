@@ -120,6 +120,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000
     return torch.cat([rotated.to(x.dtype), x[..., rotary_dims:]], dim=-1)
 
 
+def sinusoidal_positions(seq_len: int, d: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal position table (seq_len, d): sines then
+    cosines of ``p · exp(-ln(10000)·i / (d/2 - 1))``, computed in f32 and
+    cast to ``dtype``."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    return sinusoidal_rows(pos, d).to(dtype)
+
+
+def sinusoidal_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """The f32 rows of :func:`sinusoidal_positions` at positions ``pos``
+    (n, 1) float32: (n, d)."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)[None, :]
+    freq = torch.exp(-math.log(10000.0) * dim / max(d // 2 - 1, 1))
+    angles = pos * freq
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
 def soft_cap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return logits

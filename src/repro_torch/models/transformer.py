@@ -1,12 +1,15 @@
-"""Decoder-only transformer, dense and MoE (port of the dense and moe
-branches of ``repro.models.transformer``).
+"""Decoder-only transformer, dense, MoE and vlm (port of
+``repro.models.transformer``); its layers also make the encoder family's
+bidirectional stack and the encoder-decoder's blocks.
 
 Per-layer weights are stacked on a leading layer axis, as in the JAX
 package, and the layer loop is a Python loop over those slices. LoRA trees
 mirror the stacked layout. Supported knobs: GQA, QKV bias, qk-norm, RoPE,
 parallel residual, RMS/layer norm, SwiGLU/GELU MLP, an MoE FFN (with a
 shared expert, :mod:`repro_torch.models.moe`), sliding-window attention,
-logit soft-cap, tied embeddings.
+logit soft-cap, tied embeddings; vlm token embeddings scaled by
+sqrt(d_model), the prefix (``prefix_embeds``, the stubbed vision tower's
+patch embeddings) not.
 
 Serving: :func:`decoder_prefill` runs a prompt and fills a KV cache (in the
 JAX package's ring layout when a sliding window covers the cache), and
@@ -45,24 +48,33 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def init_decoder(gen: torch.Generator, cfg: ModelConfig, device) -> Dict[str, Any]:
-    """Frozen base weights drawn from ``gen`` (a generator on ``device``)."""
-    dtype = torch_dtype(cfg.dtype)
+def init_attn_layer_stack(gen: torch.Generator, L: int, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
+    """One attention's projections stacked over ``L`` layers: wq/wk/wv/wo,
+    the QKV biases (zeros) and the qk-norm weights (ones) where ``cfg``
+    has them."""
     hd = cfg.resolved_head_dim
-    H, KVH, D, L = cfg.num_heads, cfg.num_kv_heads, cfg.d_model, cfg.num_layers
-    layers: Dict[str, Any] = {
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    p: Dict[str, Any] = {
         "wq": init_stacked_dense(gen, L, D, H * hd, dtype, device),
         "wk": init_stacked_dense(gen, L, D, KVH * hd, dtype, device),
         "wv": init_stacked_dense(gen, L, D, KVH * hd, dtype, device),
         "wo": init_stacked_dense(gen, L, H * hd, D, dtype, device),
     }
     if cfg.qkv_bias:
-        layers["bq"] = torch.zeros((L, H * hd), dtype=dtype, device=device)
-        layers["bk"] = torch.zeros((L, KVH * hd), dtype=dtype, device=device)
-        layers["bv"] = torch.zeros((L, KVH * hd), dtype=dtype, device=device)
+        p["bq"] = torch.zeros((L, H * hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((L, KVH * hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((L, KVH * hd), dtype=dtype, device=device)
     if cfg.qk_norm:
-        layers["q_norm_w"] = torch.ones((L, hd), dtype=dtype, device=device)
-        layers["k_norm_w"] = torch.ones((L, hd), dtype=dtype, device=device)
+        p["q_norm_w"] = torch.ones((L, hd), dtype=dtype, device=device)
+        p["k_norm_w"] = torch.ones((L, hd), dtype=dtype, device=device)
+    return p
+
+
+def init_decoder(gen: torch.Generator, cfg: ModelConfig, device) -> Dict[str, Any]:
+    """Frozen base weights drawn from ``gen`` (a generator on ``device``)."""
+    dtype = torch_dtype(cfg.dtype)
+    D, L = cfg.d_model, cfg.num_layers
+    layers = init_attn_layer_stack(gen, L, cfg, dtype, device)
     for name in ("attn_norm", "mlp_norm"):
         layers[f"{name}_w"] = torch.ones((L, D), dtype=dtype, device=device)
         if cfg.norm == "layernorm":
@@ -121,7 +133,7 @@ def attention_sublayer(x, p, lora, cfg: ModelConfig, positions, *, lora_scale: f
         slot = (cache_position % T) if ring else cache_position
         attn.scatter_decode_kv(k_cache, k, slot)
         attn.scatter_decode_kv(v_cache, v, slot)
-        o = attn.decode_attention(q, k_cache, v_cache, cache_position, ring=ring)
+        o = attn.decode_attention(q, k_cache, v_cache, cache_position, ring=ring, window=cfg.attention_window)
     else:
         o = attn.blockwise_attention(
             q, k, v, causal=causal, window=cfg.attention_window,
@@ -181,10 +193,21 @@ def _lm_logits(h, params, cfg: ModelConfig):
     return soft_cap(h @ w.to(h.dtype), cfg.logit_soft_cap)
 
 
-def _embed_inputs(params, tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token embeddings (B, S, D), with ``prefix_embeds`` (B, P, D), cast to
-    the embedding dtype, prepended: (B, P + S, D)."""
+def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings, scaled by sqrt(d_model) for the vlm family (Gemma's
+    convention: the scale, an f32 sqrt, cast to the embedding dtype first)."""
     h = torch.nn.functional.embedding(tokens, params["embed"])
+    if cfg.family == "vlm":
+        h = h * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32)).to(h.dtype)
+    return h
+
+
+def _embed_inputs(params, tokens: torch.Tensor, cfg: ModelConfig,
+                  prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings (B, S, D) (:func:`_embed_tokens`), with
+    ``prefix_embeds`` (B, P, D), cast to the embedding dtype and not
+    scaled, prepended: (B, P + S, D)."""
+    h = _embed_tokens(params, tokens, cfg)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     return h
@@ -209,7 +232,7 @@ def decoder_forward(params, lora, tokens: torch.Tensor, cfg: ModelConfig, *,
     unaffected.
     """
     lora_scale = lora_scale if lora_scale is not None else cfg.lora_alpha / cfg.lora_rank
-    h = _embed_inputs(params, tokens, prefix_embeds)
+    h = _embed_inputs(params, tokens, cfg, prefix_embeds)
     if embed_noise is not None:
         h = h + embed_noise.to(h.dtype)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
@@ -237,13 +260,15 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device, dtype=None
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def prompt_attention(q, k, v, cfg: ModelConfig):
-    """Causal (windowed) attention of a prompt, f32 scores: the flash
-    attention kernel (B8) on the card, :func:`attn.blockwise_attention` on
-    the CPU."""
+def prompt_attention(q, k, v, cfg: ModelConfig, causal: bool = True):
+    """Causal (windowed) attention of a prompt, or bidirectional attention
+    of an encoder's frames (``causal=False``, no window), f32 scores: the
+    flash attention kernel (B8) on the card, :func:`attn.blockwise_attention`
+    on the CPU."""
+    window = cfg.attention_window if causal else None
     if q.is_cuda:
-        return kops.flash_attention(q, k, v, causal=True, window=cfg.attention_window)
-    return attn.blockwise_attention(q, k, v, causal=True, window=cfg.attention_window)
+        return kops.flash_attention(q, k, v, causal=causal, window=window)
+    return attn.blockwise_attention(q, k, v, causal=causal, window=window)
 
 
 def decoder_prefill(params, lora, tokens: torch.Tensor, cfg: ModelConfig, cache_len: int, *,
@@ -263,7 +288,7 @@ def decoder_prefill(params, lora, tokens: torch.Tensor, cfg: ModelConfig, cache_
     steps and forward.
     """
     lora_scale = lora_scale if lora_scale is not None else cfg.lora_alpha / cfg.lora_rank
-    h = _embed_inputs(params, tokens, prefix_embeds)
+    h = _embed_inputs(params, tokens, cfg, prefix_embeds)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
     ring = cfg.attention_window is not None and cache_len <= cfg.attention_window
@@ -292,7 +317,7 @@ def decoder_decode_step(params, lora, token: torch.Tensor, cfg: ModelConfig, cac
     batch) or a (B,) tensor of per-slot positions. Writes each row's KV into
     ``cache`` in place; returns ``(logits (B, 1, V), cache)``."""
     lora_scale = lora_scale if lora_scale is not None else cfg.lora_alpha / cfg.lora_rank
-    h = torch.nn.functional.embedding(token, params["embed"])
+    h = _embed_tokens(params, token, cfg)
     positions = torch.as_tensor(position, device=h.device).reshape(-1, 1)
     for i in range(cfg.num_layers):
         p_slice, lora_slice = _layer_slices(params, lora, i)

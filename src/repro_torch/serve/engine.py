@@ -49,12 +49,14 @@ import torch
 from repro_torch.core.fibecfed import resolve_device
 from repro_torch.lora import gather_adapter_slots, stack_adapter_trees
 from repro_torch.models.model_api import ModelFns
+from repro_torch.models.transformer import torch_dtype
 from repro_torch.obs import ensure as ensure_telemetry
 from repro_torch.serve.requests import (
     Completion,
     Request,
     SamplingParams,
     batch_from_requests,
+    device_batch,
     requests_from_batch,
 )
 from repro_torch.serve.scheduler import SlotScheduler
@@ -91,10 +93,6 @@ def _sample_batch(logits: torch.Tensor, gen: torch.Generator, temperature: float
     return _stochastic(lg, temps, _gumbel(gen, lg.shape, lg.device))
 
 
-def _tokens(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    return {"tokens": torch.as_tensor(np.asarray(batch["tokens"]).astype(np.int64), device=device)}
-
-
 def _on(tree, device):
     return tree_map(lambda t: t.to(device), tree)
 
@@ -116,8 +114,8 @@ class ReferenceEngine:
     @torch.no_grad()
     def generate(self, batch: Dict[str, Any], *, max_new_tokens: int = 32, temperature: float = 0.0,
                  eos_id: Optional[int] = None, seed: int = 0) -> GenerationResult:
-        logits, cache, pos = self.model.prefill(self.params, self.lora, _tokens(batch, self.device),
-                                                self.cache_len)
+        batch = device_batch(batch, self.device, torch_dtype(self.model.cfg.dtype))
+        logits, cache, pos = self.model.prefill(self.params, self.lora, batch, self.cache_len)
         gen = _generator(self.device, seed)
         B = logits.shape[0]
         out = np.zeros((B, max_new_tokens), np.int32)
@@ -162,7 +160,11 @@ class ServeEngine:
     ``max_new_cap`` bounds a request's ``max_new_tokens`` (it sizes the
     per-slot output buffer); with cached attention (every family but ssm,
     whose state has a constant size) budgets are also clamped to the
-    cache's room, ``cache_len - prompt_len``. ``device=None`` is the CUDA device (an error
+    cache's room, ``cache_len - S``, S the prefill's length (a vlm's prefix
+    rows included). A request's ``extras`` (a vlm's ``prefix_embeds``, an
+    encoder-decoder's ``encoder_embeds``) reach its group's prefill; an
+    encoder-decoder's cross-attention cache rides the slot axis with the
+    self cache. The encoder family has no decode path: its prefill raises. ``device=None`` is the CUDA device (an error
     without one); the params and adapters are moved there.
     """
 
@@ -239,7 +241,7 @@ class ServeEngine:
             raise ValueError("generate_requests needs uniform SamplingParams")
         if any(r.adapter_id != 0 for r in reqs):
             raise ValueError("the batch path serves adapter 0; use submit()")
-        batch = batch_from_requests(reqs, self.device)
+        batch = batch_from_requests(reqs, self.device, torch_dtype(self.model.cfg.dtype))
         logits, cache, pos = self.model.prefill(self.params, self.lora, batch, self.cache_len)
         self.stats["prefill_calls"] += 1
         gen = _generator(self.device, sp.seed)
@@ -352,7 +354,7 @@ class ServeEngine:
             t_admit = time.perf_counter()
             if self._serve_t0 is None:
                 self._serve_t0 = t_admit
-        batch = batch_from_requests(reqs, dev)
+        batch = batch_from_requests(reqs, dev, torch_dtype(cfg.dtype))
         ids = torch.tensor([r.adapter_id for r in reqs], dtype=torch.int64, device=dev)
         lora_g = self.lora if self._single else gather_adapter_slots(cfg, self._stacked, ids)
         temps = [float(r.sampling.temperature) for r in reqs]

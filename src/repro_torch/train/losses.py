@@ -35,15 +35,23 @@ def label_token_loss(logits: torch.Tensor, label_tokens: torch.Tensor) -> torch.
     return torch.mean(_xent(logits[:, -1], label_tokens))
 
 
+def _text_offset(cfg: ModelConfig) -> int:
+    """Where the text's logits start: after the vlm family's prefix rows."""
+    return cfg.num_prefix_embeddings if cfg.family == "vlm" else 0
+
+
 def make_logits_loss(cfg: ModelConfig) -> Callable:
-    """``loss(logits, batch)``, used by the GAL probe (gradient w.r.t. noise)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue A item 12)")
+    """``loss(logits, batch)``, used by the GAL probe (gradient w.r.t. noise):
+    the class CE for the encoder family, else the label-token CE where the
+    batch has ``label_token``, else the next-token CE over the text."""
+    offset = _text_offset(cfg)
 
     def fn(logits, batch: Dict[str, Any]):
+        if cfg.family == "encoder":
+            return cls_loss(logits, batch["labels"])
         if "label_token" in batch:
             return label_token_loss(logits, batch["label_token"])
-        return lm_loss(logits, batch["tokens"])
+        return lm_loss(logits, batch["tokens"], offset)
 
     return fn
 
@@ -59,24 +67,27 @@ def make_loss_fn(model: ModelFns) -> Callable:
     also reaches the router as per-sample weights, so the load-balance aux
     loss of a padded batch equals its ragged original's too.
     """
-    logits_loss = make_logits_loss(model.cfg)
-    moe = model.cfg.family == "moe"
+    cfg = model.cfg
+    logits_loss = make_logits_loss(cfg)
+    offset = _text_offset(cfg)
 
     def loss_fn(params, lora, batch: Dict[str, Any]):
         logits, aux = model.forward(params, lora, batch)
         return logits_loss(logits, batch) + aux
 
     def masked(params, lora, batch: Dict[str, Any], sample_mask):
-        if moe:
+        if cfg.family == "moe":
             batch = dict(batch, sample_mask=sample_mask)
         logits, aux = model.forward(params, lora, batch)
         m = sample_mask.to(torch.float32)
         denom = torch.clamp(torch.sum(m), min=1.0)
-        if "label_token" in batch:
+        if cfg.family == "encoder":
+            per = _xent(logits, batch["labels"])
+        elif "label_token" in batch:
             per = _xent(logits[:, -1], batch["label_token"])
         else:
             tokens = batch["tokens"]
-            per = torch.mean(_xent(logits[:, : tokens.shape[1] - 1], tokens[:, 1:]), dim=-1)
+            per = torch.mean(_xent(logits[:, offset : offset + tokens.shape[1] - 1], tokens[:, 1:]), dim=-1)
         return torch.sum(per * m) / denom + aux
 
     loss_fn.masked = masked

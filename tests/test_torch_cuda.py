@@ -985,6 +985,35 @@ def test_flash_attention_head_dim_112_opts_into_its_shared_memory(cuda):
 
 
 @pytest.mark.cuda
+def test_flash_attention_head_dim_256_opts_into_its_shared_memory(cuda):
+    """D 256 stages Q and two K/V stages of 64 rows x 512 bytes (bf16:
+    163840 bytes, Q's fragments read from shared memory at each k-step) and
+    the f32 kernel's tiles (219136); paligemma-3b's heads (8 over 1 KV
+    head) causal in bf16 under the model's window, f32 at a ragged S with a
+    window, and bidirectional."""
+    assert flash_attention.smem_bytes(256, torch.bfloat16) == (64 + 4 * 64) * 256 * 2
+    assert flash_attention.smem_bytes(256, torch.float32) == (256 * 68 + 256 * 65 + 64 * 256 + 64 * 68) * 4
+    for dtype, S, causal, window in ((torch.bfloat16, 1280, True, 8192), (torch.float32, 333, True, 100),
+                                     (torch.bfloat16, 300, False, None)):
+        q = torch.randn(2, S, 8, 256, generator=cuda, device="cuda").to(dtype)
+        k, v = (torch.randn(2, S, 1, 256, generator=cuda, device="cuda").to(dtype) for _ in range(2))
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert_attention_close(out, ref.flash_attention_gqa_ref(q, k, v, causal=causal, window=window), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_bidirectional_at_whisper_encoder_width(cuda, dtype):
+    """whisper-large-v3's encoder attention: 1500 frames (a ragged last
+    tile of 28 keys), 20 heads of 64, no mask."""
+    q, k, v = (torch.randn(1, 1500, 20, 64, generator=cuda, device="cuda").to(dtype) for _ in range(3))
+    out = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert_attention_close(out, ref.flash_attention_gqa_ref(q, k, v, causal=False), v)
+
+
+@pytest.mark.cuda
 def test_flash_attention_mixed_dtypes_and_refusals(cuda):
     q = torch.randn(1, 130, 4, 64, generator=cuda, device="cuda").bfloat16()
     k, v = (torch.randn(1, 130, 2, 64, generator=cuda, device="cuda") for _ in range(2))

@@ -147,6 +147,9 @@ def _tensor_core_emulation(q, k, v, *, causal, window, tile=64):
     (256, 4, 2, 64, True, 128), (256, 8, 1, 128, True, None), (256, 8, 1, 128, True, 128),
     (100, 4, 2, 64, True, None), (200, 4, 2, 64, True, 64), (256, 4, 2, 64, False, None),
     (256, 4, 2, 64, False, 64),
+    # paligemma-3b's head_dim 256 over one KV head (Q read from shared memory
+    # at each k-step on the card: the same arithmetic), causal and bidirectional
+    (256, 8, 1, 256, True, None), (100, 4, 1, 256, False, None),
 ])
 def test_flash_tensor_core_arithmetic_matches_jax(S, H, KVH, D, causal, window):
     """The hi/lo split of p keeps the bf16 kernel within the unchanged bf16

@@ -35,6 +35,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
     for sub in ("obs", "serve", "launch"):  # the serving slice's packages are covered
         assert any(f.parent.name == sub for f in files), sub
+    assert ROOT / "src" / "repro_torch" / "models" / "encdec.py" in files
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files

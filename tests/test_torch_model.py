@@ -184,3 +184,23 @@ def test_convert_round_trip_keeps_bf16_bits():
     t = params_from_numpy({"w": np.asarray(x)}, cfg, "cpu")["w"]
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(to_numpy({"w": t})["w"], np.asarray(x, np.float32))
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_input_specs_and_supports_match_jax(arch):
+    """``input_specs`` (meta tensors, the stand-in for
+    ``jax.ShapeDtypeStruct``) and ``supports`` of every registry name over
+    the four input shapes: JAX's shapes, dtypes and answers."""
+    from repro.configs import INPUT_SHAPES as J_SHAPES
+    from repro_torch.configs import INPUT_SHAPES
+
+    assert sorted(INPUT_SHAPES) == sorted(J_SHAPES)
+    jm, tm = build_model(ARCHS[arch]), t_build_model(T_ARCHS[arch])
+    for name, shape in INPUT_SHAPES.items():
+        js = J_SHAPES[name]
+        assert dataclasses.asdict(shape) == dataclasses.asdict(js)
+        assert tm.supports(shape) == jm.supports(js), name
+        got, want = tm.input_specs(shape), jm.input_specs(js)
+        assert {k: (tuple(v.shape), str(v.dtype)[6:]) for k, v in got.items()} == \
+            {k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()}, name
+        assert all(v.device.type == "meta" for v in got.values())

@@ -76,8 +76,9 @@ def test_fedprompt_matches_jax(world):
 def test_fedprompt_draws_its_own_start_and_refuses_other_families():
     """Without numpy arrays to start from, params and prompt come from
     generators seeded from ``seed`` (the same seed, the same run); the
-    prompt is (n_prompt, d_model) f32 at scale 0.02, the LoRA zeros. Only
-    the dense family is ported."""
+    prompt is (n_prompt, d_model) f32 at scale 0.02, the LoRA zeros. A
+    model that is no decoder (dense, moe or vlm) is refused, as the JAX
+    package's assertion refuses it."""
     cfg = T_ARCHS["qwen3-0.6b"].reduced()
     fl = tconfig.FibecFedConfig(**dataclasses.asdict(FL))
     clients = _clients(cfg)
@@ -87,5 +88,5 @@ def test_fedprompt_draws_its_own_start_and_refuses_other_families():
     assert torch.equal(runs[0].prompt, runs[1].prompt) and not torch.equal(runs[0].prompt, runs[2].prompt)
     losses = [r.run_round(0)["loss"] for r in runs[:2]]
     assert losses[0] == losses[1] and np.isfinite(losses[0])
-    with pytest.raises(NotImplementedError, match="prompt tuning"):
+    with pytest.raises(ValueError, match="prompt tuning needs a decoder"):
         TFedPrompt(t_build_model(T_ARCHS["mamba2-1.3b"].reduced()), fl, clients, device="cpu")

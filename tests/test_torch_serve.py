@@ -136,6 +136,25 @@ def test_prefill_and_decode_logits_match_jax(world, S, cache_len, per_slot):
         _close(t_cache[name], cache[name], f"decode cache {name}")
 
 
+def test_flat_cache_decode_keeps_the_window(world):
+    """C10 (ROADMAP.md §C): a flat cache longer than the 64-token window
+    (96 slots) after a 70-token prompt. The JAX package's decode step
+    attends to every cached position, so its logits leave its own forward's
+    (which masks keys at or before position - window); the port's decode
+    masks the window and equals that forward."""
+    model, params, adapters, t_model, t_params, t_adapters = world
+    toks = _prompts(2, 70)
+    logits, cache, pos = model.prefill(params, adapters[0], {"tokens": jnp.asarray(toks)}, 96)
+    tok = np.argmax(np.asarray(logits)[:, -1], -1)[:, None].astype(np.int32)
+    j_dec, _ = model.decode_step(params, adapters[0], jnp.asarray(tok), cache, pos)
+    j_full, _ = model.forward(params, adapters[0], {"tokens": jnp.asarray(np.concatenate([toks, tok], 1))})
+    with torch.no_grad():
+        _, t_cache, t_pos = t_model.prefill(t_params, t_adapters[0], {"tokens": torch.as_tensor(toks).long()}, 96)
+        t_dec, _ = t_model.decode_step(t_params, t_adapters[0], torch.as_tensor(tok).long(), t_cache, t_pos)
+    _close(t_dec[:, 0], j_full[:, -1], "the port's decode against JAX's forward")
+    assert float(np.max(np.abs(np.asarray(j_dec[:, 0]) - np.asarray(j_full[:, -1])))) > 1e-2
+
+
 def test_generate_matches_jax_and_reference(world):
     """generate(): greedy equal to JAX's token for token, with and without
     EOS; greedy and sampled equal to the port's ReferenceEngine."""

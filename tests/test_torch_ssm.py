@@ -469,11 +469,23 @@ def test_prefill_scan_takes_the_kernel_layout_on_cpu():
     assert tops.ssd_chunk_intra.launches == before
 
 
-def test_other_families_still_raise():
-    for arch in ("whisper-large-v3", "paligemma-3b", "roberta-large"):
-        cfg = torch_config(ARCHS[arch].reduced())
-        with pytest.raises(NotImplementedError, match="Queue A item 12"):
-            t_build_model(cfg)
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_jax_arch_builds_in_the_port(arch):
+    """Every name of the JAX registry is in the port's, with the same
+    configuration, and builds there: its LoRA tree (drawn on the meta
+    device) has JAX's leaves and shapes, its logical layers and LoRA group
+    offsets are JAX's."""
+    from repro.lora.lora import _group_offsets as j_group_offsets
+    from repro_torch.lora.lora import _group_offsets
+
+    cfg = T_ARCHS[arch]
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ARCHS[arch])
+    model = t_build_model(cfg)
+    lora = model.init_lora(torch.Generator().manual_seed(0), "meta")
+    want = jax.eval_shape(build_model(ARCHS[arch]).init_lora, jax.random.PRNGKey(0))
+    assert {p: tuple(x.shape) for p, x in tree_items(lora)} == {p: tuple(x.shape) for p, x in tree_items(want)}
+    assert lora_num_logical_layers(cfg) == j_num_layers(ARCHS[arch])
+    assert _group_offsets(cfg) == j_group_offsets(ARCHS[arch])
 
 
 def test_serve_launcher_runs_mamba2_on_cpu(capsys):
