@@ -89,6 +89,28 @@ device and exits non-zero without one, or if any phase fails:
 7. the FibecFed loop round of phase 4 unfused, which must agree with the
    fused one (loss rel 1e-6, global LoRA atol 1e-6: the same arithmetic in
    the same order);
+k. the async engine on phase 4's world (FibecFed/AdamW fused unless said):
+   (i) the degenerate configuration (uniform scenario, the cohort as
+   buffer), init and 2 merges, against phase 4's loop run: the same orders,
+   GAL layers and cohorts, each round's client LoRA within phase 7's 1e-6
+   and its loss within rel 1e-6 (round 1 starts from phase 4's round-0
+   global, put in place of the async merge 0), each merge within f32
+   reassociation of the loop's FedAvg, the final global within phase 6's
+   limits, the same comm bytes (and the wire format's), staleness and
+   drops 0, B1 once per step; then a witness, unchecked and logged: one
+   round-1 client trained again from the async merge 0 itself, with AdamW
+   and with SGD; (ii) the straggler scenario
+   with every adaptive policy (delta merges at server lr 0.8, cutoff 2,
+   adaptive buffer and steps, sampling bias 2), 6 merges with telemetry:
+   finite losses, staleness within the cutoff and above 0 somewhere, the
+   buffer within [1, 2], the virtual clock advancing, the slowest client
+   planned ceil(n/4) batches, each merge's comm bytes its completions',
+   the virtual upload and dispatch spans adding up to them, B1 once per
+   valid step of every local round; (iii) random_select/SGD with the
+   constrained scenario's ranks and phase 6's compression, 2 merges flat
+   and through two edges: equal decisions and bytes, globals within phase
+   6's limits, B2 once per valid step and B3 once per upload, low-rank
+   clients untouched beyond their rank, the wire format's bytes;
 f. the Mamba2 family at full mamba2-1.3b width (48 layers, d 2048, 64
    heads of 64, state 128, chunk 128, bf16, seeded torch init): the default
    vectorized FibecFed/AdamW (stacked B1, no vmap fallback to a loop) on
@@ -150,7 +172,7 @@ j. the last families at full width (bf16, seeded init): whisper-large-v3
    whisper's encoder and roberta's widths;
 8. one JSON line listing the kernels; last, the ok line.
 
-Each path of phases 4-6, 5b-5d, f, g, h, i and j included, is driven with the kernels' launch
+Each path of phases 4-6, 5b-5d, k, f, g, h, i and j included, is driven with the kernels' launch
 counts set to 0 just before it and read just after. Float32 matmuls run in
 full f32 (TF32 off for matmuls and cuDNN alike).
 """
@@ -448,6 +470,29 @@ ROBERTA_ROUNDS = 2
 # (top-k flips), and none by more than 2·U. Round losses: rel 1e-2.
 ENGINE_AGREE_FRAC = 0.02
 ENGINE_LOSS_RTOL = 1e-2
+# Phase k: the async engine on phase 4's world. k(i), the degenerate
+# configuration, trains each round as the loop engine does, step for step
+# (both run engine.build_client_train_fn): the same arithmetic in the same
+# order, so its clients' LoRA are held to phase 7's limit and its losses to
+# rel 1e-6. Its merge sums the same client LoRA by tensordot, not by the
+# host loop: each sum of k = 4 weighted terms (weights summing to 1) errs by
+# at most 3 f32 ulp of the largest |term| either way, so the two merges of
+# a round agree within MERGE_REASSOC_ULPS ulp of the clients' largest |x|
+# at each entry. So that round 1 is held as exactly as round 0, the async
+# run's round 1 pulls phase 4's round-0 global, put in place of its own
+# merge 0 (which was checked first); its final global is then held to
+# phase 6's limits. A witness, logged and not checked, trains one round-1
+# client again from the async merge 0 itself, with AdamW and with SGD, and
+# reads how far a start a few ulp away moves it on engine_disagreement's
+# measure. k(ii) is the JAX package's straggler run with every adaptive
+# policy
+# (tests/test_engine_equivalence.py::test_async_adaptive_policies_straggler_run),
+# for ASYNC_MERGES merges.
+ROUND0_LORA_ATOL = 1e-6
+MERGE_REASSOC_ULPS = 8
+ASYNC_MERGES = 6
+STRAGGLER_POLICIES = dict(buffer_size=2, merge_mode="delta", server_lr=0.8, staleness_cutoff=2, adapt_buffer=True,
+                          adapt_steps=True, sampling_bias=2.0)
 
 
 def engine_disagreement(g_loop, g_vec, g0):
@@ -3130,6 +3175,261 @@ def phase_lossless(ops, make_runner, data_mod, FibecFedConfig, ARCHS, build_mode
     return {"masked_sgd_update": run.counts["masked_sgd_update"]}
 
 
+def recording_train(runner):
+    """Record each local round of an async runner: (client, real steps,
+    the global version it pulled, its LoRA after training). Wraps the
+    runner's train callback; the run itself is unchanged. The wrapper
+    refers back to the runner: only the cycle collector frees it."""
+    trained = []
+    callbacks = runner._async_callbacks
+
+    def wrapped(lr, sched):
+        plan, train = callbacks(lr, sched)
+
+        def train_rec(ci, t, version):
+            pulled = runner._global.front
+            u = train(ci, t, version)
+            trained.append((ci, u.n_steps, pulled, runner.clients[ci].lora))
+            return u
+
+        return plan, train_rec
+
+    runner._async_callbacks = wrapped
+    return trained
+
+
+def drive_async(ops, make_runner, label, rounds, args, after_round=None, **kw):
+    """Build an async runner, init it and run ``rounds`` merges with the
+    launch counts zeroed around it. Logs init s, wall s per merge, virtual
+    time, staleness, peak memory and launches."""
+    torch.cuda.reset_peak_memory_stats()
+    with Launches(ops) as run:
+        r = make_runner(*args, engine="async", seed=0, **kw)
+        trained = recording_train(r)
+        _, init_s = timed(r.init_phase)
+        hist, walls, chosen = [], [], []
+        for t in range(rounds):
+            stats, secs = timed(lambda: r.run_round(t))
+            hist.append(stats)
+            walls.append(secs)
+            chosen.append(r.last_round_info["chosen"].copy())
+            if after_round is not None:
+                after_round(t, r)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"async {label}: init {init_s:.2f} s; wall s per merge {[round(w, 3) for w in walls]}; virtual time "
+        f"{[h['virtual_time'] for h in hist]}; staleness {[h['staleness_mean'] for h in hist]}; merged "
+        f"{[int(h['merged_clients']) for h in hist]}; buffer {[int(h['buffer_size']) for h in hist]}; losses "
+        f"{[h['loss'] for h in hist]}; peak {peak:.2f} GiB; launches {run.counts}; local rounds {len(trained)}, "
+        f"steps {sum(n for _, n, _, _ in trained)}")
+    return dict(runner=r, hist=hist, walls=walls, chosen=chosen, trained=trained, counts=run.counts,
+                init_s=init_s, peak=peak)
+
+
+def phase_async(ops, make_runner, AsyncAggConfig, CompressionConfig, model, loss_fn, fl, clients, cfg, loop,
+                tree_leaves):
+    """Phase k: the async engine on phase 4's world. (i) the degenerate
+    configuration against phase 4's loop run; (ii) stragglers with every
+    adaptive policy; (iii) compressed uploads with the constrained
+    scenario's ranks, flat and through two edges. Returns the launches."""
+    t_phase = time.perf_counter()
+    free_memory()  # what earlier phases left to the cycle collector
+    args = ("fibecfed", model, loss_fn, fl, clients)
+    # --- k(i): uniform scenario, the cohort as buffer: the loop round ---
+    from repro_torch.core import curriculum as curr
+    from repro_torch.core import engine as eng
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_clone
+
+    eps = torch.finfo(torch.float32).eps
+
+    def reassoc(g_async, g_loop, client_loras):
+        """The largest |async - loop| merge difference, in units of
+        MERGE_REASSOC_ULPS f32 ulp of the clients' largest |x| there."""
+        xs = [tree_leaves(c) for c in client_loras]
+        return max(((ga - gl).abs() / (MERGE_REASSOC_ULPS * eps * torch.stack(x).abs().amax(0))).nan_to_num(0.0)
+                   .max().item() for ga, gl, *x in zip(tree_leaves(g_async), tree_leaves(g_loop), *xs))
+
+    def lora_diff(r, loop_clients):
+        return {int(ci): max((a - b).abs().max().item() for a, b in
+                             zip(tree_leaves(r.clients[ci].lora), tree_leaves(loop_clients[int(ci)])))
+                for ci in r.last_round_info["chosen"]}
+
+    readings, witness = [], {}
+    wit = int(loop["chosen"][1][0])  # a client of round 1
+
+    def keep_round(t, r):
+        clients = loop["clients0" if t == 0 else "clients1"]
+        g_loop = loop["global0"] if t == 0 else loop["global_lora"]
+        readings.append((lora_diff(r, clients), reassoc(r.global_lora, g_loop, clients.values())))
+        if t == 0:
+            # the witness client's state before round 1 (no update writes
+            # in place), the async merge 0, then round 1 pulls the loop's
+            c = r.clients[wit]
+            witness.update(lora=c.lora, opt=c.opt_state, global0=r.global_lora)
+            r._global.front = r.global_lora = tree_clone(loop["global0"])
+
+    k1 = drive_async(ops, make_runner, "k(i) degenerate", fl.rounds, args, after_round=keep_round,
+                     optimizer="adamw", fused_optimizer=True)
+    r, hist = k1["runner"], k1["hist"]
+    if not (all(np.array_equal(a, c.order) for a, c in zip(loop["orders"], r.clients))
+            and np.array_equal(loop["gal_layers"], r.gal_layers)):
+        raise AssertionError("k(i): the async curriculum orders or GAL layers differ from the loop engine's")
+    # the same cohorts; a merge lists its clients as they complete on the
+    # virtual clock (fewer steps first), the loop round as it drew them
+    if not all(np.array_equal(np.sort(a), np.sort(b)) for a, b in zip(loop["chosen"], k1["chosen"])):
+        raise AssertionError(f"k(i): cohorts {k1['chosen']} differ from the loop engine's {loop['chosen']}")
+    loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(hist, loop["stats"])]
+    for t, (diffs, merge) in enumerate(readings):
+        log(f"k(i) round {t}: clients' LoRA against phase 4's, max abs diff by client {diffs} (limit "
+            f"{ROUND0_LORA_ATOL}); loss rel {loss_rel[t]:.3g} (limit 1e-6); merge {t} against phase 4's FedAvg: "
+            f"largest |diff| {merge:.3g} of {MERGE_REASSOC_ULPS} ulp of the clients' largest |x| (limit 1)")
+        if sorted(diffs) != sorted(loop["clients0" if t == 0 else "clients1"]) or \
+                max(diffs.values()) > ROUND0_LORA_ATOL or loss_rel[t] > 1e-6:
+            raise AssertionError(f"k(i): round {t}'s local training differs from the loop engine's")
+        if merge > 1.0:
+            raise AssertionError(f"k(i): merge {t} is not the loop engine's FedAvg up to f32 reassociation")
+    for t, stats in enumerate(hist):
+        if not math.isfinite(stats["loss"]):
+            raise AssertionError(f"k(i): merge {t}'s loss is not finite")
+        if stats["staleness_mean"] != 0.0 or stats["dropped_clients"] != 0.0 or stats["stale_dropped"] != 0.0:
+            raise AssertionError(f"k(i): merge {t} is not the synchronous round: {stats}")
+    want = [expected_comm_bytes(cfg, r.global_lora, r.gal_layers, chosen)[0] for chosen in k1["chosen"]]
+    if r.comm_bytes_per_round != loop["comm"] or r.comm_bytes_per_round != want:
+        raise AssertionError(f"k(i): comm bytes {r.comm_bytes_per_round}, loop {loop['comm']}, recomputed {want}")
+    if r._global.version != fl.rounds:
+        raise AssertionError(f"k(i): global version {r._global.version}")
+    dis = [engine_disagreement(gl, ga, g0) for gl, ga, g0 in
+           zip(tree_leaves(loop["global_lora"]), tree_leaves(r.global_lora), tree_leaves(loop["init_lora"]))]
+    log(f"k(i) against phase 4: final global LoRA per leaf (fraction disagreeing, max diff / largest update): "
+        f"{[(round(f, 6), round(m, 6)) for f, m in dis]}")
+    if max(f for f, _ in dis) > ENGINE_AGREE_FRAC or max(m for _, m in dis) > 2.0:
+        raise AssertionError("k(i): the async run's global disagrees with the loop engine's")
+    steps = sum(n for _, n, _, _ in k1["trained"])
+    if k1["counts"] != only(masked_adamw_update=steps) or steps != loop["steps"]:
+        raise AssertionError(f"k(i): B1 launches {k1['counts']} for {steps} valid steps (loop {loop['steps']})")
+
+    # the witness: client wit's round 1 again, from the async merge 0 (a few
+    # ulp from phase 4's round-0 global) and, with SGD, from both globals
+    c = r.clients[wit]
+    batch_idx, step_valid = curr.step_plan(r.schedule, 1, [c.order], fl.local_epochs)
+    start = eng.merge_in(loop["global0"], witness["lora"], r._gal_mask_tree)
+
+    def local_round(opt_update, opt, pulled):
+        train = eng.build_client_train_fn(r.loss_fn, opt_update)
+        return train(r.params, pulled, witness["lora"], opt, c.neuron_mask, r._gal_mask_tree,
+                     lambda j: r._client_batch(c, c.batches[j]), batch_idx[0], step_valid[0], fl.learning_rate)[0]
+
+    def measure(ref, other):
+        return [round(f, 6) for f, _ in (engine_disagreement(a, b, g0) for a, b, g0 in
+                                         zip(tree_leaves(ref), tree_leaves(other), tree_leaves(start)))]
+
+    adamw = measure(loop["clients1"][wit], local_round(r.opt_update, witness["opt"], witness["global0"]))
+    sgd_init, sgd_update = make_optimizer("sgd", fused=True)
+    sgd = measure(local_round(sgd_update, sgd_init(witness["lora"]), loop["global0"]),
+                  local_round(sgd_update, sgd_init(witness["lora"]), witness["global0"]))
+    log(f"k(i) witness, client {wit}'s round 1 ({int(step_valid.sum())} steps) from the async merge 0 against "
+        f"from phase 4's round-0 global (merge 0 {readings[0][1]:.3g} of {MERGE_REASSOC_ULPS} ulp apart): fraction "
+        f"of entries disagreeing per leaf, AdamW {adamw}, SGD {sgd}")
+    witness.clear()
+    launches = {"masked_adamw_update": k1["counts"]["masked_adamw_update"]}
+    del r, k1
+    free_memory()  # the recording wrapper makes each runner a reference cycle
+
+    # --- k(ii): the straggler scenario with every adaptive policy ---
+    from repro_torch.obs import Telemetry
+
+    tel = Telemetry(run_id="k(ii)")
+    k2 = drive_async(ops, make_runner, "k(ii) straggler", ASYNC_MERGES, args, optimizer="adamw",
+                     fused_optimizer=True, scenario="straggler", async_cfg=AsyncAggConfig(**STRAGGLER_POLICIES),
+                     telemetry=tel)
+    r, hist = k2["runner"], k2["hist"]
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError("k(ii): a loss is not finite")
+    if any(h["staleness_mean"] > STRAGGLER_POLICIES["staleness_cutoff"] or not 1 <= h["buffer_size"] <= 2
+           for h in hist) or not any(h["staleness_mean"] > 0 for h in hist):
+        raise AssertionError("k(ii): staleness or buffer size out of bounds, or no update landed stale")
+    clock = [h["virtual_time"] for h in hist]
+    if any(b < a for a, b in zip(clock, clock[1:])) or not clock[-1] > clock[0]:
+        raise AssertionError(f"k(ii): the virtual clock does not advance: {clock}")
+    sched = r._scheduler
+    plan, _ = r._async_callbacks(fl.learning_rate, sched)
+    slow = int(np.argmax(sched.scenario.speed))
+
+    full = len(curr.selected_batch_ids(r.schedule, 0, r.clients[slow].order))
+    if sched.scenario.rel_speed(slow) != 4.0 or plan(slow, 0) != max(1, math.ceil(full / 4)):
+        raise AssertionError(f"k(ii): the slowest client's plan {plan(slow, 0)} is not ceil({full}/4)")
+    per_client = expected_comm_bytes(cfg, r.global_lora, r.gal_layers, [0])
+    completions = [int(h["merged_clients"] + h["stale_dropped"]) for h in hist]
+    want = ([n * per_client[0] for n in completions], [n * per_client[1] for n in completions])
+    if (r.comm_bytes_per_round, r.comm_upload_bytes_per_round) != want:
+        raise AssertionError(f"k(ii): comm bytes {r.comm_bytes_per_round} != {want[0]} by completion")
+    spans = [e for e in tel.tracer.events if e["clock"] == "virtual" and e["type"] == "span"]
+    up = sum(e["args"]["upload_bytes"] for e in spans if e["name"] == "upload")
+    down = sum(e["args"]["download_bytes"] for e in spans if e["name"] == "dispatch")
+    n_up = sum(1 for e in spans if e["name"] == "upload")
+    if (up, down, n_up) != (sum(want[1]), sum(want[0]) - sum(want[1]), sum(completions)) or \
+            tel.snapshot()["counters"]["async.merges"] != ASYNC_MERGES:
+        raise AssertionError(f"k(ii): the virtual upload spans ({up}, {down}, {n_up}) do not add up to the comm bytes")
+    log(f"k(ii): completions by merge {completions}, {per_client[0]} bytes each; upload spans {n_up}, {up} bytes; "
+        f"slowest client {slow}'s plan {plan(slow, 0)} of {full}")
+    steps = sum(n for _, n, _, _ in k2["trained"])
+    if k2["counts"] != only(masked_adamw_update=steps):
+        raise AssertionError(f"k(ii): B1 launches {k2['counts']} for {steps} valid steps")
+    launches["masked_adamw_update"] += k2["counts"]["masked_adamw_update"]
+    del r, sched, plan, k2, tel
+    free_memory()
+
+    # --- k(iii): compressed uploads, ranks from the constrained scenario,
+    # the edge tier against the flat merge ---
+    comp = CompressionConfig(**COMPRESSION)
+    runs = {}
+    for hierarchy in (2, None):
+        k3 = drive_async(ops, make_runner, f"k(iii) constrained, compressed, hierarchy={hierarchy}", 2,
+                         (PHASE6_BASELINE,) + args[1:], optimizer="sgd", fused_optimizer=True,
+                         scenario="constrained", compression=comp, async_cfg=AsyncAggConfig(buffer_size=2),
+                         hierarchy=hierarchy)
+        r, ranks = k3["runner"], k3["runner"].client_ranks
+        if ranks is None or not (ranks < cfg.lora_rank).any():
+            raise AssertionError(f"k(iii): the constrained scenario derived no low ranks: {ranks}")
+        for t in range(len(k3["hist"])):
+            want = expected_comm_bytes(cfg, r.global_lora, r.gal_layers, k3["chosen"][t], comp, ranks)
+            if (r.comm_bytes_per_round[t], r.comm_upload_bytes_per_round[t]) != want:
+                raise AssertionError(f"k(iii): merge {t}'s comm bytes differ from the wire format {want}")
+        for ci, _, pulled, lora in k3["trained"]:
+            rank = int(ranks[ci])
+            for name, ab in lora["layers"].items():
+                p = pulled["layers"][name]
+                if not (torch.equal(ab["a"][..., rank:], p["a"][..., rank:])
+                        and torch.equal(ab["b"][:, rank:], p["b"][:, rank:])):
+                    raise AssertionError(f"k(iii): client {ci} (rank {rank}) moved beyond its rank in {name}")
+        steps, uploads = sum(n for _, n, _, _ in k3["trained"]), len(k3["trained"])
+        if k3["counts"] != only(masked_sgd_update=steps, fake_compress=uploads):
+            raise AssertionError(f"k(iii): launches {k3['counts']} for {steps} steps and {uploads} uploads")
+        launches["masked_sgd_update"] = launches.get("masked_sgd_update", 0) + steps
+        launches["fake_compress"] = launches.get("fake_compress", 0) + uploads
+        runs[hierarchy] = k3
+    (e2, flat) = runs[2], runs[None]
+    host = [{k: v for k, v in h.items() if k != "loss"} for h in flat["hist"]]
+    if host != [{k: v for k, v in h.items() if k != "loss"} for h in e2["hist"]] or \
+            not all(np.array_equal(a, b) for a, b in zip(flat["chosen"], e2["chosen"])) or \
+            flat["runner"].comm_bytes_per_round != e2["runner"].comm_bytes_per_round or \
+            not np.array_equal(flat["runner"].client_ranks, e2["runner"].client_ranks):
+        raise AssertionError("k(iii): two edges and the flat merge made different decisions")
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(e2["hist"], flat["hist"]))
+    dis = [engine_disagreement(gf, ge, g0) for gf, ge, g0 in
+           zip(tree_leaves(flat["runner"].global_lora), tree_leaves(e2["runner"].global_lora),
+               tree_leaves(flat["runner"]._init_lora))]
+    log(f"k(iii) two edges against flat: ranks {flat['runner'].client_ranks.tolist()}; loss rel {loss_rel:.3g}; "
+        f"global LoRA per leaf (fraction disagreeing, max diff / largest update): "
+        f"{[(round(f, 6), round(m, 6)) for f, m in dis]}")
+    if loss_rel > ENGINE_LOSS_RTOL or max(f for f, _ in dis) > ENGINE_AGREE_FRAC or max(m for _, m in dis) > 2.0:
+        raise AssertionError("k(iii): two edges and the flat merge disagree")
+    del runs, e2, flat
+    free_memory()
+    log(f"phase k: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def keyword_world(vocab_size, data_mod, fl):
     task = data_mod.make_keyword_task(n_samples=256, seq_len=64, vocab_size=vocab_size, seed=0)
     parts = data_mod.dirichlet_partition(task.data["label"], fl.num_devices, fl.dirichlet_alpha, seed=0)
@@ -3213,7 +3513,7 @@ def main() -> int:
     from repro_torch import data as data_mod
     from repro_torch.config import FibecFedConfig
     from repro_torch.configs import ARCHS
-    from repro_torch.federated import CompressionConfig, FedPrompt, make_runner
+    from repro_torch.federated import AsyncAggConfig, CompressionConfig, FedPrompt, make_runner
     from repro_torch.kernels import (build, compress, fisher_diag, flash_attention, masked_update, ops, ref,
                                      sparse_lora, ssd_chunk)
     from repro_torch.models import build_model
@@ -3268,14 +3568,26 @@ def main() -> int:
         _, init_s = timed(runner.init_phase)
         log(f"loop fibecfed init_phase: {init_s:.2f} s; gal layers {np.flatnonzero(runner.gal_layers).tolist()}")
         fib_steps = 0
+        # what phase k holds its degenerate async run to
+        loop = dict(stats=[], chosen=[], init_lora=tree_clone(runner._init_lora))
         for t in range(fl.rounds):
             stats, secs = timed(lambda: runner.run_round(t))
             fib_steps += int(runner.last_round_info["client_steps"].sum())
             log(f"loop fibecfed round {t}: {secs:.2f} s, {json.dumps(stats)}")
             check_round(runner, cfg, stats, t)
+            loop["stats"].append(stats)
+            loop["chosen"].append(runner.last_round_info["chosen"].copy())
             if t == 0:
                 round0 = (stats["loss"], tree_clone(runner.global_lora))
+                loop["global0"] = round0[1]
+                loop["clients0"] = {int(ci): tree_clone(runner.clients[ci].lora)
+                                    for ci in runner.last_round_info["chosen"]}
+            if t == 1:
+                loop["clients1"] = {int(ci): tree_clone(runner.clients[ci].lora)
+                                    for ci in runner.last_round_info["chosen"]}
     fused_decisions = ([c.order.copy() for c in runner.clients], runner.gal_layers.copy())
+    loop.update(orders=fused_decisions[0], gal_layers=fused_decisions[1], steps=fib_steps,
+                comm=list(runner.comm_bytes_per_round), global_lora=tree_clone(runner.global_lora))
     loop_difficulty = [c.difficulty.copy() for c in runner.clients]
     log(f"loop fibecfed peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del runner
@@ -3420,6 +3732,13 @@ def main() -> int:
     if rel > 1e-6 or lora_err > 1e-6:
         raise AssertionError("fused and unfused runs disagree")
     del plain
+
+    # --- k. the async engine on phase 4's world: the degenerate run against
+    # the loop engine, stragglers, compression with derived ranks and edges ---
+    for name, n in phase_async(ops, make_runner, AsyncAggConfig, CompressionConfig, model, loss_fn, fl, clients,
+                               cfg, loop, tree_leaves).items():
+        launches[name] += n
+    del loop
 
     # --- f. the Mamba2 family at full width: training, then serving (B9 on
     # the prefill scan, B7 on the per-slot LoRA of in_proj/out_proj) ---

@@ -74,17 +74,26 @@ def selected_batch_ids(
     return order[:count]
 
 
-def step_plan(schedule: CurriculumSchedule, t: int, orders, local_epochs: int = 1):
-    """Padded per-client step schedule of the vectorized engine.
+def step_plan(schedule: CurriculumSchedule, t: int, orders, local_epochs: int = 1, *, max_selected=None):
+    """Padded per-client step schedule of the vectorized and async engines.
 
     ``orders`` are the chosen clients' curriculum orders (ragged). Returns
     ``(batch_idx (k, S) int32, step_valid (k, S) f32)`` with
-    ``S = local_epochs · bucket_size(max selected)``: step ``s`` of client
-    ``i`` trains on batch ``batch_idx[i, s]`` iff ``step_valid[i, s]``,
-    replaying the loop engine's epoch-major traversal of
-    :func:`selected_batch_ids`. Padded steps keep index 0 and are no-ops.
+    ``S = local_epochs · padded``: step ``s`` of client ``i`` trains on
+    batch ``batch_idx[i, s]`` iff ``step_valid[i, s]``, replaying the loop
+    engine's epoch-major traversal of :func:`selected_batch_ids`. Padded
+    steps keep index 0 and are no-ops.
+
+    ``padded`` is the largest per-epoch selected count, rounded up to a
+    power of two. ``max_selected`` (one entry per client, ``None`` entries
+    uncapped) caps each client's per-epoch count: the async engine's
+    step-count adaptation, where a capped client trains only the easiest
+    ``max_selected[i]`` of its selected batches (the order is a difficulty
+    sort, so truncation keeps the prefix). Caps clamp to >= 1.
     """
     sels = [selected_batch_ids(schedule, t, o) for o in orders]
+    if max_selected is not None:
+        sels = [s if cap is None else s[: max(1, int(cap))] for s, cap in zip(sels, max_selected)]
     padded = bucket_size(max(len(s) for s in sels))
     k, S = len(sels), local_epochs * padded
     batch_idx = np.zeros((k, S), np.int32)

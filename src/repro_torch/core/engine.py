@@ -26,11 +26,18 @@ place.
 The initialization phase gets the same treatment: difficulty scoring is a
 vmap over clients of a loop over batches, and the momentum-FIM warmup a
 loop over warmup epochs of a vmap over clients.
+
+The loop and async engines take one client's local round
+(:func:`build_client_train_fn`), the async engine also the standalone
+merges (:func:`gal_weighted_merge`, :func:`gal_delta_merge`,
+:func:`lora_delta`). None of them writes its inputs: a global version a
+straggler pulled must survive later merges unchanged.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
@@ -90,6 +97,59 @@ def gal_delta_merge(global_lora, gal_mask, stacked_deltas, weights):
     return tree_map(lambda g, m, d: (g + m * d).to(g.dtype), global_lora, gal_mask, agg)
 
 
+def lora_delta(new_lora, pulled_lora):
+    """Client-side delta for the delta merge mode: the trained LoRA minus
+    the global version the client pulled, taken at completion time while
+    the pulled version is still alive (only the GAL part matters
+    downstream: the merge masks the rest away). New tensors: neither
+    argument is written."""
+    return tree_map(lambda n, p: n - p, new_lora, pulled_lora)
+
+
+def merge_in(global_lora, lora, gal_mask):
+    """Line 15: the global copy overwrites the GAL part of a client's LoRA
+    (the mask leaves broadcast over a leading client axis). New tensors,
+    each in its LoRA leaf's dtype: the float blend must not widen bf16
+    leaves."""
+    return tree_map(lambda g, l, m: (m * g + (1.0 - m) * l).to(l.dtype), global_lora, lora, gal_mask)
+
+
+def build_client_train_fn(loss_fn: Callable, opt_update: Callable) -> Callable:
+    """One client's whole local round, for the loop and async engines: the
+    merge-in of the pulled global (line 15, :func:`merge_in`), then the step
+    plan (Alg. 1 lines 16-17).
+
+    ``train_fn(params, global_lora, lora, opt, neuron_mask, gal_mask,
+    batch_of, batch_idx, step_valid, lr) -> (new_lora, new_opt, losses
+    (S,) f32)``, where ``batch_idx``/``step_valid`` (S,) are the client's
+    step plan (:func:`repro_torch.core.curriculum.step_plan`),
+    ``neuron_mask`` its update mask (None: dense) and ``batch_of(j)`` its
+    batch ``j`` on the device. Unlike the JAX package,
+    which runs the padded steps as no-ops so that one compiled program
+    serves every client, this runs only the valid steps, each a masked
+    SGD/AdamW step on the client's own (unpadded) batch: one optimizer
+    launch per valid step and none for padding. Both engines run this
+    function, so the degenerate async run is the loop run's local training
+    step for step. ``losses`` keeps the plan's padded length, with
+    zeros at padded steps (they carry weight 0 in the round's loss). No
+    argument is written in place: the pulled ``global_lora`` may be shared
+    by other clients in flight.
+    """
+
+    def train_fn(params, global_lora, lora, opt, neuron_mask, gal_mask, batch_of, batch_idx, step_valid, lr):
+        lora = merge_in(global_lora, lora, gal_mask)
+        losses = {}
+        for s in np.flatnonzero(np.asarray(step_valid) > 0).tolist():
+            batch = batch_of(int(batch_idx[s]))
+            grads, loss = grad_and_value(lambda lo: loss_fn(params, lo, batch))(lora)
+            lora, opt = opt_update(grads, opt, lora, lr, neuron_mask)
+            losses[s] = loss.detach().to(torch.float32)
+        zero = next(iter(losses.values())).new_zeros(())
+        return lora, opt, torch.stack([losses.get(s, zero) for s in range(len(step_valid))])
+
+    return train_fn
+
+
 def build_round_fn(loss_fn: Callable, opt_update: Callable, *, use_neuron_mask: bool,
                    compress: Optional[Dict[str, Any]] = None) -> Callable:
     """The whole tuning round over the cohort.
@@ -120,10 +180,7 @@ def build_round_fn(loss_fn: Callable, opt_update: Callable, *, use_neuron_mask: 
         cl_lora = _gather(stacked_lora, chosen)
         cl_opt = _gather(stacked_opt, chosen)
         cl_mask = _gather(neuron_mask, chosen) if use_neuron_mask else None
-        # line 15: the global copy overwrites the GAL part of each client's
-        # LoRA; the mask leaves broadcast over the client axis
-        cl_lora = tree_map(lambda g, l, m: (m * g + (1.0 - m) * l).to(l.dtype),
-                           global_lora, cl_lora, gal_mask)
+        cl_lora = merge_in(global_lora, cl_lora, gal_mask)
         losses = []
         for s in range(batch_idx.shape[1]):
             bidx = batch_idx[:, s]

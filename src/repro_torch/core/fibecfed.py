@@ -16,7 +16,7 @@ Tuning phase (lines 11-19): sample the cohort, merge the global GAL weights
 into each client's LoRA, curriculum-select batches, run masked local
 SGD/AdamW, FedAvg the GAL part on the server with exact comm accounting.
 
-Two interchangeable round engines (``engine=``), as in the JAX package:
+Three interchangeable round engines (``engine=``), as in the JAX package:
 
 * ``"vectorized"`` (default): client LoRA, optimizer state and masks are
   stacked along a leading client axis and each round trains the whole
@@ -24,12 +24,28 @@ Two interchangeable round engines (``engine=``), as in the JAX package:
   all clients' batches and runs the FIM warmup over the stack.
 * ``"loop"``: the semantic spec, one training step per (client, batch) and
   host-side merge and FedAvg.
+* ``"async"``: straggler-aware event-driven aggregation
+  (:mod:`repro_torch.federated.async_agg`): an event queue on a virtual
+  clock models per-client compute and comm latency under a heterogeneity
+  ``scenario=`` (:mod:`repro_torch.federated.hetero`), each dispatched
+  client runs its local round against the global version it pulled
+  (:func:`repro_torch.core.engine.build_client_train_fn`), and the server
+  merges any ``buffer_size`` completions into a double-buffered global with
+  staleness-discounted FedAvg weights, flat or through an edge tier
+  (``hierarchy=``, :mod:`repro_torch.federated.hierarchy`).
+  ``async_cfg=`` layers the adaptive policies on top (delta merges with a
+  server learning rate, a staleness cutoff, an adaptive buffer, per-client
+  step counts, wall-clock-aware sampling). With the homogeneous scenario,
+  buffer = cohort size and the policies at their defaults it reduces to the
+  loop engine: the same cohorts, local steps and comm bytes, the merge
+  summed by ``tensordot`` instead of the host loop.
 
-Both take ``compression=`` (a simulated compressed upload with error
+All take ``compression=`` (a simulated compressed upload with error
 feedback, kernel B3), ``client_ranks=`` (per-client LoRA ranks) and
 ``telemetry=`` (a :class:`repro_torch.obs.Telemetry`: wall-clock spans of
-the init phase and its steps and of every round, and the ``fl.*`` metrics;
-enabling it changes no bit of a run). Host
+the init phase and its steps and of every round, the ``fl.*`` metrics and,
+on the async engine, virtual-clock spans of every completion and the
+``async.*`` metrics; enabling it changes no bit of a run). Host
 randomness (cohorts, ``random`` difficulty, ``gal_mode="random"``) comes from
 ``np.random.default_rng(seed)`` drawn in the JAX package's order, so the two
 make the same decisions. The port runs on the card unless ``device`` says
@@ -42,7 +58,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.func import grad_and_value
 
 from repro_torch.config import FibecFedConfig
 from repro_torch.convert import lora_from_numpy, params_from_numpy
@@ -62,20 +77,16 @@ from repro_torch.optim import make_optimizer
 from repro_torch.train.losses import make_logits_loss
 from repro_torch.utils.tree import tree_clone, tree_leaves, tree_map
 
-ENGINES = ("vectorized", "loop")
+ENGINES = ("vectorized", "loop", "async")
 
 # options of the JAX runner that the port does not run yet, and the
 # ROADMAP.md item that brings each
 _UNPORTED = {
     "mesh": "Queue A item 13 (sharded engine)",
-    "scenario": "Queue A item 9 (async engine)",
-    "async_cfg": "Queue A item 9 (async engine)",
     "store": "Queue A item 10 (client stores)",
-    "hierarchy": "Queue A item 9 (edge aggregation)",
 }
 _ENGINE_ITEMS = {
     "sharded": "Queue A item 13",
-    "async": "Queue A item 9",
 }
 
 
@@ -109,7 +120,7 @@ class ClientState:
     n: int
     batches: List[np.ndarray]
     order: np.ndarray  # curriculum order over batches
-    opt_state: Any  # the loop engine's; the vectorized engine stacks it
+    opt_state: Any  # the loop and async engines'; the vectorized engine stacks it
     fim: Any = None  # momentum diag-FIM
     neuron_mask: Any = None  # update-mask tree (or None = dense)
     difficulty: Optional[np.ndarray] = None
@@ -118,11 +129,11 @@ class ClientState:
     # sparse_ratio=None), and what it read: Ritz values and Lipschitz estimate
     lossless_fraction: float = 1.0
     lossless: Optional[Dict[str, Any]] = None
-    # compression error-feedback residual (loop engine; the vectorized
-    # engine keeps one stacked residual tree on the runner)
+    # compression error-feedback residual (loop and async engines; the
+    # vectorized engine keeps one stacked residual tree on the runner)
     ef_residual: Any = None
-    # a LoRA tree of its own (loop engine) or a view into the vectorized
-    # engine's stacked tree, taken only when read
+    # a LoRA tree of its own (loop and async engines) or a view into the
+    # vectorized engine's stacked tree, taken only when read
     _lora: Any = None
     _lora_view: Optional[Callable[[], Any]] = None
 
@@ -200,7 +211,12 @@ class FibecFed:
         """Build an FL runner over host-simulated clients.
 
         Args follow the JAX package's ``FibecFed``; those of engines and
-        options not ported yet raise ``NotImplementedError``. Besides:
+        options not ported yet (``engine="sharded"``, ``mesh=``, ``store=``)
+        raise ``NotImplementedError``. ``scenario=`` and ``async_cfg=``
+        (:mod:`repro_torch.federated.hetero`,
+        :class:`repro_torch.federated.AsyncAggConfig`) and ``hierarchy=`` (an
+        edge count or :class:`repro_torch.federated.HierarchyConfig`) are the
+        async engine's and a ``ValueError`` on the others. Besides:
 
           telemetry: a ``repro_torch.obs.Telemetry``; ``None`` installs the
             no-op recorder. The JAX runner's ``jit.*_traces`` gauges have no
@@ -211,10 +227,15 @@ class FibecFed:
             and ``_init_lora``) to start from; by default both are drawn from
             ``torch.Generator``s seeded from ``seed``.
         """
-        check_ported(
-            engine, fl, mesh=mesh, scenario=scenario, async_cfg=async_cfg, store=store,
-            hierarchy=hierarchy,
-        )
+        check_ported(engine, fl, mesh=mesh, store=store)
+        if engine != "async" and (scenario is not None or async_cfg is not None):
+            raise ValueError("scenario=/async_cfg= are only meaningful with engine='async'")
+        if hierarchy is not None and engine != "async":
+            raise ValueError("hierarchy= is only meaningful with engine='async'")
+        # lazy imports: the federated package's init imports this module
+        from repro_torch.federated.hierarchy import get_hierarchy
+
+        self._hierarchy = None if hierarchy is None else get_hierarchy(hierarchy)
         self.device = resolve_device(device)
         self.tel = ensure_telemetry(telemetry)
         self.model = model
@@ -250,15 +271,34 @@ class FibecFed:
             total_rounds=fl.rounds,
         )
 
-        # --- compressed uploads + per-client ranks; lazy import: the
-        # federated package's init imports this module ---
+        if engine == "async":
+            from repro_torch.federated.async_agg import AsyncAggConfig, DoubleBufferedGlobal
+            from repro_torch.federated.hetero import get_scenario
+
+            self.scenario = get_scenario(scenario)
+            self.async_cfg = async_cfg if async_cfg is not None else AsyncAggConfig()
+            self._global = DoubleBufferedGlobal(self.global_lora)
+            self._scheduler = None  # built on the first async round
+
+        # --- compressed uploads + per-client ranks ---
         from repro_torch.federated.compress import CompressionConfig
 
+        if engine == "async" and self.async_cfg.compression is not None:
+            if compression is not None and compression != self.async_cfg.compression:
+                raise ValueError("compression= conflicts with async_cfg.compression; set one")
+            compression = self.async_cfg.compression
         if compression is not None and not isinstance(compression, CompressionConfig):
             raise TypeError(f"compression must be a CompressionConfig, got {type(compression)!r}")
         # mode="none" normalizes to None: the uncompressed paths, exactly
         self.compression = compression if compression is not None and compression.enabled else None
         self.client_ranks = None
+        if client_ranks is None and engine == "async" and self.scenario.slow_rank_fraction < 1.0:
+            # the scenario's slow group carries its rank budget, bound on the
+            # scenario's own stream as the scheduler binds it
+            from repro_torch.federated.hetero import SCENARIO_SEED_OFFSET
+
+            bound = self.scenario.bind(len(client_data), seed=seed + SCENARIO_SEED_OFFSET)
+            client_ranks = bound.client_ranks(self.cfg.lora_rank)
         if client_ranks is not None:
             ranks = np.asarray(client_ranks, np.int64)
             if ranks.shape != (len(client_data),):
@@ -314,11 +354,6 @@ class FibecFed:
 
     def _client_batch(self, client: ClientState, batch_ids: np.ndarray) -> Dict[str, torch.Tensor]:
         return to_device(gather_batch(client.data, batch_ids), self.device, self._data_dtype)
-
-    def _train_step(self, lora, opt_state, batch, lr, mask):
-        grads, loss = grad_and_value(lambda lo: self.loss_fn(self.params, lo, batch))(lora)
-        new_lora, new_opt = self.opt_update(grads, opt_state, lora, lr, mask)
-        return loss, new_lora, new_opt
 
     def _sensitivity(self, lora, batch) -> torch.Tensor:
         """Layer-sensitivity probe (Eq. 9-10) on one batch."""
@@ -529,14 +564,6 @@ class FibecFed:
     # tuning phase (Alg. 1 lines 11-19)
     # ------------------------------------------------------------------
 
-    def _merge_global(self, client: ClientState) -> None:
-        """Line 15: overwrite the GAL part of the client's LoRA."""
-        client.lora = tree_map(
-            # float mask arithmetic must not widen bf16 LoRA leaves
-            lambda g, l, mm: (mm * g + (1.0 - mm) * l).to(l.dtype),
-            self.global_lora, client.lora, self._gal_mask_tree,
-        )
-
     def _gal_leaf_values(self) -> List[tuple]:
         """Per GAL-mask leaf: (unmasked value count, wire itemsize of the LoRA
         leaf's dtype). A mask leaf is broadcastable, one entry per layer
@@ -580,7 +607,7 @@ class FibecFed:
         self.comm_upload_bytes_per_round.append(up)
 
     def _compress_client(self, ci: int, client: ClientState, pulled: Any):
-        """The compressed upload of one client (loop engine): fake-quantize
+        """The compressed upload of one client (loop and async engines): fake-quantize
         the masked GAL delta plus the carried residual, keep the new
         residual, and return the reconstructed delta the server receives.
         The quantizer maps 0 to 0, so it stays on the GAL support."""
@@ -621,6 +648,8 @@ class FibecFed:
         return stats
 
     def _dispatch_round(self, t: int, lr: Optional[float] = None) -> Dict[str, float]:
+        if self.engine == "async":
+            return self._run_round_async(t, lr)
         if self.engine == "vectorized":
             return self._run_round_vectorized(t, lr)
         return self._run_round_loop(t, lr)
@@ -633,19 +662,18 @@ class FibecFed:
         # the pulled global the cohort trains against (only reassigned after
         # the FedAvg below), for the compressed delta
         g0 = self.global_lora
+        train_fn = eng.build_client_train_fn(self.loss_fn, self.opt_update)
         losses, updates, weights, sel_counts = [], [], [], []
         for ci in chosen:
             client = self.clients[ci]
-            self._merge_global(client)
-            sel = curr.selected_batch_ids(self.schedule, t, client.order)
-            sel_counts.append(len(sel))
-            for _ in range(fl.local_epochs):
-                for j in sel:
-                    batch = self._client_batch(client, client.batches[int(j)])
-                    loss, client.lora, client.opt_state = self._train_step(
-                        client.lora, client.opt_state, batch, lr, client.neuron_mask
-                    )
-                    losses.append(loss.detach())
+            # line 15, then the selected batches, epoch-major
+            batch_idx, step_valid = curr.step_plan(self.schedule, t, [client.order], fl.local_epochs)
+            client.lora, client.opt_state, client_losses = train_fn(
+                self.params, g0, client.lora, client.opt_state, client.neuron_mask, self._gal_mask_tree,
+                lambda j: self._client_batch(client, client.batches[j]), batch_idx[0], step_valid[0], lr,
+            )
+            losses.extend(client_losses[s] for s in np.flatnonzero(step_valid[0]))
+            sel_counts.append(int(step_valid.sum()) // fl.local_epochs)
             if self.compression is not None:
                 y = self._compress_client(int(ci), client, g0)
                 # value-form payload: the weighted GAL average of g0 + y_i
@@ -728,6 +756,162 @@ class FibecFed:
             "comm_bytes": float(self.comm_bytes_per_round[-1]),
             # the round's padded step count (power-of-two bucketed)
             "padded_steps": float(batch_idx.shape[1]),
+        }
+
+    # ------------------------------------------------------------------
+    # async engine (event-driven, straggler-aware)
+    # ------------------------------------------------------------------
+
+    def _ensure_scheduler(self):
+        if self._scheduler is None:
+            from repro_torch.federated.async_agg import AsyncScheduler
+            from repro_torch.federated.hetero import SCENARIO_SEED_OFFSET
+
+            # scenario randomness rides its own stream, so heterogeneity
+            # never perturbs cohort sampling (self.rng)
+            bound = self.scenario.bind(len(self.clients), seed=self.seed + SCENARIO_SEED_OFFSET)
+            self._scheduler = AsyncScheduler(
+                num_clients=len(self.clients),
+                cohort_size=min(self.fl.devices_per_round, len(self.clients)),
+                scenario=bound,
+                rng=self.rng,
+                cfg=self.async_cfg,
+                # wall-clock-aware sampling interpolates on the curriculum
+                # ramp: fast clients early, uniform once data is full
+                progress=self.schedule.progress,
+                telemetry=self.tel,
+            )
+        return self._scheduler
+
+    def _async_callbacks(self, lr, sched):
+        """(plan, train) closures handed to the event scheduler.
+
+        Both apply the same step-count adaptation (``adapt_steps``): a
+        client ``r`` times slower than the fastest trains the easiest
+        ``ceil(n/r)`` of its selected batches, so ``plan`` (which prices a
+        dropped client, who never trains) and ``train`` (the real local
+        round, run at dispatch against the pulled version) agree. In delta
+        mode ``train`` takes the client's delta against the pulled version
+        while that version is still alive.
+        """
+        from repro_torch.federated.async_agg import ClientUpdate, adapted_step_count
+
+        fl, cfg = self.fl, self.async_cfg
+        train_fn = eng.build_client_train_fn(self.loss_fn, self.opt_update)
+        delta_mode = cfg.merge_mode == "delta"
+        comp = self.compression
+
+        def _cap(ci: int, n_sel: int) -> Optional[int]:
+            if not cfg.adapt_steps:
+                return None
+            # the scenario's ground truth, or the scheduler's EMA of observed
+            # completion times (scenario-free, as in a deployment)
+            rel = sched.observed_rel_speed(ci) if cfg.pace_mode == "observed" else sched.scenario.rel_speed(ci)
+            return adapted_step_count(n_sel, rel, cfg.min_steps)
+
+        def plan(ci: int, t: int) -> int:
+            sel = curr.selected_batch_ids(self.schedule, t, self.clients[ci].order)
+            cap = _cap(ci, len(sel))
+            n_sel = len(sel) if cap is None else min(cap, len(sel))
+            return n_sel * fl.local_epochs
+
+        def train(ci: int, t: int, version: int) -> ClientUpdate:
+            client = self.clients[ci]
+            cap = _cap(ci, len(curr.selected_batch_ids(self.schedule, t, client.order)))
+            batch_idx, step_valid = curr.step_plan(self.schedule, t, [client.order], fl.local_epochs,
+                                                   max_selected=None if cap is None else [cap])
+            pulled = self._global.front  # the version this client pulls
+            new_lora, new_opt, losses = train_fn(
+                self.params, pulled, client.lora, client.opt_state, client.neuron_mask, self._gal_mask_tree,
+                lambda j: self._client_batch(client, client.batches[j]), batch_idx[0], step_valid[0], lr,
+            )
+            client.lora, client.opt_state = new_lora, new_opt
+            # the delta against the pulled version, taken now: by merge time
+            # the double buffer may have retired that version
+            if comp is None:
+                delta = eng.lora_delta(new_lora, pulled) if delta_mode else None
+                payload = new_lora
+            else:
+                # the channel carries the compressed GAL delta either way;
+                # buffered mode reconstructs pulled + y on the server
+                y = self._compress_client(ci, client, pulled)
+                delta = y if delta_mode else None
+                payload = new_lora if delta_mode else tree_map(lambda g, yy: (g + yy).to(g.dtype), pulled, y)
+            down, up = self._client_comm_bytes(ci)
+            n_steps = int(step_valid.sum())
+            return ClientUpdate(
+                client=ci, lora=payload, delta=delta, losses=losses, step_valid=step_valid[0],
+                n_samples=client.n, n_steps=n_steps, n_selected=n_steps // fl.local_epochs,
+                pulled_version=version, round_t=t, comm_bytes=down + up, upload_bytes=up,
+            )
+
+        return plan, train
+
+    def _run_round_async(self, t: int, lr: Optional[float] = None) -> Dict[str, float]:
+        """One buffer flush = one server round.
+
+        The scheduler advances its virtual clock (dispatching replacements,
+        absorbing drops) until any ``buffer_size`` clients have reported;
+        their GAL layers merge into a fresh double-buffered global with
+        staleness-discounted FedAvg weights. Comm bytes are charged per
+        completion, stale-discarded ones included, so dropped clients cost
+        nothing and the homogeneous full-cohort configuration reproduces the
+        synchronous engines' accounting exactly. ``last_round_info`` names
+        the merged clients and their real steps.
+        """
+        from repro_torch.federated.hierarchy import build_edge_summary_fn, edge_reduce
+
+        lr = self.fl.learning_rate if lr is None else lr
+        sched = self._ensure_scheduler()
+        plan, train = self._async_callbacks(lr, sched)
+        result = sched.run_until_merge(t, plan, train)
+
+        if self.async_cfg.merge_mode == "delta":
+            payloads, merge = [u.delta for u in result.updates], eng.gal_delta_merge
+        else:
+            payloads, merge = [u.lora for u in result.updates], eng.gal_weighted_merge
+        if self._hierarchy is not None:
+            # edges reduce their regions' payloads to partial weighted sums,
+            # the server merges the summaries with unit weights: bit-exact to
+            # the flat merge at one edge, equal up to reassociation otherwise
+            stacked, wts = edge_reduce(
+                build_edge_summary_fn(), payloads, np.asarray(result.weights),
+                [u.client for u in result.updates], len(self.clients), self._hierarchy.num_edges,
+                assignments=self._hierarchy.assignments,
+            )
+        else:
+            stacked = _stack(payloads)
+            wts = torch.as_tensor(np.asarray(result.weights), dtype=torch.float32, device=self.device)
+        self._global.publish(merge(self._global.front, self._gal_mask_tree, stacked, wts))
+        self.global_lora = self._global.front
+
+        num = den = 0.0
+        for u in result.updates:
+            losses = u.losses.cpu().numpy().astype(np.float64)
+            valid = np.asarray(u.step_valid, np.float64)
+            num += float(np.sum(losses * valid))
+            den += float(np.sum(valid))
+        self.last_round_info = {
+            "chosen": np.asarray([u.client for u in result.updates]),
+            "client_steps": np.asarray([u.n_steps for u in result.updates], np.int64),
+        }
+        # completions pay the round trip whether or not the staleness cutoff
+        # later discards them: the bytes were already on the wire
+        self.comm_bytes_per_round.append(
+            sum(u.comm_bytes for u in result.updates) + result.stale_dropped_bytes)
+        self.comm_upload_bytes_per_round.append(
+            sum(u.upload_bytes for u in result.updates) + result.stale_dropped_upload_bytes)
+        return {
+            "loss": num / max(den, 1.0),
+            "selected_batches": float(np.mean([u.n_selected for u in result.updates])),
+            "comm_bytes": float(self.comm_bytes_per_round[-1]),
+            "virtual_time": float(result.clock),
+            "staleness_mean": float(result.staleness.mean()),
+            "merged_clients": float(result.completed),
+            "dropped_clients": float(result.dropped),
+            "stale_dropped": float(result.stale_dropped),
+            "buffer_size": float(sched.buffer_size),
+            "padded_steps": float(max(len(np.asarray(u.step_valid)) for u in result.updates)),
         }
 
     # ------------------------------------------------------------------

@@ -46,12 +46,14 @@ def make_runner(name: str, model: ModelFns, loss_fn: Callable, fl: FibecFedConfi
                 compression: Any = None, client_ranks: Any = None, **kw) -> FibecFed:
     """Build a :class:`FibecFed` runner from a named baseline preset.
 
-    ``engine`` is ``"vectorized"`` (default) or ``"loop"``; ``compression``
-    a :class:`repro_torch.federated.CompressionConfig` (``None`` is an exact
-    no-op); ``client_ranks`` one LoRA rank per client (``None``: full rank
-    everywhere). ``kw`` goes to ``FibecFed`` as it is: ``device``,
-    ``init_params``, ``init_lora``, and the JAX runner's
-    options not ported yet (which raise). Returns an un-initialized runner: call
+    ``engine`` is ``"vectorized"`` (default), ``"loop"`` or ``"async"``;
+    ``compression`` a :class:`repro_torch.federated.CompressionConfig`
+    (``None`` is an exact no-op); ``client_ranks`` one LoRA rank per client
+    (``None``: full rank everywhere, or on the async engine the scenario's
+    rank budget). ``kw`` goes to ``FibecFed`` as it is: the async engine's
+    ``scenario``, ``async_cfg`` and ``hierarchy``, ``telemetry``,
+    ``device``, ``init_params``, ``init_lora``, and the JAX runner's options
+    not ported yet (``mesh``, ``store``), which raise. Returns an un-initialized runner: call
     ``init_phase()`` once, then ``run_round(t)`` per round (or drive it with
     :func:`run_experiment`).
     """

@@ -1463,3 +1463,131 @@ def test_per_row_linear_at_ssm_widths(cuda, slots, per_slot, K, N):
     torch.cuda.synchronize()
     assert_lora_close(delta.reshape(-1, N), twin)
     assert torch.equal(y, x @ w + delta)
+
+
+# --- the async engine: one client's local round, the edge tier, and
+# published global versions that later merges leave alone ---
+
+
+def _async_world():
+    from repro_torch.config import FibecFedConfig, ModelConfig
+    from repro_torch.data import dirichlet_partition, make_keyword_task
+    from repro_torch.models import build_model
+    from repro_torch.train import make_loss_fn
+
+    cfg = ModelConfig(name="async-lm", family="dense", num_layers=2, d_model=32, num_heads=2, num_kv_heads=1,
+                      d_ff=64, vocab_size=240, dtype="float32", lora_rank=4)
+    task = make_keyword_task(n_samples=48, seq_len=12, vocab_size=240, seed=0)
+    parts = dirichlet_partition(task.data["label"], 4, 1.0, seed=0)
+    data = [{k: v[i] for k, v in task.data.items() if k != "label"} for i in parts]
+    fl = FibecFedConfig(num_devices=4, devices_per_round=2, batch_size=4, fim_warmup_epochs=1,
+                        gal_fraction=0.5, sparse_ratio=0.5)
+    model = build_model(cfg)
+    return cfg, model, make_loss_fn(model), fl, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adamw", "sgd"])
+def test_client_train_fn_matches_plain_one_launch_a_valid_step(cuda, optimizer):
+    """The async engine's local round on the card, fused (B1/B2) against
+    the same round with the plain optimizer: bit for bit, one launch per
+    valid step and none for the padded ones."""
+    import numpy as np
+
+    from repro_torch.core import engine as eng
+    from repro_torch.core.fibecfed import to_device
+    from repro_torch.data.pipeline import gather_batch, make_batches
+    from repro_torch.lora import gal_mask_tree
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg, model, loss_fn, _, data = _async_world()
+    params = model.init_params(cuda, "cuda")
+    lora = model.init_lora(cuda, "cuda")
+    for ab in lora["layers"].values():
+        ab["b"].normal_(0.0, 0.05, generator=cuda)
+    pulled = tree_map(lambda x: x + 0.01 * torch.randn(x.shape, generator=cuda, device="cuda"), lora)
+    gal = gal_mask_tree(cfg, lora, np.array([True, False]))
+    keep = tree_map(lambda x: (torch.rand(x.shape, generator=cuda, device="cuda") < 0.5).float(), lora)
+    batches = make_batches(len(data[0]["tokens"]), 4)
+    batch_of = lambda j: to_device(gather_batch(data[0], batches[j]), "cuda")  # noqa: E731
+    batch_idx = np.array([2, 0, 1, 0, 0, 0, 0, 0], np.int32)
+    step_valid = np.array([1, 1, 1, 0, 0, 0, 0, 0], np.float32)
+    counter = ops.masked_adamw_update if optimizer == "adamw" else ops.masked_sgd_update
+    outs = []
+    for fused in (True, False):
+        opt_init, opt_update = make_optimizer(optimizer, fused=fused)
+        train = eng.build_client_train_fn(loss_fn, opt_update)
+        before = counter.launches
+        new_lora, new_opt, losses = train(params, pulled, lora, opt_init(lora), keep, gal, batch_of, batch_idx,
+                                          step_valid, 0.01)
+        torch.cuda.synchronize()
+        assert counter.launches - before == (3 if fused else 0)
+        outs.append((new_lora, new_opt, losses))
+    (fl, fo, fls), (pl, po, pls) = outs
+    assert fls.shape == (8,) and bool((fls[3:] == 0).all()) and bool((fls[:3] > 0).all())
+    assert torch.equal(fls, pls)
+    for a, b in zip(tree_leaves(fl) + tree_leaves(fo), tree_leaves(pl) + tree_leaves(po)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("delta", [False, True])
+def test_one_edge_is_the_flat_merge_bit_for_bit(cuda, dtype, delta):
+    import numpy as np
+
+    from repro_torch.core import engine as eng
+    from repro_torch.federated.hierarchy import build_edge_summary_fn, edge_reduce
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    shapes = {"a": (24, 896, 8), "b": (24, 8, 896)}
+    rand = lambda s: torch.randn(s, generator=cuda, device="cuda").to(dtype)  # noqa: E731
+    g = {k: rand(s) for k, s in shapes.items()}
+    mask = {k: (torch.arange(24, device="cuda") % 3 == 0).float().view(24, 1, 1) for k in shapes}
+    payloads = [{k: rand(s) for k, s in shapes.items()} for _ in range(4)]
+    w = np.array([0.1, 0.2, 0.3, 0.4]) * (0.8 if delta else 1.0)
+    merge = eng.gal_delta_merge if delta else eng.gal_weighted_merge
+    flat = merge(g, mask, tree_map(lambda *xs: torch.stack(xs), *payloads),
+                 torch.as_tensor(w, dtype=torch.float32, device="cuda"))
+    stacked, ones = edge_reduce(build_edge_summary_fn(), payloads, w, [5, 1, 7, 0], 8, 1)
+    edge = merge(g, mask, stacked, ones)
+    torch.cuda.synchronize()
+    for a, b in zip(tree_leaves(flat), tree_leaves(edge)):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_pulled_globals_survive_later_merges_on_the_card(cuda):
+    """A straggler run on the card (fused AdamW, int8 uploads, delta
+    merges): every global version a client pulled, and every payload,
+    holds its bits after all later merges."""
+    from repro_torch.federated import AsyncAggConfig, CompressionConfig, make_runner
+    from repro_torch.utils.tree import tree_clone, tree_leaves
+
+    _, model, loss_fn, fl, data = _async_world()
+    runner = make_runner("fibecfed", model, loss_fn, fl, data, optimizer="adamw", fused_optimizer=True,
+                         engine="async", scenario="straggler", seed=0, device="cuda",
+                         async_cfg=AsyncAggConfig(buffer_size=1, merge_mode="delta",
+                                                  compression=CompressionConfig(mode="int8")))
+    runner.init_phase()
+    pulled, made = [], []
+    callbacks = runner._async_callbacks
+
+    def recording(lr, sched):
+        plan, train = callbacks(lr, sched)
+
+        def train_rec(ci, t, version):
+            pulled.append((runner._global.front, tree_clone(runner._global.front)))
+            u = train(ci, t, version)
+            made.append((u.delta, tree_clone(u.delta)))
+            return u
+
+        return plan, train_rec
+
+    runner._async_callbacks = recording
+    stats = [runner.run_round(t) for t in range(6)]
+    torch.cuda.synchronize()
+    assert max(h["staleness_mean"] for h in stats) > 0.0 and runner._global.version == 6
+    for live, snap in pulled + made:
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(live), tree_leaves(snap)))

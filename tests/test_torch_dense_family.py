@@ -370,7 +370,7 @@ def test_core_exports_match_jax():
     names = {n for n in dir(jcore) if not n.startswith("_") and callable(getattr(jcore, n, None))}
     names = {n for n in names if getattr(getattr(jcore, n), "__module__", "").startswith("repro.core")}
     assert names - jax_only <= set(dir(tcore)), sorted(names - jax_only - set(dir(tcore)))
-    assert set(tcore.ENGINES) <= set(jcore.ENGINES) and tcore.ENGINES == ("vectorized", "loop")
+    assert set(tcore.ENGINES) <= set(jcore.ENGINES) and tcore.ENGINES == ("vectorized", "loop", "async")
     assert tcore.FibecFed is not None and tcore.ClientState is not None
 
 

@@ -85,11 +85,22 @@ def test_runner_without_device_needs_cuda(monkeypatch):
      {"scenario": "straggler"}, {"mesh": object()}],
 )
 def test_unported_engines_and_options_raise(kw):
+    """The sharded engine, ``mesh=`` and ``store=`` are not ported yet and
+    raise, citing ROADMAP.md. The async engine is: ``engine="async"``
+    builds, and its options on a synchronous engine (the default) raise
+    ``ValueError`` as in the JAX package."""
     from repro_torch.federated import make_runner
 
     model, loss_fn, fl, data = _world()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_runner("fibecfed", model, loss_fn, fl, data, device="cpu", **kw)
+    if kw == {"engine": "async"}:
+        runner = make_runner("fibecfed", model, loss_fn, fl, data, device="cpu", **kw)
+        assert runner.engine == "async" and runner._global.version == 0
+    elif "hierarchy" in kw or "scenario" in kw:
+        with pytest.raises(ValueError, match="engine='async'"):
+            make_runner("fibecfed", model, loss_fn, fl, data, device="cpu", **kw)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_runner("fibecfed", model, loss_fn, fl, data, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("field", ["gal_fraction", "sparse_ratio"])
