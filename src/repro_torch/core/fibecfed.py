@@ -41,15 +41,22 @@ Three interchangeable round engines (``engine=``), as in the JAX package:
   summed by ``tensordot`` instead of the host loop.
 
 All take ``compression=`` (a simulated compressed upload with error
-feedback, kernel B3), ``client_ranks=`` (per-client LoRA ranks) and
-``telemetry=`` (a :class:`repro_torch.obs.Telemetry`: wall-clock spans of
-the init phase and its steps and of every round, the ``fl.*`` metrics and,
-on the async engine, virtual-clock spans of every completion and the
-``async.*`` metrics; enabling it changes no bit of a run). Host
+feedback, kernel B3), ``client_ranks=`` (per-client LoRA ranks), ``store=``
+(who owns the client states, :mod:`repro_torch.federated.store`: the
+default in-memory store, or an out-of-core one that keeps an LRU hot set
+resident and spills cold clients to one npz each, so that the vectorized
+round runs over the fetched cohort alone) and ``telemetry=`` (a
+:class:`repro_torch.obs.Telemetry`: wall-clock spans of the init phase and
+its steps and of every round, the ``fl.*`` metrics and, on the async
+engine, virtual-clock spans of every completion and the ``async.*``
+metrics; enabling it changes no bit of a run). Host
 randomness (cohorts, ``random`` difficulty, ``gal_mode="random"``) comes from
 ``np.random.default_rng(seed)`` drawn in the JAX package's order, so the two
-make the same decisions. The port runs on the card unless ``device`` says
-otherwise; it never falls back to the CPU on its own.
+make the same decisions. A runner's whole state snapshots and restores
+(:meth:`FibecFed.checkpoint_state`, :meth:`FibecFed.restore_state`, written
+by :mod:`repro_torch.checkpoint.federation` in the JAX package's layout), so
+a run outlives its process. The port runs on the card unless ``device``
+says otherwise; it never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
@@ -67,15 +74,15 @@ from repro_torch.core import fisher as fish
 from repro_torch.core import gal as galmod
 from repro_torch.core import sparse as sparsemod
 from repro_torch.core.curriculum import CurriculumSchedule
-from repro_torch.data.pipeline import gather_batch, make_batches, stack_clients
+from repro_torch.data.pipeline import bucket_size, gather_batch, make_batches, stack_clients, stack_cohort
 from repro_torch.kernels import ops as kops
-from repro_torch.lora import gal_mask_tree, neuron_mask_tree, rank_mask_tree
+from repro_torch.lora import gal_mask_tree, lora_num_logical_layers, neuron_mask_tree, rank_mask_tree
 from repro_torch.models.model_api import ModelFns
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.obs import ensure as ensure_telemetry
 from repro_torch.optim import make_optimizer
 from repro_torch.train.losses import make_logits_loss
-from repro_torch.utils.tree import tree_clone, tree_leaves, tree_map
+from repro_torch.utils.tree import host_array, tree_clone, tree_leaves, tree_map
 
 ENGINES = ("vectorized", "loop", "async")
 
@@ -83,7 +90,6 @@ ENGINES = ("vectorized", "loop", "async")
 # ROADMAP.md item that brings each
 _UNPORTED = {
     "mesh": "Queue A item 13 (sharded engine)",
-    "store": "Queue A item 10 (client stores)",
 }
 _ENGINE_ITEMS = {
     "sharded": "Queue A item 13",
@@ -210,9 +216,13 @@ class FibecFed:
     ):
         """Build an FL runner over host-simulated clients.
 
-        Args follow the JAX package's ``FibecFed``; those of engines and
-        options not ported yet (``engine="sharded"``, ``mesh=``, ``store=``)
-        raise ``NotImplementedError``. ``scenario=`` and ``async_cfg=``
+        Args follow the JAX package's ``FibecFed``; those of the engine and
+        option not ported yet (``engine="sharded"``, ``mesh=``) raise
+        ``NotImplementedError``. ``store=`` is a
+        :mod:`repro_torch.federated.store` store (``None``: an
+        ``InMemoryStore``); with an ``OutOfCoreStore`` the vectorized round
+        runs over the fetched cohort and the async engine pins clients in
+        flight or buffered. ``scenario=`` and ``async_cfg=``
         (:mod:`repro_torch.federated.hetero`,
         :class:`repro_torch.federated.AsyncAggConfig`) and ``hierarchy=`` (an
         edge count or :class:`repro_torch.federated.HierarchyConfig`) are the
@@ -227,13 +237,14 @@ class FibecFed:
             and ``_init_lora``) to start from; by default both are drawn from
             ``torch.Generator``s seeded from ``seed``.
         """
-        check_ported(engine, fl, mesh=mesh, store=store)
+        check_ported(engine, fl, mesh=mesh)
         if engine != "async" and (scenario is not None or async_cfg is not None):
             raise ValueError("scenario=/async_cfg= are only meaningful with engine='async'")
         if hierarchy is not None and engine != "async":
             raise ValueError("hierarchy= is only meaningful with engine='async'")
         # lazy imports: the federated package's init imports this module
         from repro_torch.federated.hierarchy import get_hierarchy
+        from repro_torch.federated.store import ClientsView, InMemoryStore
 
         self._hierarchy = None if hierarchy is None else get_hierarchy(hierarchy)
         self.device = resolve_device(device)
@@ -310,32 +321,50 @@ class FibecFed:
         self._rank_mask_cache: Dict[int, Any] = {}
         self._comp_mask_cache: Dict[int, Any] = {}
 
-        vectorized = engine == "vectorized"
-        self.clients: List[ClientState] = []
-        for cd in client_data:
+        self.store = InMemoryStore() if store is None else store
+        oocore = self._oocore = bool(self.store.out_of_core)
+        # the in-memory vectorized engine: client trees stacked on the runner
+        # and clients viewing them; every other engine and store holds each
+        # client's LoRA and optimizer state apart
+        stacked = self._stacked = engine == "vectorized" and not oocore
+
+        def _make_state(ci: int) -> ClientState:
+            state = _make_shell(ci)
+            if not stacked:
+                state.lora, state.opt_state = tree_clone(lora0), self.opt_init(lora0)
+            return state
+
+        def _make_shell(ci: int) -> ClientState:
+            # also the scaffold of a spilled client: the store fills in its
+            # host metadata and its trees from the client's npz
+            cd = client_data[ci]
             n = len(next(iter(cd.values())))
-            self.clients.append(ClientState(
+            return ClientState(
                 data=cd,
                 n=n,
                 batches=make_batches(n, fl.batch_size),
                 order=np.arange(max(1, (n + fl.batch_size - 1) // fl.batch_size)),
-                _lora=None if vectorized else tree_clone(lora0),
-                opt_state=None if vectorized else self.opt_init(lora0),
-            ))
-        if vectorized:
+                opt_state=None,
+            )
+
+        self.store.bind(client_data=client_data, make_state=_make_state, make_shell=_make_shell,
+                        telemetry=self.tel, device=self.device)
+        self.clients: Sequence[ClientState] = ClientsView(self.store)
+        if stacked:
             C = len(self.clients)
             stack = stack_clients(client_data, fl.batch_size)
             self._stack_data = to_device(stack.data, self.device, self._data_dtype)
             self._sample_valid = torch.as_tensor(stack.sample_valid, device=self.device)
             self._stacked_lora = _stack_copies(lora0, C)
             self._stacked_opt = _stack_copies(self.opt_init(lora0), C)
-            self._stacked_mask = None  # built in init_phase
-            # compression state, built in init_phase when enabled: stacked
-            # error-feedback residuals and per-client top-k count masks
-            self._stacked_residual = None
-            self._stacked_comp_mask = None
             for ci, client in enumerate(self.clients):
                 client._lora_view = lambda ci=ci: tree_map(lambda x: x[ci], self._stacked_lora)
+        # built in init_phase: the stacked neuron masks, and the compression
+        # state (stacked error-feedback residuals, per-client top-k count
+        # masks); an out-of-core store keeps each client's own
+        self._stacked_mask = None
+        self._stacked_residual = None
+        self._stacked_comp_mask = None
 
         self.gal_layers: Optional[np.ndarray] = None  # bool (L_logical,)
         self._gal_mask_tree = None
@@ -391,7 +420,7 @@ class FibecFed:
 
     def _compute_difficulty(self) -> None:
         """Lines 2-5: per-batch difficulty + ascending curriculum order."""
-        if self.engine == "vectorized" and self.difficulty_metric in ("fisher", "loss"):
+        if self._stacked and self.difficulty_metric in ("fisher", "loss"):
             # every client's batches, each client scored with its own LoRA
             # (a re-init after training rounds must see the trained LoRA)
             diff = eng.build_difficulty_fn(self.loss_fn, self.difficulty_metric)
@@ -429,7 +458,7 @@ class FibecFed:
     def _select_local_masks(self) -> None:
         """Lines 8-10: momentum-FIM warmup → per-client neuron keep-masks."""
         fl = self.fl
-        if self.engine == "vectorized":
+        if self._stacked:
             warm_idx = torch.as_tensor(np.asarray([
                 [int(c.order[min(e, len(c.order) - 1)]) for e in range(fl.fim_warmup_epochs)]
                 for c in self.clients
@@ -491,10 +520,22 @@ class FibecFed:
         with self.tel.span("difficulty", cat="fl", track="server"):
             self._compute_difficulty()
         # --- layer sensitivity scores (Eq. 9-10) ---
+        fl = self.fl
         with self.tel.span("sensitivity", cat="fl", track="server"):
-            global_scores, fractions, ns = self._probe_sensitivity()
+            if (self._oocore and fl.gal_fraction is not None and fl.sparse_ratio is not None
+                    and self.gal_mode in ("full", "random")):
+                # population-scale fast path: with both fractions pinned and
+                # a score-blind GAL mode, the probe could only feed scores
+                # nobody reads, so no cold client is faulted in for it. The
+                # sample counts come from the store; the GAL selection below
+                # is what an in-memory run of this configuration computes.
+                global_scores = np.zeros(lora_num_logical_layers(self.cfg))
+                ns = [int(n) for n in self.store.sample_counts()]
+                fractions = [fl.gal_fraction] * len(ns)
+            else:
+                global_scores, fractions, ns = self._probe_sensitivity()
         # --- server: GAL selection (lines 6-7) ---
-        n_star = galmod.gal_layer_count(fractions, ns, len(global_scores), self.fl.mu_global_local)
+        n_star = galmod.gal_layer_count(fractions, ns, len(global_scores), fl.mu_global_local)
         self.gal_layers = self._select_layers(global_scores, n_star)
         self._gal_mask_tree = gal_mask_tree(self.cfg, self.global_lora, self.gal_layers)
         self._gal_leaf_cache = None
@@ -533,7 +574,7 @@ class FibecFed:
         rank-heterogeneous updates into the full server rank. Idempotent
         (binary masks), so a repeated ``init_phase`` is safe."""
         per_client = [self._rank_mask(int(r)) for r in self.client_ranks]
-        if self.engine == "vectorized":
+        if self._stacked:
             stacked = _stack(per_client)
             self._stacked_mask = (stacked if self._stacked_mask is None
                                   else tree_map(torch.mul, self._stacked_mask, stacked))
@@ -550,7 +591,7 @@ class FibecFed:
         comp = self.compression
         if comp is None:
             return
-        if self.engine == "vectorized":
+        if self._stacked:
             if comp.error_feedback:
                 self._stacked_residual = tree_map(torch.zeros_like, self._stacked_lora)
             if comp.use_thresh and self.client_ranks is not None:
@@ -651,6 +692,8 @@ class FibecFed:
         if self.engine == "async":
             return self._run_round_async(t, lr)
         if self.engine == "vectorized":
+            if self._oocore:
+                return self._run_round_cohort(t, lr)
             return self._run_round_vectorized(t, lr)
         return self._run_round_loop(t, lr)
 
@@ -717,7 +760,7 @@ class FibecFed:
             "topk_ratio": c.topk_ratio,
             "use_thresh": c.use_thresh,
             "error_feedback": c.error_feedback,
-            "has_comp_mask": self._stacked_comp_mask is not None,
+            "has_comp_mask": bool(c.use_thresh and self.client_ranks is not None),
         }
 
     def _run_round_vectorized(self, t: int, lr: Optional[float] = None) -> Dict[str, float]:
@@ -755,6 +798,76 @@ class FibecFed:
                 [len(curr.selected_batch_ids(self.schedule, t, o)) for o in orders])),
             "comm_bytes": float(self.comm_bytes_per_round[-1]),
             # the round's padded step count (power-of-two bucketed)
+            "padded_steps": float(batch_idx.shape[1]),
+        }
+
+    def _run_round_cohort(self, t: int, lr: Optional[float] = None) -> Dict[str, float]:
+        """The vectorized round against an out-of-core client store.
+
+        The cohort draw, curriculum plan, FedAvg weights and comm accounting
+        of :meth:`_run_round_vectorized`, but only the cohort's states are
+        fetched (pinned against eviction for the round) and stacked on a
+        leading k axis with their data grid, streamed per round
+        (:func:`stack_cohort`, the batch axis bucketed to a power of two).
+        The round body is the vectorized engine's own,
+        :func:`repro_torch.core.engine.build_round_fn` over the cohort stack
+        with ``chosen = arange(k)``; its outputs are unstacked back into the
+        store. Peak memory scales with the cohort and the hot set, never the
+        population.
+        """
+        fl = self.fl
+        lr = fl.learning_rate if lr is None else lr
+        C = len(self.clients)
+        k = min(fl.devices_per_round, C)
+        chosen = self.rng.choice(C, k, replace=False)
+        cohort = [int(ci) for ci in chosen]
+        dev = self.device
+        for ci in cohort:
+            self.store.pin(ci)
+        try:
+            states = [self.clients[ci] for ci in cohort]
+            orders = [s.order for s in states]
+            batch_idx, step_valid = curr.step_plan(self.schedule, t, orders, fl.local_epochs)
+            w = np.asarray([s.n for s in states], np.float64)
+            w = (w / w.sum()).astype(np.float32)
+            grid = stack_cohort([self.store.client_data(ci) for ci in cohort], fl.batch_size,
+                                pad_batches_to=bucket_size(max(len(s.batches) for s in states)))
+            use_mask = states[0].neuron_mask is not None
+            comp = self._compress_static()
+            ef = comp is not None and comp["error_feedback"]
+            lora, opt = _stack([s.lora for s in states]), _stack([s.opt_state for s in states])
+            residual = _stack([s.ef_residual for s in states]) if ef else None
+            round_fn = eng.build_round_fn(self.loss_fn, self.opt_update, use_neuron_mask=use_mask, compress=comp)
+            self.global_lora, losses = round_fn(
+                self.params, self.global_lora, lora, opt,
+                _stack([s.neuron_mask for s in states]) if use_mask else None, self._gal_mask_tree,
+                to_device(grid.data, dev, self._data_dtype), torch.as_tensor(grid.sample_valid, device=dev),
+                torch.arange(k, device=dev), torch.as_tensor(batch_idx, dtype=torch.int64, device=dev),
+                torch.as_tensor(step_valid, device=dev), torch.as_tensor(w, device=dev), lr,
+                residual, _stack([self._comp_mask(ci) for ci in cohort]) if comp and comp["has_comp_mask"] else None,
+            )
+            # round_fn wrote the cohort's new trees into the stacks in place
+            for i, (ci, s) in enumerate(zip(cohort, states)):
+                s.lora = tree_map(lambda x: x[i], lora)
+                s.opt_state = tree_map(lambda x: x[i], opt)
+                if ef:
+                    s.ef_residual = tree_map(lambda x: x[i], residual)
+                self.store.put(ci, s)
+        finally:
+            for ci in cohort:
+                self.store.unpin(ci)
+        losses = losses.cpu().numpy()  # (S, k)
+        valid = step_valid.T
+        self.last_round_info = {
+            "chosen": np.asarray(chosen),
+            "client_steps": step_valid.sum(axis=1).astype(np.int64),
+        }
+        self._record_comm(chosen)
+        return {
+            "loss": float(np.sum(losses * valid) / max(np.sum(valid), 1.0)),
+            "selected_batches": float(np.mean(
+                [len(curr.selected_batch_ids(self.schedule, t, o)) for o in orders])),
+            "comm_bytes": float(self.comm_bytes_per_round[-1]),
             "padded_steps": float(batch_idx.shape[1]),
         }
 
@@ -816,6 +929,10 @@ class FibecFed:
             return n_sel * fl.local_epochs
 
         def train(ci: int, t: int, version: int) -> ClientUpdate:
+            # pinned while in flight or buffered: the aggregator may hold
+            # this client's payload across several flushes (the round
+            # re-syncs the pins after every merge)
+            self.store.pin(ci)
             client = self.clients[ci]
             cap = _cap(ci, len(curr.selected_batch_ids(self.schedule, t, client.order)))
             batch_idx, step_valid = curr.step_plan(self.schedule, t, [client.order], fl.local_epochs,
@@ -826,6 +943,7 @@ class FibecFed:
                 lambda j: self._client_batch(client, client.batches[j]), batch_idx[0], step_valid[0], lr,
             )
             client.lora, client.opt_state = new_lora, new_opt
+            self.store.put(ci, client)
             # the delta against the pulled version, taken now: by merge time
             # the double buffer may have retired that version
             if comp is None:
@@ -884,6 +1002,9 @@ class FibecFed:
             wts = torch.as_tensor(np.asarray(result.weights), dtype=torch.float32, device=self.device)
         self._global.publish(merge(self._global.front, self._gal_mask_tree, stacked, wts))
         self.global_lora = self._global.front
+        # merged and dropped clients may be evicted again; those still in
+        # flight or in the next buffer stay pinned
+        self.store.sync_pins(set(sched.in_flight) | {u.client for u in sched.buffer})
 
         num = den = 0.0
         for u in result.updates:
@@ -913,6 +1034,211 @@ class FibecFed:
             "buffer_size": float(sched.buffer_size),
             "padded_steps": float(max(len(np.asarray(u.step_valid)) for u in result.updates)),
         }
+
+    # ------------------------------------------------------------------
+    # run checkpointing (repro_torch.checkpoint.federation)
+    # ------------------------------------------------------------------
+
+    def checkpoint_state(self):
+        """``(host, arrays, files)``: everything a fresh runner needs to
+        continue this run exactly where it stands, in the JAX package's
+        layout (the same keys, shapes and dtype names).
+
+        ``host`` is JSON-able (the configuration basics for validation, the
+        cohort RNG's ``bit_generator.state``, comm accounting, the async
+        scheduler's bookkeeping); ``arrays`` is one nested dict of tensors
+        and numpy arrays (global LoRA, GAL selection, client state: stacked
+        trees, per-client trees, or the out-of-core store's resident
+        metadata, by engine and store); ``files`` maps cold-file names to
+        paths for the checkpoint writer to hardlink (out-of-core store
+        only). Not captured: what the constructor arguments give again
+        (params, data, batches, schedules) and, on the in-memory vectorized
+        engine, the per-client momentum FIMs (read only by ``init_phase``).
+        """
+        from repro_torch.federated.store import OutOfCoreStore
+
+        host: Dict[str, Any] = {
+            "engine": self.engine,
+            "num_clients": len(self.clients),
+            "seed": int(self.seed),
+            "optimizer": self.optimizer_name,
+            "initialized": self.gal_layers is not None,
+            "rng_state": self.rng.bit_generator.state,
+            "comm_bytes_per_round": [int(x) for x in self.comm_bytes_per_round],
+            "comm_upload_bytes_per_round": [int(x) for x in self.comm_upload_bytes_per_round],
+        }
+        arrays: Dict[str, Any] = {"global_lora": self.global_lora}
+        files: Dict[str, str] = {}
+        if self.gal_layers is not None:
+            arrays["gal_layers"] = np.asarray(self.gal_layers, bool)
+
+        if self._oocore:
+            s_host, s_arrays, files = self.store.checkpoint_state()
+            host["store"] = s_host
+            if s_arrays:
+                arrays["store"] = s_arrays
+        elif self._stacked:
+            stacked: Dict[str, Any] = {"lora": self._stacked_lora}
+            opt_empty = isinstance(self._stacked_opt, dict) and not self._stacked_opt
+            if not opt_empty:
+                stacked["opt"] = self._stacked_opt
+            for name, tree in (("mask", self._stacked_mask), ("residual", self._stacked_residual),
+                               ("comp_mask", self._stacked_comp_mask)):
+                if tree is not None:
+                    stacked[name] = tree
+            arrays["stacked"] = stacked
+            host["stacked"] = {
+                "opt_empty": opt_empty,
+                "has_mask": self._stacked_mask is not None,
+                "has_residual": self._stacked_residual is not None,
+                "has_comp_mask": self._stacked_comp_mask is not None,
+            }
+            host["clients"], carrs = self._checkpoint_client_meta()
+            if carrs:
+                arrays["clients"] = carrs
+        else:  # loop and async on the in-memory store: each client's own trees
+            clients_host, carrs = self._checkpoint_client_meta()
+            for ci, client in enumerate(self.clients):
+                fields, trees = OutOfCoreStore._split_state(client)
+                clients_host[str(ci)]["fields"] = fields
+                if trees:
+                    carrs.setdefault(str(ci), {})["trees"] = trees
+            host["clients"] = clients_host
+            if carrs:
+                arrays["clients"] = carrs
+
+        if self.engine == "async":
+            a_host: Dict[str, Any] = {
+                "global_version": int(self._global.version),
+                "has_back": self._global.back is not None,
+                "scheduler": None,
+            }
+            a_arrays: Dict[str, Any] = {}
+            if self._global.back is not None:
+                a_arrays["back"] = self._global.back
+            if self._scheduler is not None:
+                s_host, s_arrays = self._scheduler.checkpoint_state()
+                a_host["scheduler"] = s_host
+                if s_arrays:
+                    a_arrays["scheduler"] = s_arrays
+            host["async"] = a_host
+            if a_arrays:
+                arrays["async"] = a_arrays
+        return host, arrays, files
+
+    def _checkpoint_client_meta(self):
+        """Every client's curriculum metadata (in-memory store):
+        ``order``/``difficulty``/``layer_scores`` as arrays,
+        ``lossless_fraction`` in host. ``n`` and ``batches`` come from the
+        data shards at construction, so they are not captured."""
+        clients_host: Dict[str, Any] = {}
+        carrs: Dict[str, Any] = {}
+        for ci, client in enumerate(self.clients):
+            key = str(ci)
+            clients_host[key] = {
+                "lossless_fraction": float(client.lossless_fraction),
+                "has_difficulty": client.difficulty is not None,
+                "has_layer_scores": client.layer_scores is not None,
+            }
+            meta = {"order": np.asarray(client.order)}
+            if client.difficulty is not None:
+                meta["difficulty"] = np.asarray(client.difficulty)
+            if client.layer_scores is not None:
+                meta["layer_scores"] = np.asarray(client.layer_scores)
+            carrs[key] = {"meta": meta}
+        return clients_host, carrs
+
+    def restore_state(self, host, arrays, *, store_files_dir: str = "") -> None:
+        """Install a :meth:`checkpoint_state` snapshot (this port's or the
+        JAX package's) on this runner; its tensors go to ``self.device``.
+
+        The runner must be freshly constructed with the configuration the
+        snapshot was taken under (engine, population and optimizer are
+        validated; the rest is the caller's contract) and must not have run
+        ``init_phase`` or any round: restore replaces state, it does not
+        merge. ``store_files_dir`` is the checkpoint's cold-file directory
+        (out-of-core store only).
+        """
+        from repro_torch.federated.store import SPILL_FIELDS
+
+        for field, mine in (("engine", self.engine), ("num_clients", len(self.clients)),
+                            ("optimizer", self.optimizer_name)):
+            if host[field] != mine:
+                raise ValueError(f"checkpoint was taken with {field}={host[field]!r}; this runner has {mine!r}")
+        self.rng.bit_generator.state = host["rng_state"]
+        self.comm_bytes_per_round = [int(x) for x in host["comm_bytes_per_round"]]
+        self.comm_upload_bytes_per_round = [int(x) for x in host["comm_upload_bytes_per_round"]]
+        dev = self.device
+
+        def _dev(tree):
+            # copies: a restored leaf owns its storage (the vectorized round
+            # writes the stacked trees in place)
+            return tree_map(lambda x: torch.as_tensor(x).to(dev, copy=True), tree)
+
+        self.global_lora = _dev(arrays["global_lora"])
+        if host["initialized"]:
+            self.gal_layers = host_array(arrays["gal_layers"]).astype(bool)
+            self._gal_mask_tree = gal_mask_tree(self.cfg, self.global_lora, self.gal_layers)
+        else:
+            self.gal_layers = None
+            self._gal_mask_tree = None
+        # caches keyed on the GAL selection: rebuilt when read
+        self._gal_leaf_cache = None
+        self._comm_bytes_cache = {}
+        self._comp_mask_cache = {}
+
+        if self._oocore:
+            self.store.restore_checkpoint_state(host["store"], arrays.get("store", {}), store_files_dir)
+        elif self._stacked:
+            st_host, st = host["stacked"], arrays["stacked"]
+            self._stacked_lora = _dev(st["lora"])
+            self._stacked_opt = {} if st_host["opt_empty"] else _dev(st["opt"])
+            self._stacked_mask = _dev(st["mask"]) if st_host["has_mask"] else None
+            self._stacked_residual = _dev(st["residual"]) if st_host["has_residual"] else None
+            self._stacked_comp_mask = _dev(st["comp_mask"]) if st_host["has_comp_mask"] else None
+            self._restore_client_meta(host["clients"], arrays.get("clients", {}))
+            for ci, client in enumerate(self.clients):
+                # the LoRA stays a view into the restored stack; masks re-slice it
+                client.neuron_mask = (None if self._stacked_mask is None
+                                      else tree_map(lambda x, ci=ci: x[ci], self._stacked_mask))
+        else:
+            self._restore_client_meta(host["clients"], arrays.get("clients", {}))
+            carrs = arrays.get("clients", {})
+            for ci, client in enumerate(self.clients):
+                key = str(ci)
+                fields = host["clients"][key]["fields"]
+                trees = carrs.get(key, {}).get("trees", {})
+                for field in SPILL_FIELDS:
+                    status = fields[field]
+                    value = None if status == "none" else {} if status == "empty" else _dev(trees[field])
+                    if field == "_lora":
+                        client.lora = value  # the setter also clears any view
+                    else:
+                        setattr(client, field, value)
+                self.store.put(ci, client)
+
+        if self.engine == "async":
+            from repro_torch.federated.async_agg import DoubleBufferedGlobal
+
+            a_host, a_arrays = host["async"], arrays.get("async", {})
+            self._global = DoubleBufferedGlobal(self.global_lora)
+            self._global.version = int(a_host["global_version"])
+            if a_host["has_back"]:
+                self._global.back = _dev(a_arrays["back"])
+            if a_host["scheduler"] is not None:
+                sched = self._ensure_scheduler()
+                sched.restore_checkpoint_state(a_host["scheduler"], _dev(a_arrays.get("scheduler", {})))
+                self.store.sync_pins(set(sched.in_flight) | {u.client for u in sched.buffer})
+
+    def _restore_client_meta(self, clients_host, carrs) -> None:
+        for ci, client in enumerate(self.clients):
+            key = str(ci)
+            m = clients_host[key]
+            meta = carrs.get(key, {}).get("meta", {})
+            client.order = host_array(meta["order"])
+            client.lossless_fraction = float(m["lossless_fraction"])
+            client.difficulty = host_array(meta["difficulty"]) if m["has_difficulty"] else None
+            client.layer_scores = host_array(meta["layer_scores"]) if m["has_layer_scores"] else None
 
     # ------------------------------------------------------------------
     # evaluation

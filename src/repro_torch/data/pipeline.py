@@ -11,7 +11,7 @@ mask, so masked reductions reproduce the ragged originals exactly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -64,17 +64,34 @@ class ClientStack:
     n_samples: np.ndarray  # (C,) int
 
 
-def stack_clients(client_data: Sequence[Dict[str, np.ndarray]], batch_size: int) -> ClientStack:
-    """The padded fixed-shape stack of the whole population. Padding batch
-    rows repeat the client's first batch and are entirely invalid."""
+def stack_cohort(client_data: Sequence[Dict[str, np.ndarray]], batch_size: int, *,
+                 pad_batches_to: Optional[int] = None, pad_clients_to: Optional[int] = None) -> ClientStack:
+    """The padded fixed-shape stack of a *cohort* of clients.
+
+    The streaming counterpart of :func:`stack_clients`: callers pass just the
+    sampled cohort's shards (any iterable, e.g. fetches from an out-of-core
+    client store), so peak memory scales with the cohort, not the
+    population. ``pad_batches_to`` pads the batch axis up to a fixed grid
+    height (extra rows repeat the client's first batch and are entirely
+    invalid, so they are exact no-ops). ``pad_clients_to``, the JAX
+    package's inert client rows for a device mesh's client groups, is not
+    ported yet: it serves only the sharded engine (ROADMAP.md, Queue A item
+    13), and anything but ``None`` raises ``NotImplementedError``.
+    """
+    if pad_clients_to is not None:
+        raise NotImplementedError("pad_clients_to= is not ported yet (ROADMAP.md, Queue A item 13 (sharded engine))")
     per_client = []
     for cd in client_data:
         n = len(next(iter(cd.values())))
         ids, valid = pad_batches(make_batches(n, batch_size), batch_size)
         per_client.append((cd, n, ids, valid))
     if not per_client:
-        raise ValueError("stack_clients needs at least one client")
+        raise ValueError("stack_cohort needs at least one client")
     nb_max = max(ids.shape[0] for _, _, ids, _ in per_client)
+    if pad_batches_to is not None:
+        if pad_batches_to < nb_max:
+            raise ValueError(f"pad_batches_to={pad_batches_to} < largest cohort client's {nb_max} batches")
+        nb_max = pad_batches_to
     data = {}
     for k in per_client[0][0]:
         stacked = []
@@ -93,6 +110,13 @@ def stack_clients(client_data: Sequence[Dict[str, np.ndarray]], batch_size: int)
         n_batches=np.asarray([ids.shape[0] for _, _, ids, _ in per_client]),
         n_samples=np.asarray([n for _, n, _, _ in per_client]),
     )
+
+
+def stack_clients(client_data: Sequence[Dict[str, np.ndarray]], batch_size: int) -> ClientStack:
+    """The padded fixed-shape stack of the whole population, the vectorized
+    engine's grid; see :func:`stack_cohort` for the per-round streaming
+    variant of the out-of-core client store."""
+    return stack_cohort(client_data, batch_size)
 
 
 def batch_iterator(data: Dict[str, np.ndarray], batch_size: int, *, seed: int = 0,

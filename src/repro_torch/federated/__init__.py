@@ -32,3 +32,5 @@ from repro_torch.federated.hierarchy import (
     get_hierarchy,
 )
 from repro_torch.federated.prompt_tuning import FedPrompt
+from repro_torch.federated.service import Federation, FederationService
+from repro_torch.federated.store import ClientStore, InMemoryStore, OutOfCoreStore

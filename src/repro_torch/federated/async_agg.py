@@ -89,6 +89,7 @@ import numpy as np
 from repro_torch.federated.compress import CompressionConfig
 from repro_torch.federated.hetero import BoundScenario
 from repro_torch.obs import VIRTUAL, ensure
+from repro_torch.utils.tree import host_array
 
 T = TypeVar("T")
 
@@ -895,23 +896,182 @@ class AsyncScheduler:
     # -- checkpoint / restore ----------------------------------------------
 
     def checkpoint_state(self):
-        """Not ported yet: the scheduler's snapshot comes with the runner's
-        checkpoints (ROADMAP.md, Queue A item 10)."""
-        raise NotImplementedError(_CHECKPOINT_ITEM)
+        """``(host, arrays)`` snapshot of every bit of mutable state.
+
+        ``host`` is JSON-able (floats survive ``repr`` round-trips exactly,
+        so EMAs and virtual clocks restore bit-identically); ``arrays`` holds
+        the LoRA/delta/loss tensors of every pending payload — events still
+        on the heap and completions waiting in the buffer — keyed by the
+        payload's position in the (deterministically sorted) heap or buffer.
+        The scenario RNG state rides along: virtual latencies and drops after
+        a resume consume exactly the stream the uninterrupted run would.
+        ``last_merge_weights`` is reporting-only and deliberately excluded.
+        The keys and the payloads' dtypes are the JAX package's, so either
+        side restores the other's snapshot.
+        """
+        host: dict = {
+            "clock": float(self.clock),
+            "version": int(self.version),
+            "buffer_size": int(self.buffer_size),
+            "next_seq": int(self._seq),
+            "total_completed": int(self.total_completed),
+            "total_dropped": int(self.total_dropped),
+            "total_stale_dropped": int(self.total_stale_dropped),
+            "dropped_since_flush": int(self._dropped_since_flush),
+            "stale_since_flush": int(self._stale_since_flush),
+            "stale_bytes_since_flush": int(self._stale_bytes_since_flush),
+            "stale_upload_bytes_since_flush": int(
+                self._stale_upload_bytes_since_flush
+            ),
+            "rate_ema": self._rate_ema,
+            "merge_interval_ema": self._merge_interval_ema,
+            "last_flush_clock": float(self._last_flush_clock),
+            "in_flight": sorted(int(c) for c in self.in_flight),
+            "obs_step_time": {
+                str(c): float(t) for c, t in self._obs_step_time.items()
+            },
+            "scenario_rng": self.scenario.rng.bit_generator.state,
+        }
+        arrays: dict = {}
+        heap_host, heap_arrays = [], {}
+        for i, ev in enumerate(sorted(self._heap)):
+            entry = {
+                "time": float(ev.time),
+                "seq": int(ev.seq),
+                "kind": ev.kind,
+                "client": int(ev.client),
+                "dispatched": float(ev.dispatched),
+                "start": float(ev.start),
+                "payload": None,
+            }
+            if ev.payload is not None:
+                ph, pa = _pack_update(ev.payload)
+                entry["payload"] = ph
+                heap_arrays[str(i)] = pa
+            heap_host.append(entry)
+        host["heap"] = heap_host
+        if heap_arrays:
+            arrays["heap"] = heap_arrays
+        buf_host, buf_arrays = [], {}
+        for i, u in enumerate(self.buffer):
+            ph, pa = _pack_update(u)
+            # arrival time (buffer-residency tracing) re-keys by identity on
+            # restore, so it rides with the payload rather than by id()
+            ph["arrived"] = float(self._buffered_at.get(id(u), self.clock))
+            buf_host.append(ph)
+            buf_arrays[str(i)] = pa
+        host["buffer"] = buf_host
+        if buf_arrays:
+            arrays["buffer"] = buf_arrays
+        return host, arrays
 
     def restore_checkpoint_state(self, host, arrays) -> None:
-        """Not ported yet (ROADMAP.md, Queue A item 10)."""
-        raise NotImplementedError(_CHECKPOINT_ITEM)
+        """Install a :meth:`checkpoint_state` snapshot on a fresh scheduler.
+
+        The scheduler must have been constructed with the same configuration
+        (population, scenario preset, async knobs) — this restores *state*,
+        not config. Heap pop order survives the round trip because heapify
+        of any permutation pops identically under the ``(time, seq)`` total
+        order.
+        """
+        self.clock = float(host["clock"])
+        self.version = int(host["version"])
+        self.buffer_size = int(host["buffer_size"])
+        self._seq = int(host["next_seq"])
+        self.total_completed = int(host["total_completed"])
+        self.total_dropped = int(host["total_dropped"])
+        self.total_stale_dropped = int(host["total_stale_dropped"])
+        self._dropped_since_flush = int(host["dropped_since_flush"])
+        self._stale_since_flush = int(host["stale_since_flush"])
+        self._stale_bytes_since_flush = int(host["stale_bytes_since_flush"])
+        self._stale_upload_bytes_since_flush = int(
+            host["stale_upload_bytes_since_flush"]
+        )
+        self._rate_ema = (
+            None if host["rate_ema"] is None else float(host["rate_ema"])
+        )
+        self._merge_interval_ema = (
+            None
+            if host["merge_interval_ema"] is None
+            else float(host["merge_interval_ema"])
+        )
+        self._last_flush_clock = float(host["last_flush_clock"])
+        self.in_flight = {int(c) for c in host["in_flight"]}
+        self._obs_step_time = {
+            int(c): float(t) for c, t in host["obs_step_time"].items()
+        }
+        self.scenario.rng.bit_generator.state = host["scenario_rng"]
+        heap_arrays = arrays.get("heap", {})
+        events = []
+        for i, e in enumerate(host["heap"]):
+            payload = None
+            if e["payload"] is not None:
+                payload = _unpack_update(e["payload"], heap_arrays[str(i)])
+            events.append(
+                _Event(
+                    time=float(e["time"]),
+                    seq=int(e["seq"]),
+                    kind=str(e["kind"]),
+                    client=int(e["client"]),
+                    payload=payload,
+                    dispatched=float(e["dispatched"]),
+                    start=float(e["start"]),
+                )
+            )
+        heapq.heapify(events)
+        self._heap = events
+        buf_arrays = arrays.get("buffer", {})
+        self.buffer = []
+        self._buffered_at = {}
+        for i, ph in enumerate(host["buffer"]):
+            u = _unpack_update(ph, buf_arrays[str(i)])
+            self.buffer.append(u)
+            self._buffered_at[id(u)] = float(ph["arrived"])
+        self.last_merge_weights = None
 
 
-_CHECKPOINT_ITEM = "the async scheduler's checkpoints are not ported yet (ROADMAP.md, Queue A item 10)"
+_UPDATE_HOST_FIELDS = (
+    "client",
+    "n_samples",
+    "n_steps",
+    "n_selected",
+    "pulled_version",
+    "round_t",
+    "comm_bytes",
+    "upload_bytes",
+)
 
 
 def _pack_update(u: ClientUpdate):
-    """Not ported yet (ROADMAP.md, Queue A item 10)."""
-    raise NotImplementedError(_CHECKPOINT_ITEM)
+    """Split a :class:`ClientUpdate` into (JSON-able host fields, array
+    trees): the LoRA (and delta) trees and the loss tensor as they are,
+    ``step_valid`` as numpy."""
+    host = {f: int(getattr(u, f)) for f in _UPDATE_HOST_FIELDS}
+    host["has_delta"] = u.delta is not None
+    arrays = {
+        "lora": u.lora,
+        "losses": u.losses,
+        "step_valid": host_array(u.step_valid),
+    }
+    if u.delta is not None:
+        arrays["delta"] = u.delta
+    return host, arrays
 
 
 def _unpack_update(host, arrays) -> ClientUpdate:
-    """Not ported yet (ROADMAP.md, Queue A item 10)."""
-    raise NotImplementedError(_CHECKPOINT_ITEM)
+    """The inverse of :func:`_pack_update`: ``arrays`` as the runner placed
+    them (trees and losses on its device); ``step_valid`` back to numpy."""
+    return ClientUpdate(
+        client=int(host["client"]),
+        lora=arrays["lora"],
+        delta=arrays["delta"] if host["has_delta"] else None,
+        losses=arrays["losses"],
+        step_valid=host_array(arrays["step_valid"]),
+        n_samples=int(host["n_samples"]),
+        n_steps=int(host["n_steps"]),
+        n_selected=int(host["n_selected"]),
+        pulled_version=int(host["pulled_version"]),
+        round_t=int(host["round_t"]),
+        comm_bytes=int(host["comm_bytes"]),
+        upload_bytes=int(host["upload_bytes"]),
+    )

@@ -51,11 +51,12 @@ def make_runner(name: str, model: ModelFns, loss_fn: Callable, fl: FibecFedConfi
     (``None`` is an exact no-op); ``client_ranks`` one LoRA rank per client
     (``None``: full rank everywhere, or on the async engine the scenario's
     rank budget). ``kw`` goes to ``FibecFed`` as it is: the async engine's
-    ``scenario``, ``async_cfg`` and ``hierarchy``, ``telemetry``,
-    ``device``, ``init_params``, ``init_lora``, and the JAX runner's options
-    not ported yet (``mesh``, ``store``), which raise. Returns an un-initialized runner: call
+    ``scenario``, ``async_cfg`` and ``hierarchy``, ``store`` (a
+    :mod:`repro_torch.federated.store` store), ``telemetry``, ``device``,
+    ``init_params``, ``init_lora``, and the JAX runner's option not ported
+    yet (``mesh``), which raises. Returns an un-initialized runner: call
     ``init_phase()`` once, then ``run_round(t)`` per round (or drive it with
-    :func:`run_experiment`).
+    :func:`run_experiment`, or :class:`repro_torch.federated.FederationService`).
     """
     preset = dict(BASELINES[name])
     curriculum = preset.pop("curriculum", None)

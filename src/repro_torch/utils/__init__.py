@@ -1,4 +1,5 @@
 from repro_torch.utils.tree import (
+    flatten_dict,
     tree_add,
     tree_bytes,
     tree_l2_norm,
@@ -6,4 +7,5 @@ from repro_torch.utils.tree import (
     tree_scale,
     tree_size,
     tree_zeros_like,
+    unflatten_dict,
 )

@@ -7,8 +7,9 @@ line up with the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Tuple
 
+import numpy as np
 import torch
 
 
@@ -108,6 +109,12 @@ def tree_bytes(tree: Any) -> int:
     return sum(int(x.numel()) * x.element_size() for x in tree_leaves(tree))
 
 
+def host_array(x: Any) -> np.ndarray:
+    """``x`` as a numpy array: a host array as it is, a tensor on any device
+    brought to the host (sharing its storage when it is there already)."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def tree_zeros_like(tree: Any) -> Any:
     return tree_map(torch.zeros_like, tree)
 
@@ -122,6 +129,31 @@ def tree_add(a: Any, b: Any) -> Any:
 
 def tree_scale(tree: Any, s) -> Any:
     return tree_map(lambda x: x * s, tree)
+
+
+def flatten_dict(d: Mapping[str, Any], prefix: str = "", sep: str = "/") -> Dict[str, Any]:
+    """Flatten a nested dict into ``{'a/b/c': leaf}`` (an empty subtree
+    leaves no key)."""
+    out: Dict[str, Any] = {}
+    for k, v in d.items():
+        key = f"{prefix}{sep}{k}" if prefix else str(k)
+        if _is_node(v):
+            out.update(flatten_dict(v, key, sep))
+        else:
+            out[key] = v
+    return out
+
+
+def unflatten_dict(d: Mapping[str, Any], sep: str = "/") -> Dict[str, Any]:
+    """The nested dict of :func:`flatten_dict`'s ``path/to/leaf`` keys."""
+    out: Dict[str, Any] = {}
+    for k, v in d.items():
+        parts = k.split(sep)
+        cur = out
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = v
+    return out
 
 
 def tree_l2_norm(tree: Any) -> torch.Tensor:

@@ -24,10 +24,11 @@ float the model computes, so they are compared exactly.
 The JAX runs are cached for the module: each configuration runs once.
 """
 import dataclasses
+import json
 
 import pytest
 
-pytest.importorskip("torch")
+pytest.importorskip("torch").set_num_threads(1)  # xdist workers share the cores: no thread pool each
 
 import jax
 import numpy as np
@@ -55,7 +56,7 @@ from repro_torch.federated import hierarchy as t_hier
 from repro_torch.models import build_model as t_build_model
 from repro_torch.obs import Telemetry as TTelemetry
 from repro_torch.train import make_loss_fn as t_make_loss_fn
-from repro_torch.utils.tree import tree_clone, tree_leaves
+from repro_torch.utils.tree import flatten_dict, tree_clone, tree_leaves, unflatten_dict
 
 CFG = ModelConfig(
     name="tiny-lm", family="dense", num_layers=2, d_model=32, num_heads=2,
@@ -329,20 +330,77 @@ def test_scheduler_matches_jax_event_for_event(case):
         assert t_snap[kind] == j_snap[kind], kind
 
 
+def _payload_callbacks(agg, as_tensor):
+    """Stub callbacks whose payloads are real ``ClientUpdate``s with small
+    LoRA, delta and loss arrays (numpy for JAX, tensors for the port)."""
+    plan, _ = _stub_callbacks([])
+
+    def train(ci, t, version):
+        n = plan(ci, t)
+        rng = np.random.default_rng(100 * ci + t)
+        lora = {"layers": {"q": {"a": rng.standard_normal((2, 3)).astype(np.float32)}}}
+        losses = rng.standard_normal(4).astype(np.float32)
+        if as_tensor:
+            lora = {"layers": {"q": {"a": torch.from_numpy(lora["layers"]["q"]["a"])}}}
+            losses = torch.from_numpy(losses)
+        return agg.ClientUpdate(client=ci, lora=lora, delta=lora if ci % 2 else None, losses=losses,
+                                step_valid=(np.arange(4) < n).astype(np.float32), n_samples=10 + ci, n_steps=n,
+                                n_selected=n, pulled_version=version, round_t=t, comm_bytes=1000 + 7 * ci,
+                                upload_bytes=400 + 3 * ci)
+
+    return plan, train
+
+
+def _merge_fields(r):
+    return ([(u.client, u.n_steps, u.pulled_version, u.round_t) for u in r.updates], r.weights.tolist(),
+            r.staleness.tolist(), r.clock, r.version, r.completed, r.dropped, r.stale_dropped,
+            r.stale_dropped_bytes)
+
+
 def test_scheduler_errors_and_checkpoints():
-    """The constructor's errors as JAX's; the snapshot methods wait for the
-    runner's checkpoints (ROADMAP.md, Queue A item 10)."""
+    """The constructor's errors as JAX's. The snapshot after 3 merges (with
+    events and their payloads on the heap) equals JAX's host state exactly
+    and its payload arrays bit for bit; restored into a fresh scheduler, the
+    port's snapshot and JAX's both continue merge for merge as the
+    uninterrupted run."""
     for kw in (dict(buffer_size=9), dict(concurrency=9), dict(min_buffer_size=3, buffer_size=2)):
         def make(agg, het):
             return agg.AsyncScheduler(num_clients=8, cohort_size=4, scenario=het.UNIFORM.bind(8),
                                       rng=np.random.default_rng(0), cfg=agg.AsyncAggConfig(**kw))
         _raises_alike(lambda: make(j_agg, j_het), lambda: make(t_agg, t_het))
-    sched = t_agg.AsyncScheduler(num_clients=4, cohort_size=2, scenario=t_het.UNIFORM.bind(4),
-                                 rng=np.random.default_rng(0))
-    for call in (sched.checkpoint_state, lambda: sched.restore_checkpoint_state({}, {}),
-                 lambda: t_agg._pack_update(None), lambda: t_agg._unpack_update({}, {})):
-        with pytest.raises(NotImplementedError, match="Queue A item 10"):
-            call()
+    preset, kw = SCHED_CASES["mobile_all"]
+
+    def make(agg, het):
+        return agg.AsyncScheduler(num_clients=8, cohort_size=4, scenario=het.get_scenario(preset).bind(8, seed=12),
+                                  rng=np.random.default_rng(11), cfg=agg.AsyncAggConfig(**kw),
+                                  progress=lambda t: min(1.0, t / 6.0))
+
+    js, ts = make(j_agg, j_het), make(t_agg, t_het)
+    jcb, tcb = _payload_callbacks(j_agg, False), _payload_callbacks(t_agg, True)
+    for t in range(3):
+        js.run_until_merge(t, *jcb)
+        ts.run_until_merge(t, *tcb)
+    (jh, ja), (th, ta) = js.checkpoint_state(), ts.checkpoint_state()
+    assert th == jh and any(e["payload"] for e in th["heap"])
+    assert json.loads(json.dumps(th)) == th
+    t_flat, j_flat = flatten_dict(ta), flatten_dict(ja)
+    assert t_flat.keys() == j_flat.keys()
+    for k, v in t_flat.items():
+        got = v.numpy() if isinstance(v, torch.Tensor) else v
+        assert got.dtype == j_flat[k].dtype and np.array_equal(got, j_flat[k]), k
+    resumed = []
+    for host, arrays in ((th, ta), (jh, unflatten_dict({k: torch.from_numpy(np.array(v)) for k, v in j_flat.items()}))):
+        r = make(t_agg, t_het)
+        r.rng.bit_generator.state = ts.rng.bit_generator.state  # the runner's snapshot carries the cohort RNG
+        r.restore_checkpoint_state(host, arrays)
+        assert r.checkpoint_state()[0] == th
+        resumed.append(r)
+    for t in range(3, 6):
+        want = _merge_fields(ts.run_until_merge(t, *tcb))
+        for r in resumed:
+            got = r.run_until_merge(t, *_payload_callbacks(t_agg, True))
+            assert _merge_fields(got) == want
+            assert r.rng.bit_generator.state == ts.rng.bit_generator.state
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ must agree exactly.
 """
 import pytest
 
-pytest.importorskip("torch")
+pytest.importorskip("torch").set_num_threads(1)  # xdist workers share the cores: no thread pool each
 
 import jax
 import jax.numpy as jnp

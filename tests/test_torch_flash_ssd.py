@@ -24,7 +24,7 @@ SSD):
 """
 import pytest
 
-pytest.importorskip("torch")
+pytest.importorskip("torch").set_num_threads(1)  # xdist workers share the cores: no thread pool each
 
 import jax.numpy as jnp
 import numpy as np

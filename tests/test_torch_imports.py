@@ -2,24 +2,28 @@
 
 ``src/repro_torch``, its scripts, ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` import neither JAX nor the JAX package (``repro``), not
-even its modules that need no JAX: they run where only PyTorch is. A runner built
-without ``device=`` refuses to start when there is no CUDA device, rather
-than falling back to the CPU; unported engines and options raise, and
-malformed options are rejected.
+even its modules that need no JAX (the checkpoint layer, the client store and
+the service among them), nor ``ml_dtypes``: they run where only PyTorch is. A
+runner built without ``device=`` refuses to start when there is no CUDA
+device, rather than falling back to the CPU; unported engines and options
+raise, and malformed options are rejected.
 """
 import dataclasses
+import os
 import pathlib
 import re
 
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist workers share the cores: no thread pool each
 
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)|from\s+repro(\.|\s)(?!_torch))",
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)|from\s+repro(\.|\s)(?!_torch)"
+    r"|import\s+ml_dtypes\b|from\s+ml_dtypes\b)",
     re.MULTILINE,
 )
 
@@ -33,9 +37,10 @@ def _port_files():
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
-    for sub in ("obs", "serve", "launch"):  # the serving slice's packages are covered
+    for sub in ("obs", "serve", "launch", "checkpoint"):  # the later slices' packages are covered
         assert any(f.parent.name == sub for f in files), sub
-    assert ROOT / "src" / "repro_torch" / "models" / "encdec.py" in files
+    for mod in (("models", "encdec.py"), ("federated", "store.py"), ("federated", "service.py")):
+        assert ROOT.joinpath("src", "repro_torch", *mod) in files, mod
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files
@@ -46,7 +51,8 @@ def test_port_imports_neither_jax_nor_repro():
 
 def test_forbidden_pattern_catches_what_it_should():
     for bad in ("import jax", "import jax.numpy as jnp", "from jax import grad",
-                "from repro.core import fibecfed", "import repro", "from repro import x"):
+                "from repro.core import fibecfed", "import repro", "from repro import x",
+                "import ml_dtypes", "from ml_dtypes import bfloat16", "from repro.checkpoint import save_tree"):
         assert FORBIDDEN.search(bad), bad
     for ok in ("import repro_torch", "from repro_torch.core import fibecfed", "import jaxlib_like"):
         assert not FORBIDDEN.search(ok), ok
@@ -81,20 +87,27 @@ def test_runner_without_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize(
     "kw",
-    [{"engine": "sharded"}, {"engine": "async"}, {"store": object()}, {"hierarchy": 2},
+    [{"engine": "sharded"}, {"engine": "async"}, {"store": "out_of_core"}, {"hierarchy": 2},
      {"scenario": "straggler"}, {"mesh": object()}],
 )
-def test_unported_engines_and_options_raise(kw):
-    """The sharded engine, ``mesh=`` and ``store=`` are not ported yet and
-    raise, citing ROADMAP.md. The async engine is: ``engine="async"``
-    builds, and its options on a synchronous engine (the default) raise
-    ``ValueError`` as in the JAX package."""
-    from repro_torch.federated import make_runner
+def test_unported_engines_and_options_raise(kw, tmp_path):
+    """The sharded engine and ``mesh=`` are not ported yet and raise, citing
+    ROADMAP.md. The async engine and ``store=`` are: ``engine="async"``
+    builds, an out-of-core store binds on every engine, and the async
+    options on a synchronous engine (the default) raise ``ValueError`` as in
+    the JAX package."""
+    from repro_torch.federated import OutOfCoreStore, make_runner
 
     model, loss_fn, fl, data = _world()
     if kw == {"engine": "async"}:
         runner = make_runner("fibecfed", model, loss_fn, fl, data, device="cpu", **kw)
         assert runner.engine == "async" and runner._global.version == 0
+    elif "store" in kw:
+        for engine in ("loop", "vectorized", "async"):
+            store = OutOfCoreStore(str(tmp_path / engine), hot_slots=1)
+            runner = make_runner("fibecfed", model, loss_fn, fl, data, device="cpu", engine=engine, store=store)
+            assert runner.store is store and runner._oocore and len(runner.clients) == 2
+            assert os.path.isdir(store.directory) and store._hot == {}  # states are made on first touch
     elif "hierarchy" in kw or "scenario" in kw:
         with pytest.raises(ValueError, match="engine='async'"):
             make_runner("fibecfed", model, loss_fn, fl, data, device="cpu", **kw)

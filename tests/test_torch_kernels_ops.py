@@ -18,7 +18,7 @@ Tolerances, tighter than the JAX tests' own (f32 1e-3, bf16 5e-2):
 """
 import pytest
 
-pytest.importorskip("torch")
+pytest.importorskip("torch").set_num_threads(1)  # xdist workers share the cores: no thread pool each
 
 import jax.numpy as jnp
 import numpy as np

@@ -14,7 +14,7 @@ The CUDA kernels themselves are held to the plain versions on the card by
 """
 import pytest
 
-pytest.importorskip("torch")
+pytest.importorskip("torch").set_num_threads(1)  # xdist workers share the cores: no thread pool each
 
 import jax.numpy as jnp
 import numpy as np

@@ -12,7 +12,7 @@ import math
 
 import pytest
 
-pytest.importorskip("torch")
+pytest.importorskip("torch").set_num_threads(1)  # xdist workers share the cores: no thread pool each
 
 import numpy as np
 import torch

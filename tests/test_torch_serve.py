@@ -16,7 +16,7 @@ import dataclasses
 
 import pytest
 
-pytest.importorskip("torch")
+pytest.importorskip("torch").set_num_threads(1)  # xdist workers share the cores: no thread pool each
 
 import jax
 import jax.numpy as jnp
