@@ -86,6 +86,14 @@ device and exits non-zero without one, or if any phase fails:
    the same seed: equal comm bytes, equal to the wire format recomputed from the GAL mask and ranks,
    global updates that agree, low-rank clients' beyond-rank components
    untouched;
+m. the sharded engine (``engine="sharded"``) on a 1-rank NCCL process
+   group over this card (``make_client_mesh()``): (i) phase 5's
+   configuration, init and 2 rounds, equal to phase 5's run bit for bit
+   (orders, GAL layers, neuron masks, losses, global LoRA, stacked client
+   state, comm bytes), B1 once per step; (ii) phase 6's compressed round,
+   equal to phase 6's vectorized run bit for bit, B2 once per step and B3
+   once per upload. More ranks need more cards: their semantics are held on
+   the CPU over gloo (``tests/test_torch_sharded.py``);
 7. the FibecFed loop round of phase 4 unfused, which must agree with the
    fused one (loss rel 1e-6, global LoRA atol 1e-6: the same arithmetic in
    the same order); the unfused runner restores phase 4's snapshot taken
@@ -198,7 +206,7 @@ j. the last families at full width (bf16, seeded init): whisper-large-v3
    whisper's encoder and roberta's widths;
 8. one JSON line listing the kernels; last, the ok line.
 
-Each path of phases 4-6, 5b-5d, k, l, f, g, h, i and j included, is driven with the kernels' launch
+Each path of phases 4-6, 5b-5d, m, k, l, f, g, h, i and j included, is driven with the kernels' launch
 counts set to 0 just before it and read just after. Float32 matmuls run in
 full f32 (TF32 off for matmuls and cuDNN alike). The end of each phase, with
 the seconds since the start, also goes to standard error.
@@ -219,9 +227,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+try:  # the card's constants have one source: HardwareSpec in the port's config
+    from repro_torch.config import H100_SXM
+except ImportError:  # run outside the repository: main() refuses to run
+    H100_SXM = None
+HBM_BYTES_PER_S = H100_SXM and H100_SXM.hbm_bandwidth  # H100 SXM HBM3, 3.35e12 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+BF16_FLOPS_PER_S = H100_SXM and H100_SXM.peak_flops  # H100 SXM bf16 tensor cores, dense, 989e12
 L2_BYTES = 50e6  # H100 L2 cache
 LEAF_SHAPES = {"a": (24, 896, 8), "b_q_o": (24, 8, 896), "b_k_v": (24, 8, 128)}
 K = 4  # the cohort: clients stacked on the vectorized engine's leading axis
@@ -2304,6 +2317,87 @@ def phase_serve(ops, ref, sparse_lora, flash_attention, vec, cfg, model):
                     "batched_sparse_lora_few_rows": s["few_err"]}, times
 
 
+def run_record(runner, hist, tree_clone):
+    """What phase m holds a sharded run to: a run's decisions, stats, bytes,
+    global LoRA and stacked client state (neuron masks, moments and
+    compression state included), copied."""
+    return dict(hist=[dict(h) for h in hist], comm=list(runner.comm_bytes_per_round),
+                upload=list(runner.comm_upload_bytes_per_round), orders=[c.order.copy() for c in runner.clients],
+                gal_layers=runner.gal_layers.copy(), global_lora=tree_clone(runner.global_lora),
+                population=tree_clone(runner.population_state()))
+
+
+def check_same_run(got, want, what, tree_leaves):
+    """Phase m's check: two run records equal bit for bit."""
+    diffs = [k for k in ("hist", "comm", "upload") if got[k] != want[k]]
+    if not np.array_equal(got["gal_layers"], want["gal_layers"]):
+        diffs.append("gal_layers")
+    if not all(np.array_equal(a, b) for a, b in zip(got["orders"], want["orders"])):
+        diffs.append("orders")
+    for name, a, b in [("global_lora", got["global_lora"], want["global_lora"])] + [
+            (f"stacked {k}", got["population"][k], want["population"].get(k)) for k in got["population"]]:
+        la, lb = tree_leaves(a), tree_leaves(b) if b is not None else []
+        if len(la) != len(lb) or not all(torch.equal(x, y) for x, y in zip(la, lb)):
+            diffs.append(name)
+    if got["population"].keys() != want["population"].keys():
+        diffs.append("stacked trees")
+    if diffs:
+        raise AssertionError(f"the sharded {what} differs from the vectorized run in {diffs}")
+
+
+def phase_sharded(ops, make_runner, CompressionConfig, model, loss_fn, fl, clients, cfg, smi, refs, tree_clone,
+                  tree_leaves):
+    """Phase m: the sharded engine on a 1-rank NCCL group over this card,
+    (i) phase 5's configuration and (ii) phase 6's compressed round, each
+    held bit for bit to its vectorized run. Returns the launches."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_client_mesh
+
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_client_mesh()
+            with Launches(ops) as run:
+                r = make_runner("fibecfed", model, loss_fn, fl, clients, optimizer="adamw", fused_optimizer=True,
+                                engine="sharded", mesh=mesh, seed=0)
+                _, init_s = timed(r.init_phase)
+                hist, secs = [], []
+                for t in range(fl.rounds):
+                    stats, sec = timed(lambda: r.run_round(t))
+                    hist.append(stats)
+                    secs.append(sec)
+                    check_round(r, cfg, stats, t)
+            steps = sum(int(h["padded_steps"]) for h in hist)
+            log(f"sharded fibecfed (1 NCCL rank, {smi}): init_phase {init_s:.2f} s, rounds "
+                f"{[round(x, 2) for x in secs]} s, {json.dumps(hist)}; launches {run.counts} over {steps} steps")
+            if run.counts != only(masked_adamw_update=steps) or steps == 0:
+                raise AssertionError("the sharded run did not launch the AdamW kernel once per step")
+            check_same_run(run_record(r, hist, tree_clone), refs["vectorized"], "fibecfed run", tree_leaves)
+            counts["masked_adamw_update_stacked"] = run.counts["masked_adamw_update"]
+            del r
+            comp = CompressionConfig(**COMPRESSION)
+            with Launches(ops) as run:
+                r = make_runner(PHASE6_BASELINE, model, loss_fn, fl, clients, optimizer="sgd", fused_optimizer=True,
+                                engine="sharded", mesh=mesh, compression=comp, client_ranks=RANKS, seed=0)
+                _, c_init_s = timed(r.init_phase)
+                stats, c_sec = timed(lambda: r.run_round(0))
+            check_round(r, cfg, stats, 0, comp, RANKS)
+            steps = int(stats["padded_steps"])
+            log(f"sharded compressed+ranks (1 NCCL rank, {smi}): init {c_init_s:.2f} s, round 0 {c_sec:.2f} s, "
+                f"{json.dumps(stats)}; launches {run.counts}")
+            if run.counts != only(masked_sgd_update=steps, fake_compress=1):
+                raise AssertionError(f"the sharded compressed run did not go through its kernels: {run.counts}")
+            check_same_run(run_record(r, [stats], tree_clone), refs["compressed"], "compressed round", tree_leaves)
+            counts["masked_sgd_update_stacked"] = run.counts["masked_sgd_update"]
+            counts["fake_compress"] = run.counts["fake_compress"]
+            del r
+        finally:
+            dist.destroy_process_group()
+    log("sharded runs equal to phases 5 and 6 bit for bit")
+    return counts
+
+
 def phase_runner_telemetry(make_runner, model, loss_fn, fl, clients, vec, vec_round0, tree_leaves):
     """Phase 5e: phase 5's vectorized run again with ``telemetry=``: its
     decisions, round-0 stats, comm bytes and global LoRA equal phase 5's bit
@@ -3788,7 +3882,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import data as data_mod
     from repro_torch.checkpoint import restore_runner
     from repro_torch.config import FibecFedConfig
@@ -3929,6 +4022,7 @@ def main() -> int:
             if t == 0:
                 vec_round0 = (stats, list(vec.comm_bytes_per_round), tree_clone(vec.global_lora))
                 snaps["vectorized"] = take_snapshot(ckpt_root, "vectorized", vec, 1)  # what phase l resumes
+    sharded_refs = {"vectorized": run_record(vec, vec_hist, tree_clone)}  # what phase m holds its run to
     same = all(np.array_equal(a, c.order) for a, c in zip(fused_decisions[0], vec.clients))
     log(f"vectorized curriculum orders equal to the loop engine's: {same}; GAL layers equal: "
         f"{np.array_equal(fused_decisions[1], vec.gal_layers)}")
@@ -3994,6 +4088,8 @@ def main() -> int:
             raise AssertionError(f"the {engine} compressed run did not go through its kernels: {run.counts}")
         launches["masked_sgd_update" + ("_stacked" if engine == "vectorized" else "")] += run.counts["masked_sgd_update"]
         launches["fake_compress"] += run.counts["fake_compress"]
+        if engine == "vectorized":
+            sharded_refs["compressed"] = run_record(r, [stats], tree_clone)
         # low-rank clients' beyond-rank components never moved: after one
         # round from the initial global, they hold their initial values
         for ci in chosen:
@@ -4018,6 +4114,14 @@ def main() -> int:
         raise AssertionError("the engines' compressed rounds disagree")
     del rl, rv, runs
     done("6")
+
+    # --- m. the sharded engine on a 1-rank NCCL group: phases 5 and 6 again,
+    # bit for bit ---
+    for name, n in phase_sharded(ops, make_runner, CompressionConfig, model, loss_fn, fl, clients, cfg, smi,
+                                 sharded_refs, tree_clone, tree_leaves).items():
+        launches[name] += n
+    del sharded_refs
+    done("m")
 
     # --- 7. fused against unfused, in situ: the unfused runner restores
     # phase 4's snapshot from after its init (the init runs no optimizer) ---

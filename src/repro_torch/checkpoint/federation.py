@@ -129,18 +129,34 @@ def save_run_checkpoint(
     service-level state (history, schedule) back out of
     :func:`restore_runner` untouched. Keeps the newest ``keep`` complete
     snapshots; sweeps partial directories and stale tmp files first.
+
+    A sharded runner's ``checkpoint_state`` is a collective: every rank
+    calls this, only the runner's ``checkpoint_writer`` (rank 0) touches the
+    directory, and every rank returns after its ``checkpoint_barrier``, when
+    the snapshot is complete.
     """
-    os.makedirs(directory, exist_ok=True)
-    _sweep_partial(directory)
-    clean_stale_tmp(directory)
+    writer = getattr(runner, "checkpoint_writer", True)
     path = os.path.join(directory, f"round_{next_round:08d}")
-    if os.path.isdir(path):
-        # re-save of an existing round (e.g. an explicit checkpoint() after
-        # a periodic one): drop the old snapshot first so a crash mid-write
-        # leaves an obvious partial, not a hybrid of two snapshots
-        shutil.rmtree(path)
-    os.makedirs(path)
+    if writer:
+        os.makedirs(directory, exist_ok=True)
+        _sweep_partial(directory)
+        clean_stale_tmp(directory)
+        if os.path.isdir(path):
+            # re-save of an existing round (e.g. an explicit checkpoint()
+            # after a periodic one): drop the old snapshot first so a crash
+            # mid-write leaves an obvious partial, not a hybrid of two
+            shutil.rmtree(path)
+        os.makedirs(path)
     host, arrays, files = runner.checkpoint_state()
+    if writer:
+        _write_snapshot(directory, path, next_round, host, arrays, files, keep, extra)
+    barrier = getattr(runner, "checkpoint_barrier", None)
+    if barrier is not None:
+        barrier()
+    return path
+
+
+def _write_snapshot(directory, path, next_round, host, arrays, files, keep, extra) -> None:
     save_tree(os.path.join(path, ARRAYS_NAME), arrays)
     if files:
         store_dir = os.path.join(path, STORE_DIR)
@@ -160,7 +176,6 @@ def save_run_checkpoint(
     }
     _write_manifest(os.path.join(path, MANIFEST_NAME), manifest)
     _gc(directory, keep)
-    return path
 
 
 def latest_run_checkpoint(directory: str) -> Optional[str]:

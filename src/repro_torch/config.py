@@ -185,3 +185,31 @@ class FibecFedConfig:
     # non-IID partition
     dirichlet_alpha: float = 1.0
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    data: int = 16
+    model: int = 16
+    pods: int = 1
+
+    @property
+    def num_chips(self) -> int:
+        return self.data * self.model * self.pods
+
+
+# TPU v5e roofline constants (per chip), as in the JAX package.
+@dataclass(frozen=True)
+class HardwareSpec:
+    peak_flops: float = 197e12  # bf16 FLOP/s
+    hbm_bandwidth: float = 819e9  # bytes/s
+    ici_bandwidth: float = 50e9  # bytes/s per link
+
+
+TPU_V5E = HardwareSpec()
+
+# NVIDIA H100 SXM5 80GB at its 700 W limit (NVIDIA H100 Tensor Core GPU data
+# sheet): bf16 tensor cores dense 989 TFLOP/s, HBM3 3.35 TB/s, NVLink 4 at
+# 900 GB/s over 18 links (both directions). The bounds chip_smoke.py states
+# read these. A card set below 700 W runs slower under load.
+H100_SXM = HardwareSpec(peak_flops=989e12, hbm_bandwidth=3.35e12, ici_bandwidth=900e9 / 18)

@@ -4,7 +4,17 @@ from repro_torch.core.curriculum import (
     order_batches,
     selected_batch_ids,
 )
-from repro_torch.core.engine import build_difficulty_fn, build_fim_warmup_fn, build_round_fn
+from repro_torch.core.engine import (
+    build_difficulty_fn,
+    build_fim_warmup_fn,
+    build_round_fn,
+    build_sharded_compressed_round_fn,
+    build_sharded_difficulty_fn,
+    build_sharded_fim_warmup_fn,
+    build_sharded_round_fn,
+    client_sharding,
+    replicated_sharding,
+)
 from repro_torch.core.fibecfed import ENGINES, ClientState, FibecFed
 from repro_torch.core.fisher import (
     batch_fisher_scores,

@@ -1,5 +1,5 @@
 """FibecFed, Algorithm 1 end to end, on host-simulated FL clients (port of
-``repro.core.fibecfed``, its single-device engines).
+``repro.core.fibecfed``).
 
 Initialization phase (Alg. 1 lines 1-10):
   * per-device Fisher difficulty score per batch (Formulas 16-17), ascending
@@ -16,7 +16,7 @@ Tuning phase (lines 11-19): sample the cohort, merge the global GAL weights
 into each client's LoRA, curriculum-select batches, run masked local
 SGD/AdamW, FedAvg the GAL part on the server with exact comm accounting.
 
-Three interchangeable round engines (``engine=``), as in the JAX package:
+Four interchangeable round engines (``engine=``), as in the JAX package:
 
 * ``"vectorized"`` (default): client LoRA, optimizer state and masks are
   stacked along a leading client axis and each round trains the whole
@@ -24,6 +24,17 @@ Three interchangeable round engines (``engine=``), as in the JAX package:
   all clients' batches and runs the FIM warmup over the stack.
 * ``"loop"``: the semantic spec, one training step per (client, batch) and
   host-side merge and FedAvg.
+* ``"sharded"``: the vectorized engine over a client mesh (``mesh=``, by
+  default :func:`repro_torch.launch.mesh.make_client_mesh` over the default
+  process group), one process a rank (multi-controller SPMD). Every rank
+  builds the same runner and makes the same host decisions; rank r holds
+  block r of the stacked client trees and trains block r of each round's
+  cohort positions, and the FedAvg is an all-reduce. The stack and the
+  cohort are padded to multiples of the mesh's client groups with inert
+  rows (zero weight, zero valid steps). A rank reads a client's LoRA, FIM
+  and neuron mask only where it owns the client;
+  :meth:`FibecFed.population_state` (collective) gathers the population's
+  stacked trees on every rank.
 * ``"async"``: straggler-aware event-driven aggregation
   (:mod:`repro_torch.federated.async_agg`): an event queue on a virtual
   clock models per-client compute and comm latency under a heterogeneity
@@ -84,16 +95,7 @@ from repro_torch.optim import make_optimizer
 from repro_torch.train.losses import make_logits_loss
 from repro_torch.utils.tree import host_array, tree_clone, tree_leaves, tree_map
 
-ENGINES = ("vectorized", "loop", "async")
-
-# options of the JAX runner that the port does not run yet, and the
-# ROADMAP.md item that brings each
-_UNPORTED = {
-    "mesh": "Queue A item 13 (sharded engine)",
-}
-_ENGINE_ITEMS = {
-    "sharded": "Queue A item 13",
-}
+ENGINES = ("vectorized", "loop", "sharded", "async")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -108,16 +110,11 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def check_ported(engine: str, fl: FibecFedConfig, **options) -> None:
-    """Raise NotImplementedError for an engine or option not ported yet."""
+def check_ported(engine: str, fl: FibecFedConfig) -> None:
+    """Raise ValueError for an engine the JAX package does not have either;
+    every engine and option of its runner is ported."""
     if engine not in ENGINES:
-        item = _ENGINE_ITEMS.get(engine)
-        if item is None:
-            raise ValueError(f"unknown engine {engine!r}")
-        raise NotImplementedError(f"engine={engine!r} is not ported yet (ROADMAP.md, {item})")
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(f"{name}= is not ported yet (ROADMAP.md, {_UNPORTED[name]})")
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
 
 
 @dataclasses.dataclass
@@ -153,6 +150,24 @@ class ClientState:
     def lora(self, value: Any) -> None:
         self._lora = value
         self._lora_view = None
+
+
+class RemoteClientState(ClientState):
+    """A sharded run's client whose stacked rows another rank holds: its host
+    metadata (data, order, difficulty, layer scores, lossless fraction) is
+    here, and reading its LoRA, FIM or neuron mask raises ``LookupError``
+    naming the owner (:meth:`FibecFed.population_state` gathers them)."""
+
+    owner: int = -1
+
+    def _elsewhere(self, what: str):
+        raise LookupError(f"this client's {what} lives on rank {self.owner} of the client mesh: read it there, "
+                          "or gather the population's (FibecFed.population_state)")
+
+    lora = property(lambda self: self._elsewhere("LoRA"), ClientState.lora.fset)
+    fim = property(lambda self: self._elsewhere("FIM"), lambda self, v: setattr(self, "_fim", v))
+    neuron_mask = property(lambda self: self._elsewhere("neuron mask"),
+                           lambda self, v: setattr(self, "_neuron_mask", v))
 
 
 def to_device(batch: Dict[str, np.ndarray], device, dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
@@ -216,13 +231,15 @@ class FibecFed:
     ):
         """Build an FL runner over host-simulated clients.
 
-        Args follow the JAX package's ``FibecFed``; those of the engine and
-        option not ported yet (``engine="sharded"``, ``mesh=``) raise
-        ``NotImplementedError``. ``store=`` is a
-        :mod:`repro_torch.federated.store` store (``None``: an
-        ``InMemoryStore``); with an ``OutOfCoreStore`` the vectorized round
-        runs over the fetched cohort and the async engine pins clients in
-        flight or buffered. ``scenario=`` and ``async_cfg=``
+        Args follow the JAX package's ``FibecFed``. ``mesh=`` is the sharded
+        engine's client mesh (:mod:`repro_torch.launch.mesh`; ``None``:
+        ``make_client_mesh`` over the default process group, which the
+        caller has initialized) and a ``ValueError`` on the other engines.
+        ``store=`` is a :mod:`repro_torch.federated.store` store (``None``:
+        an ``InMemoryStore``); with an ``OutOfCoreStore`` the vectorized
+        round runs over the fetched cohort and the async engine pins clients
+        in flight or buffered; the sharded engine refuses one (its stack is
+        resident by construction). ``scenario=`` and ``async_cfg=``
         (:mod:`repro_torch.federated.hetero`,
         :class:`repro_torch.federated.AsyncAggConfig`) and ``hierarchy=`` (an
         edge count or :class:`repro_torch.federated.HierarchyConfig`) are the
@@ -232,12 +249,16 @@ class FibecFed:
             no-op recorder. The JAX runner's ``jit.*_traces`` gauges have no
             counterpart: the port compiles no programs.
           device: where the model and the LoRA trees live; ``None`` is the
-            CUDA device, and an error without one.
+            CUDA device (on the sharded engine the rank's current one, which
+            the launcher sets), and an error without one. A mesh of another
+            device type is a ``ValueError``.
           init_params / init_lora: numpy trees (the JAX runner's ``params``
             and ``_init_lora``) to start from; by default both are drawn from
             ``torch.Generator``s seeded from ``seed``.
         """
-        check_ported(engine, fl, mesh=mesh)
+        check_ported(engine, fl)
+        if engine != "sharded" and mesh is not None:
+            raise ValueError("mesh= is only meaningful with engine='sharded'")
         if engine != "async" and (scenario is not None or async_cfg is not None):
             raise ValueError("scenario=/async_cfg= are only meaningful with engine='async'")
         if hierarchy is not None and engine != "async":
@@ -247,7 +268,17 @@ class FibecFed:
         from repro_torch.federated.store import ClientsView, InMemoryStore
 
         self._hierarchy = None if hierarchy is None else get_hierarchy(hierarchy)
+        if engine == "sharded" and device is None and torch.cuda.is_available():
+            device = torch.device("cuda", torch.cuda.current_device())
         self.device = resolve_device(device)
+        if engine == "sharded":
+            from repro_torch.launch.mesh import make_client_mesh
+
+            mesh = make_client_mesh(device_type=self.device.type) if mesh is None else mesh
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"the client mesh is on {mesh.device_type!r} devices, the runner on "
+                                 f"{self.device.type!r}")
+        self.mesh = mesh
         self.tel = ensure_telemetry(telemetry)
         self.model = model
         self.cfg = model.cfg
@@ -323,23 +354,42 @@ class FibecFed:
 
         self.store = InMemoryStore() if store is None else store
         oocore = self._oocore = bool(self.store.out_of_core)
-        # the in-memory vectorized engine: client trees stacked on the runner
-        # and clients viewing them; every other engine and store holds each
-        # client's LoRA and optimizer state apart
-        stacked = self._stacked = engine == "vectorized" and not oocore
+        if oocore and engine == "sharded":
+            raise ValueError("engine='sharded' keeps the mesh-sharded population stack resident by "
+                             "construction; use an in-memory store")
+        # the in-memory vectorized and sharded engines: client trees stacked
+        # on the runner and clients viewing them; every other engine and
+        # store holds each client's LoRA and optimizer state apart
+        stacked = self._stacked = engine in ("vectorized", "sharded") and not oocore
+        # the stack's layout: C_stack rows in G blocks of rows_per_rank, this
+        # rank's from row0; the sharded engine pads the stack with inert rows
+        # so that it and each round's cohort (to _cohort_pad) divide by G
+        C = len(client_data)
+        k = min(fl.devices_per_round, C)
+        G, self._rank, self._group = 1, 0, None
+        if mesh is not None:
+            self._group, G, self._rank = eng.mesh_group(mesh)
+        self._cohort_pad = -(-k // G) * G
+        self._C_stack = -(-(C + self._cohort_pad - k) // G) * G if mesh is not None else C
+        self._rows_per_rank = self._C_stack // G
+        self._row0 = self._rank * self._rows_per_rank
 
         def _make_state(ci: int) -> ClientState:
+            if stacked and not self._owns(ci):
+                state = _make_shell(ci, RemoteClientState)
+                state.owner = ci // self._rows_per_rank
+                return state
             state = _make_shell(ci)
             if not stacked:
                 state.lora, state.opt_state = tree_clone(lora0), self.opt_init(lora0)
             return state
 
-        def _make_shell(ci: int) -> ClientState:
+        def _make_shell(ci: int, cls=ClientState) -> ClientState:
             # also the scaffold of a spilled client: the store fills in its
             # host metadata and its trees from the client's npz
             cd = client_data[ci]
             n = len(next(iter(cd.values())))
-            return ClientState(
+            return cls(
                 data=cd,
                 n=n,
                 batches=make_batches(n, fl.batch_size),
@@ -351,14 +401,16 @@ class FibecFed:
                         telemetry=self.tel, device=self.device)
         self.clients: Sequence[ClientState] = ClientsView(self.store)
         if stacked:
-            C = len(self.clients)
-            stack = stack_clients(client_data, fl.batch_size)
-            self._stack_data = to_device(stack.data, self.device, self._data_dtype)
-            self._sample_valid = torch.as_tensor(stack.sample_valid, device=self.device)
-            self._stacked_lora = _stack_copies(lora0, C)
-            self._stacked_opt = _stack_copies(self.opt_init(lora0), C)
-            for ci, client in enumerate(self.clients):
-                client._lora_view = lambda ci=ci: tree_map(lambda x: x[ci], self._stacked_lora)
+            # this rank's block of the (padded) population stack
+            rows = self._local_rows()
+            stack = stack_clients(client_data, fl.batch_size, pad_clients_to=self._C_stack)
+            self._stack_data = to_device({k_: v[rows] for k_, v in stack.data.items()}, self.device,
+                                         self._data_dtype)
+            self._sample_valid = torch.as_tensor(stack.sample_valid[rows], device=self.device)
+            self._stacked_lora = _stack_copies(lora0, self._rows_per_rank)
+            self._stacked_opt = _stack_copies(self.opt_init(lora0), self._rows_per_rank)
+            for ci in self._owned_clients():
+                self.clients[ci]._lora_view = lambda i=ci - self._row0: tree_map(lambda x: x[i], self._stacked_lora)
         # built in init_phase: the stacked neuron masks, and the compression
         # state (stacked error-feedback residuals, per-client top-k count
         # masks); an out-of-core store keeps each client's own
@@ -380,6 +432,24 @@ class FibecFed:
     # ------------------------------------------------------------------
     # primitives
     # ------------------------------------------------------------------
+
+    def _local_rows(self) -> slice:
+        """This rank's rows of the population stack (all of it off a mesh)."""
+        return slice(self._row0, self._row0 + self._rows_per_rank)
+
+    def _owns(self, ci: int) -> bool:
+        return self._row0 <= ci < self._row0 + self._rows_per_rank
+
+    def _owned_clients(self) -> range:
+        """The real clients whose stacked rows this rank holds."""
+        return range(self._row0, min(self._row0 + self._rows_per_rank, len(self.clients)))
+
+    def _row_client(self, i: int) -> int:
+        """The client whose settings local stack row ``i`` takes: its own,
+        or client 0's for an inert padding row (never trained; any finite
+        mask will do)."""
+        ci = self._row0 + i
+        return ci if ci < len(self.clients) else 0
 
     def _client_batch(self, client: ClientState, batch_ids: np.ndarray) -> Dict[str, torch.Tensor]:
         return to_device(gather_batch(client.data, batch_ids), self.device, self._data_dtype)
@@ -422,8 +492,11 @@ class FibecFed:
         """Lines 2-5: per-batch difficulty + ascending curriculum order."""
         if self._stacked and self.difficulty_metric in ("fisher", "loss"):
             # every client's batches, each client scored with its own LoRA
-            # (a re-init after training rounds must see the trained LoRA)
-            diff = eng.build_difficulty_fn(self.loss_fn, self.difficulty_metric)
+            # (a re-init after training rounds must see the trained LoRA);
+            # on a mesh each rank scores its rows and all see every score
+            metric = self.difficulty_metric
+            diff = (eng.build_sharded_difficulty_fn(self.loss_fn, metric, self.mesh) if self.mesh is not None
+                    else eng.build_difficulty_fn(self.loss_fn, metric))
             scores = diff(self.params, self._stacked_lora, self._stack_data, self._sample_valid)
             scores = scores.cpu().numpy()
             for ci, client in enumerate(self.clients):
@@ -438,49 +511,74 @@ class FibecFed:
         """Per-client layer-sensitivity probe (Eq. 9-10) and, where a
         fraction is left to the lossless criterion, its estimate (costly),
         aggregated server-side (Eq. 11). Returns ``(global_scores,
-        fractions, ns)``."""
+        fractions, ns)``. On a mesh each client's owner probes it, and the
+        scores and fractions are all-gathered (the criterion's Ritz values
+        stay on the owner)."""
         fl = self.fl
-        scores_all, fractions, ns = [], [], []
-        for ci, client in enumerate(self.clients):
+        lossless = fl.gal_fraction is None or fl.sparse_ratio is None
+        for ci in self._owned_clients():
+            client = self.clients[ci]
             batch = self._client_batch(client, client.batches[int(client.order[0])])
             client.layer_scores = self._sensitivity(client.lora, batch).cpu().numpy()
-            scores_all.append(client.layer_scores)
-            ns.append(client.n)
-            if fl.gal_fraction is None or fl.sparse_ratio is None:
+            if lossless:
                 client.lossless = galmod.lossless_criterion(
                     self.loss_fn, self.params, client.lora, batch, _lossless_draw(self.device, self.seed, ci),
                     iters=fl.lanczos_iters,
                 )
                 client.lossless_fraction = client.lossless["fraction"]
-            fractions.append(client.lossless_fraction if fl.gal_fraction is None else fl.gal_fraction)
+        if self.mesh is not None:
+            self._share_probes()
+        scores_all = [c.layer_scores for c in self.clients]
+        ns = [c.n for c in self.clients]
+        fractions = [c.lossless_fraction if fl.gal_fraction is None else fl.gal_fraction for c in self.clients]
         return galmod.aggregate_layer_scores(scores_all, ns), fractions, ns
+
+    def _share_probes(self) -> None:
+        """All-gather the owners' layer scores (f32) and lossless fractions
+        (f64, as the host floats they are) over the mesh: one row a stack
+        row, inert rows zero."""
+        L = lora_num_logical_layers(self.cfg)
+        mine = np.zeros((self._rows_per_rank, L + 1), np.float64)
+        for ci in self._owned_clients():
+            c = self.clients[ci]
+            mine[ci - self._row0] = np.append(np.asarray(c.layer_scores, np.float64), c.lossless_fraction)
+        full = eng.all_gather_rows([torch.as_tensor(mine, device=self.device)], self.mesh)[0].cpu().numpy()
+        for ci, c in enumerate(self.clients):
+            if not self._owns(ci):
+                c.layer_scores = full[ci, :L].astype(np.float32)
+                c.lossless_fraction = float(full[ci, L])
 
     def _select_local_masks(self) -> None:
         """Lines 8-10: momentum-FIM warmup → per-client neuron keep-masks."""
         fl = self.fl
         if self._stacked:
-            warm_idx = torch.as_tensor(np.asarray([
-                [int(c.order[min(e, len(c.order) - 1)]) for e in range(fl.fim_warmup_epochs)]
-                for c in self.clients
-            ], np.int64), device=self.device)
-            rows = torch.arange(len(self.clients), device=self.device)[:, None]
+            # this rank's rows; an inert padding row warms up on its (invalid) batch 0
+            R = self._rows_per_rank
+            warm = np.zeros((R, fl.fim_warmup_epochs), np.int64)
+            for ci in self._owned_clients():
+                order = self.clients[ci].order
+                warm[ci - self._row0] = [int(order[min(e, len(order) - 1)]) for e in range(fl.fim_warmup_epochs)]
+            warm_idx = torch.as_tensor(warm, device=self.device)
+            rows = torch.arange(R, device=self.device)[:, None]
             wdata = {k: v[rows, warm_idx] for k, v in self._stack_data.items()}
-            warm = eng.build_fim_warmup_fn(self.loss_fn, fl.fim_momentum)
-            fims = warm(self.params, self._stacked_lora, wdata, self._sample_valid[rows, warm_idx])
+            warm_fn = (eng.build_sharded_fim_warmup_fn(self.loss_fn, fl.fim_momentum, self.mesh)
+                       if self.mesh is not None else eng.build_fim_warmup_fn(self.loss_fn, fl.fim_momentum))
+            fims = warm_fn(self.params, self._stacked_lora, wdata, self._sample_valid[rows, warm_idx])
             importance = sparsemod.neuron_importance(fims)
             if fl.sparse_ratio is not None:
                 keep = sparsemod.select_neuron_masks(importance, fl.sparse_ratio)
-                per_client = [tree_map(lambda x, ci=ci: x[ci], keep) for ci in range(len(self.clients))]
+                per_row = [tree_map(lambda x, i=i: x[i], keep) for i in range(R)]
             else:  # each client's lossless ρ
-                per_client = [
-                    sparsemod.select_neuron_masks(tree_map(lambda x, ci=ci: x[ci], importance),
-                                                  client.lossless_fraction)
-                    for ci, client in enumerate(self.clients)
+                per_row = [
+                    sparsemod.select_neuron_masks(tree_map(lambda x, i=i: x[i], importance),
+                                                  self.clients[self._row_client(i)].lossless_fraction)
+                    for i in range(R)
                 ]
-            self._stacked_mask = _stack([neuron_mask_tree(self.cfg, self._init_lora, k) for k in per_client])
-            for ci, client in enumerate(self.clients):
-                client.fim = tree_map(lambda x: x[ci], fims)
-                client.neuron_mask = tree_map(lambda x: x[ci], self._stacked_mask)
+            self._stacked_mask = _stack([neuron_mask_tree(self.cfg, self._init_lora, k) for k in per_row])
+            for ci in self._owned_clients():
+                client, i = self.clients[ci], ci - self._row0
+                client.fim = tree_map(lambda x: x[i], fims)
+                client.neuron_mask = tree_map(lambda x: x[i], self._stacked_mask)
             return
         for client in self.clients:
             fim = None
@@ -573,14 +671,15 @@ class FibecFed:
         its delta there is exactly zero and the masked FedAvg aggregates
         rank-heterogeneous updates into the full server rank. Idempotent
         (binary masks), so a repeated ``init_phase`` is safe."""
-        per_client = [self._rank_mask(int(r)) for r in self.client_ranks]
         if self._stacked:
-            stacked = _stack(per_client)
+            stacked = _stack([self._rank_mask(int(self.client_ranks[self._row_client(i)]))
+                              for i in range(self._rows_per_rank)])
             self._stacked_mask = (stacked if self._stacked_mask is None
                                   else tree_map(torch.mul, self._stacked_mask, stacked))
-            for ci, client in enumerate(self.clients):
-                client.neuron_mask = tree_map(lambda x: x[ci], self._stacked_mask)
+            for ci in self._owned_clients():
+                self.clients[ci].neuron_mask = tree_map(lambda x, i=ci - self._row0: x[i], self._stacked_mask)
             return
+        per_client = [self._rank_mask(int(r)) for r in self.client_ranks]
         for client, rm in zip(self.clients, per_client):
             client.neuron_mask = rm if client.neuron_mask is None else tree_map(
                 torch.mul, client.neuron_mask, rm)
@@ -595,7 +694,8 @@ class FibecFed:
             if comp.error_feedback:
                 self._stacked_residual = tree_map(torch.zeros_like, self._stacked_lora)
             if comp.use_thresh and self.client_ranks is not None:
-                self._stacked_comp_mask = _stack([self._comp_mask(ci) for ci in range(len(self.clients))])
+                self._stacked_comp_mask = _stack([self._comp_mask(self._row_client(i))
+                                                  for i in range(self._rows_per_rank)])
             return
         if comp.error_feedback:
             for client in self.clients:
@@ -691,7 +791,7 @@ class FibecFed:
     def _dispatch_round(self, t: int, lr: Optional[float] = None) -> Dict[str, float]:
         if self.engine == "async":
             return self._run_round_async(t, lr)
-        if self.engine == "vectorized":
+        if self.engine in ("vectorized", "sharded"):
             if self._oocore:
                 return self._run_round_cohort(t, lr)
             return self._run_round_vectorized(t, lr)
@@ -772,20 +872,33 @@ class FibecFed:
         batch_idx, step_valid = curr.step_plan(self.schedule, t, orders, fl.local_epochs)
         w = np.asarray([self.clients[ci].n for ci in chosen], np.float64)
         w = (w / w.sum()).astype(np.float32)
+        rows, plan, valid_plan, w_pad = chosen, batch_idx, step_valid, w
+        if self._cohort_pad > k:
+            # the sharded engine: pad the cohort onto the stack's inert rows
+            # (distinct, so no row is written twice; zero weight and zero
+            # valid steps make them no-ops)
+            pad_n = self._cohort_pad - k
+            rows = np.concatenate([chosen, np.arange(len(self.clients), len(self.clients) + pad_n)])
+            plan = np.pad(batch_idx, ((0, pad_n), (0, 0)))
+            valid_plan = np.pad(step_valid, ((0, pad_n), (0, 0)))
+            w_pad = np.pad(w, (0, pad_n))
 
-        round_fn = eng.build_round_fn(self.loss_fn, self.opt_update,
-                                      use_neuron_mask=self._stacked_mask is not None,
-                                      compress=self._compress_static())
+        use_mask, comp = self._stacked_mask is not None, self._compress_static()
+        if self.mesh is not None:
+            round_fn = eng.build_sharded_round_fn(self.loss_fn, self.opt_update, use_neuron_mask=use_mask,
+                                                  mesh=self.mesh, compress=comp)
+        else:
+            round_fn = eng.build_round_fn(self.loss_fn, self.opt_update, use_neuron_mask=use_mask, compress=comp)
         dev = self.device
         self.global_lora, losses = round_fn(
             self.params, self.global_lora, self._stacked_lora, self._stacked_opt,
             self._stacked_mask, self._gal_mask_tree, self._stack_data, self._sample_valid,
-            torch.as_tensor(chosen, dtype=torch.int64, device=dev),
-            torch.as_tensor(batch_idx, dtype=torch.int64, device=dev),
-            torch.as_tensor(step_valid, device=dev), torch.as_tensor(w, device=dev), lr,
+            torch.as_tensor(rows, dtype=torch.int64, device=dev),
+            torch.as_tensor(plan, dtype=torch.int64, device=dev),
+            torch.as_tensor(valid_plan, device=dev), torch.as_tensor(w_pad, device=dev), lr,
             self._stacked_residual, self._stacked_comp_mask,
         )
-        losses = losses.cpu().numpy()  # (S, k)
+        losses = losses.cpu().numpy()[:, :k]  # (S, k): the real clients' columns
         valid = step_valid.T
         self.last_round_info = {
             "chosen": np.asarray(chosen),
@@ -1053,7 +1166,9 @@ class FibecFed:
         paths for the checkpoint writer to hardlink (out-of-core store
         only). Not captured: what the constructor arguments give again
         (params, data, batches, schedules) and, on the in-memory vectorized
-        engine, the per-client momentum FIMs (read only by ``init_phase``).
+        and sharded engines, the per-client momentum FIMs (read only by
+        ``init_phase``). On the sharded engine a collective: every rank
+        gathers the stacks into the vectorized layout, padding rows kept.
         """
         from repro_torch.federated.store import OutOfCoreStore
 
@@ -1078,14 +1193,10 @@ class FibecFed:
             if s_arrays:
                 arrays["store"] = s_arrays
         elif self._stacked:
-            stacked: Dict[str, Any] = {"lora": self._stacked_lora}
+            stacked = self.population_state()  # gathered from every rank on a mesh
             opt_empty = isinstance(self._stacked_opt, dict) and not self._stacked_opt
-            if not opt_empty:
-                stacked["opt"] = self._stacked_opt
-            for name, tree in (("mask", self._stacked_mask), ("residual", self._stacked_residual),
-                               ("comp_mask", self._stacked_comp_mask)):
-                if tree is not None:
-                    stacked[name] = tree
+            if opt_empty:
+                del stacked["opt"]
             arrays["stacked"] = stacked
             host["stacked"] = {
                 "opt_empty": opt_empty,
@@ -1126,6 +1237,36 @@ class FibecFed:
                 arrays["async"] = a_arrays
         return host, arrays, files
 
+    def population_state(self) -> Dict[str, Any]:
+        """The population-stacked client trees of the vectorized and sharded
+        engines, ``{"lora", "opt"[, "mask", "residual", "comp_mask"]}``,
+        each leaf ``(C_stack, ...)`` with the sharded engine's padding rows
+        last. On a mesh a collective (every rank calls it) that returns the
+        whole population on every rank; off one, the runner's own trees."""
+        if not self._stacked:
+            raise ValueError(f"engine={self.engine!r} on this store keeps no population stack")
+        trees = {"lora": self._stacked_lora, "opt": self._stacked_opt}
+        for name, tree in (("mask", self._stacked_mask), ("residual", self._stacked_residual),
+                           ("comp_mask", self._stacked_comp_mask)):
+            if tree is not None:
+                trees[name] = tree
+        if self.mesh is None:
+            return trees
+        return dict(zip(trees, eng.all_gather_rows(list(trees.values()), self.mesh)))
+
+    @property
+    def checkpoint_writer(self) -> bool:
+        """Whether this process writes run checkpoints: rank 0 of a sharded
+        run's mesh (every rank gathers the state), and any runner off one."""
+        return self._rank == 0
+
+    def checkpoint_barrier(self) -> None:
+        """Wait until every rank of the mesh is here (after rank 0 wrote a
+        snapshot); nothing off a mesh."""
+        if self._group is not None:
+            flag = torch.zeros(1, device=self.device)
+            torch.distributed.all_reduce(flag, group=self._group)
+
     def _checkpoint_client_meta(self):
         """Every client's curriculum metadata (in-memory store):
         ``order``/``difficulty``/``layer_scores`` as arrays,
@@ -1157,7 +1298,8 @@ class FibecFed:
         validated; the rest is the caller's contract) and must not have run
         ``init_phase`` or any round: restore replaces state, it does not
         merge. ``store_files_dir`` is the checkpoint's cold-file directory
-        (out-of-core store only).
+        (out-of-core store only). A sharded runner takes its rank's block of
+        the stacks, which must hold as many rows as its own padded stack.
         """
         from repro_torch.federated.store import SPILL_FIELDS
 
@@ -1191,16 +1333,24 @@ class FibecFed:
             self.store.restore_checkpoint_state(host["store"], arrays.get("store", {}), store_files_dir)
         elif self._stacked:
             st_host, st = host["stacked"], arrays["stacked"]
-            self._stacked_lora = _dev(st["lora"])
-            self._stacked_opt = {} if st_host["opt_empty"] else _dev(st["opt"])
-            self._stacked_mask = _dev(st["mask"]) if st_host["has_mask"] else None
-            self._stacked_residual = _dev(st["residual"]) if st_host["has_residual"] else None
-            self._stacked_comp_mask = _dev(st["comp_mask"]) if st_host["has_comp_mask"] else None
+            n = tree_leaves(st["lora"])[0].shape[0]
+            if n != self._C_stack:
+                raise ValueError(f"checkpoint holds {n} stacked client rows; this runner's stack has {self._C_stack}")
+            rows = self._local_rows()
+
+            def _block(tree):  # this rank's rows of a stacked tree
+                return _dev(tree_map(lambda x: x[rows], tree))
+
+            self._stacked_lora = _block(st["lora"])
+            self._stacked_opt = {} if st_host["opt_empty"] else _block(st["opt"])
+            self._stacked_mask = _block(st["mask"]) if st_host["has_mask"] else None
+            self._stacked_residual = _block(st["residual"]) if st_host["has_residual"] else None
+            self._stacked_comp_mask = _block(st["comp_mask"]) if st_host["has_comp_mask"] else None
             self._restore_client_meta(host["clients"], arrays.get("clients", {}))
-            for ci, client in enumerate(self.clients):
+            for ci in self._owned_clients():
                 # the LoRA stays a view into the restored stack; masks re-slice it
-                client.neuron_mask = (None if self._stacked_mask is None
-                                      else tree_map(lambda x, ci=ci: x[ci], self._stacked_mask))
+                self.clients[ci].neuron_mask = (None if self._stacked_mask is None else tree_map(
+                    lambda x, i=ci - self._row0: x[i], self._stacked_mask))
         else:
             self._restore_client_meta(host["clients"], arrays.get("clients", {}))
             carrs = arrays.get("clients", {})

@@ -73,13 +73,13 @@ def stack_cohort(client_data: Sequence[Dict[str, np.ndarray]], batch_size: int, 
     client store), so peak memory scales with the cohort, not the
     population. ``pad_batches_to`` pads the batch axis up to a fixed grid
     height (extra rows repeat the client's first batch and are entirely
-    invalid, so they are exact no-ops). ``pad_clients_to``, the JAX
-    package's inert client rows for a device mesh's client groups, is not
-    ported yet: it serves only the sharded engine (ROADMAP.md, Queue A item
-    13), and anything but ``None`` raises ``NotImplementedError``.
+    invalid, so they are exact no-ops). ``pad_clients_to`` pads the *client*
+    axis up to that count with inert rows (client 0's data, all-zero
+    ``sample_valid``, zero ``n_batches`` and ``n_samples``), so that the
+    stack divides evenly over a client mesh's groups
+    (:func:`repro_torch.launch.mesh.num_client_groups`). The padding rows
+    come after every real client; training on one is an exact no-op.
     """
-    if pad_clients_to is not None:
-        raise NotImplementedError("pad_clients_to= is not ported yet (ROADMAP.md, Queue A item 13 (sharded engine))")
     per_client = []
     for cd in client_data:
         n = len(next(iter(cd.values())))
@@ -104,19 +104,24 @@ def stack_cohort(client_data: Sequence[Dict[str, np.ndarray]], batch_size: int, 
     valid = np.zeros((len(per_client), nb_max, batch_size), np.float32)
     for c, (_, _, _, v) in enumerate(per_client):
         valid[c, : v.shape[0]] = v
-    return ClientStack(
-        data=data,
-        sample_valid=valid,
-        n_batches=np.asarray([ids.shape[0] for _, _, ids, _ in per_client]),
-        n_samples=np.asarray([n for _, n, _, _ in per_client]),
-    )
+    n_batches = np.asarray([ids.shape[0] for _, _, ids, _ in per_client])
+    n_samples = np.asarray([n for _, n, _, _ in per_client])
+    extra = 0 if pad_clients_to is None else pad_clients_to - len(per_client)
+    if extra > 0:
+        data = {k: np.concatenate([v, np.repeat(v[:1], extra, axis=0)]) for k, v in data.items()}
+        valid = np.concatenate([valid, np.zeros((extra,) + valid.shape[1:], np.float32)])
+        n_batches = np.concatenate([n_batches, np.zeros(extra, n_batches.dtype)])
+        n_samples = np.concatenate([n_samples, np.zeros(extra, n_samples.dtype)])
+    return ClientStack(data=data, sample_valid=valid, n_batches=n_batches, n_samples=n_samples)
 
 
-def stack_clients(client_data: Sequence[Dict[str, np.ndarray]], batch_size: int) -> ClientStack:
+def stack_clients(client_data: Sequence[Dict[str, np.ndarray]], batch_size: int, *,
+                  pad_clients_to: Optional[int] = None) -> ClientStack:
     """The padded fixed-shape stack of the whole population, the vectorized
-    engine's grid; see :func:`stack_cohort` for the per-round streaming
-    variant of the out-of-core client store."""
-    return stack_cohort(client_data, batch_size)
+    and sharded engines' grid; see :func:`stack_cohort` for the per-round
+    streaming variant of the out-of-core client store, and for
+    ``pad_clients_to``."""
+    return stack_cohort(client_data, batch_size, pad_clients_to=pad_clients_to)
 
 
 def batch_iterator(data: Dict[str, np.ndarray], batch_size: int, *, seed: int = 0,

@@ -43,20 +43,23 @@ BASELINES: Dict[str, Dict[str, Any]] = {
 def make_runner(name: str, model: ModelFns, loss_fn: Callable, fl: FibecFedConfig,
                 client_data: Sequence[Dict[str, np.ndarray]], *, seed: int = 0,
                 optimizer: str = "sgd", fused_optimizer=False, engine: str = "vectorized",
-                compression: Any = None, client_ranks: Any = None, **kw) -> FibecFed:
+                mesh: Any = None, compression: Any = None, client_ranks: Any = None, **kw) -> FibecFed:
     """Build a :class:`FibecFed` runner from a named baseline preset.
 
-    ``engine`` is ``"vectorized"`` (default), ``"loop"`` or ``"async"``;
-    ``compression`` a :class:`repro_torch.federated.CompressionConfig`
-    (``None`` is an exact no-op); ``client_ranks`` one LoRA rank per client
-    (``None``: full rank everywhere, or on the async engine the scenario's
-    rank budget). ``kw`` goes to ``FibecFed`` as it is: the async engine's
-    ``scenario``, ``async_cfg`` and ``hierarchy``, ``store`` (a
+    ``engine`` is ``"vectorized"`` (default), ``"loop"``, ``"sharded"`` or
+    ``"async"``; ``mesh`` the sharded engine's client mesh
+    (:func:`repro_torch.launch.mesh.make_client_mesh`; ``None``: one over the
+    default process group, which the caller initialized); ``compression`` a
+    :class:`repro_torch.federated.CompressionConfig` (``None`` is an exact
+    no-op); ``client_ranks`` one LoRA rank per client (``None``: full rank
+    everywhere, or on the async engine the scenario's rank budget). ``kw``
+    goes to ``FibecFed`` as it is: the async engine's ``scenario``,
+    ``async_cfg`` and ``hierarchy``, ``store`` (a
     :mod:`repro_torch.federated.store` store), ``telemetry``, ``device``,
-    ``init_params``, ``init_lora``, and the JAX runner's option not ported
-    yet (``mesh``), which raises. Returns an un-initialized runner: call
+    ``init_params`` and ``init_lora``. Returns an un-initialized runner: call
     ``init_phase()`` once, then ``run_round(t)`` per round (or drive it with
     :func:`run_experiment`, or :class:`repro_torch.federated.FederationService`).
+    On the sharded engine every rank builds and drives the same runner.
     """
     preset = dict(BASELINES[name])
     curriculum = preset.pop("curriculum", None)
@@ -64,7 +67,7 @@ def make_runner(name: str, model: ModelFns, loss_fn: Callable, fl: FibecFedConfi
         fl = dataclasses.replace(fl, curriculum=curriculum)
     return FibecFed(
         model, loss_fn, fl, client_data, seed=seed, optimizer=optimizer,
-        fused_optimizer=fused_optimizer, engine=engine, compression=compression,
+        fused_optimizer=fused_optimizer, engine=engine, mesh=mesh, compression=compression,
         client_ranks=client_ranks, **kw, **preset,
     )
 

@@ -1672,3 +1672,51 @@ def test_out_of_core_spill_and_fetch_round_trip_on_the_card(cuda, tmp_path):
         for field, value in want.items():
             for a, b in zip(tree_leaves(getattr(got, field)), tree_leaves(value)):
                 assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compressed", [False, True])
+def test_sharded_one_rank_nccl_matches_vectorized(cuda, tmp_path, compressed):
+    """The sharded engine on a 1-rank NCCL group (its collectives on the
+    card): init and 2 rounds equal the vectorized engine's bit for bit
+    (losses, comm bytes, the global LoRA and the stacked client state),
+    through the same kernels: fused AdamW (B1 a step), or SGD (B2 a step)
+    with top-k int8 uploads and per-client ranks (B3 an upload)."""
+    import torch.distributed as dist
+
+    from repro_torch.federated import CompressionConfig, make_runner
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.utils.tree import tree_leaves
+
+    _, model, loss_fn, fl, data = _async_world()
+    kw = dict(optimizer="adamw")
+    if compressed:
+        kw = dict(optimizer="sgd", compression=CompressionConfig(mode="topk", topk_ratio=0.25, topk_values="int8"),
+                  client_ranks=[4, 2, 1, 4])
+
+    def run(engine, **extra):
+        r = make_runner("fibecfed", model, loss_fn, fl, data, fused_optimizer=True, engine=engine, seed=0,
+                        device="cuda", **kw, **extra)
+        r.init_phase()
+        counts = {name: getattr(ops, name).launches for name in ("masked_adamw_update", "masked_sgd_update",
+                                                                  "fake_compress")}
+        hist = [r.run_round(t) for t in range(2)]
+        counts = {name: getattr(ops, name).launches - n for name, n in counts.items()}
+        return r, hist, {k: tree_leaves(v) for k, v in r.population_state().items()}, counts
+
+    rv, hv, pv, cv = run("vectorized")
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        rs, hs, ps, cs = run("sharded", mesh=make_client_mesh())
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert rs.engine == "sharded" and hs == hv and cs == cv
+    steps = sum(int(h["padded_steps"]) for h in hv)
+    assert cs == ({"masked_adamw_update": 0, "masked_sgd_update": steps, "fake_compress": 2} if compressed
+                  else {"masked_adamw_update": steps, "masked_sgd_update": 0, "fake_compress": 0})
+    assert rs.comm_bytes_per_round == rv.comm_bytes_per_round
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(rs.global_lora), tree_leaves(rv.global_lora)))
+    assert pv.keys() == ps.keys()
+    for name in pv:
+        assert all(a.device.type == "cuda" and torch.equal(a, b) for a, b in zip(ps[name], pv[name])), name

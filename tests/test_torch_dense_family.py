@@ -362,15 +362,13 @@ def test_embedding_grad_and_lossless_rank_fraction_match_jax(tiny):
 
 
 def test_core_exports_match_jax():
-    """``repro_torch.core`` gives every name of ``repro.core`` the port has:
-    all but the sharded engine's functions (Queue A item 13) and the JAX
-    compile cache; ENGINES are the ported engines."""
-    jax_only = {"build_sharded_round_fn", "build_sharded_difficulty_fn", "build_sharded_fim_warmup_fn",
-                "client_sharding", "replicated_sharding", "clear_compile_caches"}
+    """``repro_torch.core`` gives every name of ``repro.core`` but the JAX
+    compile cache, and the JAX package's four engines."""
+    jax_only = {"clear_compile_caches"}
     names = {n for n in dir(jcore) if not n.startswith("_") and callable(getattr(jcore, n, None))}
     names = {n for n in names if getattr(getattr(jcore, n), "__module__", "").startswith("repro.core")}
     assert names - jax_only <= set(dir(tcore)), sorted(names - jax_only - set(dir(tcore)))
-    assert set(tcore.ENGINES) <= set(jcore.ENGINES) and tcore.ENGINES == ("vectorized", "loop", "async")
+    assert set(tcore.ENGINES) <= set(jcore.ENGINES) and tcore.ENGINES == ("vectorized", "loop", "sharded", "async")
     assert tcore.FibecFed is not None and tcore.ClientState is not None
 
 

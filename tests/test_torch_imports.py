@@ -1,12 +1,13 @@
 """The port stands alone, and runs on the card unless told otherwise.
 
 ``src/repro_torch``, its scripts, ``tests/test_torch_cuda.py`` and
-``chip_smoke.py`` import neither JAX nor the JAX package (``repro``), not
+``chip_smoke.py`` (and the spawned ranks of ``tests/test_torch_sharded.py``)
+import neither JAX nor the JAX package (``repro``), not
 even its modules that need no JAX (the checkpoint layer, the client store and
 the service among them), nor ``ml_dtypes``: they run where only PyTorch is. A
 runner built without ``device=`` refuses to start when there is no CUDA
-device, rather than falling back to the CPU; unported engines and options
-raise, and malformed options are rejected.
+device, rather than falling back to the CPU; every engine and option of the
+JAX runner is ported, and malformed options are rejected.
 """
 import dataclasses
 import os
@@ -31,7 +32,8 @@ FORBIDDEN = re.compile(
 def _port_files():
     return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
             + sorted((ROOT / "scripts").glob("torch_*.py"))
-            + [ROOT / "tests" / "test_torch_cuda.py", ROOT / "chip_smoke.py"])
+            + [ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "torch_sharded_rank.py",
+               ROOT / "chip_smoke.py"])
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -39,7 +41,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
     for sub in ("obs", "serve", "launch", "checkpoint"):  # the later slices' packages are covered
         assert any(f.parent.name == sub for f in files), sub
-    for mod in (("models", "encdec.py"), ("federated", "store.py"), ("federated", "service.py")):
+    for mod in (("models", "encdec.py"), ("federated", "store.py"), ("federated", "service.py"),
+                ("launch", "mesh.py")):
         assert ROOT.joinpath("src", "repro_torch", *mod) in files, mod
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
@@ -91,11 +94,14 @@ def test_runner_without_device_needs_cuda(monkeypatch):
      {"scenario": "straggler"}, {"mesh": object()}],
 )
 def test_unported_engines_and_options_raise(kw, tmp_path):
-    """The sharded engine and ``mesh=`` are not ported yet and raise, citing
-    ROADMAP.md. The async engine and ``store=`` are: ``engine="async"``
-    builds, an out-of-core store binds on every engine, and the async
-    options on a synchronous engine (the default) raise ``ValueError`` as in
-    the JAX package."""
+    """Every engine and option of the JAX runner is ported now (the name is
+    the one this test had while some were not).
+    ``engine="sharded"`` needs a process group the caller made, and without
+    one raises ``RuntimeError`` naming ``init_process_group``; ``mesh=`` on
+    another engine (the default) raises ``ValueError``. ``engine="async"``
+    builds, an out-of-core store binds on every engine but the sharded one,
+    and the async options on a synchronous engine raise ``ValueError``, as
+    in the JAX package."""
     from repro_torch.federated import OutOfCoreStore, make_runner
 
     model, loss_fn, fl, data = _world()
@@ -111,8 +117,11 @@ def test_unported_engines_and_options_raise(kw, tmp_path):
     elif "hierarchy" in kw or "scenario" in kw:
         with pytest.raises(ValueError, match="engine='async'"):
             make_runner("fibecfed", model, loss_fn, fl, data, device="cpu", **kw)
+    elif "mesh" in kw:
+        with pytest.raises(ValueError, match="engine='sharded'"):
+            make_runner("fibecfed", model, loss_fn, fl, data, device="cpu", **kw)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(RuntimeError, match="init_process_group"):
             make_runner("fibecfed", model, loss_fn, fl, data, device="cpu", **kw)
 
 

@@ -275,11 +275,24 @@ def _run_fl(world, engine, telemetry=None, rounds=ROUNDS):
     return runner, [runner.run_round(t) for t in range(rounds)]
 
 
-@pytest.mark.parametrize("engine", ["loop", "vectorized"])
-def test_enabled_telemetry_is_bit_identical(world, engine):
-    r_off, h_off = _run_fl(world, engine)
-    tel = t_obs.Telemetry(run_id=f"bitid/{engine}")
-    r_on, h_on = _run_fl(world, engine, telemetry=tel)
+@pytest.mark.parametrize("engine", ["loop", "vectorized", "sharded"])
+def test_enabled_telemetry_is_bit_identical(world, engine, tmp_path):
+    """Enabling telemetry changes no bit of a run, on each engine (the
+    sharded one on a 1-rank gloo group, as the JAX test runs it on a
+    1-device mesh)."""
+    dist = torch.distributed
+    sharded = engine == "sharded"
+    if sharded:
+        dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "group_store"), 1), rank=0,
+                                world_size=1)
+    try:
+        r_off, h_off = _run_fl(world, engine)
+        tel = t_obs.Telemetry(run_id=f"bitid/{engine}")
+        r_on, h_on = _run_fl(world, engine, telemetry=tel)
+    finally:
+        if sharded:
+            dist.destroy_process_group()
+    assert r_on.engine == engine
     for ho, hn in zip(h_off, h_on):
         assert ho == hn  # every stat float, bitwise
     assert r_off.comm_bytes_per_round == r_on.comm_bytes_per_round

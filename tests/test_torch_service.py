@@ -318,15 +318,29 @@ def test_kill_resume_matrix(world, baselines, tmp_path, engine, store_kind, faul
 # -- checkpointing must never perturb a run -----------------------------------
 
 
-@pytest.mark.parametrize("engine", ["loop", "vectorized", "async"])
-def test_service_without_checkpointing_is_noop(world, baselines, engine):
+@contextlib.contextmanager
+def one_rank_group(tmp_path):
+    """A 1-rank gloo process group on a FileStore: the sharded engine's
+    runner builds its CPU client mesh over it."""
+    dist = torch.distributed
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "group_store"), 1), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("engine", ["loop", "vectorized", "sharded", "async"])
+def test_service_without_checkpointing_is_noop(world, baselines, engine, tmp_path):
     """ckpt_every=0: no checkpoint I/O, and the run is exactly the
-    hand-driven runner."""
-    base_runner, base_hist = baselines(engine, "mem")
-    runner = _factory(world, engine, "mem", "")()
-    svc = FederationService()
-    fed = svc.launch("noop", runner, rounds=ROUNDS)
-    svc.run()
+    hand-driven runner (the sharded engine on one gloo rank)."""
+    with one_rank_group(tmp_path) if engine == "sharded" else contextlib.nullcontext():
+        base_runner, base_hist = baselines(engine, "mem")
+        runner = _factory(world, engine, "mem", "")()
+        svc = FederationService()
+        fed = svc.launch("noop", runner, rounds=ROUNDS)
+        svc.run()
+    assert runner.engine == engine
     assert fed.state == "completed" and fed.ckpt_dir is None
     _trees_equal(base_runner.global_lora, runner.global_lora)
     assert [h["loss"] for h in base_hist] == [h["loss"] for h in fed.history]
