@@ -145,7 +145,7 @@ l. client stores and run checkpoints (after k, on phase 4's world): (i)
    ``round_00000001`` (its hardlinked cold files included) and reruns
    round 1 bit for bit the service's; each part's restore s, round or
    merge s after the restore, snapshot bytes on disk and B1 launches;
-f. the Mamba2 family at full mamba2-1.3b width (its 48 layers cut to 24,
+f. the Mamba2 family at full mamba2-1.3b width (its 48 layers cut to 8,
    d 2048, 64 heads of 64, state 128, chunk 128, bf16, seeded torch init): the default
    vectorized FibecFed/AdamW (stacked B1, no vmap fallback to a loop) on
    the keyword task over 4 clients (8 ran out of memory at full depth) for 1 round,
@@ -168,10 +168,10 @@ g. the lossless criteria on the card: the loop FibecFed runner with masked
    client's Ritz values, Lipschitz estimate and fraction, the GAL count from
    the fractions and the neuron masks' ρ;
 h. the rest of the dense family at full width (bf16, seeded init):
-   qwen3-0.6b (its 28 layers cut to 14, d 1024, qk-norm) trained 2 rounds on the
+   qwen3-0.6b (its 28 layers cut to 8, d 1024, qk-norm) trained 2 rounds on the
    vectorized engine and served with phase 5d's 12 requests; stablelm-3b
    (parallel residual, head_dim 80: B8 at D 80) and chatglm3-6b (2 KV
-   heads) at full depth served with 4 requests each over 4 seeded adapters; every
+   heads), each at full width cut to 8 layers, served with 4 requests each over 4 seeded adapters; every
    completion held to its training forward by phase 5d's oracle and
    controls, B8 against its plain version at every prefill group's shape;
    FedPrompt on qwen2-0.5b (1 round, evaluate, its exact comm bytes, the
@@ -186,14 +186,14 @@ i. the MoE family and the zamba2 hybrid at full width (bf16, seeded init):
    forward over the group's prompts, each decode step against the same
    step teacher-forced on a copy of its cache, B7 and B8 plain; phase 5d's
    two controls; the (token, expert) assignments that differ counted);
-   zamba2-7b (its 81 layers cut to 27: 4 applications of the shared block) served with
+   zamba2-7b (its 81 layers cut to 15: 2 applications of the shared block) served with
    5d's 12 requests (B9 on every Mamba layer's prefill, B8 at D 112 on each
    application, B7 on both LoRA groups, the few-row path on decode) and
    held by phase f's oracle; zamba2-7b's width cut to 12 layers trained 1
    round (B1 over the shared block's unstacked LoRA group); B7, B8 and B9
    against their plain versions at every served shape;
 j. the last families at full width (bf16, seeded init): whisper-large-v3
-   (its 32 + 32 layers cut to 16 + 16) and paligemma-3b (18 layers, 256 prefix rows) served
+   (its 32 + 32 layers cut to 10 + 10) and paligemma-3b (18 layers, 256 prefix rows) served
    with phase 5d's 12 requests, each with its own seeded frame or patch
    embeddings (B8 bidirectional over whisper's 1500 frames and causal over
    its prompt, B8 at D 256 over paligemma's prefix and prompt, B7 on every
@@ -204,9 +204,24 @@ j. the last families at full width (bf16, seeded init): whisper-large-v3
    its class accuracy from ``evaluate``; phase 5c also holds and times B8
    at D 256 (paligemma's 4x1280, f32 S 2000) and bidirectional at
    whisper's encoder and roberta's widths;
+n. (after 7) the launch layer at full qwen2-0.5b width: (i) the FibecFed
+   train step of ``launch/steps.py`` through ``launch/train.py``'s
+   ``init_run`` and ``train_loop`` (GAL on the first 75% of the layers,
+   local masks of ones, 4 client groups of a 16 x 128-token batch, 4 steps),
+   B1 twice a step (the GAL tree and the local tree), held to the same
+   steps with B1's plain version in its place (losses at rel 1e-6, every
+   state leaf at phase 7's 1e-6, the frozen entries bit for bit to the
+   start); (ii) the prefill step (B8 once a layer) over 4 prompts of 128
+   tokens and 8 greedy decode steps, held to the teacher-forced training
+   forward at phase 5d's 0.05 of a row's largest |logit|, and B8 against
+   its plain version at that shape; (iii) one train step under
+   ``launch/prof_stats.py``'s profiler (kernel ms, launches, busy share,
+   peak memory) and its counter (flops, bytes written), its model flops
+   and their share of the card's bf16 peak, and its roofline terms on
+   H100_SXM (``launch/analysis.py``);
 8. one JSON line listing the kernels; last, the ok line.
 
-Each path of phases 4-6, 5b-5d, m, k, l, f, g, h, i and j included, is driven with the kernels' launch
+Each path of phases 4-6, 5b-5d, m, n, k, l, f, g, h, i and j included, is driven with the kernels' launch
 counts set to 0 just before it and read just after. Float32 matmuls run in
 full f32 (TF32 off for matmuls and cuDNN alike). The end of each phase, with
 the seconds since the start, also goes to standard error.
@@ -425,15 +440,21 @@ SSM_ROUNDS = 1
 SSM_CLIENTS = 4
 # Phases f, h, i and j at full width run with their depth cut where the
 # script's time asks it (each family trained and served at that depth):
-# mamba2-1.3b 48 -> 24 layers, qwen3-0.6b 28 -> 14, zamba2-7b served at
-# 81 -> 27 (4 applications of the shared block and the tail of 3, as its
-# 81 are 13 and 3), whisper-large-v3 served at 32 + 32 -> 16 + 16.
+# mamba2-1.3b 48 -> 8 layers, qwen3-0.6b 28 -> 8, zamba2-7b served at
+# 81 -> 15 (2 applications of the shared block and the tail of 3, as its
+# 81 are 13 and 3), whisper-large-v3 served at 32 + 32 -> 10 + 10,
+# stablelm-3b (32) and chatglm3-6b (28) served at DENSE_SERVE_LAYERS (cut
+# further when phase n came in: 24, 14, 27, 16 + 16 and full depth
+# before; at 16, 8, 21, 10 + 10 and full depth the serve oracles' controls
+# read 9.6, 2.0, 14.9, 1.6 and 23-28: qwen3's and whisper's, the smallest,
+# stay where they are).
 # granite-moe-3b-a800m stays at its 32 layers: cut to 16, its MoE oracle
 # read 0.990 of the tolerance at a prefill position (0.714 at 32).
-SSM_LAYERS = 24
-QWEN3_LAYERS = 14
-ZAMBA2_SERVE_LAYERS = 27
-WHISPER_SERVE_LAYERS = 16
+SSM_LAYERS = 8
+QWEN3_LAYERS = 8
+ZAMBA2_SERVE_LAYERS = 15
+WHISPER_SERVE_LAYERS = 10
+DENSE_SERVE_LAYERS = 8
 SSM_CACHE = 64
 SSM_FLOOR_RATIO = 1.5
 # Phase g: the lossless criteria on the card. The loop runner with masked
@@ -555,6 +576,21 @@ ASYNC_MERGES = 4
 ASYNC_RESUME_ATOL, ASYNC_RESUME_RTOL = 5e-5, 1e-4
 ASYNC_SNAPSHOT_AFTER = 2
 OOC_HOT_SLOTS = 2
+# Phase n: the launch layer's FibecFed train step (launch/steps.py, through
+# launch/train.py's init_run and train_loop) at full qwen2-0.5b width: the GAL
+# on the first 75% of the layers, local masks of ones, LAUNCH_GROUPS client
+# groups of a LAUNCH_BATCH x LAUNCH_SEQ batch, LAUNCH_STEPS steps; B1 twice a
+# step (the GAL tree and the local tree). It is held to the same steps with
+# B1's plain version in its place: the same forward and backward, so the
+# losses are held at rel LAUNCH_LOSS_RTOL and every state leaf at phase 7's
+# ROUND0_LORA_ATOL; the frozen entries (GAL LoRA of the other layers, local
+# LoRA of the GAL layers, their moments) bit for bit to the start. Then the
+# prefill step (B8) over LAUNCH_PROMPTS prompts of LAUNCH_SEQ tokens and
+# LAUNCH_DECODE decode steps, held to the teacher-forced training forward by
+# phase 5d's SERVE_LOGIT_REL; then one train step profiled and counted.
+LAUNCH_GROUPS, LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_STEPS, LAUNCH_LR = 4, 16, 128, 4, 1e-4
+LAUNCH_PROMPTS, LAUNCH_DECODE = 4, 8
+LAUNCH_LOSS_RTOL = 1e-6
 STRAGGLER_POLICIES = dict(buffer_size=2, merge_mode="delta", server_lr=0.8, staleness_cutoff=2, adapt_buffer=True,
                           adapt_steps=True, sampling_bias=2.0)
 
@@ -2585,7 +2621,7 @@ def phase_dense_family(ops, ref, sparse_lora, flash_attention, make_runner, data
     # (ii) stablelm-3b and chatglm3-6b: serving only, seeded adapters
     for name in ("stablelm-3b", "chatglm3-6b"):
         t0 = time.perf_counter()
-        cfg = ARCHS[name]
+        cfg = dataclasses.replace(ARCHS[name], num_layers=DENSE_SERVE_LAYERS)
         model = build_model(cfg)
         gen = torch.Generator(device="cuda").manual_seed(21)
         params = model.init_params(gen, "cuda")
@@ -3638,6 +3674,140 @@ def lora_diffs(a, b, tree_leaves):
     return max(di.max().item() for di in d), max(excess)
 
 
+def plain_masked_adamw(ops, ref):
+    """``launch.steps.masked_adamw`` with B1's plain version in place of the
+    kernel, on card tensors: the oracle of phase n(i)."""
+    from repro_torch.utils.tree import tree_map, tree_unzip
+
+    def update(params, grads, m, v, t, mask, lr):
+        t_new, mhat, vhat = ops.adam_step_scales(t, None, 0.9, 0.999)
+        lr_t = ops.as_f32(lr, t.device)
+        out = tree_map(lambda p, g, mm, vv, mk: ref.masked_adamw_update_ref(p, g, mm, vv, mk, lr_t, mhat, vhat),
+                       params, grads, m, v, mask)
+        new_p, new_m, new_v = tree_unzip(out, 3)
+        return new_p, new_m, new_v, t_new
+
+    return update
+
+
+def check_launch_freeze(start, state, n_gal, what):
+    """Phase n(i)'s frozen entries, bit for bit to the start: the GAL tree
+    on the layers after the first ``n_gal``, the local tree on those; and
+    each tree moved where it trains."""
+    from repro_torch.utils.tree import tree_items
+
+    old = dict(tree_items(start))
+    for k, x in tree_items(state):
+        if k.startswith(("gal_lora", "gal_m/", "gal_v")):
+            frozen, live = x[n_gal:], x[:n_gal]
+            frozen0, live0 = old[k][n_gal:], old[k][:n_gal]
+        elif k.startswith(("local_lora", "local_m/", "local_v")):
+            frozen, live = x[:, :n_gal], x[:, n_gal:]
+            frozen0, live0 = old[k][:, :n_gal], old[k][:, n_gal:]
+        else:
+            continue
+        if not torch.equal(frozen, frozen0):
+            raise AssertionError(f"{what}: a frozen entry of {k} moved")
+        if k.endswith("/b") and torch.equal(live, live0):
+            raise AssertionError(f"{what}: {k} did not train where it is live")
+
+
+def phase_launch(ops, ref, smi, tree_clone, tree_leaves):
+    """Phase n: the launch layer at full qwen2-0.5b width. (i) the FibecFed
+    train step through launch/train.py's code path, held to its B1-plain
+    twin; (ii) the prefill (B8) and decode steps against the training
+    forward; (iii) one train step under the profiler twin of hlo_stats and
+    its roofline terms on H100_SXM. Returns the launches of (i) and (ii)."""
+    from repro_torch.config import H100_SXM
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import analysis, prof_stats, steps, train
+    from repro_torch.lora import lora_num_logical_layers
+
+    cfg = ARCHS["qwen2-0.5b"]
+    dev = torch.device("cuda")
+    G, B, S, n = LAUNCH_GROUPS, LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_STEPS
+    model, params, state, gen = train.init_run(cfg, dev, G)
+    n_gal = int(round(0.75 * lora_num_logical_layers(cfg)))
+    start, gen_start = tree_clone(state), gen.get_state()
+    with Launches(ops) as run:
+        (st, losses), secs = timed(lambda: train.train_loop(
+            steps.build_train_step(model, G, learning_rate=LAUNCH_LR), params, state, gen, cfg, B, S, n, log=None))
+    if run.counts != only(masked_adamw_update=2 * n):
+        raise AssertionError(f"the train step did not launch B1 twice a step: {run.counts}")
+    gen.set_state(gen_start)
+    plain_step = steps._build_train_step(model, G, LAUNCH_LR, plain_masked_adamw(ops, ref))
+    (st_p, losses_p), secs_p = timed(lambda: train.train_loop(plain_step, params, tree_clone(start), gen, cfg, B, S,
+                                                              n, log=None))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_p))
+    leaf_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(tree_leaves(st), tree_leaves(st_p)))
+    log(f"phase n(i) train step ({smi}): {G} groups x {B // G} x {S} tokens, {n} steps in {secs:.2f} s "
+        f"(B1-plain twin {secs_p:.2f} s); losses {losses} vs {losses_p} (rel {rel:.3g}); state max abs diff "
+        f"{leaf_err:.3g}; launches {run.counts['masked_adamw_update']}")
+    if not all(math.isfinite(x) for x in losses) or rel > LAUNCH_LOSS_RTOL or leaf_err > ROUND0_LORA_ATOL:
+        raise AssertionError("the train step and its B1-plain twin disagree")
+    check_launch_freeze(start, st, n_gal, "train step")
+    check_launch_freeze(start, st_p, n_gal, "B1-plain train step")
+    if int(st["step"]) != n:
+        raise AssertionError(f"step counter {int(st['step'])} after {n} steps")
+    counts = {"masked_adamw_update": run.counts["masked_adamw_update"]}
+    del st_p, start
+
+    # (ii) prefill (B8) and decode, against the teacher-forced forward
+    lora = st["gal_lora"]
+    prompts = torch.randint(0, cfg.vocab_size, (LAUNCH_PROMPTS, S), generator=gen, device=dev)
+    prefill = steps.build_prefill_step(model, cache_len=S + LAUNCH_DECODE)
+    decode = steps.build_decode_step(model)
+    with Launches(ops) as run:
+        def serve():
+            logits, cache = prefill(params, lora, {"tokens": prompts})
+            got, toks = [logits[:, -1]], []
+            for j in range(LAUNCH_DECODE):
+                toks.append(torch.argmax(logits[:, -1], dim=-1, keepdim=True))
+                logits, cache = decode(params, lora, toks[-1], cache, S + j)
+                got.append(logits[:, -1])
+            return torch.stack(got, 1), torch.cat(toks, 1)
+
+        (got, toks), serve_s = timed(serve)
+    if run.counts != only(flash_attention=cfg.num_layers):
+        raise AssertionError(f"the prefill step did not take B8 once a layer: {run.counts}")
+    counts["flash_attention"] = run.counts["flash_attention"]
+    with torch.no_grad():
+        want = model.forward(params, lora, {"tokens": torch.cat([prompts, toks], 1)})[0][:, S - 1:].float()
+    got = got.float()
+    err = ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+    log(f"phase n(ii) prefill {LAUNCH_PROMPTS}x{S} + {LAUNCH_DECODE} decode steps in {serve_s:.3f} s: logits "
+        f"{err:.4f} of a row's largest |logit| from the training forward (limit {SERVE_LOGIT_REL}); B8 launches "
+        f"{counts['flash_attention']}")
+    if not bool(torch.isfinite(got).all()) or err > SERVE_LOGIT_REL:
+        raise AssertionError("the prefill/decode steps' logits are off the training forward")
+    q = torch.randn(LAUNCH_PROMPTS, S, cfg.num_heads, cfg.resolved_head_dim, generator=gen, device=dev).bfloat16()
+    kk, vv = (torch.randn(LAUNCH_PROMPTS, S, cfg.num_kv_heads, cfg.resolved_head_dim, generator=gen,
+                          device=dev).bfloat16() for _ in range(2))
+    b8_err = check_attention(ops.flash_attention(q, kk, vv, causal=True, window=cfg.attention_window),
+                             ref.flash_attention_gqa_ref(q, kk, vv, causal=True, window=cfg.attention_window),
+                             vv, f"B8 at the prefill step's shape {LAUNCH_PROMPTS}x{S}")
+
+    # (iii) one train step profiled, counted and set against its roofline
+    step = steps.build_train_step(model, G, learning_rate=LAUNCH_LR)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)}
+    _, wall_s = timed(lambda: step(params, st, batch))
+    prof = prof_stats.profile_step(lambda: step(params, st, batch))
+    _, counter = prof_stats.count_step(step, params, st, batch)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    mf = analysis.model_flops(cfg, n_params, n_params * analysis.active_param_fraction(cfg), B * S, "train")
+    roof = analysis.roofline_terms(hlo_flops=counter.flops, hlo_bytes=counter.bytes_written, coll_bytes=0.0, chips=1)
+    mfu = mf / (wall_s * H100_SXM.peak_flops)
+    log(f"phase n(iii) train step ({smi}): {wall_s * 1e3:.1f} ms unprofiled; kernel {prof['kernel_ms']:.1f} ms "
+        f"over {prof['launches']} launches, busy {prof['busy_share']:.1%} of {prof['wall_ms']:.1f} ms profiled; "
+        f"peak memory {prof['max_memory_allocated'] / 2**30:.2f} GiB; counted {counter.flops / 1e12:.3f} TFLOP, "
+        f"{counter.bytes_written / 1e9:.2f} GB written, {counter.ops} ops; model flops {mf / 1e12:.3f} TFLOP "
+        f"({mfu:.2%} of the card's bf16 peak at the step's time); roofline on H100_SXM {json.dumps(roof)}; "
+        f"top kernels {json.dumps(prof['top_kernels'][:5])}")
+    if not (counter.flops > 0 and prof["launches"] > 0 and prof["kernel_ms"] > 0):
+        raise AssertionError("the profiler twin saw no device work")
+    return counts, b8_err
+
+
 def phase_checkpoints(ops, make_runner, AsyncAggConfig, model, loss_fn, fl, clients, snaps, ckpt_root, tree_leaves):
     """Phase l: (i) phases 4, 5 and k(ii) resumed from their snapshots by
     fresh runners; (ii) phase 5's configuration through the service on an
@@ -4144,6 +4314,15 @@ def main() -> int:
     del plain
     done("7")
 
+    # --- n. the launch layer: the FibecFed train step (B1 twice a step)
+    # held to its B1-plain twin, the prefill (B8) and decode steps against
+    # the training forward, one step profiled and set against its roofline ---
+    launch_counts, b8_err = phase_launch(ops, ref, smi, tree_clone, tree_leaves)
+    for name, n in launch_counts.items():
+        launches[name] += n
+    errs["flash_attention"] = max(errs["flash_attention"], b8_err)
+    done("n")
+
     # --- k. the async engine on phase 4's world: the degenerate run against
     # the loop engine, stragglers, compression with derived ranks and edges ---
     for name, n in phase_async(ops, make_runner, AsyncAggConfig, CompressionConfig, model, loss_fn, fl, clients,
@@ -4200,7 +4379,7 @@ def main() -> int:
 
     # --- i. the MoE family (granite-moe-3b-a800m trained and served,
     # llama4-maverick-400b-a17b served at one layer) and the zamba2 hybrid
-    # (served at 27 layers: B9, B8 at D 112 and B7 on one path; trained at
+    # (served at 15 layers: B9, B8 at D 112 and B7 on one path; trained at
     # 12 layers over the unstacked shared group) ---
     mh_counts, mh_errs, mh_times = phase_moe_hybrid(
         ops, ref, sparse_lora, flash_attention, ssd_chunk, make_runner, data_mod, FibecFedConfig, ARCHS, build_model,

@@ -9,7 +9,7 @@ paligemma-3b (vlm) and roberta-large (encoder), and the four input shapes
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 from repro_torch.config import InputShape, ModelConfig
 from repro_torch.configs.chatglm3_6b import CONFIG as chatglm3_6b
@@ -29,6 +29,19 @@ ARCHS: Dict[str, ModelConfig] = {
                         llama4_maverick_400b_a17b, mamba2_1_3b, zamba2_7b, whisper_large_v3, paligemma_3b,
                         roberta_large]
 }
+
+ASSIGNED: List[str] = [
+    "whisper-large-v3",
+    "chatglm3-6b",
+    "qwen2-0.5b",
+    "llama4-maverick-400b-a17b",
+    "granite-moe-3b-a800m",
+    "qwen3-0.6b",
+    "stablelm-3b",
+    "paligemma-3b",
+    "mamba2-1.3b",
+    "zamba2-7b",
+]
 
 INPUT_SHAPES: Dict[str, InputShape] = {
     s.name: s

@@ -31,6 +31,7 @@ from repro_torch.config import InputShape, ModelConfig
 from repro_torch.lora import init_lora as _init_lora_tree
 from repro_torch.models import encdec as _encdec
 from repro_torch.models import hybrid as _hybrid
+from repro_torch.models import sharding_ctx
 from repro_torch.models import ssm_model as _ssm
 from repro_torch.models import transformer as _tf
 from repro_torch.models.layers import layer_norm, rms_norm
@@ -149,7 +150,7 @@ def _encoder_fns(cfg: ModelConfig) -> ModelFns:
 
     def forward_impl(params, lora, batch, embed_noise=None, collect=False):
         lora_scale = cfg.lora_alpha / cfg.lora_rank
-        h = torch.nn.functional.embedding(batch["tokens"], params["embed"])
+        h = sharding_ctx.replicate_partial(torch.nn.functional.embedding(batch["tokens"], params["embed"]))
         if embed_noise is not None:
             h = h + embed_noise.to(h.dtype)
         positions = torch.arange(h.shape[1], device=h.device)[None, :]

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import MoEConfig
+from repro_torch.models import sharding_ctx
 from repro_torch.models.layers import init_stacked_dense
 
 
@@ -124,6 +125,16 @@ def route(x: torch.Tensor, router_w: torch.Tensor, mcfg: MoEConfig,
     return dispatch, combine, aux
 
 
+def _experts(xe, combine, e_gate, e_up, e_down):
+    """The routed experts' SwiGLU over their dispatched slots ``xe`` (E, B,
+    n, C, D), combined back to the tokens (B, n, G, D)."""
+    g = torch.einsum("ebncd,edf->ebncf", xe, e_gate)
+    u = torch.einsum("ebncd,edf->ebncf", xe, e_up)
+    h = F.silu(g.to(torch.float32)).to(xe.dtype) * u
+    ye = torch.einsum("ebncf,efd->ebncd", h, e_down)
+    return torch.einsum("ebncd,bngec->bngd", ye, combine)
+
+
 def apply_moe(x: torch.Tensor, p, mcfg: MoEConfig, *,
               sample_weight: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D); ``p`` one layer's slice. Returns ``(y, aux_loss)``.
@@ -145,11 +156,8 @@ def apply_moe(x: torch.Tensor, p, mcfg: MoEConfig, *,
         xg = x.reshape(B, S // G, G, D)
     dispatch, combine, aux = route(xg, p["router"], mcfg, sample_weight=sample_weight)
     xe = torch.einsum("bngec,bngd->ebncd", dispatch.to(x.dtype), xg)
-    g = torch.einsum("ebncd,edf->ebncf", xe, p["e_gate"])
-    u = torch.einsum("ebncd,edf->ebncf", xe, p["e_up"])
-    h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-    ye = torch.einsum("ebncf,efd->ebncd", h, p["e_down"])
-    y = torch.einsum("ebncd,bngec->bngd", ye, combine.to(x.dtype)).reshape(B, S, D)
+    y = sharding_ctx.local_experts(_experts, xe, combine.to(x.dtype), p["e_gate"], p["e_up"],
+                                   p["e_down"]).reshape(B, S, D)
     if mcfg.shared_expert:
         g = x @ p["s_gate"]
         u = x @ p["s_up"]

@@ -29,6 +29,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
+from repro_torch.models import sharding_ctx
 from repro_torch.models.layers import (
     apply_rope,
     init_embed,
@@ -109,9 +110,11 @@ def _project_qkv(x, p, lora, cfg: ModelConfig, lora_scale):
         return linear(x, {"w": p[w], **({"b": p[b]} if b in p else {})}, lget(w), lora_scale)
 
     B, S = x.shape[0], x.shape[1]
-    q = proj("wq", "bq").reshape(B, S, cfg.num_heads, hd)
-    k = proj("wk", "bk").reshape(B, S, cfg.num_kv_heads, hd)
-    v = proj("wv", "bv").reshape(B, S, cfg.num_kv_heads, hd)
+    # a tensor-parallel projection keeps its shards only over whole KV heads
+    heads = lambda t, n: sharding_ctx.unshard_unless(t, -1, cfg.num_kv_heads).reshape(B, S, n, hd)  # noqa: E731
+    q = heads(proj("wq", "bq"), cfg.num_heads)
+    k = heads(proj("wk", "bk"), cfg.num_kv_heads)
+    v = heads(proj("wv", "bv"), cfg.num_kv_heads)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm_w"])
         k = rms_norm(k, p["k_norm_w"])
@@ -131,14 +134,13 @@ def attention_sublayer(x, p, lora, cfg: ModelConfig, positions, *, lora_scale: f
         k_cache, v_cache = cache
         T = k_cache.shape[1]
         slot = (cache_position % T) if ring else cache_position
-        attn.scatter_decode_kv(k_cache, k, slot)
-        attn.scatter_decode_kv(v_cache, v, slot)
-        o = attn.decode_attention(q, k_cache, v_cache, cache_position, ring=ring, window=cfg.attention_window)
+        attn.scatter_decode_kv(*sharding_ctx.local_write(k_cache, k), slot)
+        attn.scatter_decode_kv(*sharding_ctx.local_write(v_cache, v), slot)
+        o = sharding_ctx.local_heads(attn.decode_attention, q, k_cache, v_cache, cache_position, ring=ring,
+                                     window=cfg.attention_window)
     else:
-        o = attn.blockwise_attention(
-            q, k, v, causal=causal, window=cfg.attention_window,
-            score_dtype=torch_dtype(cfg.attn_score_dtype),
-        )
+        o = sharding_ctx.local_heads(attn.blockwise_attention, q, k, v, causal=causal,
+                                     window=cfg.attention_window, score_dtype=torch_dtype(cfg.attn_score_dtype))
     B, S = x.shape[0], x.shape[1]
     o = o.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
     out = linear(o, {"w": p["wo"]}, lora.get("wo") if lora else None, lora_scale)
@@ -196,7 +198,7 @@ def _lm_logits(h, params, cfg: ModelConfig):
 def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Token embeddings, scaled by sqrt(d_model) for the vlm family (Gemma's
     convention: the scale, an f32 sqrt, cast to the embedding dtype first)."""
-    h = torch.nn.functional.embedding(tokens, params["embed"])
+    h = sharding_ctx.replicate_partial(torch.nn.functional.embedding(tokens, params["embed"]))
     if cfg.family == "vlm":
         h = h * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32)).to(h.dtype)
     return h
@@ -242,6 +244,8 @@ def decoder_forward(params, lora, tokens: torch.Tensor, cfg: ModelConfig, *,
         p_slice, lora_slice = _layer_slices(params, lora, i)
         h, aux_l, _ = decoder_layer(h, p_slice, lora_slice, cfg, positions, lora_scale=lora_scale,
                                     sample_weight=sample_weight)
+        if cfg.seq_parallel:
+            h = sharding_ctx.constrain(h, ("dp", "model", None))
         if aux_l is not None:
             aux = aux + aux_l
         if collect_layer_norms:
@@ -266,9 +270,8 @@ def prompt_attention(q, k, v, cfg: ModelConfig, causal: bool = True):
     flash attention kernel (B8) on the card, :func:`attn.blockwise_attention`
     on the CPU."""
     window = cfg.attention_window if causal else None
-    if q.is_cuda:
-        return kops.flash_attention(q, k, v, causal=causal, window=window)
-    return attn.blockwise_attention(q, k, v, causal=causal, window=window)
+    fn = kops.flash_attention if q.is_cuda else attn.blockwise_attention
+    return sharding_ctx.local_heads(fn, q, k, v, causal=causal, window=window)
 
 
 def decoder_prefill(params, lora, tokens: torch.Tensor, cfg: ModelConfig, cache_len: int, *,
@@ -307,7 +310,8 @@ def decoder_prefill(params, lora, tokens: torch.Tensor, cfg: ModelConfig, cache_
             tail = t[:, S - keep:]
             if keep == cache_len and ring and S % cache_len:
                 tail = torch.roll(tail, S % cache_len, dims=1)
-            cache[name][i, :, :keep] = tail
+            # a tensor-parallel prefill's (DTensor) tail is gathered into the plain cache
+            sharding_ctx.put(cache[name][i, :, :keep], tail)
     return _lm_logits(h[:, -1:], params, cfg), cache, S
 
 
@@ -319,6 +323,9 @@ def decoder_decode_step(params, lora, token: torch.Tensor, cfg: ModelConfig, cac
     lora_scale = lora_scale if lora_scale is not None else cfg.lora_alpha / cfg.lora_rank
     h = _embed_tokens(params, token, cfg)
     positions = torch.as_tensor(position, device=h.device).reshape(-1, 1)
+    # a cache sharded over its time axis is gathered first: a rank cannot
+    # write a slot that another holds in place (a plain cache stays as it is)
+    cache = {name: sharding_ctx.unshard_unless(c, 2, 1) for name, c in cache.items()}
     for i in range(cfg.num_layers):
         p_slice, lora_slice = _layer_slices(params, lora, i)
         h, _, _ = decoder_layer(h, p_slice, lora_slice, cfg, positions, lora_scale=lora_scale,

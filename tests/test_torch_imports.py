@@ -1,7 +1,8 @@
 """The port stands alone, and runs on the card unless told otherwise.
 
-``src/repro_torch``, its scripts, ``tests/test_torch_cuda.py`` and
-``chip_smoke.py`` (and the spawned ranks of ``tests/test_torch_sharded.py``)
+``src/repro_torch``, its scripts and examples (``examples/torch_*.py``),
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` (and the spawned ranks of
+``tests/test_torch_sharded.py`` and ``tests/test_torch_launch_mesh.py``)
 import neither JAX nor the JAX package (``repro``), not
 even its modules that need no JAX (the checkpoint layer, the client store and
 the service among them), nor ``ml_dtypes``: they run where only PyTorch is. A
@@ -32,8 +33,9 @@ FORBIDDEN = re.compile(
 def _port_files():
     return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
             + sorted((ROOT / "scripts").glob("torch_*.py"))
+            + sorted((ROOT / "examples").glob("torch_*.py"))
             + [ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "torch_sharded_rank.py",
-               ROOT / "chip_smoke.py"])
+               ROOT / "tests" / "torch_launch_rank.py", ROOT / "chip_smoke.py"])
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -42,8 +44,9 @@ def test_port_imports_neither_jax_nor_repro():
     for sub in ("obs", "serve", "launch", "checkpoint"):  # the later slices' packages are covered
         assert any(f.parent.name == sub for f in files), sub
     for mod in (("models", "encdec.py"), ("federated", "store.py"), ("federated", "service.py"),
-                ("launch", "mesh.py")):
+                ("launch", "mesh.py"), ("launch", "steps.py"), ("launch", "dryrun.py"), ("models", "sharding_ctx.py")):
         assert ROOT.joinpath("src", "repro_torch", *mod) in files, mod
+    assert sum(f.parent.name == "examples" for f in files) == 4  # the four torch_*.py examples
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files
