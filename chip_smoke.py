@@ -219,9 +219,28 @@ n. (after 7) the launch layer at full qwen2-0.5b width: (i) the FibecFed
    peak memory) and its counter (flops, bytes written), its model flops
    and their share of the card's bf16 peak, and its roofline terms on
    H100_SXM (``launch/analysis.py``);
+o. (after n) the launch layer for the SSM, hybrid and encoder-decoder
+   families: (i) mamba2-1.3b at 4 layers, zamba2-7b at 6 (one application
+   of its shared block) and whisper-large-v3 at 4 + 4, full width, no mesh:
+   2 train steps of n's 4 groups x 4 x 128 tokens (B1 twice a step) held to
+   the B1-plain twin as n holds its own, then the prefill step (B9 once a
+   Mamba2 layer, B8 once an attention over the prompt) over 4 x 128 and 4
+   greedy decode steps held to the teacher-forced training forward (mamba2
+   and zamba2 by phase f's f32 oracle, whisper at 0.05 of a row's largest
+   |logit|), and B8 against its plain version at whisper's prompt shape;
+   (ii) the first layer of each kind of the three at 2 layers in f32 run as
+   the two ranks of a (1, 2) mesh run it, one after the other on this card:
+   the Mamba2 mixer's core on each rank's half of the heads (B9 over nh /
+   2 heads in the prefill; a decode step), the attentions on each rank's
+   half (B8), recombined as DTensor recombines them (the gated norm's sum of
+   squares summed, the out-projections' partial sums added) and held to
+   the whole layer: heads and conv windows bit for bit, outputs and states
+   within 1e-5 of their largest |value|. The mesh steps themselves run on
+   gloo over CPU tensors (``tests/test_torch_launch_mesh.py``): gloo's
+   functional all-gather of a CUDA tensor segfaults on torch 2.11;
 8. one JSON line listing the kernels; last, the ok line.
 
-Each path of phases 4-6, 5b-5d, m, n, k, l, f, g, h, i and j included, is driven with the kernels' launch
+Each path of phases 4-6, 5b-5d, m, n, o, k, l, f, g, h, i and j included, is driven with the kernels' launch
 counts set to 0 just before it and read just after. Float32 matmuls run in
 full f32 (TF32 off for matmuls and cuDNN alike). The end of each phase, with
 the seconds since the start, also goes to standard error.
@@ -591,6 +610,29 @@ OOC_HOT_SLOTS = 2
 LAUNCH_GROUPS, LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_STEPS, LAUNCH_LR = 4, 16, 128, 4, 1e-4
 LAUNCH_PROMPTS, LAUNCH_DECODE = 4, 8
 LAUNCH_LOSS_RTOL = 1e-6
+# Phase o: the launch layer's steps for the SSM, hybrid and encoder-decoder
+# families. (i) Each at full width with no mesh, cut in depth (mamba2-1.3b
+# to 4 layers, zamba2-7b to 6 Mamba2 layers: one application of its shared
+# block, whisper-large-v3 to 4 + 4): LAUNCH_FAMILY_STEPS train steps of
+# phase n's 4 client groups x 4 x 128 tokens held to the B1-plain twin as
+# phase n holds its own, then a prefill of LAUNCH_PROMPTS x LAUNCH_SEQ and
+# LAUNCH_FAMILY_DECODE greedy decode steps held to the teacher-forced
+# training forward: mamba2 and zamba2 by phase f's oracle (the f32 forward,
+# SSM_FLOOR_RATIO times the plain bf16 forward's own error), whisper by
+# phase 5d's SERVE_LOGIT_REL. (ii) The same three at 2 layers each in f32
+# (zamba2 with its shared block after every 2 layers, so that one
+# application runs): the first layer of each kind run as the two
+# ranks of a (1, 2) mesh run it, one after the other on this card (B9 over
+# nh / 2 heads, B8 over half the heads), recombined as DTensor does and
+# held to the whole layer: the heads' attention outputs and the conv
+# windows bit for bit, the summed projections and the states (whose sums
+# run in another order) within LAUNCH_HEADS_REL of their largest |value|.
+LAUNCH_FAMILIES = {"mamba2-1.3b": dict(num_layers=4), "zamba2-7b": dict(num_layers=6),
+                   "whisper-large-v3": dict(num_layers=4, encoder_layers=4)}
+LAUNCH_TP_FAMILIES = {"mamba2-1.3b": dict(num_layers=2), "zamba2-7b": dict(num_layers=2, hybrid_period=2),
+                      "whisper-large-v3": dict(num_layers=2, encoder_layers=2)}
+LAUNCH_FAMILY_STEPS, LAUNCH_FAMILY_DECODE = 2, 4
+LAUNCH_HEADS_REL = 1e-5
 STRAGGLER_POLICIES = dict(buffer_size=2, merge_mode="delta", server_lr=0.8, staleness_cutoff=2, adapt_buffer=True,
                           adapt_steps=True, sampling_bias=2.0)
 
@@ -3690,25 +3732,25 @@ def plain_masked_adamw(ops, ref):
     return update
 
 
-def check_launch_freeze(start, state, n_gal, what):
-    """Phase n(i)'s frozen entries, bit for bit to the start: the GAL tree
-    on the layers after the first ``n_gal``, the local tree on those; and
-    each tree moved where it trains."""
+def check_launch_freeze(start, state, what):
+    """A launch-layer train step's frozen entries, bit for bit to the
+    start: the GAL tree and its moments where the GAL mask is 0, the local
+    tree and its moments where (1 - GAL mask) x local mask is 0; and each
+    ``b`` leaf moved where it trains."""
     from repro_torch.utils.tree import tree_items
 
     old = dict(tree_items(start))
     for k, x in tree_items(state):
-        if k.startswith(("gal_lora", "gal_m/", "gal_v")):
-            frozen, live = x[n_gal:], x[:n_gal]
-            frozen0, live0 = old[k][n_gal:], old[k][:n_gal]
-        elif k.startswith(("local_lora", "local_m/", "local_v")):
-            frozen, live = x[:, :n_gal], x[:, n_gal:]
-            frozen0, live0 = old[k][:, :n_gal], old[k][:, n_gal:]
+        kind, _, path = k.partition("/")
+        if kind in ("gal_lora", "gal_m", "gal_v"):
+            live = old[f"gal_mask/{path}"].expand(x.shape) != 0
+        elif kind in ("local_lora", "local_m", "local_v"):
+            live = ((1.0 - old[f"gal_mask/{path}"])[None] * old[f"local_mask/{path}"]).expand(x.shape) != 0
         else:
             continue
-        if not torch.equal(frozen, frozen0):
+        if not torch.equal(x[~live], old[k][~live]):
             raise AssertionError(f"{what}: a frozen entry of {k} moved")
-        if k.endswith("/b") and torch.equal(live, live0):
+        if k.endswith("/b") and bool(live.any()) and torch.equal(x[live], old[k][live]):
             raise AssertionError(f"{what}: {k} did not train where it is live")
 
 
@@ -3721,13 +3763,11 @@ def phase_launch(ops, ref, smi, tree_clone, tree_leaves):
     from repro_torch.config import H100_SXM
     from repro_torch.configs import ARCHS
     from repro_torch.launch import analysis, prof_stats, steps, train
-    from repro_torch.lora import lora_num_logical_layers
 
     cfg = ARCHS["qwen2-0.5b"]
     dev = torch.device("cuda")
     G, B, S, n = LAUNCH_GROUPS, LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_STEPS
     model, params, state, gen = train.init_run(cfg, dev, G)
-    n_gal = int(round(0.75 * lora_num_logical_layers(cfg)))
     start, gen_start = tree_clone(state), gen.get_state()
     with Launches(ops) as run:
         (st, losses), secs = timed(lambda: train.train_loop(
@@ -3745,8 +3785,8 @@ def phase_launch(ops, ref, smi, tree_clone, tree_leaves):
         f"{leaf_err:.3g}; launches {run.counts['masked_adamw_update']}")
     if not all(math.isfinite(x) for x in losses) or rel > LAUNCH_LOSS_RTOL or leaf_err > ROUND0_LORA_ATOL:
         raise AssertionError("the train step and its B1-plain twin disagree")
-    check_launch_freeze(start, st, n_gal, "train step")
-    check_launch_freeze(start, st_p, n_gal, "B1-plain train step")
+    check_launch_freeze(start, st, "train step")
+    check_launch_freeze(start, st_p, "B1-plain train step")
     if int(st["step"]) != n:
         raise AssertionError(f"step counter {int(st['step'])} after {n} steps")
     counts = {"masked_adamw_update": run.counts["masked_adamw_update"]}
@@ -3755,26 +3795,14 @@ def phase_launch(ops, ref, smi, tree_clone, tree_leaves):
     # (ii) prefill (B8) and decode, against the teacher-forced forward
     lora = st["gal_lora"]
     prompts = torch.randint(0, cfg.vocab_size, (LAUNCH_PROMPTS, S), generator=gen, device=dev)
-    prefill = steps.build_prefill_step(model, cache_len=S + LAUNCH_DECODE)
-    decode = steps.build_decode_step(model)
     with Launches(ops) as run:
-        def serve():
-            logits, cache = prefill(params, lora, {"tokens": prompts})
-            got, toks = [logits[:, -1]], []
-            for j in range(LAUNCH_DECODE):
-                toks.append(torch.argmax(logits[:, -1], dim=-1, keepdim=True))
-                logits, cache = decode(params, lora, toks[-1], cache, S + j)
-                got.append(logits[:, -1])
-            return torch.stack(got, 1), torch.cat(toks, 1)
-
-        (got, toks), serve_s = timed(serve)
+        (got, toks), serve_s = timed(lambda: launch_serve(model, params, lora, {"tokens": prompts}, LAUNCH_DECODE))
     if run.counts != only(flash_attention=cfg.num_layers):
         raise AssertionError(f"the prefill step did not take B8 once a layer: {run.counts}")
     counts["flash_attention"] = run.counts["flash_attention"]
     with torch.no_grad():
         want = model.forward(params, lora, {"tokens": torch.cat([prompts, toks], 1)})[0][:, S - 1:].float()
-    got = got.float()
-    err = ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+    err = float(row_err(got, want).max())
     log(f"phase n(ii) prefill {LAUNCH_PROMPTS}x{S} + {LAUNCH_DECODE} decode steps in {serve_s:.3f} s: logits "
         f"{err:.4f} of a row's largest |logit| from the training forward (limit {SERVE_LOGIT_REL}); B8 launches "
         f"{counts['flash_attention']}")
@@ -3806,6 +3834,270 @@ def phase_launch(ops, ref, smi, tree_clone, tree_leaves):
     if not (counter.flops > 0 and prof["launches"] > 0 and prof["kernel_ms"] > 0):
         raise AssertionError("the profiler twin saw no device work")
     return counts, b8_err
+
+
+def launch_serve(model, params, lora, batch, n_decode):
+    """The launch layer's prefill step over ``batch`` and ``n_decode``
+    greedy decode steps: ``(logits (B, 1 + n_decode, V) f32, tokens)``."""
+    from repro_torch.launch import steps
+
+    S = batch["tokens"].shape[1]
+    logits, cache = steps.build_prefill_step(model, cache_len=S + n_decode)(params, lora, batch)
+    decode = steps.build_decode_step(model)
+    got, toks = [logits[:, -1].float()], []
+    for j in range(n_decode):
+        toks.append(torch.argmax(got[-1], dim=-1, keepdim=True))
+        logits, cache = decode(params, lora, toks[-1], cache, S + j)
+        got.append(logits[:, -1].float())
+    return torch.stack(got, 1), torch.cat(toks, 1)
+
+
+def row_err(x, want):
+    """Each row's largest |x - want| over its largest |want|."""
+    return (x - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)
+
+
+def family_kernels(cfg):
+    """The kernel launches of one prefill step of ``cfg`` on the card: B9
+    once a Mamba2 layer, B8 once per application of an attention over the
+    prompt (the hybrid's shared block; whisper's encoder and decoder)."""
+    if cfg.family == "ssm":
+        return dict(ssd_chunk_intra=cfg.num_layers)
+    if cfg.family == "hybrid":
+        return dict(ssd_chunk_intra=cfg.num_layers, flash_attention=cfg.num_layers // cfg.hybrid_period)
+    return dict(flash_attention=cfg.encoder_layers + cfg.num_layers)
+
+
+def phase_launch_families(ops, ref, smi, tree_clone, tree_leaves, dev):
+    """Phase o(i): the launch layer's train, prefill and decode steps of
+    mamba2-1.3b, zamba2-7b and whisper-large-v3 at full width and cut
+    depth, with no mesh; the train steps held to their B1-plain twin, the
+    served logits to the teacher-forced training forward. Returns the
+    launches and B8's largest error at whisper's prompt shape."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps, train
+    from repro_torch.utils.tree import tree_map
+
+    G, B, S, n = LAUNCH_GROUPS, LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_FAMILY_STEPS
+    counts = dict.fromkeys(LAUNCHED, 0)
+    for name, cut in LAUNCH_FAMILIES.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(ARCHS[name], **cut)
+        torch.cuda.reset_peak_memory_stats()
+        model, params, state, gen = train.init_run(cfg, dev, G)
+        start, gen_start = tree_clone(state), gen.get_state()
+        with Launches(ops) as run:
+            (st, losses), secs = timed(lambda: train.train_loop(
+                steps.build_train_step(model, G, learning_rate=LAUNCH_LR), params, state, gen, cfg, B, S, n,
+                log=None))
+        if run.counts != only(masked_adamw_update=2 * n):
+            raise AssertionError(f"o(i) {name}: the train step did not launch B1 twice a step: {run.counts}")
+        counts["masked_adamw_update"] += run.counts["masked_adamw_update"]
+        gen.set_state(gen_start)
+        plain_step = steps._build_train_step(model, G, LAUNCH_LR, plain_masked_adamw(ops, ref))
+        (st_p, losses_p), secs_p = timed(lambda: train.train_loop(plain_step, params, tree_clone(start), gen, cfg, B,
+                                                                  S, n, log=None))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_p))
+        leaf_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(tree_leaves(st), tree_leaves(st_p)))
+        log(f"phase o(i) {name} at {cfg.num_layers}" + (f" + {cfg.encoder_layers}" if cfg.encoder_layers else "")
+            + f" layers, train step ({smi}): {G} groups x {B // G} x {S} tokens, {n} steps in {secs:.2f} s "
+            f"(B1-plain twin {secs_p:.2f} s); losses {losses} vs {losses_p} (rel {rel:.3g}); state max abs diff "
+            f"{leaf_err:.3g}; B1 launches {run.counts['masked_adamw_update']}")
+        if not all(math.isfinite(x) for x in losses) or rel > LAUNCH_LOSS_RTOL or leaf_err > ROUND0_LORA_ATOL:
+            raise AssertionError(f"o(i) {name}: the train step and its B1-plain twin disagree")
+        check_launch_freeze(start, st, f"o(i) {name} train step")
+        check_launch_freeze(start, st_p, f"o(i) {name} B1-plain train step")
+        del st_p, start
+
+        # the prefill (B9 and/or B8) and decode steps against the forward
+        lora = st["gal_lora"]
+        batch = train.random_batch(cfg, LAUNCH_PROMPTS, S, gen)
+        with Launches(ops) as run:
+            (got, toks), serve_s = timed(lambda: launch_serve(model, params, lora, batch, LAUNCH_FAMILY_DECODE))
+        if run.counts != only(**family_kernels(cfg)):
+            raise AssertionError(f"o(i) {name}: the prefill step did not take its kernels: {run.counts}")
+        for k, v in run.counts.items():
+            counts[k] += v
+        full = dict(batch, tokens=torch.cat([batch["tokens"], toks], 1))
+        with torch.no_grad():
+            plain = model.forward(params, lora, full)[0][:, S - 1:].float()
+            if cfg.family in ("ssm", "hybrid"):
+                want = model.forward(tree_map(lambda x: x.float(), params), lora,
+                                     {k: v.float() if v.is_floating_point() else v for k, v in full.items()}
+                                     )[0][:, S - 1:].float()
+                floor = float(row_err(plain, want).max())
+                tol, what = SSM_FLOOR_RATIO * floor, f"{SSM_FLOOR_RATIO} x the plain bf16 forward's {floor:.4g}"
+            else:
+                want, tol, what = plain, SERVE_LOGIT_REL, "phase 5d's limit"
+        err = float(row_err(got, want).max())
+        log(f"phase o(i) {name} prefill {LAUNCH_PROMPTS}x{S} + {LAUNCH_FAMILY_DECODE} decode steps in {serve_s:.3f} "
+            f"s: logits {err:.4g} of a row's largest |logit| from the training forward (limit {tol:.4g}: {what}); "
+            f"launches {dict((k, v) for k, v in run.counts.items() if v)}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s")
+        if not bool(torch.isfinite(got).all()) or err > tol:
+            raise AssertionError(f"o(i) {name}: the prefill/decode steps' logits are off the training forward")
+        del model, params, state, st, lora, batch, full, got, plain, want
+        free_memory()
+    # B8 against its plain version at whisper's prompt shape (4 x 128, 20 heads of 64, bf16)
+    cfg = ARCHS["whisper-large-v3"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, kk, vv = (torch.randn(LAUNCH_PROMPTS, S, cfg.num_heads, cfg.resolved_head_dim, generator=gen,
+                             device=dev).bfloat16() for _ in range(3))
+    b8_err = check_attention(ops.flash_attention(q, kk, vv, causal=True, window=None),
+                             ref.flash_attention_gqa_ref(q, kk, vv, causal=True, window=None), vv,
+                             f"B8 at whisper's prompt step shape {LAUNCH_PROMPTS}x{S}")
+    return counts, b8_err
+
+
+def mixer_halves(ops, ssm, cfg, h, p, lo, scale, cache=None):
+    """The Mamba2 mixer of one layer as the two ranks of a (1, 2) mesh run
+    it (``sharding_ctx.local_ssm``): each rank's core over its nh / 2 heads
+    (the prefill's scan on B9), then what DTensor does after them: the gated
+    norm's sum of squares summed over the ranks, each rank's rows of
+    ``out_proj`` and of its LoRA ``a``, the partial outputs summed. ``cache``
+    (conv_buf, state): one decode step. Returns ``(out, conv window, state,
+    the cores' launches)``."""
+    from repro_torch.models.layers import linear
+
+    dims = ssm.ssm_dims(cfg)
+    half, hd, di = dims["nheads"] // 2, cfg.ssm.head_dim, dims["d_inner"]
+    zxbcdt = linear(h, {"w": p["in_proj"]}, lo["in_proj"], scale)
+    core = {k: p[k] for k in ("conv_w", "A_log", "D", "dt_bias")}
+    conv_buf, state = cache or (None, None)
+    with Launches(ops) as run:
+        parts = [ssm._core(cfg, zxbcdt, core, r * half, half, conv_buf,
+                           None if state is None else state[:, r * half:(r + 1) * half], kernel=True) for r in range(2)]
+    gated = [y * torch.nn.functional.silu(z.float()).to(h.dtype) for y, z, _, _ in parts]
+    sumsq = sum(torch.sum(torch.square(g.float()), dim=-1, keepdim=True) for g in gated)  # the all-reduce
+    out = 0
+    for r, g in enumerate(gated):
+        rows = slice(r * half * hd, (r + 1) * half * hd)
+        normed = (g.float() * torch.rsqrt(sumsq / di + 1e-6) * p["gate_norm_w"][rows].float()).to(h.dtype)
+        out = out + linear(normed, {"w": p["out_proj"][rows]},
+                           {"a": lo["out_proj"]["a"][rows], "b": lo["out_proj"]["b"]}, scale)
+    return out, parts[0][2], torch.cat([st for *_, st in parts], dim=1), run.counts
+
+
+def attention_halves(ops, q, k, v, causal, wo, lo_wo, scale):
+    """An attention and its out-projection as the two ranks of a (1, 2)
+    mesh run them (``sharding_ctx.local_heads``): B8 over each rank's half
+    of the heads, then each rank's rows of ``wo`` and of its LoRA ``a``, the
+    partial outputs summed. Returns ``(the heads' outputs concatenated, the
+    summed projection, B8's launches)``."""
+    from repro_torch.models.layers import linear
+
+    B, S, H, D = q.shape
+    Hr, Kr = H // 2, k.shape[2] // 2
+    with Launches(ops) as run:
+        outs = [ops.flash_attention(q[:, :, r * Hr:(r + 1) * Hr], k[:, :, r * Kr:(r + 1) * Kr],
+                                    v[:, :, r * Kr:(r + 1) * Kr], causal=causal, window=None) for r in range(2)]
+    proj = sum(linear(o.reshape(B, S, Hr * D), {"w": wo[r * Hr * D:(r + 1) * Hr * D]},
+                      {"a": lo_wo["a"][r * Hr * D:(r + 1) * Hr * D], "b": lo_wo["b"]}, scale)
+               for r, o in enumerate(outs))
+    return torch.cat(outs, dim=2), proj, run.counts
+
+
+def phase_launch_heads(ops, smi, dev):
+    """Phase o(ii): one layer of each kind of the three families at full
+    width in f32 (2 layers; zamba2's shared block after every 2), its
+    mixer and attentions run as each rank of a (1, 2) mesh runs them, one
+    rank after the other on this card: B9 over nh / 2 heads, B8 over half
+    the heads; recombined as DTensor recombines them and held to the whole
+    layer. The steps' own collectives are not run here: gloo's functional
+    all-gather of a CUDA tensor segfaults on torch 2.11, and NCCL takes
+    one rank a device (``tests/test_torch_launch_mesh.py`` runs the mesh
+    steps on gloo over CPU tensors). Returns the ranks' launches."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train
+    from repro_torch.models import encdec, ssm
+    from repro_torch.models.layers import apply_rope, linear, rms_norm, sinusoidal_positions
+    from repro_torch.models.transformer import _layer_slices, _norm, _project_qkv
+    from repro_torch.utils.tree import tree_items, unflatten_dict
+
+    counts = dict.fromkeys(LAUNCHED, 0)
+    S = LAUNCH_SEQ
+
+    def held(name, got, want, what, exact=False):
+        err = float((got.float() - want.float()).abs().max())
+        limit = 0.0 if exact else LAUNCH_HEADS_REL * float(want.float().abs().max())
+        if not bool(torch.isfinite(got).all()) or err > limit:
+            raise AssertionError(f"o(ii) {name}: the ranks' {what} recombined are {err:.3g} off the whole layer's "
+                                 f"(limit {limit:.3g})")
+        return err / max(limit, 1e-30)
+
+    def add(run_counts):
+        for k, v in run_counts.items():
+            counts[k] += v
+
+    for name, cut in LAUNCH_TP_FAMILIES.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(ARCHS[name], dtype="float32", **cut)
+        _, params, state, gen = train.init_run(cfg, dev, LAUNCH_GROUPS)
+        # the GAL LoRA with b off zero, so each rank's LoRA term is live
+        lora = unflatten_dict({k: torch.randn(v.shape, generator=gen, device=dev) * 0.01 if k.endswith("/b") else v
+                               for k, v in tree_items(state["gal_lora"])})
+        batch = train.random_batch(cfg, LAUNCH_PROMPTS, S, gen)
+        scale = cfg.lora_alpha / cfg.lora_rank
+        readings = {}
+        with torch.no_grad():
+            if cfg.ssm is not None:
+                stack, lstack = (params["layers"], lora["layers"]) if cfg.family == "ssm" else \
+                    (params["mamba"], lora["mamba"])
+                p = {k: v[0] for k, v in stack.items()}
+                lo = {t: {n: x[0] for n, x in ab.items()} for t, ab in lstack.items()}
+                emb = torch.nn.functional.embedding(batch["tokens"], params["embed"])
+                h = rms_norm(emb, p["norm_w"])
+                out, window, st = ssm._mixer(h, p, cfg, lo, scale, kernel=True)
+                got, got_window, got_st, run = mixer_halves(ops, ssm, cfg, h, p, lo, scale)
+                if run != only(ssd_chunk_intra=2):
+                    raise AssertionError(f"o(ii) {name}: the ranks' prefill scans did not take B9 once each: {run}")
+                add(run)
+                readings["prefill out"] = held(name, got, out, "prefill outputs")
+                readings["prefill state"] = held(name, got_st, st, "final states")
+                held(name, got_window, window, "conv windows", exact=True)
+                h1 = rms_norm(torch.nn.functional.embedding(batch["tokens"][:, -1], params["embed"]), p["norm_w"])
+                out1, window1, st1 = ssm._mixer(h1, p, cfg, lo, scale, kernel=False, cache=(window, st))
+                got1, got_window1, got_st1, _ = mixer_halves(ops, ssm, cfg, h1, p, lo, scale, cache=(window, st))
+                readings["decode out"] = held(name, got1, out1, "decode outputs")
+                readings["decode state"] = held(name, got_st1, st1, "decode states")
+                held(name, got_window1, window1, "decode conv windows", exact=True)
+            attns = []
+            if cfg.family == "hybrid":
+                sp, sl = params["shared"], lora["shared"]
+                x = rms_norm(emb, sp["attn_norm_w"])
+                pos = torch.arange(S, device=dev)[None]
+                qkv = [linear(x, {"w": sp[w]}, sl[w], scale).reshape(LAUNCH_PROMPTS, S, n, cfg.resolved_head_dim)
+                       for w, n in (("wq", cfg.num_heads), ("wk", cfg.num_kv_heads), ("wv", cfg.num_kv_heads))]
+                q, k = (apply_rope(t, pos, theta=cfg.rope_theta, mode="full") for t in qkv[:2])
+                attns.append(("shared block", q, k, qkv[2], True, sp["wo"], sl["wo"]))
+            if cfg.family == "audio":
+                pe, le = _layer_slices(params["encoder"], lora["encoder"], 0)
+                frames = batch["encoder_embeds"]
+                xe = _norm(frames + sinusoidal_positions(frames.shape[1], cfg.d_model, frames.dtype, dev)[None], pe,
+                           "attn_norm", "layernorm")
+                attns.append(("encoder", *_project_qkv(xe, pe, le, cfg, scale), False, pe["wo"], le["wo"]))
+                pd, ld = _layer_slices(params["decoder"], lora["decoder"], 0)
+                xd = _norm(encdec._embed_tokens(params["decoder"], batch["tokens"], cfg), pd, "attn_norm",
+                           "layernorm")
+                attns.append(("decoder prompt", *_project_qkv(xd, pd, ld, cfg, scale), True, pd["wo"], ld["wo"]))
+            for label, q, k, v, causal, wo, lo_wo in attns:
+                o = ops.flash_attention(q, k, v, causal=causal, window=None)
+                whole = linear(o.reshape(*o.shape[:2], -1), {"w": wo}, lo_wo, scale)
+                heads, proj, run = attention_halves(ops, q, k, v, causal, wo, lo_wo, scale)
+                if run != only(flash_attention=2):
+                    raise AssertionError(f"o(ii) {name} {label}: the ranks' attentions did not take B8 once each: "
+                                         f"{run}")
+                add(run)
+                held(name, heads, o, f"{label} attention heads", exact=True)
+                readings[f"{label} out"] = held(name, proj, whole, f"{label} projections")
+        nh = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim if cfg.ssm is not None else cfg.num_heads
+        log(f"phase o(ii) {name} ({smi}), f32, the two ranks' bodies of a (1, 2) mesh on {nh // 2} of {nh} heads "
+            f"each: recombined against the whole layer at {json.dumps({k: round(v, 4) for k, v in readings.items()})} "
+            f"of the limit ({LAUNCH_HEADS_REL} of its largest |value|); heads and conv windows bit for bit; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del params, state, lora, batch
+        free_memory()
+    return counts
 
 
 def phase_checkpoints(ops, make_runner, AsyncAggConfig, model, loss_fn, fl, clients, snaps, ckpt_root, tree_leaves):
@@ -4322,6 +4614,20 @@ def main() -> int:
         launches[name] += n
     errs["flash_attention"] = max(errs["flash_attention"], b8_err)
     done("n")
+
+    # --- o. the launch layer's steps for mamba2, zamba2 and whisper: (i) at
+    # full width without a mesh, (ii) one layer of each kind as the ranks
+    # of a (1, 2) mesh run it, each on its half of the heads ---
+    t_o = time.perf_counter()
+    dev = torch.device("cuda")
+    family_counts, b8_err = phase_launch_families(ops, ref, smi, tree_clone, tree_leaves, dev)
+    errs["flash_attention"] = max(errs["flash_attention"], b8_err)
+    for name, n in family_counts.items():
+        launches[name] += n
+    for name, n in phase_launch_heads(ops, smi, dev).items():
+        launches[name] += n
+    log(f"phase o: {time.perf_counter() - t_o:.1f} s")
+    done("o")
 
     # --- k. the async engine on phase 4's world: the degenerate run against
     # the loop engine, stragglers, compression with derived ranks and edges ---

@@ -25,6 +25,9 @@ each rank's local shards (p, g, m, v and the mask share placements). The
 ``"model"`` axis, where it has more than one rank, stays with DTensor:
 the forward runs on DTensors of that sub-mesh, one client group after
 another, and each gradient's pending sums are reduced before the update.
+Every family takes it: the models run their attentions, the Mamba2
+mixer's scan and the routed experts on each rank's heads or experts
+(:mod:`repro_torch.models.sharding_ctx`).
 Without a mesh (plain tensors) it is the one-rank program.
 """
 from __future__ import annotations
@@ -155,18 +158,6 @@ class _Layout:
         return out.redistribute(self.mesh, like.placements).to_local()
 
 
-# families whose forward DTensor cannot yet shard over a model axis (ROADMAP.md C13)
-_NO_TENSOR_PARALLEL = ("ssm", "hybrid", "encdec", "audio")
-
-
-def _layout(model: ModelFns, like_local) -> _Layout:
-    lay = _Layout(like_local)
-    if lay.sub is not None and model.cfg.family in _NO_TENSOR_PARALLEL:
-        raise NotImplementedError(f"the {model.cfg.family} family has no tensor-parallel step yet: "
-                                  "the mesh's model axis must have one rank")
-    return lay
-
-
 def _split(n: int):
     return lambda x: x.reshape(n, x.shape[0] // n, *x.shape[1:])
 
@@ -223,7 +214,7 @@ def _build_train_step(model: ModelFns, n_groups: int, learning_rate: float, upda
             loss, g_gal, g_local = _group_grads(loss_of, params, state["gal_lora"], state["local_lora"], batch_g,
                                                 state["gal_mask"], n_groups, looped=False)
             return apply_updates(state, g_gal, g_local, loss.detach())
-        return _mesh_train_step(params, state, batch, _layout(model, first))
+        return _mesh_train_step(params, state, batch, _Layout(first))
 
     def _mesh_train_step(params, state, batch, lay: _Layout):
         n_local = n_groups // lay.dp_size
@@ -265,7 +256,7 @@ def build_train_step(model: ModelFns, n_groups: int, *, learning_rate: float = 1
     return _build_train_step(model, n_groups, learning_rate, masked_adamw)
 
 
-def _serve_inputs(model, params, lora, batch_like):
+def _serve_inputs(params, lora, batch_like):
     """Plain inputs as they are; on a mesh, each tree as the rank's block
     (batch rows of its client groups, DTensors on the tensor-parallel
     sub-mesh) and the context the forward runs in."""
@@ -274,7 +265,7 @@ def _serve_inputs(model, params, lora, batch_like):
         return None, params, lora, contextlib.nullcontext()
     from torch.distributed.tensor.experimental import implicit_replication
 
-    lay = _layout(model, first)
+    lay = _Layout(first)
     return lay, tree_map(lay.shared, params), tree_map(lay.shared, lora), implicit_replication()
 
 
@@ -282,7 +273,7 @@ def build_prefill_step(model: ModelFns, cache_len: int) -> Callable:
     """``prefill_step(params, lora, batch) -> (last logits, cache)``; on a
     mesh each rank returns its client groups' rows."""
     def prefill_step(params, lora, batch):
-        lay, params, lora, ctx = _serve_inputs(model, params, lora, batch)
+        lay, params, lora, ctx = _serve_inputs(params, lora, batch)
         if lay is not None:
             batch = tree_map(lay.rows, batch)
         with ctx:
@@ -298,7 +289,7 @@ def build_decode_step(model: ModelFns) -> Callable:
     its block of the cache: the cache placed on the whole mesh, or the
     block a prefill or decode step returned."""
     def decode_step(params, lora, token, cache, position):
-        lay, params, lora, ctx = _serve_inputs(model, params, lora, token)
+        lay, params, lora, ctx = _serve_inputs(params, lora, token)
         if lay is not None:
             token = lay.rows(token)
             cache = tree_map(lambda c: lay.local(c) if type(c) is not torch.Tensor and c.device_mesh == lay.mesh

@@ -75,17 +75,34 @@ def init_run(cfg, device, n_groups: int, *, gal_fraction: float = 0.75, mesh=Non
     return model, params, state, gen
 
 
+def random_batch(cfg, B: int, S: int, gen):
+    """A train batch of ``cfg``'s inputs (``input_specs``) drawn from ``gen``
+    on its device: tokens and labels uniform, float inputs (frame or patch
+    embeddings) N(0, 1) in the model dtype."""
+    from repro_torch.config import InputShape
+    from repro_torch.models import build_model
+
+    batch = {}
+    for k, spec in build_model(cfg).input_specs(InputShape("train", S, B, "train")).items():
+        if spec.dtype.is_floating_point:
+            batch[k] = torch.randn(spec.shape, generator=gen, device=gen.device).to(spec.dtype)
+        else:
+            hi = cfg.num_classes if k == "labels" else cfg.vocab_size
+            batch[k] = torch.randint(0, hi, spec.shape, generator=gen, device=gen.device)
+    return batch
+
+
 def train_loop(step, params, state, gen, cfg, B: int, S: int, steps: int, *, mesh=None, log=print):
-    """``steps`` train steps on random (B, S) token batches drawn from
-    ``gen``; on ``mesh`` the batch is placed on its client axes. Returns the
-    state and the losses (floats)."""
+    """``steps`` train steps on random batches of B sequences of S tokens
+    (:func:`random_batch`) drawn from ``gen``; on ``mesh`` the batch is
+    placed on its client axes. Returns the state and the losses (floats)."""
     from repro_torch.launch import shardings as shd
     from repro_torch.launch.mesh import dp_axes
 
     losses = []
     t0 = time.time()
     for i in range(steps):
-        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=gen.device)}
+        batch = random_batch(cfg, B, S, gen)
         if mesh is not None:
             batch = shd.distribute(batch, mesh, shd.batch_shardings(mesh, batch, dp_axes(mesh)))
         state, metrics = step(params, state, batch)

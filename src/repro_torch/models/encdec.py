@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import sharding_ctx
 from repro_torch.models.layers import init_embed, layer_norm, linear, sinusoidal_positions, sinusoidal_rows
 from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.transformer import (
@@ -75,17 +76,22 @@ def _proj(x, p, w: str, b: str, lora, lora_scale):
     return linear(x, {"w": p[w], **({"b": p[b]} if b in p else {})}, lora.get(w) if lora else None, lora_scale)
 
 
+def _heads(t, n: int, cfg: ModelConfig):
+    """(B, S, n·hd) -> (B, S, n, hd); a tensor-parallel projection keeps its
+    shards only over whole KV heads (``sharding_ctx.unshard_unless``)."""
+    t = sharding_ctx.unshard_unless(t, -1, cfg.num_kv_heads)
+    return t.reshape(t.shape[0], t.shape[1], n, cfg.resolved_head_dim)
+
+
 def _cross_q(x, p, lora, cfg: ModelConfig, lora_scale):
-    B, S = x.shape[0], x.shape[1]
-    return _proj(x, p, "cwq", "cbq", lora, lora_scale).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    return _heads(_proj(x, p, "cwq", "cbq", lora, lora_scale), cfg.num_heads, cfg)
 
 
 def _encode_kv(enc_out, p, lora, cfg: ModelConfig, lora_scale):
     """The cross-attention's K and V of one decoder layer over the encoder's
     output, (B, S_enc, KVH, hd) each."""
-    B, S, hd = enc_out.shape[0], enc_out.shape[1], cfg.resolved_head_dim
-    k = _proj(enc_out, p, "cwk", "cbk", lora, lora_scale).reshape(B, S, cfg.num_kv_heads, hd)
-    v = _proj(enc_out, p, "cwv", "cbv", lora, lora_scale).reshape(B, S, cfg.num_kv_heads, hd)
+    k = _heads(_proj(enc_out, p, "cwk", "cbk", lora, lora_scale), cfg.num_kv_heads, cfg)
+    v = _heads(_proj(enc_out, p, "cwv", "cbv", lora, lora_scale), cfg.num_kv_heads, cfg)
     return k, v
 
 
@@ -113,7 +119,7 @@ def encode(params, lora, frame_embeds: torch.Tensor, cfg: ModelConfig, lora_scal
         if kernel:
             o = prompt_attention(q, k, v, cfg, causal=False)
         else:
-            o = attn.blockwise_attention(q, k, v, causal=False)
+            o = sharding_ctx.local_heads(attn.blockwise_attention, q, k, v, causal=False)
         h = h + linear(o.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim), {"w": p["wo"]},
                        lr.get("wo") if lr else None, lora_scale)
         h = h + apply_mlp(_norm(h, p, "mlp_norm", "layernorm"), p, "gelu", lr, lora_scale)
@@ -132,7 +138,7 @@ def _cross_mlp(h, enc_out, p, lr, cfg: ModelConfig, lora_scale, cross_kv=None):
     B, S = h.shape[0], h.shape[1]
     qc = _cross_q(_norm(h, p, "cross_norm", "layernorm"), p, lr, cfg, lora_scale)
     kc, vc = cross_kv if cross_kv is not None else _encode_kv(enc_out, p, lr, cfg, lora_scale)
-    oc = attn.full_attention(qc, kc, vc, causal=False)
+    oc = sharding_ctx.local_heads(attn.full_attention, qc, kc, vc, causal=False)
     h = h + _proj(oc.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim), p, "cwo", "", lr, lora_scale)
     return h + apply_mlp(_norm(h, p, "mlp_norm", "layernorm"), p, "gelu", lr, lora_scale)
 
@@ -147,17 +153,18 @@ def _decoder_layer(h, enc_out, p, lr, cfg: ModelConfig, lora_scale, *, self_cach
     if self_cache is not None:
         k_c, v_c = self_cache
         slot = (cache_position % k_c.shape[1]) if ring else cache_position
-        attn.scatter_decode_kv(k_c, k, slot)
-        attn.scatter_decode_kv(v_c, v, slot)
-        o = attn.decode_attention(q, k_c, v_c, cache_position, ring=ring, window=cfg.attention_window)
+        attn.scatter_decode_kv(*sharding_ctx.local_write(k_c, k), slot)
+        attn.scatter_decode_kv(*sharding_ctx.local_write(v_c, v), slot)
+        o = sharding_ctx.local_heads(attn.decode_attention, q, k_c, v_c, cache_position, ring=ring,
+                                     window=cfg.attention_window)
     else:
-        o = attn.blockwise_attention(q, k, v, causal=True, window=cfg.attention_window)
+        o = sharding_ctx.local_heads(attn.blockwise_attention, q, k, v, causal=True, window=cfg.attention_window)
     h = h + _proj(o.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim), p, "wo", "", lr, lora_scale)
     return _cross_mlp(h, enc_out, p, lr, cfg, lora_scale, cross_kv)
 
 
 def _embed_tokens(dec, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = torch.nn.functional.embedding(tokens, dec["embed"])
+    h = sharding_ctx.replicate_partial(torch.nn.functional.embedding(tokens, dec["embed"]))
     return h + sinusoidal_positions(tokens.shape[1], cfg.d_model, h.dtype, h.device)[None]
 
 
@@ -241,9 +248,10 @@ def encdec_prefill(params, lora, batch, cfg: ModelConfig, cache_len: int, *, lor
             tail = t[:, S - keep:]
             if keep == cache_len and ring and S % cache_len:
                 tail = torch.roll(tail, S % cache_len, dims=1)
-            cache[name][i, :, :keep] = tail
-        cache["cross_k"][i] = kc
-        cache["cross_v"][i] = vc
+            # a tensor-parallel prefill's (DTensor) tails are gathered into the plain cache
+            sharding_ctx.put(cache[name][i, :, :keep], tail)
+        sharding_ctx.put(cache["cross_k"][i], kc)
+        sharding_ctx.put(cache["cross_v"][i], vc)
     return _logits(h[:, -1:], dec), cache, S
 
 
@@ -256,9 +264,12 @@ def encdec_decode_step(params, lora, token: torch.Tensor, cfg: ModelConfig, cach
     ``(logits (B, 1, V), cache)``."""
     lora_scale = lora_scale if lora_scale is not None else cfg.lora_alpha / cfg.lora_rank
     dec = params["decoder"]
-    h = torch.nn.functional.embedding(token, dec["embed"])
+    h = sharding_ctx.replicate_partial(torch.nn.functional.embedding(token, dec["embed"]))
     pos = torch.as_tensor(position, device=h.device).reshape(-1, 1).to(torch.float32)
     h = h + sinusoidal_rows(pos, cfg.d_model).to(h.dtype)[:, None, :]
+    # a cache sharded over its time axis is gathered first: a rank cannot
+    # write a slot that another holds in place (a plain cache stays as it is)
+    cache = {name: sharding_ctx.unshard_unless(c, 2, 1) for name, c in cache.items()}
     for i in range(cfg.num_layers):
         p, lr = _layer_slices(dec, lora["decoder"], i)
         h = _decoder_layer(h, None, p, lr, cfg, lora_scale, self_cache=(cache["k"][i], cache["v"][i]),

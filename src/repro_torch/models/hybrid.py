@@ -26,6 +26,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
+from repro_torch.models import sharding_ctx
 from repro_torch.models.layers import apply_rope, init_embed, init_stacked_dense, linear, rms_norm
 from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.ssm import init_ssm_layers, mamba2_block, mamba2_decode, mamba2_prefill, ssm_dims
@@ -82,20 +83,24 @@ def _shared_attn_block(h, p, lora, cfg: ModelConfig, positions, lora_scale, *, c
     hd = cfg.resolved_head_dim
     lget = (lambda k: lora.get(k) if lora else None)
     x = rms_norm(h, p["attn_norm_w"])
-    q = linear(x, {"w": p["wq"]}, lget("wq"), lora_scale).reshape(B, S, cfg.num_heads, hd)
-    k = linear(x, {"w": p["wk"]}, lget("wk"), lora_scale).reshape(B, S, cfg.num_kv_heads, hd)
-    v = linear(x, {"w": p["wv"]}, lget("wv"), lora_scale).reshape(B, S, cfg.num_kv_heads, hd)
-    q = apply_rope(q, positions, theta=cfg.rope_theta, mode="full")
-    k = apply_rope(k, positions, theta=cfg.rope_theta, mode="full")
+
+    def heads(w, n):
+        # a tensor-parallel projection keeps its shards only over whole KV heads
+        y = sharding_ctx.unshard_unless(linear(x, {"w": p[w]}, lget(w), lora_scale), -1, cfg.num_kv_heads)
+        return y.reshape(B, S, n, hd)
+
+    q = apply_rope(heads("wq", cfg.num_heads), positions, theta=cfg.rope_theta, mode="full")
+    k = apply_rope(heads("wk", cfg.num_kv_heads), positions, theta=cfg.rope_theta, mode="full")
+    v = heads("wv", cfg.num_kv_heads)
     if cache is not None:
         k_c, v_c = cache
-        attn.scatter_decode_kv(k_c, k, cache_position)
-        attn.scatter_decode_kv(v_c, v, cache_position)
-        o = attn.decode_attention(q, k_c, v_c, cache_position)
+        attn.scatter_decode_kv(*sharding_ctx.local_write(k_c, k), cache_position)
+        attn.scatter_decode_kv(*sharding_ctx.local_write(v_c, v), cache_position)
+        o = sharding_ctx.local_heads(attn.decode_attention, q, k_c, v_c, cache_position)
     elif prompt and q.is_cuda:
-        o = kops.flash_attention(q, k, v, causal=True, window=None)
+        o = sharding_ctx.local_heads(kops.flash_attention, q, k, v, causal=True, window=None)
     else:
-        o = attn.blockwise_attention(q, k, v, causal=True)
+        o = sharding_ctx.local_heads(attn.blockwise_attention, q, k, v, causal=True)
     h = h + linear(o.reshape(B, S, cfg.num_heads * hd), {"w": p["wo"]}, lget("wo"), lora_scale)
     h = h + apply_mlp(rms_norm(h, p["mlp_norm_w"]), p, "swiglu", lora, lora_scale)
     return h, (k, v)
@@ -120,7 +125,7 @@ def hybrid_forward(params, lora, tokens: torch.Tensor, cfg: ModelConfig, *, lora
     """
     scale = _scale(cfg, lora_scale)
     n_apps, period, _ = _split_counts(cfg)
-    h = torch.nn.functional.embedding(tokens, params["embed"])
+    h = sharding_ctx.replicate_partial(torch.nn.functional.embedding(tokens, params["embed"]))
     if embed_noise is not None:
         h = h + embed_noise.to(h.dtype)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
@@ -166,7 +171,7 @@ def hybrid_prefill(params, lora, tokens: torch.Tensor, cfg: ModelConfig, cache_l
     first slots, zeros after them."""
     scale = _scale(cfg, lora_scale)
     n_apps, period, _ = _split_counts(cfg)
-    h = torch.nn.functional.embedding(tokens, params["embed"])
+    h = sharding_ctx.replicate_partial(torch.nn.functional.embedding(tokens, params["embed"]))
     B, S = tokens.shape
     positions = torch.arange(S, device=h.device)[None, :]
     cache = init_hybrid_cache(cfg, B, cache_len, h.device)
@@ -175,13 +180,14 @@ def hybrid_prefill(params, lora, tokens: torch.Tensor, cfg: ModelConfig, cache_l
         p, lo = _mamba_slices(params, lora, i)
         out, (conv_tail, state) = mamba2_prefill(rms_norm(h, p["norm_w"]), p, cfg, lo, scale)
         h = h + out
-        cache["conv"][i] = conv_tail
-        cache["state"][i] = state
+        # a tensor-parallel layer's state and tails (DTensors) are gathered into the plain cache
+        sharding_ctx.put(cache["conv"][i], conv_tail)
+        sharding_ctx.put(cache["state"][i], state)
         if i < n_apps * period and (i + 1) % period == 0:
             app = i // period
             h, (k, v) = _shared_attn_block(h, params["shared"], lora["shared"], cfg, positions, scale, prompt=True)
-            cache["attn_k"][app, :, :keep] = k[:, S - keep:]
-            cache["attn_v"][app, :, :keep] = v[:, S - keep:]
+            sharding_ctx.put(cache["attn_k"][app, :, :keep], k[:, S - keep:])
+            sharding_ctx.put(cache["attn_v"][app, :, :keep], v[:, S - keep:])
     return _lm_logits(h[:, -1:], params, cfg), cache, S
 
 
@@ -193,15 +199,18 @@ def hybrid_decode_step(params, lora, token: torch.Tensor, cfg: ModelConfig, cach
     caches in place; returns ``(logits (B, 1, V), cache)``."""
     scale = _scale(cfg, lora_scale)
     n_apps, period, _ = _split_counts(cfg)
-    h = torch.nn.functional.embedding(token, params["embed"])
+    h = sharding_ctx.replicate_partial(torch.nn.functional.embedding(token, params["embed"]))
     positions = torch.as_tensor(position, device=h.device).reshape(-1, 1)
+    # a KV cache sharded over its time axis is gathered first: a rank cannot
+    # write a slot that another holds in place (a plain cache stays as it is)
+    cache = dict(cache, **{name: sharding_ctx.unshard_unless(cache[name], 2, 1) for name in ("attn_k", "attn_v")})
     for i in range(cfg.num_layers):
         p, lo = _mamba_slices(params, lora, i)
         out, (conv, state) = mamba2_decode(rms_norm(h, p["norm_w"]), p, cfg, (cache["conv"][i], cache["state"][i]),
                                            lo, scale)
         h = h + out
-        cache["conv"][i] = conv
-        cache["state"][i] = state
+        sharding_ctx.put(cache["conv"][i], conv)
+        sharding_ctx.put(cache["state"][i], state)
         if i < n_apps * period and (i + 1) % period == 0:
             app = i // period
             h, _ = _shared_attn_block(h, params["shared"], lora["shared"], cfg, positions, scale,

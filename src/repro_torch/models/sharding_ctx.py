@@ -14,9 +14,10 @@ tensor) or while disabled, it is the identity, as in the JAX package.
 The other helpers here stand where GSPMD would reshard by itself and
 DTensor refuses or errs (ROADMAP.md C13): a vocab-sharded lookup
 (:func:`replicate_partial`), heads split from a projection sharded across
-a KV head (:func:`unshard_unless`), attention and the routed experts on
-each rank's heads or experts (:func:`local_heads`, :func:`local_experts`),
-cache writes on each rank's shards (:func:`local_write`, :func:`put`).
+a KV head (:func:`unshard_unless`), attention, the Mamba2 mixer's scan
+and the routed experts on each rank's heads or experts
+(:func:`local_heads`, :func:`local_ssm`, :func:`local_experts`), cache
+writes on each rank's shards (:func:`local_write`, :func:`put`).
 Each is the identity on plain tensors.
 """
 from __future__ import annotations
@@ -111,8 +112,9 @@ def local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *args, **
     :func:`unshard_unless`), the others replicate, and the output is
     sharded as q is. Attention is independent across heads, so the ranks
     need no exchange inside it (and DTensor sees none of its reshapes).
-    Plain tensors, and a decode cache sharded over time, go to ``fn`` as
-    they are."""
+    Any other placement (a pending sum, a batch or time axis sharded on a
+    mesh dim, as DTensor may leave one) is gathered first. Plain tensors go
+    to ``fn`` as they are."""
     if not any(_is_dtensor(t) for t in (q, k, v)):
         return fn(q, k, v, *args, **kwargs)
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -120,13 +122,71 @@ def local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *args, **
     mesh = next(t for t in (q, k, v) if _is_dtensor(t)).device_mesh
     rep = [Replicate()] * mesh.ndim
     ts = [t if _is_dtensor(t) else DTensor.from_local(t, mesh, rep, run_check=False) for t in (q, k, v)]
-    if any(p not in (Replicate(), Shard(2)) for t in ts for p in t.placements):
-        # a cache sharded over its time axis (too few KV heads): DTensor
-        # gathers the scores, smaller than the cache
-        return fn(q, k, v, *args, **kwargs)
     pl = [Shard(2) if all(t.placements[i] == Shard(2) for t in ts) else Replicate() for i in range(mesh.ndim)]
     out = fn(*(_ContiguousGrad.apply(t.redistribute(mesh, pl).to_local()) for t in ts), *args, **kwargs)
     return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False)
+
+
+def local_ssm(fn, zxbcdt: torch.Tensor, p, nheads: int, conv_buf=None, state=None):
+    """``fn(zxbcdt, p, first, count, conv_buf, state) -> (y, z, conv,
+    state)``, the Mamba2 mixer's core between its two projections (the
+    conv, the scan and the skip over heads ``[first, first + count)``; see
+    :func:`repro_torch.models.ssm._core`), run on each rank's heads where
+    the layer's params are DTensors.
+
+    ``in_proj``'s columns ``[z | x | B | C | dt]`` and ``conv_w``'s
+    channels are sharded in blocks that cut across those parts, which
+    DTensor cannot slice. So where ``out_proj`` shards its rows (the heads)
+    on one mesh dim of G ranks and G divides ``nheads``, every rank gathers
+    ``zxbcdt`` (its gradient a partial sum: each rank reads its heads' z, x
+    and dt and the whole of B and C) and the small params, and runs the
+    core on its ``nheads / G`` heads; ``y`` and ``z`` come back sharded on
+    their last dim and ``state`` on its heads, as ``gate_norm_w`` and
+    ``out_proj`` are, so the gated norm and ``out_proj`` stay with DTensor
+    (one all-reduce of the norm's sum of squares, ``out_proj`` a partial
+    sum). Otherwise every rank runs all heads on gathered inputs and the
+    outputs are replicated. ``conv`` (the conv's window, every channel)
+    comes back plain and whole; a cache ``state`` is read at the rank's
+    heads. Plain params go to ``fn`` as they are, with all the heads."""
+    w = p["out_proj"]
+    if not _is_dtensor(w):
+        return fn(zxbcdt, p, 0, nheads, conv_buf, state)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = w.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    by_head = [i for i, pl in enumerate(w.placements) if pl == Shard(0)]
+    split = len(by_head) == 1 and nheads % mesh.size(by_head[0]) == 0 and \
+        all(pl == Replicate() for i, pl in enumerate(w.placements) if i not in by_head)
+    if split:
+        d = by_head[0]
+        count = nheads // mesh.size(d)
+        first = mesh.get_local_rank(d) * count
+        grad = [Partial() if i == d else Replicate() for i in range(mesh.ndim)]
+        last = lambda t: [Shard(t.dim() - 1) if i == d else Replicate() for i in range(mesh.ndim)]  # noqa: E731
+        heads = [Shard(1) if i == d else Replicate() for i in range(mesh.ndim)]
+    else:
+        first, count, grad, last, heads = 0, nheads, rep, (lambda t: rep), rep
+
+    def whole(t):
+        if not _is_dtensor(t):
+            return t
+        return _ContiguousGrad.apply(t.redistribute(t.device_mesh, rep).to_local(grad_placements=grad))
+
+    def own_heads(t):
+        if t is None:
+            return None
+        if _is_dtensor(t):
+            if split and list(t.placements) == heads:
+                return t.to_local()
+            t = t.full_tensor()
+        return t[:, first:first + count] if split else t
+
+    core = {k: whole(p[k]) for k in ("conv_w", "A_log", "D", "dt_bias")}
+    conv_buf = conv_buf.full_tensor() if _is_dtensor(conv_buf) else conv_buf
+    y, z, conv, st = fn(whole(zxbcdt), core, first, count, conv_buf, own_heads(state))
+    wrap = lambda t, pl: DTensor.from_local(t, mesh, pl, run_check=False)  # noqa: E731
+    return wrap(y, last(y)), wrap(z, last(z)), conv, wrap(st, heads)
 
 
 class _ContiguousGrad(torch.autograd.Function):

@@ -16,6 +16,7 @@ recurrence stays in PyTorch.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models import sharding_ctx
 from repro_torch.models.layers import init_stacked_dense, linear, rms_norm
 
 NEG_INF = -1e30
@@ -177,13 +179,54 @@ def ssd_decode_step(
     return y, new_state
 
 
-def _split_in_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
+def _channels(t: torch.Tensor, cfg: ModelConfig, first: int, count: int) -> torch.Tensor:
+    """The conv channels of heads ``[first, first + count)`` along ``t``'s
+    last dim (conv_ch wide): their x channels, then B and C."""
     dims = ssm_dims(cfg)
-    di = dims["d_inner"]
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di : di + dims["conv_ch"]]
-    dt = zxbcdt[..., di + dims["conv_ch"] :]
-    return z, xbc, dt
+    if count == dims["nheads"]:
+        return t
+    hd, di = cfg.ssm.head_dim, dims["d_inner"]
+    return torch.cat([t[..., first * hd : (first + count) * hd], t[..., di:]], dim=-1)
+
+
+def _core(cfg: ModelConfig, zxbcdt, p, first: int, count: int, conv_buf, state, *, kernel: bool = False):
+    """The mixer between its two projections over heads ``[first, first +
+    count)``: ``zxbcdt`` is ``in_proj``'s whole output ``[z | x | B | C |
+    dt]``, (B, S, in_dim) over a sequence (``conv_buf`` None: the chunked
+    scan, B9 on the card with ``kernel``) or (B, in_dim) for one decode step
+    against ``conv_buf`` (B, W-1, conv_ch) and the heads' ``state``; ``p``
+    holds conv_w, A_log, D and dt_bias for every head. Returns ``(y, z)``
+    (..., count·hd) in the model dtype, the conv's window over every
+    channel (a sequence: its last W-1 inputs, zeros before its start; a
+    step: the W inputs) and the heads' final state (B, count, hd, N) f32."""
+    s = cfg.ssm
+    dims = ssm_dims(cfg)
+    di, hd, N = dims["d_inner"], s.head_dim, s.d_state
+    ci = di + dims["conv_ch"]
+    z = zxbcdt[..., first * hd : (first + count) * hd]
+    xbc_all = zxbcdt[..., di:ci]
+    dt = zxbcdt[..., ci + first : ci + first + count]
+    conv_w = _channels(p["conv_w"], cfg, first, count)
+    if conv_buf is None:
+        S = zxbcdt.shape[1]
+        window = F.pad(xbc_all, (0, 0, s.conv_width - 1, 0))[:, S:]
+        conv_out = causal_conv1d(_channels(xbc_all, cfg, first, count), conv_w)
+    else:
+        window = torch.cat([conv_buf, xbc_all[:, None]], dim=1)  # (B, W, ch)
+        conv_out = torch.einsum("bwc,wc->bc", _channels(window, cfg, first, count), conv_w.to(window.dtype))
+    xbc = F.silu(conv_out.to(torch.float32)).to(zxbcdt.dtype)
+    n = count * hd
+    x, b, c = xbc[..., :n], xbc[..., n : n + N], xbc[..., n + N :]
+    heads = slice(first, first + count)
+    dtf = softplus(dt.to(torch.float32) + p["dt_bias"][heads])  # (..., count)
+    A = -torch.exp(p["A_log"][heads])  # (count,)
+    xh = x.reshape(*x.shape[:-1], count, hd)
+    if conv_buf is None:
+        y, state = ssd_chunked(xh * dtf[..., None].to(xh.dtype), A * dtf, b, c, s.chunk_size, kernel=kernel)
+    else:
+        y, state = ssd_decode_step(xh * dtf[..., None].to(xh.dtype), A * dtf, b, c, state)
+    y = y + p["D"][heads][:, None] * xh.to(torch.float32)
+    return y.reshape(*y.shape[:-2], n).to(zxbcdt.dtype), z, window, state
 
 
 def _gated_out(y, z, h, p, lora, lora_scale):
@@ -193,25 +236,15 @@ def _gated_out(y, z, h, p, lora, lora_scale):
     return linear(y, {"w": p["out_proj"]}, lora.get("out_proj") if lora else None, lora_scale)
 
 
-def _mixer(h, p, cfg: ModelConfig, lora, lora_scale, *, kernel: bool):
-    """The Mamba2 mixer over a sequence: (out, conv_tail, final_state)."""
-    s = cfg.ssm
-    dims = ssm_dims(cfg)
-    di, nh, hd, N = dims["d_inner"], dims["nheads"], s.head_dim, s.d_state
-    B, S, _ = h.shape
+def _mixer(h, p, cfg: ModelConfig, lora, lora_scale, *, kernel: bool, cache=None):
+    """The Mamba2 mixer over a sequence (``cache`` None) or one decode step
+    against ``cache`` = (conv_buf, state): ``(out, conv window, state)``.
+    Its core runs on each rank's heads on a tensor-parallel mesh
+    (:func:`sharding_ctx.local_ssm`)."""
     zxbcdt = linear(h, {"w": p["in_proj"]}, lora.get("in_proj") if lora else None, lora_scale)
-    z, xbc_raw, dt = _split_in_proj(zxbcdt, cfg)
-    # the conv's last W-1 inputs, zeros before the prompt's start
-    conv_tail = F.pad(xbc_raw, (0, 0, s.conv_width - 1, 0))[:, S:]
-    xbc = F.silu(causal_conv1d(xbc_raw, p["conv_w"]).to(torch.float32)).to(h.dtype)
-    x, b, c = xbc[..., :di], xbc[..., di : di + N], xbc[..., di + N :]
-    dtf = softplus(dt.to(torch.float32) + p["dt_bias"])  # (B, S, nh)
-    A = -torch.exp(p["A_log"])  # (nh,)
-    xh = x.reshape(B, S, nh, hd)
-    y, state = ssd_chunked(xh * dtf[..., None].to(xh.dtype), A * dtf, b, c, s.chunk_size, kernel=kernel)
-    y = y + p["D"][None, None, :, None] * xh.to(torch.float32)
-    y = y.reshape(B, S, di).to(h.dtype)
-    return _gated_out(y, z, h, p, lora, lora_scale), conv_tail, state
+    y, z, window, state = sharding_ctx.local_ssm(functools.partial(_core, cfg, kernel=kernel), zxbcdt, p,
+                                                 ssm_dims(cfg)["nheads"], *(cache or (None, None)))
+    return _gated_out(y, z, h, p, lora, lora_scale), window, state
 
 
 def mamba2_block(h: torch.Tensor, p, cfg: ModelConfig, lora=None, lora_scale: float = 1.0) -> torch.Tensor:
@@ -231,22 +264,5 @@ def mamba2_prefill(h, p, cfg: ModelConfig, lora=None, lora_scale: float = 1.0):
 def mamba2_decode(h, p, cfg: ModelConfig, cache, lora=None, lora_scale: float = 1.0):
     """One-token step. h: (B, 1, D); cache: (conv_buf (B, W-1, conv_ch),
     state (B, nh, hd, N) f32). Returns (out (B, 1, D), (conv_buf, state))."""
-    s = cfg.ssm
-    dims = ssm_dims(cfg)
-    di, nh, hd, N = dims["d_inner"], dims["nheads"], s.head_dim, s.d_state
-    B = h.shape[0]
-    conv_buf, state = cache
-    zxbcdt = linear(h[:, 0], {"w": p["in_proj"]}, lora.get("in_proj") if lora else None, lora_scale)
-    z, xbc_raw, dt = _split_in_proj(zxbcdt, cfg)
-    # the causal conv over [buffer, current]
-    window = torch.cat([conv_buf, xbc_raw[:, None]], dim=1)  # (B, W, ch)
-    conv_out = torch.einsum("bwc,wc->bc", window, p["conv_w"].to(window.dtype))
-    xbc = F.silu(conv_out.to(torch.float32)).to(h.dtype)
-    x, b, c = xbc[..., :di], xbc[..., di : di + N], xbc[..., di + N :]
-    dtf = softplus(dt.to(torch.float32) + p["dt_bias"])  # (B, nh)
-    A = -torch.exp(p["A_log"])
-    xh = x.reshape(B, nh, hd)
-    y, new_state = ssd_decode_step(xh * dtf[..., None].to(xh.dtype), A * dtf, b, c, state)
-    y = y + p["D"][None, :, None] * xh.to(torch.float32)
-    y = y.reshape(B, di).to(h.dtype)
-    return _gated_out(y, z, h, p, lora, lora_scale)[:, None], (window[:, 1:], new_state)
+    out, window, state = _mixer(h[:, 0], p, cfg, lora, lora_scale, kernel=False, cache=cache)
+    return out[:, None], (window[:, 1:], state)

@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import sharding_ctx
 from repro_torch.models.layers import init_embed, init_stacked_dense, rms_norm
 from repro_torch.models.ssm import init_ssm_layers, mamba2_block, mamba2_decode, mamba2_prefill, ssm_dims
 from repro_torch.models.transformer import _layer_slices, _lm_logits, torch_dtype
@@ -46,7 +47,7 @@ def ssm_forward(params, lora, tokens: torch.Tensor, cfg: ModelConfig, *,
     per-sample Frobenius norms of the hidden states (num_layers, B), and
     ``embed_noise`` (B, S, D) is added to the embeddings (the GAL probe)."""
     scale = _scale(cfg, lora_scale)
-    h = torch.nn.functional.embedding(tokens, params["embed"])
+    h = sharding_ctx.replicate_partial(torch.nn.functional.embedding(tokens, params["embed"]))
     if embed_noise is not None:
         h = h + embed_noise.to(h.dtype)
     norms = []
@@ -81,15 +82,16 @@ def ssm_prefill(params, lora, tokens: torch.Tensor, cfg: ModelConfig, cache_len:
     layer's intra-chunk scan is the B9 kernel (``mamba2_prefill``)."""
     del cache_len
     scale = _scale(cfg, lora_scale)
-    h = torch.nn.functional.embedding(tokens, params["embed"])
+    h = sharding_ctx.replicate_partial(torch.nn.functional.embedding(tokens, params["embed"]))
     B, S = tokens.shape
     cache = init_ssm_cache(cfg, B, S, h.device)
     for i in range(cfg.num_layers):
         p, lo = _layer_slices(params, lora, i)
         out, (conv_tail, state) = mamba2_prefill(rms_norm(h, p["norm_w"]), p, cfg, lo, scale)
         h = h + out
-        cache["conv"][i] = conv_tail
-        cache["state"][i] = state
+        sharding_ctx.put(cache["conv"][i], conv_tail)
+        # a tensor-parallel state (DTensor, by head) is gathered into the plain cache
+        sharding_ctx.put(cache["state"][i], state)
     return _lm_logits(h[:, -1:], params, cfg), cache, S
 
 
@@ -100,12 +102,12 @@ def ssm_decode_step(params, lora, token: torch.Tensor, cfg: ModelConfig, cache, 
     ``cache`` in place; returns ``(logits (B, 1, V), cache)``."""
     del position
     scale = _scale(cfg, lora_scale)
-    h = torch.nn.functional.embedding(token, params["embed"])
+    h = sharding_ctx.replicate_partial(torch.nn.functional.embedding(token, params["embed"]))
     for i in range(cfg.num_layers):
         p, lo = _layer_slices(params, lora, i)
         out, (conv, state) = mamba2_decode(rms_norm(h, p["norm_w"]), p, cfg, (cache["conv"][i], cache["state"][i]),
                                            lo, scale)
         h = h + out
-        cache["conv"][i] = conv
-        cache["state"][i] = state
+        sharding_ctx.put(cache["conv"][i], conv)
+        sharding_ctx.put(cache["state"][i], state)
     return _lm_logits(h, params, cfg), cache

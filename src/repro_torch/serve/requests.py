@@ -108,12 +108,15 @@ def device_batch(batch: Dict[str, Any], device, dtype: Optional[torch.dtype] = N
     return out
 
 
-def batch_from_requests(reqs: List[Request], device="cpu", dtype: Optional[torch.dtype] = None
+def batch_from_requests(reqs: List[Request], device=None, dtype: Optional[torch.dtype] = None
                         ) -> Dict[str, torch.Tensor]:
     """Stack same-shape Requests back into a batch dict on ``device`` (exact
     values): tokens as int64 indices, each extra stacked over the requests
-    (float extras in ``dtype`` where it is given)."""
+    (float extras in ``dtype`` where it is given). ``device`` None is the
+    card, an error without one (pass ``device="cpu"`` for the CPU)."""
+    from repro_torch.core.fibecfed import resolve_device
+
     batch: Dict[str, Any] = {"tokens": np.stack([np.asarray(r.tokens) for r in reqs])}
     for k in reqs[0].extras or {}:
         batch[k] = torch.stack([_tensor(r.extras[k]) for r in reqs])
-    return device_batch(batch, device, dtype)
+    return device_batch(batch, resolve_device(device), dtype)

@@ -7,8 +7,11 @@ no JAX) runs every record and writes them as JSON; it is joined with a
 timeout. The test holds them to:
 
 - reduced qwen2-0.5b and granite-moe-3b-a800m train / prefill / decode
-  records on the (2, 2) debug mesh and the (16, 16) production mesh, and a
-  train record on the (2, 16, 16) two-pod mesh, are ``ok``, with finite
+  records on the (2, 2) debug mesh and the (16, 16) production mesh, a
+  train record on the (2, 16, 16) two-pod mesh, and reduced mamba2-1.3b,
+  zamba2-7b and whisper-large-v3 train / prefill / decode records on all
+  three meshes (the SSM scan, the hybrid's and whisper's attentions on each
+  rank's heads) are ``ok``, with finite
   roofline terms on H100_SXM, collectives where the mesh has more than one
   rank per axis, and a train step's all-reduce (the GAL aggregation);
 - every (arch, shape) pair the JAX model does not support is ``skipped``
@@ -22,9 +25,7 @@ timeout. The test holds them to:
   ``make_host_mesh`` shrinks to the group as JAX's does;
 - every other dense, MoE, vlm and encoder architecture's reduced records
   on the (2, 2) mesh are ``ok``, but the pairs JAX skips and the encoder's
-  prefill (which raises, as JAX's does); the SSM, hybrid and
-  encoder-decoder steps refuse a model axis of two ranks (no
-  tensor-parallel step for them yet: ROADMAP.md C13).
+  prefill (which raises, as JAX's does).
 """
 import json
 import os
@@ -60,6 +61,10 @@ for arch in ("qwen2-0.5b", "granite-moe-3b-a800m"):
         for debug in (True, False):
             out["records"].append(dryrun_one(arch, shape, reduced=True, debug_mesh=debug, verbose=False))
 out["records"].append(dryrun_one("qwen2-0.5b", "train_4k", reduced=True, multi_pod=True, verbose=False))
+for arch in ("mamba2-1.3b", "zamba2-7b", "whisper-large-v3"):
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        for mesh in ({"debug_mesh": True}, {}, {"multi_pod": True}):
+            out["records"].append(dryrun_one(arch, shape, reduced=True, verbose=False, **mesh))
 from repro_torch.launch.mesh import make_production_mesh
 mesh = make_production_mesh(multi_pod=True, device_type="cpu")
 out["placements"] = [repr(p) for p in shd.placements(shd.P(("pod", "data"), None), mesh)]
@@ -106,7 +111,7 @@ def dry(tmp_path_factory):
 def test_records_are_ok(dry):
     out, _ = dry
     recs = out["records"]
-    assert len(recs) == 13
+    assert len(recs) == 13 + 27
     for r in recs:
         assert r["status"] == "ok", r
         roof = r["roofline"]
@@ -164,21 +169,15 @@ def test_mesh_builders(dry):
 
 def test_every_family_on_the_debug_mesh(dry):
     """Every other architecture's reduced train, prefill and decode records
-    on the (2, 2) mesh: ``ok``, but for the pairs JAX skips, the encoder's
-    prefill, which raises as JAX's does (no decode path), and the SSM,
-    hybrid and encoder-decoder families' steps, which refuse the model
-    axis (ROADMAP.md C13)."""
+    on the (2, 2) mesh: ``ok``, but for the pairs JAX skips and the
+    encoder's prefill, which raises as JAX's does (no decode path)."""
     out, skips = dry
     assert len(out["families"]) == 27
     for key, status in out["families"].items():
         arch, shape = key.split()
-        family = J_ARCHS[arch].family
         if (arch, shape) in [tuple(x) for x in skips]:
             assert status == "skipped", key
         elif arch == "roberta-large" and shape == "prefill_32k":
             assert status == "NotImplementedError: encoder-only model has no decode path", key
-        elif family in ("ssm", "hybrid", "encdec", "audio"):
-            assert status == (f"NotImplementedError: the {family} family has no tensor-parallel step yet: "
-                              "the mesh's model axis must have one rank"), (key, status)
         else:
             assert status == "ok", (key, status)

@@ -4,13 +4,14 @@
 - ``make_train_state``'s tree equals JAX's (paths, shapes, dtypes) on the
   tiny-lm of ``tests/test_distributed.py``.
 - The FibecFed train step (n_groups 2), 1 and 3 steps from the same numpy
-  params, state and batch, equals JAX's jitted ``build_train_step``: loss
-  within rel 1e-4 / abs 1e-5, every state leaf within atol 5e-5 / rtol 1e-4
-  (the slice tolerances); the freeze invariants of ``test_distributed.py``
-  hold bit for bit (GAL LoRA of non-GAL layers, local LoRA of GAL layers,
-  and their moments).
-- The prefill and decode steps' logits equal JAX's at
-  ``test_torch_serve.py``'s atol 2e-5 / rtol 1e-4.
+  params, state and batch, equals JAX's jitted ``build_train_step`` on the
+  tiny-lm and on reduced mamba2-1.3b, zamba2-7b and whisper-large-v3 (its
+  batch with seeded frame embeddings): loss within rel 1e-4 / abs 1e-5,
+  every state leaf within atol 5e-5 / rtol 1e-4 (the slice tolerances);
+  the freeze invariants of ``test_distributed.py`` hold bit for bit (GAL
+  LoRA of non-GAL layers, local LoRA of GAL layers, and their moments).
+- The prefill and decode steps' logits and caches equal JAX's on the same
+  four worlds at ``test_torch_serve.py``'s atol 2e-5 / rtol 1e-4.
 - The spec tables (``base_param_spec``, ``lora_spec`` with and without the
   client axis, ``batch_spec``, ``cache_spec``) equal JAX's entry for entry
   on every leaf of every architecture at full size (JAX through
@@ -49,6 +50,7 @@ from repro.launch.steps import build_prefill_step as j_prefill_step
 from repro.launch.steps import build_train_step as j_train_step
 from repro.launch.steps import make_train_state as j_make_state
 from repro.lora import gal_mask_tree as j_gal_mask_tree
+from repro.lora import lora_num_logical_layers as j_num_logical_layers
 from repro.models import build_model as j_build_model
 from repro.utils import tree_bytes as j_tree_bytes
 
@@ -87,11 +89,21 @@ def _torch_tree(flat):
     return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)), unflatten_dict(flat))
 
 
-@pytest.fixture(scope="module")
-def world():
-    """JAX's tiny-lm world: params, a train state with b moved off zero (so
-    a has a gradient), GAL layer 0, local masks of ones, and a batch."""
-    model = j_build_model(CFG)
+# the step tests' worlds: the tiny-lm and the reduced SSM, hybrid and
+# encoder-decoder families (2 layers, d 128; whisper 2 + 2 over 16 frames)
+ARCH_CFGS = {"tiny-lm": CFG, "mamba2": J_ARCHS["mamba2-1.3b"].reduced(), "zamba2": J_ARCHS["zamba2-7b"].reduced(),
+             "whisper": J_ARCHS["whisper-large-v3"].reduced()}
+_WORLDS = {}
+
+
+def _jax_world(name):
+    """A JAX world: params, a train state with b moved off zero (so a has a
+    gradient), GAL on the first logical layer only, local masks of ones,
+    and a batch (whisper's with seeded N(0, 1) frame embeddings)."""
+    if name in _WORLDS:
+        return _WORLDS[name]
+    cfg = ARCH_CFGS[name]
+    model = j_build_model(cfg)
     rng = jax.random.PRNGKey(0)
     params = model.init_params(rng)
     state = j_make_state(model, rng, N_GROUPS)
@@ -100,18 +112,49 @@ def world():
                                      state["gal_lora"])
     state["local_lora"] = jax.tree.map(lambda x: x + 0.02 * r.standard_normal(x.shape).astype(np.float32),
                                        state["local_lora"])
-    gal = np.array([True, False])
-    state["gal_mask"] = j_gal_mask_tree(CFG, state["gal_lora"], gal)
+    gal = np.zeros(j_num_logical_layers(cfg), bool)
+    gal[0] = True
+    state["gal_mask"] = j_gal_mask_tree(cfg, state["gal_lora"], gal)
     state["local_mask"] = jax.tree.map(jnp.ones_like, state["local_mask"])
-    batch = {"tokens": np.asarray(jax.random.randint(rng, (4, 16), 0, CFG.vocab_size), np.int32)}
-    return model, params, state, batch
+    batch = {"tokens": np.asarray(jax.random.randint(rng, (4, 16), 0, cfg.vocab_size), np.int32)}
+    if cfg.family == "audio":
+        batch["encoder_embeds"] = r.standard_normal((4, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    _WORLDS[name] = (model, params, state, batch)
+    return _WORLDS[name]
+
+
+@pytest.fixture(scope="module")
+def world():
+    return _jax_world("tiny-lm")
+
+
+def _tcfg(cfg):
+    return tconfig.ModelConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}) \
+        if cfg is CFG else T_ARCHS[cfg.name].reduced()
 
 
 def _port_inputs(world):
-    _, params, state, batch = world
-    t_params = params_from_numpy(jax.tree.map(np.asarray, params), TCFG, "cpu")
+    model, params, state, batch = world
+    t_params = params_from_numpy(jax.tree.map(np.asarray, params), _tcfg(model.cfg), "cpu")
     t_state = _torch_tree(_flat_np(state))
-    return t_params, t_state, {"tokens": torch.from_numpy(np.array(batch["tokens"]))}
+    return t_params, t_state, {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
+def check_frozen(final, start):
+    """Every entry a mask freezes holds bit for bit (the GAL tree and its
+    moments where the GAL mask is 0, the local tree and its moments where
+    (1 - GAL mask) x local mask is 0), and each tree moved where it trains."""
+    for k, got in final.items():
+        kind, _, path = k.partition("/")
+        gal = start.get(f"gal_mask/{path}")
+        if kind in ("gal_lora", "gal_m", "gal_v"):
+            live = np.broadcast_to(gal, got.shape) != 0
+        elif kind in ("local_lora", "local_m", "local_v"):
+            live = np.broadcast_to((1.0 - gal)[None] * start[f"local_mask/{path}"], got.shape) != 0
+        else:
+            continue
+        np.testing.assert_array_equal(got[~live], start[k][~live], err_msg=k)
+        assert not live.any() or np.any(got[live] != start[k][live]), k
 
 
 def test_make_train_state_matches_jax_tree():
@@ -124,61 +167,121 @@ def test_make_train_state_matches_jax_tree():
     assert all(float(x.sum()) == 0 for x in (t_state["local_mask"]["layers"]["wq"]["b"], t_state["step"]))
 
 
-@pytest.mark.parametrize("steps", [1, 3])
-def test_train_step_matches_jax(world, steps):
+CACHE_LEN, DECODE_POSITIONS = 24, (16, 17)
+# the JAX side of the step tests: run in a child process for the three
+# reduced families (see _jax_reference), in this one for the tiny-lm
+REF_CHILD = r"""
+import sys
+import numpy as np
+import test_torch_launch as T
+np.savez(sys.argv[2], **T._reference(T._jax_world(sys.argv[1])))
+"""
+_REFS = {}
+
+
+def _reference(world):
+    """JAX's run of a world as numpy leaves (``'<what>/<path>'``): its
+    params, state and batch; 3 jitted train steps (the losses and the states
+    after steps 1 and 3); the prefill step's last logits and cache on the
+    GAL LoRA; 2 greedy decode steps (each one's token and logits)."""
     model, params, state, batch = world
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    out = {f"{what}/{k}": v for what, tree in (("params", params), ("state", state), ("batch", batch))
+           for k, v in _flat_np(tree).items()}
     j_step = jax.jit(j_train_step(model, N_GROUPS, learning_rate=LR))
-    j_s, j_losses = state, []
-    for _ in range(steps):
-        j_s, m = j_step(params, j_s, {"tokens": jnp.asarray(batch["tokens"])})
-        j_losses.append(float(m["loss"]))
-    t_params, t_state, t_batch = _port_inputs(world)
-    t_step = build_train_step(t_build_model(TCFG), N_GROUPS, learning_rate=LR)
+    j_s, losses = state, []
+    for t in (1, 2, 3):
+        j_s, m = j_step(params, j_s, jbatch)
+        losses.append(float(m["loss"]))
+        if t in (1, 3):
+            out.update({f"state{t}/{k}": v for k, v in _flat_np(j_s).items()})
+    out["losses"] = np.asarray(losses)
+    lora = state["gal_lora"]
+    j_logits, j_cache = jax.jit(j_prefill_step(model, CACHE_LEN))(params, lora, jbatch)
+    out["prefill"] = np.asarray(j_logits)
+    out.update({f"cache/{k}": np.asarray(v) for k, v in j_cache.items()})
+    j_dec = jax.jit(j_decode_step(model))
+    token = np.argmax(np.asarray(j_logits), -1).astype(np.int32)  # (B, 1)
+    for j, pos in enumerate(DECODE_POSITIONS):
+        j_logits, j_cache = j_dec(params, lora, jnp.asarray(token), j_cache, jnp.int32(pos))
+        out[f"token{j}"], out[f"decode{j}"] = token, np.asarray(j_logits)
+        token = np.argmax(np.asarray(j_logits), -1).astype(np.int32)
+    return out
+
+
+def _jax_reference(arch, tmp_dir):
+    """:func:`_reference` of ``arch``'s world, once a process. The reduced
+    families' JAX programs are compiled in a child process: a pytest worker
+    keeps every XLA:CPU executable it compiles, each holding memory maps of
+    its code, and these four steps of three models pushed a worker of the
+    full run past the kernel's per-process limit (``vm.max_map_count``),
+    where XLA segfaults."""
+    if arch not in _REFS:
+        if arch == "tiny-lm":
+            _REFS[arch] = _reference(_jax_world(arch))
+        else:
+            path = tmp_dir / f"{arch}.npz"
+            env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT / 'tests'}", OMP_NUM_THREADS="1")
+            proc = subprocess.run([sys.executable, "-c", REF_CHILD, arch, str(path)], cwd=ROOT, env=env,
+                                  capture_output=True, text=True, timeout=300)
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            with np.load(path) as z:
+                _REFS[arch] = {k: z[k] for k in z.files}
+    return _REFS[arch]
+
+
+def _part(ref, what):
+    return {k[len(what) + 1:]: v for k, v in ref.items() if k.startswith(what + "/")}
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+@pytest.mark.parametrize("arch", list(ARCH_CFGS))
+def test_train_step_matches_jax(arch, steps, tmp_path):
+    ref = _jax_reference(arch, tmp_path)
+    tcfg = _tcfg(ARCH_CFGS[arch])
+    t_params = params_from_numpy(unflatten_dict(_part(ref, "params")), tcfg, "cpu")
+    t_state = _torch_tree(_part(ref, "state"))
+    t_batch = {k: torch.from_numpy(np.array(v)) for k, v in _part(ref, "batch").items()}
+    t_step = build_train_step(t_build_model(tcfg), N_GROUPS, learning_rate=LR)
     t_s, t_losses = t_state, []
     for _ in range(steps):
         t_s, m = t_step(t_params, t_s, t_batch)
         t_losses.append(float(m["loss"]))
-    np.testing.assert_allclose(t_losses, j_losses, rtol=LOSS_RTOL, atol=LOSS_ATOL)
-    want = _flat_np(j_s)
+    np.testing.assert_allclose(t_losses, ref["losses"][:steps], rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    want = _part(ref, f"state{steps}")
     got = {k: v.numpy() for k, v in tree_items(t_s)}
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], atol=ATOL, rtol=RTOL, err_msg=k)
-    # frozen entries, bit for bit: gal_* of the non-GAL layer 1, local_* of
-    # the GAL layer 0 (for every client group)
-    for k, v in tree_items(t_state):
-        new = got[k]
-        old = v.numpy()
-        if k.startswith("gal_") and not k.startswith("gal_mask"):
-            np.testing.assert_array_equal(new[1], old[1], err_msg=k)
-            assert np.any(new[0] != old[0]), k
-        elif k.startswith("local_") and not k.startswith("local_mask"):
-            np.testing.assert_array_equal(new[:, 0], old[:, 0], err_msg=k)
-            assert np.any(new[:, 1] != old[:, 1]), k
-    loc_b = got["local_lora/layers/wq/b"]
-    assert np.max(np.abs(loc_b[0, 1] - loc_b[1, 1])) > 0.0  # client groups train apart
+    # frozen entries bit for bit: gal_* off the GAL layer, local_* on it
+    # (every client group)
+    check_frozen(got, {k: v.numpy() for k, v in tree_items(t_state)})
+    loc_b = next(v for k, v in got.items() if k.startswith("local_lora/") and k.endswith("/b"))
+    assert np.max(np.abs(loc_b[0] - loc_b[1])) > 0.0  # client groups train apart
     assert int(got["step"]) == steps
 
 
-def test_prefill_and_decode_steps_match_jax(world):
-    model, params, state, batch = world
-    lora = state["gal_lora"]
-    cache_len = 24
-    j_logits, j_cache = jax.jit(j_prefill_step(model, cache_len))(params, lora, {"tokens": jnp.asarray(batch["tokens"])})
-    t_params, t_state, t_batch = _port_inputs(world)
-    t_lora = lora_from_numpy(jax.tree.map(np.asarray, lora), "cpu")
-    t_logits, t_cache = build_prefill_step(t_build_model(TCFG), cache_len)(t_params, t_lora, t_batch)
-    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), atol=SERVE_ATOL, rtol=SERVE_RTOL)
-    for k in ("k", "v"):
-        np.testing.assert_allclose(t_cache[k].numpy(), np.asarray(j_cache[k]), atol=SERVE_ATOL, rtol=SERVE_RTOL)
-    j_dec = jax.jit(j_decode_step(model))
-    t_dec = build_decode_step(t_build_model(TCFG))
-    token = np.argmax(np.asarray(j_logits), -1).astype(np.int32)  # (B, 1)
-    for pos in (16, 17):
-        j_logits, j_cache = j_dec(params, lora, jnp.asarray(token), j_cache, jnp.int32(pos))
+@pytest.mark.parametrize("arch", list(ARCH_CFGS))
+def test_prefill_and_decode_steps_match_jax(arch, tmp_path):
+    ref = _jax_reference(arch, tmp_path)
+    tcfg = _tcfg(ARCH_CFGS[arch])
+    t_params = params_from_numpy(unflatten_dict(_part(ref, "params")), tcfg, "cpu")
+    t_batch = {k: torch.from_numpy(np.array(v)) for k, v in _part(ref, "batch").items()}
+    t_lora = lora_from_numpy(unflatten_dict(_part(ref, "state/gal_lora")), "cpu")
+    t_model = t_build_model(tcfg)
+    t_logits, t_cache = build_prefill_step(t_model, CACHE_LEN)(t_params, t_lora, t_batch)
+    np.testing.assert_allclose(t_logits.numpy(), ref["prefill"], atol=SERVE_ATOL, rtol=SERVE_RTOL)
+    j_cache = _part(ref, "cache")
+    assert sorted(t_cache) == sorted(j_cache)
+    for k in j_cache:
+        np.testing.assert_allclose(t_cache[k].numpy(), j_cache[k], atol=SERVE_ATOL, rtol=SERVE_RTOL, err_msg=k)
+    t_dec = build_decode_step(t_model)
+    token = np.argmax(ref["prefill"], -1).astype(np.int32)  # (B, 1)
+    for j, pos in enumerate(DECODE_POSITIONS):
+        np.testing.assert_array_equal(token, ref[f"token{j}"])
         t_logits, t_cache = t_dec(t_params, t_lora, torch.from_numpy(token), t_cache, pos)
-        np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), atol=SERVE_ATOL, rtol=SERVE_RTOL)
-        token = np.argmax(np.asarray(j_logits), -1).astype(np.int32)
+        np.testing.assert_allclose(t_logits.numpy(), ref[f"decode{j}"], atol=SERVE_ATOL, rtol=SERVE_RTOL)
+        token = np.argmax(ref[f"decode{j}"], -1).astype(np.int32)
 
 
 # --- spec tables -----------------------------------------------------------

@@ -374,3 +374,20 @@ def test_serve_launcher_runs_reduced_on_cpu(capsys):
                 "--new-tokens", "3"])
     assert res.tokens.shape == (2, 3) and res.steps == 3
     assert "qwen2-0.5b: 3 steps x batch 2" in capsys.readouterr().out
+
+
+def test_batch_from_requests_defaults_to_the_card(monkeypatch):
+    """``batch_from_requests`` without a device puts the batch on the card:
+    without one it raises the port's no-device error, and ``device="cpu"``
+    must be asked for."""
+    from repro_torch.serve import batch_from_requests
+
+    reqs = [Request(tokens=np.arange(4, dtype=np.int32) + i, extras={"encoder_embeds": np.ones((2, 3), np.float32)})
+            for i in range(2)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch_from_requests(reqs)
+    batch = batch_from_requests(reqs, "cpu", torch.bfloat16)
+    assert batch["tokens"].device.type == "cpu" and batch["tokens"].dtype == torch.int64
+    assert torch.equal(batch["tokens"], torch.arange(4)[None] + torch.arange(2)[:, None])
+    assert batch["encoder_embeds"].shape == (2, 2, 3) and batch["encoder_embeds"].dtype == torch.bfloat16

@@ -7,8 +7,10 @@ process group on a ``FileStore`` (no TCP port), builds a ``(data, model)``
 mesh with ``make_host_mesh``, places the same numpy params, state and batch
 on it by ``launch.shardings``, runs the train step ``steps`` times, and
 gathers the final state; then it runs the prefill step and two decode steps
-on the trained GAL LoRA (each rank its client rows). Rank 0 writes the
-losses, the full leaves and its rows' logits to ``<out>/mesh.npz``. A failure writes its traceback to ``<out>/rank<r>.err``
+on ``serve_lora`` (each rank its client rows). Rank 0 writes the
+losses, the full leaves and its rows' logits to ``<out>/mesh.npz``; each
+rank writes the shapes of the SSD scans it ran (an SSM or hybrid model) to
+``<out>/scans<rank>.npy``. A failure writes its traceback to ``<out>/rank<r>.err``
 and exits non-zero. This module imports the port only, never JAX or the JAX
 package.
 """
@@ -31,6 +33,17 @@ def _run(rank: int, spec: dict) -> None:
     from repro_torch.utils.tree import tree_items, tree_map, unflatten_dict
 
     model = build_model(spec["cfg"])
+    scans = []  # the (B, S, heads, hd) of every SSD scan this rank runs
+    if spec["cfg"].ssm is not None:
+        from repro_torch.models import ssm
+
+        chunked = ssm.ssd_chunked
+
+        def recorded(x, *args, **kwargs):
+            scans.append(tuple(x.shape))
+            return chunked(x, *args, **kwargs)
+
+        ssm.ssd_chunked = recorded
     mesh = make_host_mesh(spec["data"], spec["model"], device_type="cpu")
     dp = dp_axes(mesh)
     tensors = lambda flat: tree_map(torch.from_numpy, unflatten_dict(flat))  # noqa: E731
@@ -51,17 +64,20 @@ def _run(rank: int, spec: dict) -> None:
         losses.append(float(metrics["loss"]))
     full = {f"state/{k}": v.full_tensor().numpy() for k, v in tree_items(state)}
     placed = {k: str(v.placements) for k, v in tree_items(state)}
-    # the prefill and decode steps on the trained GAL LoRA: each rank serves
-    # its client rows; rank 0 keeps its block's logits
-    logits, cache = build_prefill_step(model, spec["cache_len"])(params, state["gal_lora"], batch)
+    # the prefill and decode steps on the no-mesh run's trained GAL LoRA:
+    # each rank serves its client rows; rank 0 keeps its block's logits
+    lora = tensors(spec["serve_lora"])
+    lora = shd.distribute(lora, mesh, shd.lora_shardings(mesh, lora))
+    logits, cache = build_prefill_step(model, spec["cache_len"])(params, lora, batch)
     served = [logits]
     token = shd.distribute({"t": torch.from_numpy(spec["decode_tokens"])}, mesh,
                            shd.batch_shardings(mesh, {"t": torch.from_numpy(spec["decode_tokens"])}, dp))["t"]
     rows = logits.shape[0]
     for j in range(2):
-        logits, cache = build_decode_step(model)(params, state["gal_lora"], token, cache, spec["prompt_len"] + j)
+        logits, cache = build_decode_step(model)(params, lora, token, cache, spec["prompt_len"] + j)
         served.append(logits)
     served = [x.full_tensor() if hasattr(x, "full_tensor") else x for x in served]
+    np.save(os.path.join(spec["out"], f"scans{rank}.npy"), np.asarray(scans, dtype=np.int64).reshape(-1, 4))
     if rank == 0:
         np.savez(os.path.join(spec["out"], "mesh.npz"), losses=np.asarray(losses),
                  placements=np.asarray(repr(placed)), served=torch.cat(served, 1).numpy(), rows=rows, **full)
