@@ -38,7 +38,8 @@ device and exits non-zero without one, or if any phase fails:
    block's ring holds; B6 with inf and nan in b's frozen columns (exact
    zeros there); B7 with a batch skewed to one adapter, adapters with no
    row, every row out of range, every row on adapter 0 (B5's bits), and 64
-   random wq-shaped adapters, its on-device plan held to its plain twin;
+   random wq-shaped adapters (the SGMV kernel at 4096 rows, the split path
+   at 1000 and at rank 64), its on-device plan held to its plain twin;
    B7's few-row path on the clients' adapters of every target at 1, 8
    (a decode step), 33 and 64 rows; that the main path's widths take the
    persistent B5 kernel, B7's SGMV kernel and, at few rows, its few-row
@@ -153,7 +154,7 @@ f. the Mamba2 family at full mamba2-1.3b width (its 48 layers cut to 8,
    with phase 5d's 12 requests (one sampled), 8 slots, a cache length
    below the prompts that clamps no budget: prefill takes B9 for the
    intra-chunk scan (the heads sharing b and c) and B7 for the per-slot
-   LoRA of in_proj and out_proj (BGMV), decode B7's few-row path; each
+   LoRA of in_proj and out_proj (the split path), decode B7's few-row path; each
    completion held to the f32 training forward within 1.5 times the plain
    bf16 forward's own distance from it (which the phase measures), with
    phase 5d's two controls; a
@@ -176,7 +177,10 @@ h. the rest of the dense family at full width (bf16, seeded init):
    controls, B8 against its plain version at every prefill group's shape;
    FedPrompt on qwen2-0.5b (1 round, evaluate, its exact comm bytes, the
    prefixed bf16 forward against its f32 twin); each decode step's time,
-   busy share and B7 share for phases 5d, f, h and i;
+   busy share and B7 share for phases 5d, f, h and i, and B7's share of
+   the first prefill group's kernel time (every prefill shape whose
+   adapters do not stage takes the split path, timed beside the L2 kernel
+   it replaced and two ``torch.bmm`` calls);
 i. the MoE family and the zamba2 hybrid at full width (bf16, seeded init):
    granite-moe-3b-a800m (32 layers, 40 experts top-8) trained 2 rounds on
    the vectorized engine (no vmap fallback) and served with phase 5d's 12
@@ -315,6 +319,9 @@ KERNELS = {  # name -> what it ports, its source, and its work per element (B1-B
     "batched_sparse_lora_apply": dict(replaces="src/repro/kernels/sparse_lora.py:191", source=SL_SOURCE),
     # B7's few-row path (at most 64 rows: a decode step), two chained launches
     "batched_sparse_lora_few_rows": dict(replaces="src/repro/kernels/sparse_lora.py:191", source=SL_SOURCE),
+    # B7's split path (more rows whose adapters do not stage: a wide model's
+    # prefill), two chained launches
+    "batched_sparse_lora_split": dict(replaces="src/repro/kernels/sparse_lora.py:191", source=SL_SOURCE),
     # B8-B9: phase 5c computes their bytes and flops for the whole call
     "flash_attention": dict(replaces="src/repro/kernels/flash_attention.py:78", source=FA_SOURCE),
     # B8 at head_dim 80 (stablelm-3b): its launches are those of the paths
@@ -327,11 +334,12 @@ KERNELS = {  # name -> what it ports, its source, and its work per element (B1-B
     "ssd_chunk_intra": dict(replaces="src/repro/kernels/ssd_chunk.py:40", source=SC_SOURCE),
 }
 # the counts a path reads: name -> (the repro_torch.kernels.ops wrapper, its
-# counter); B7's wrapper counts its few-row path apart
+# counter); B7's wrapper counts its few-row and split paths apart
 COUNTERS = {name: (name, "launches") for name in (
     "masked_adamw_update", "masked_sgd_update", "fake_compress", "fisher_diag_update", "sparse_lora_apply",
     "sparse_lora_apply_packed", "batched_sparse_lora_apply", "flash_attention", "ssd_chunk_intra")}
 COUNTERS["batched_sparse_lora_few_rows"] = ("batched_sparse_lora_apply", "few_row_launches")
+COUNTERS["batched_sparse_lora_split"] = ("batched_sparse_lora_apply", "split_launches")
 LAUNCHED = tuple(COUNTERS)
 # Phase 5b: the LoRA layers and row counts it drives. 256 rows are one
 # client's batch (4 sequences of 64 tokens); 4096 a batch of 64 such
@@ -1194,8 +1202,12 @@ def skewed_rows(gen, M, A, lead=()):
 
 def drive_batched(ops, ref, x, idx, a, b, mask, scale, what):
     """B7 against its plain version; a row whose index lies outside [0, A)
-    is exactly 0, and so is every row's own frozen column."""
-    y = ops.batched_sparse_lora_apply(x, idx, a, b, mask, scale)
+    is exactly 0, and so is every row's own frozen column. Returns y, the
+    max abs error and the name of the path's counter that the call moved."""
+    fn = ops.batched_sparse_lora_apply
+    before = {name: getattr(fn, COUNTERS[name][1]) for name in B7_KERNELS}
+    y = fn(x, idx, a, b, mask, scale)
+    (path,) = [name for name in B7_KERNELS if getattr(fn, COUNTERS[name][1]) != before[name]]
     K, N = x.shape[-1], b.shape[-1]
     err = check_lora(y.reshape(-1, N), ref.batched_sparse_lora_matmul_ref(
         x.reshape(-1, K), idx.reshape(-1), a, b, mask, scale), f"B7 {what}")
@@ -1205,7 +1217,7 @@ def drive_batched(ops, ref, x, idx, a, b, mask, scale, what):
     frozen = mask[idx.clamp(0, a.shape[0] - 1)] == 0
     if not bool((y[frozen & ~out[..., None]] == 0).all()):
         raise AssertionError(f"B7 {what}: a frozen column is not exactly 0")
-    return y, err
+    return y, err, path
 
 
 def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
@@ -1217,8 +1229,7 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
     c0 = clients[0]
     scale = cfg.lora_alpha / cfg.lora_rank
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
-    errs = dict.fromkeys(("fisher_diag_update", "sparse_lora_apply", "sparse_lora_apply_packed",
-                          "batched_sparse_lora_apply", "batched_sparse_lora_few_rows"), 0.0)
+    errs = dict.fromkeys(("fisher_diag_update", "sparse_lora_apply", "sparse_lora_apply_packed", *B7_KERNELS), 0.0)
 
     def note(name, err):
         errs[name] = max(errs[name], err)
@@ -1261,8 +1272,8 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
         idx[:, ::97] = n_ad
         idx[:, 5::101] = -1
         for xx in (x, x.float()):
-            _, e7 = drive_batched(ops, ref, xx, idx, a8, b8, m8, scale, f"A={n_ad} (B, S, K) {xx.dtype}")
-            note("batched_sparse_lora_apply", e7)
+            _, e7, path = drive_batched(ops, ref, xx, idx, a8, b8, m8, scale, f"A={n_ad} (B, S, K) {xx.dtype}")
+            note(path, e7)
         # the batch skewed to one adapter, adapters 1 and 3 owning no row,
         # every row out of range (-1 and A), and every row on adapter 0,
         # which is B5's product bit for bit (the same per-tile code)
@@ -1270,14 +1281,14 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
                   "no rows on 1, 3": torch.where((idx == 1) | (idx == 3), 2, idx),
                   "all out of range": torch.where(idx % 2 == 0, -1, n_ad + idx.abs())}
         for kind, ix in ragged.items():
-            _, e7 = drive_batched(ops, ref, x, ix, a8, b8, m8, scale, f"A={n_ad} {kind}")
-            note("batched_sparse_lora_apply", e7)
-        y0, e7 = drive_batched(ops, ref, x, torch.zeros_like(idx), a8, b8, m8, scale, f"A={n_ad} all on 0")
-        note("batched_sparse_lora_apply", e7)
+            _, e7, path = drive_batched(ops, ref, x, ix, a8, b8, m8, scale, f"A={n_ad} {kind}")
+            note(path, e7)
+        y0, e7, path = drive_batched(ops, ref, x, torch.zeros_like(idx), a8, b8, m8, scale, f"A={n_ad} all on 0")
+        note(path, e7)
         check_equal(y0, ops.sparse_lora_apply(x, a8[0], b8[0], m8[0], scale), "B7 all rows on adapter 0 vs B5")
         # one adapter: the unbatched product
-        y1, e7 = drive_batched(ops, ref, x, torch.zeros_like(idx), a8[:1], b8[:1], m8[:1], scale, "A=1")
-        note("batched_sparse_lora_apply", e7)
+        y1, e7, path = drive_batched(ops, ref, x, torch.zeros_like(idx), a8[:1], b8[:1], m8[:1], scale, "A=1")
+        note(path, e7)
         check_equal(y1, ops.sparse_lora_apply(x, a8[0], b8[0], m8[0], scale), "B7 A=1 vs B5")
         # the card's plan (rows sorted by adapter, segment offsets) against its plain twin
         x2, ix2 = x.reshape(-1, x.shape[-1]), idx.reshape(-1).int()
@@ -1290,7 +1301,7 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
                 for A, M, r in ((n_ad, x2.shape[0], cfg.lora_rank), (64, 4096, cfg.lora_rank),
                                 (64, 1000, cfg.lora_rank), (n_ad, x2.shape[0], 64))}
         # 64 random wq-shaped adapters: on the SGMV path at 4096 rows, on the
-        # L2 path at 1000 (fewer than 16 rows an adapter) and at rank 64
+        # split path at 1000 (fewer than 16 rows an adapter) and at rank 64
         K8, N8 = a8.shape[1], b8.shape[2]
         for M, r in ((4096, cfg.lora_rank), (1000, cfg.lora_rank), (1000, 64)):
             a64, b64 = randn(64, K8, r) * 0.05, randn(64, r, N8) * 0.05
@@ -1298,8 +1309,8 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
             x64 = randn(M, K8).bfloat16()
             for kind, ix in (("random", torch.randint(0, 64, (M,), generator=gen, device="cuda")),
                              ("skewed", skewed_rows(gen, M, 64))):
-                _, e7 = drive_batched(ops, ref, x64, ix, a64, b64, m64, scale, f"A=64 M={M} r={r} {kind}")
-                note("batched_sparse_lora_apply", e7)
+                _, e7, path = drive_batched(ops, ref, x64, ix, a64, b64, m64, scale, f"A=64 M={M} r={r} {kind}")
+                note(path, e7)
         # B7's few-row path on the clients' adapters of every target: a decode
         # step's rows, one a client; one row; rows sharing adapters with
         # indices out of range; up to its 64 rows
@@ -1313,9 +1324,9 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
                     ix = torch.randint(-1, n_ad + 1, (M,), generator=gen, device="cuda")
                 few[f"{target} M={M}"] = sparse_lora.batched_path(M, KT, NT, cfg.lora_rank, torch.bfloat16, n_ad)
                 for dtype in (torch.bfloat16, torch.float32):
-                    _, e = drive_batched(ops, ref, randn(M, KT).to(dtype), ix, aT, bT, mT, scale,
-                                         f"few rows {target} M={M} {dtype}")
-                    note("batched_sparse_lora_few_rows", e)
+                    _, e, path = drive_batched(ops, ref, randn(M, KT).to(dtype), ix, aT, bT, mT, scale,
+                                               f"few rows {target} M={M} {dtype}")
+                    note(path, e)
         # off any tile grid: ragged M, K and N; ranks whose rows fill no
         # 16-byte load (6) or no power of two (12); random weights
         M, K, N = 200, 300, 250
@@ -1329,8 +1340,8 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
                 note("sparse_lora_apply_packed", e6)
                 idx = torch.randint(-1, 4, (M,), generator=gen, device="cuda")
                 masks = (torch.rand(3, N, generator=gen, device="cuda") < 0.5).float()
-                _, e7 = drive_batched(ops, ref, x, idx, randn(3, K, r), randn(3, r, N), masks, 0.5, what)
-                note("batched_sparse_lora_apply", e7)
+                _, e7, path = drive_batched(ops, ref, x, idx, randn(3, K, r), randn(3, r, N), masks, 0.5, what)
+                note(path, e7)
         # the single-adapter kernels by rank (1, 8 and 16 keep a and b ⊙ mask
         # in shared memory here, 64 reads them from L2), rows past the last
         # whole tile, K with no 16-byte rows, all-zero, all-one and rho 0.5 masks
@@ -1377,7 +1388,7 @@ def phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map):
         f"(wq/wk/wv/wo x layers {list(OPS_LAYERS)} x M {list(OPS_ROWS)}) + f32; B6's kept columns B5's bits, "
         f"its frozen ones 0 with inf/nan in b there; B7 over the {n_ad} clients' wq adapters with out-of-range "
         "rows, (B, S, K), skewed, rows on no adapter, all out of range, all on adapter 0 (B5's bits) and A=1, "
-        "64 random wq adapters (SGMV and L2 paths), its plan equal to the twin; all at ragged shapes, ranks "
+        "64 random wq adapters (SGMV and split paths), its plan equal to the twin; all at ragged shapes, ranks "
         f"4/16/6/12: within tolerance; max abs err {errs}")
     log("B7 ring depth by shape (0: the L2 kernel):", sgmv)
     if min(list(sgmv.values())[:2]) == 0 or max(list(sgmv.values())[2:]) != 0:
@@ -2131,8 +2142,8 @@ def profiled(fn, wall_ms):
 
 def forced_b7_launch(sparse_lora, y, x, idx, a, b, mask, scale):
     """The resident (SGMV) or L2 (BGMV) kernel's launch whatever the row
-    count (a launch without the few-row path's scratch): the kernel a
-    few-row launch took before its own path, timed beside it."""
+    count (a launch without the few-row or split path's scratch): the
+    kernel a launch of those paths took before them, timed beside them."""
     M, K = x.shape
     A, r, N = b.shape
     err = sparse_lora.library().repro_sparse_lora(
@@ -2145,9 +2156,12 @@ def forced_b7_launch(sparse_lora, y, x, idx, a, b, mask, scale):
 def b7_serve_entry(ops, ref, sparse_lora, lora_t, target, M, A, per, scale, err, gen):
     """B7 timed at a serve shape: ``M`` rows, ``per`` a slot, on the first
     ``A`` served adapters of ``target`` at layer 0, beside its bound (x, y
-    and the row index once, each adapter's a, b and mask once). Where the
-    launch takes the few-row path, the kernel it took before (``old_*``:
-    BGMV, or SGMV where it fits) is timed on the same inputs beside it."""
+    and the row index once, each adapter's a, b and mask once) and its
+    library yardstick (two ``torch.bmm`` calls over the slots, the same
+    function at slot-contiguous rows, without the scale and the cast).
+    Where the launch takes the few-row or the split path, the kernel it
+    took before (``old_*``: BGMV, or SGMV where it fits) is timed on the
+    same inputs beside it."""
     a, b = slot_leaves(lora_t)[target]
     a, b = a[:A].contiguous(), b[:A].contiguous()
     K, N, r = a.shape[1], b.shape[-1], a.shape[-1]
@@ -2156,15 +2170,17 @@ def b7_serve_entry(ops, ref, sparse_lora, lora_t, target, M, A, per, scale, err,
     y = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
     idx = torch.arange(A, dtype=torch.int32, device="cuda").repeat_interleave(per)
     launch = lambda _=0: sparse_lora.sparse_lora_launch(y, x, a, b, ones, idx, scale=scale)  # noqa: E731
+    x3, bm = x.view(A, per, K), b * ones[:, None, :]
     e = dict(target=target, rows=M, adapters=A, path=sparse_lora.batched_path(M, K, N, r, torch.bfloat16, A),
              ring_depth=sparse_lora.resident_stages(K, N, r, torch.bfloat16, adapters=A, rows=M),
              max_abs_err=err, ms=cuda_ms(launch), graph_ms=graph_ms(launch),
              wrapper_ms=cuda_ms(lambda: ops.batched_sparse_lora_apply(x, idx, a, b, ones, scale)),
              plain_ms=cuda_ms(lambda: ref.batched_sparse_lora_matmul_ref(x, idx, a, b, ones, scale)),
-             library_ms=None,
+             library_ms=cuda_ms(lambda: torch.bmm(torch.bmm(x3.float(), a), bm)),
+             library="two torch.bmm calls, the same function at slot-contiguous rows",
              **bound_of(2 * M * K + 2 * M * N + 4 * M + 4 * A * (K * r + r * N + N), 2 * M * K * r + 2 * M * r * N))
     e["bound_share"] = e["bound_ms"] / e["graph_ms"]
-    if e["path"] == "few_rows":
+    if e["path"] in ("few_rows", "split"):
         old = lambda _=0: forced_b7_launch(sparse_lora, y, x, idx, a, b, ones, scale)  # noqa: E731
         e.update(old_path="sgmv" if e["ring_depth"] else "bgmv", old_graph_ms=graph_ms(old), old_ms=cuda_ms(old))
         e.update(old_bound_share=e["bound_ms"] / e["old_graph_ms"], speedup=e["old_graph_ms"] / e["graph_ms"])
@@ -2189,7 +2205,11 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
     requests, the prefill groups, the launch counts, the slots' gathered
     LoRA, B7's errors and paths (``sparse_lora.batched_path``) by shape,
     the times and a seeded generator for the caller's own checks. Every
-    decode shape must take B7's few-row path."""
+    decode shape must take B7's few-row path, and every prefill shape SGMV
+    where its adapters stage and the split path elsewhere. ``launches``
+    gives B7's prefill launches on either of those two paths as
+    ``batched_sparse_lora_apply``; the run's count is held to it split by
+    path."""
     from repro_torch.lora import gather_adapter_slots
     from repro_torch.obs import Telemetry, check_spans
     from repro_torch.serve import ServeEngine
@@ -2208,7 +2228,9 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
     log(f"{label}serve main run: {len(comps)} completions, prefill groups (requests, prompt length) {groups}, "
         f"{main.stats}; launches {run.counts}")
     want = launches(main.stats)
-    if run.counts != want or main.stats["completed"] != len(reqs):
+    counted = {**run.counts, "batched_sparse_lora_apply": run.counts["batched_sparse_lora_apply"]
+               + run.counts["batched_sparse_lora_split"], "batched_sparse_lora_split": 0}
+    if counted != want or main.stats["completed"] != len(reqs):
         raise AssertionError(f"the {label}serve run did not go through its kernels as its path says: "
                              f"{run.counts} != {want}")
     with Launches(ops) as oracle_run:
@@ -2278,9 +2300,19 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
                                                  ref.batched_sparse_lora_matmul_ref(x, idx, a, b, ones, scale),
                                                  f"{label}B7 serve {t} {g}x{S}")
     log(f"{label}B7 path by shape: {json.dumps(paths)}")
-    decode = {k: v for k, v in paths.items() if k.endswith(f" {SERVE_SLOTS}x1")}
+    decode_key = f" {SERVE_SLOTS}x1"
+    decode = {k: v for k, v in paths.items() if k.endswith(decode_key)}
     if set(decode.values()) != {"few_rows"}:
         raise AssertionError(f"{label}a decode shape did not take B7's few-row path: {decode}")
+    prefill = {k: v for k, v in paths.items() if not k.endswith(decode_key)}
+    if not set(prefill.values()) <= {"sgmv", "split"}:
+        raise AssertionError(f"{label}a prefill shape whose widths do not stage did not take B7's split path: "
+                             f"{prefill}")
+    # each path's launches where and only where the prefill shapes take it
+    for path, name in (("sgmv", "batched_sparse_lora_apply"), ("split", "batched_sparse_lora_split")):
+        if (path in prefill.values()) != (run.counts[name] > 0):
+            raise AssertionError(f"{label}B7's {path} launches ({run.counts[name]}) do not follow the prefill "
+                                 f"paths {prefill}")
 
     def b7_entry(M, A, per):
         return b7_serve_entry(ops, ref, sparse_lora, lora_t, b7_target, M, A, per, scale,
@@ -2291,15 +2323,18 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
                     (f"B7 {b7_target} prefill {g0 * S0} rows x {g0} adapters", times["b7_prefill"])):
         log(f"{label}serve shape {name}: device {e['graph_ms']:.4f} ms, {e['bound_share']:.1%} of its bound "
             f"({e['bound_ms']:.5f} ms, {e['bound_by']}); launcher {e['ms']:.4f}, wrapper {e['wrapper_ms']:.4f}, "
-            f"plain {e['plain_ms']:.4f}; path {e['path']}"
+            f"plain {e['plain_ms']:.4f}, two bmm {e['library_ms']:.4f}; path {e['path']}"
             + (f"; the {e['old_path']} kernel it replaced {e['old_graph_ms']:.4f} ms ({e['speedup']:.1f}x)"
                if "old_graph_ms" in e else ""))
     parts["timing and kernel checks"] = time.perf_counter() - t0 - sum(parts.values())
     log(f"{label}serve: {time.perf_counter() - t0:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())})")
-    decode_key = f" {SERVE_SLOTS}x1"
+
+    def path_err(path):
+        return max((e for k, e in errs.items() if paths[k[3:]] == path), default=0.0)
+
     return dict(comps=comps, reqs=reqs, groups=groups, counts=run.counts, lora_t=lora_t, errs=errs, paths=paths,
-                times=times, gen=gen, b7_err=max(e for k, e in errs.items() if not k.endswith(decode_key)),
-                few_err=max(e for k, e in errs.items() if k.endswith(decode_key)))
+                times=times, gen=gen, b7_err=path_err("sgmv"), split_err=path_err("split"),
+                few_err=path_err("few_rows"))
 
 
 def b8_serve_checks(ops, ref, flash_attention, cfg, groups, gen, label="", causal=True):
@@ -2393,6 +2428,15 @@ def phase_serve(ops, ref, sparse_lora, flash_attention, vec, cfg, model):
                                           "batched_sparse_lora_few_rows")}
     return counts, {"batched_sparse_lora_apply": s["b7_err"], "flash_attention": max(errs.values()),
                     "batched_sparse_lora_few_rows": s["few_err"]}, times
+
+
+def b7_prefill_times(times, key, e):
+    """A serve phase's B7 prefill entry, filed under the kernel of the path
+    it took; the first split entry also gives that kernel's own numbers."""
+    name = "batched_sparse_lora_split" if e["path"] == "split" else "batched_sparse_lora_apply"
+    if name not in times:
+        times[name] = {k: v for k, v in e.items() if k != "max_abs_err"}
+    times[name][key] = e
 
 
 def run_record(runner, hist, tree_clone):
@@ -2571,10 +2615,10 @@ def phase_ssm(ops, ref, sparse_lora, ssd_chunk, make_runner, data_mod, FibecFedC
     times["b9_prefill"] = b9
     log(f"phase f: {time.perf_counter() - t0:.1f} s")
     counts = {n: s["counts"][n] for n in ("ssd_chunk_intra", "batched_sparse_lora_apply",
-                                          "batched_sparse_lora_few_rows")}
+                                          "batched_sparse_lora_few_rows", "batched_sparse_lora_split")}
     counts["masked_adamw_update_stacked"] = train["padded_steps"]
     return counts, {"ssd_chunk_intra": max(errs.values()), "batched_sparse_lora_apply": s["b7_err"],
-                    "batched_sparse_lora_few_rows": s["few_err"]}, times
+                    "batched_sparse_lora_few_rows": s["few_err"], "batched_sparse_lora_split": s["split_err"]}, times
 
 
 def dense_adapters(model, gen):
@@ -2616,23 +2660,22 @@ def phase_dense_family(ops, ref, sparse_lora, flash_attention, make_runner, data
 
     t_phase = time.perf_counter()
     counts = dict.fromkeys(("masked_adamw_update_stacked", "flash_attention", "flash_attention_d80",
-                            "batched_sparse_lora_apply", "batched_sparse_lora_few_rows"), 0)
-    errs = dict.fromkeys(("flash_attention", "flash_attention_d80", "batched_sparse_lora_apply",
-                          "batched_sparse_lora_few_rows"), 0.0)
+                            *B7_KERNELS), 0)
+    errs = dict.fromkeys(("flash_attention", "flash_attention_d80", *B7_KERNELS), 0.0)
     times = {}
 
     def served(name, s, b8_key, b8_errs, n):
         counts[b8_key] += s["counts"]["flash_attention"]
-        counts["batched_sparse_lora_apply"] += s["counts"]["batched_sparse_lora_apply"]
-        counts["batched_sparse_lora_few_rows"] += s["counts"]["batched_sparse_lora_few_rows"]
         errs[b8_key] = max(errs[b8_key], max(b8_errs.values()))
-        errs["batched_sparse_lora_apply"] = max(errs["batched_sparse_lora_apply"], s["b7_err"])
-        errs["batched_sparse_lora_few_rows"] = max(errs["batched_sparse_lora_few_rows"], s["few_err"])
+        add_b7(counts, errs, s)
         log_oracle(f"{name} ", s["times"]["oracle"], "the bf16 forward")
         prof = s["times"]["profiles"]["decode"]
         log(f"{name} ({n} layers): decode step {s['times']['decode_step_ms']:.2f} ms, busy {prof['busy_share']:.1%}, "
             f"B7 {prof['b7_share']:.1%} of its {prof['kernel_ms']:.2f} ms of kernels; useful tokens/s "
             f"{s['times']['useful_tokens_per_s']:.1f}; TTFT mean {s['times']['ttft_mean_ms']:.1f} ms")
+        (key, prof), = [(k, p) for k, p in s["times"]["profiles"].items() if k.startswith("prefill")]
+        log(f"{name} {key}: B7 {prof['b7_share']:.1%} of its {prof['kernel_ms']:.2f} ms of kernels (path "
+            f"{s['times']['b7_prefill']['path']}), busy {prof['busy_share']:.1%}")
 
     # (i) qwen3-0.6b: train, then serve
     t0 = time.perf_counter()
@@ -2966,18 +3009,14 @@ def phase_moe_hybrid(ops, ref, sparse_lora, flash_attention, ssd_chunk, make_run
     free_memory()
     t_phase = time.perf_counter()
     counts = dict.fromkeys(("masked_adamw_update_stacked", "flash_attention", "flash_attention_d112",
-                            "batched_sparse_lora_apply", "batched_sparse_lora_few_rows", "ssd_chunk_intra"), 0)
-    errs = dict.fromkeys(("flash_attention", "flash_attention_d112", "batched_sparse_lora_apply",
-                          "batched_sparse_lora_few_rows", "ssd_chunk_intra"), 0.0)
+                            *B7_KERNELS, "ssd_chunk_intra"), 0)
+    errs = dict.fromkeys(("flash_attention", "flash_attention_d112", *B7_KERNELS, "ssd_chunk_intra"), 0.0)
     times = {}
 
     def served(name, s, b8_key, b8_errs):
-        for k in ("batched_sparse_lora_apply", "batched_sparse_lora_few_rows"):
-            counts[k] += s["counts"][k]
+        add_b7(counts, errs, s)
         counts[b8_key] += s["counts"]["flash_attention"]
         errs[b8_key] = max(errs[b8_key], max(b8_errs.values()))
-        errs["batched_sparse_lora_apply"] = max(errs["batched_sparse_lora_apply"], s["b7_err"])
-        errs["batched_sparse_lora_few_rows"] = max(errs["batched_sparse_lora_few_rows"], s["few_err"])
         prof = s["times"]["profiles"]["decode"]
         log(f"{name}: decode step {s['times']['decode_step_ms']:.2f} ms, busy {prof['busy_share']:.1%}, B7 "
             f"{prof['b7_share']:.1%} of its {prof['kernel_ms']:.2f} ms of kernels; useful tokens/s "
@@ -3171,18 +3210,14 @@ def phase_last_families(ops, ref, sparse_lora, flash_attention, make_runner, dat
     free_memory()
     t_phase = time.perf_counter()
     counts = dict.fromkeys(("masked_adamw_update_stacked", "flash_attention", "flash_attention_d256",
-                            "batched_sparse_lora_apply", "batched_sparse_lora_few_rows"), 0)
-    errs = dict.fromkeys(("flash_attention", "flash_attention_d256", "batched_sparse_lora_apply",
-                          "batched_sparse_lora_few_rows"), 0.0)
+                            *B7_KERNELS), 0)
+    errs = dict.fromkeys(("flash_attention", "flash_attention_d256", *B7_KERNELS), 0.0)
     times = {}
 
     def served(name, s, b8_key, b8_errs):
-        for k in ("batched_sparse_lora_apply", "batched_sparse_lora_few_rows"):
-            counts[k] += s["counts"][k]
+        add_b7(counts, errs, s)
         counts[b8_key] += s["counts"]["flash_attention"]
         errs[b8_key] = max(errs[b8_key], max(b8_errs.values()))
-        errs["batched_sparse_lora_apply"] = max(errs["batched_sparse_lora_apply"], s["b7_err"])
-        errs["batched_sparse_lora_few_rows"] = max(errs["batched_sparse_lora_few_rows"], s["few_err"])
         log_oracle(f"{name} ", s["times"]["oracle"], "the bf16 forward")
         prof = s["times"]["profiles"]["decode"]
         log(f"{name}: decode step {s['times']['decode_step_ms']:.2f} ms, busy {prof['busy_share']:.1%}, B7 "
@@ -3245,10 +3280,12 @@ def phase_last_families(ops, ref, sparse_lora, flash_attention, make_runner, dat
                 a, b = a[:g].contiguous(), b[:g].contiguous()
                 ones = torch.ones(g, b.shape[-1], device="cuda")
                 x = torch.randn(g * cfg.encoder_seq_len, a.shape[1], generator=gen, device="cuda").bfloat16()
-                b7_enc[f"B7 {t} {g}x{cfg.encoder_seq_len}"] = check_lora(
-                    ops.batched_sparse_lora_apply(x, idx, a, b, ones, scale),
-                    ref.batched_sparse_lora_matmul_ref(x, idx, a, b, ones, scale), f"whisper B7 serve {t}")
-    errs["batched_sparse_lora_apply"] = max(errs["batched_sparse_lora_apply"], max(b7_enc.values()))
+                e = check_lora(ops.batched_sparse_lora_apply(x, idx, a, b, ones, scale),
+                               ref.batched_sparse_lora_matmul_ref(x, idx, a, b, ones, scale), f"whisper B7 serve {t}")
+                path = sparse_lora.batched_path(x.shape[0], x.shape[1], b.shape[-1], cfg.lora_rank, x.dtype, g)
+                b7_enc[f"B7 {t} {g}x{cfg.encoder_seq_len}"] = e
+                name = "batched_sparse_lora_split" if path == "split" else "batched_sparse_lora_apply"
+                errs[name] = max(errs[name], e)
     log(f"whisper B7 and B8 vs plain at the serve shapes: within tolerance; max abs err "
         f"{json.dumps({**s['errs'], **b7_enc, **{f'B8 decoder {k}': e for k, e in dec_errs.items()}, **{f'B8 encoder {k}': e for k, e in enc_errs.items()}})}")
     served("whisper-large-v3", s, "flash_attention", {**dec_errs, **enc_errs})
@@ -4314,6 +4351,17 @@ def only(**counts):
     return {**dict.fromkeys(LAUNCHED, 0), **counts}
 
 
+B7_KERNELS = ("batched_sparse_lora_apply", "batched_sparse_lora_few_rows", "batched_sparse_lora_split")
+
+
+def add_b7(counts, errs, s):
+    """A serve run's B7 launches and largest errors by path (``serve_phase``'s
+    result ``s``) added into a phase's totals."""
+    for name, err in zip(B7_KERNELS, (s["b7_err"], s["few_err"], s["split_err"])):
+        counts[name] += s["counts"][name]
+        errs[name] = max(errs[name], err)
+
+
 class Launches:
     """The kernels' launch counts over one path: zeroed on entry, read on exit."""
 
@@ -4521,7 +4569,7 @@ def main() -> int:
     for name, n in serve_counts.items():
         launches[name] += n
         errs[name] = max(errs[name], serve_errs[name])
-    times["batched_sparse_lora_apply"]["serve_prefill"] = serve_times["b7_prefill"]
+    b7_prefill_times(times, "serve_prefill", serve_times["b7_prefill"])
     times["batched_sparse_lora_few_rows"] = {k: v for k, v in serve_times["b7_decode"].items() if k != "max_abs_err"}
     times["flash_attention"]["serve_prefill"] = serve_times["b8_prefill"]
     done("5d")
@@ -4655,7 +4703,7 @@ def main() -> int:
     for name, e in ssm_errs.items():
         errs[name] = max(errs[name], e)
     times["ssd_chunk_intra"]["ssm_serve_prefill"] = ssm_times["b9_prefill"]
-    times["batched_sparse_lora_apply"]["ssm_serve_prefill"] = ssm_times["b7_prefill"]
+    b7_prefill_times(times, "ssm_serve_prefill", ssm_times["b7_prefill"])
     times["batched_sparse_lora_few_rows"]["ssm_serve_decode"] = ssm_times["b7_decode"]
     done("f")
 
@@ -4676,7 +4724,7 @@ def main() -> int:
         errs[name] = max(errs[name], e)
     for name in ("qwen3-0.6b", "stablelm-3b", "chatglm3-6b"):
         times["batched_sparse_lora_few_rows"][f"{name}_serve_decode"] = dense_times[name]["b7_decode"]
-        times["batched_sparse_lora_apply"][f"{name}_serve_prefill"] = dense_times[name]["b7_prefill"]
+        b7_prefill_times(times, f"{name}_serve_prefill", dense_times[name]["b7_prefill"])
     times["flash_attention"]["qwen3-0.6b_serve_prefill"] = dense_times["qwen3-0.6b"]["b8_prefill"]
     times["flash_attention"]["chatglm3-6b_serve_prefill"] = dense_times["chatglm3-6b"]["b8_prefill"]
     times["flash_attention_d80"]["stablelm-3b_serve_prefill"] = dense_times["stablelm-3b"]["b8_prefill"]
@@ -4696,7 +4744,7 @@ def main() -> int:
         errs[name] = max(errs[name], e)
     for name in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "zamba2-7b"):
         times["batched_sparse_lora_few_rows"][f"{name}_serve_decode"] = mh_times[name]["b7_decode"]
-        times["batched_sparse_lora_apply"][f"{name}_serve_prefill"] = mh_times[name]["b7_prefill"]
+        b7_prefill_times(times, f"{name}_serve_prefill", mh_times[name]["b7_prefill"])
     times["flash_attention"]["granite-moe-3b-a800m_serve_prefill"] = mh_times["granite-moe-3b-a800m"]["b8_prefill"]
     times["flash_attention"]["llama4-maverick-400b-a17b_serve_prefill"] = \
         mh_times["llama4-maverick-400b-a17b"]["b8_prefill"]
@@ -4716,7 +4764,7 @@ def main() -> int:
         errs[name] = max(errs[name], e)
     for name in ("whisper-large-v3", "paligemma-3b"):
         times["batched_sparse_lora_few_rows"][f"{name}_serve_decode"] = last_times[name]["b7_decode"]
-        times["batched_sparse_lora_apply"][f"{name}_serve_prefill"] = last_times[name]["b7_prefill"]
+        b7_prefill_times(times, f"{name}_serve_prefill", last_times[name]["b7_prefill"])
     times["flash_attention"]["whisper-large-v3_serve_prefill"] = last_times["whisper-large-v3"]["b8_prefill"]
     times["flash_attention"]["whisper-large-v3_serve_encoder"] = last_times["whisper-large-v3"]["b8_encoder"]
     times["flash_attention_d256"]["paligemma-3b_serve_prefill"] = last_times["paligemma-3b"]["b8_prefill"]
@@ -4730,6 +4778,12 @@ def main() -> int:
         log(f"decode step, {name}: {t['decode_step_ms']:.2f} ms, busy {prof['busy_share']:.1%}, B7 "
             f"{prof['b7_share']:.1%} of {prof['kernel_ms']:.2f} ms of kernels; B7 few-row at its decode shape "
             f"{b7['graph_ms']:.4f} ms, the {b7.get('old_path')} kernel {b7.get('old_graph_ms')} ms")
+    for name, t in decode.items():
+        (key, prof), = [(k, p) for k, p in t["profiles"].items() if k.startswith("prefill")]
+        b7 = t["b7_prefill"]
+        log(f"{key}, {name}: B7 {prof['b7_share']:.1%} of {prof['kernel_ms']:.2f} ms of kernels; B7 {b7['path']} at "
+            f"{b7['target']} {b7['rows']} rows {b7['graph_ms']:.4f} ms ({b7['bound_share']:.1%} of its bound), "
+            f"the {b7.get('old_path')} kernel {b7.get('old_graph_ms')} ms, two bmm {b7['library_ms']:.4f} ms")
     done("j")
 
     # --- 8. kernel list, card, ok ---

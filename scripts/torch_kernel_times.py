@@ -12,7 +12,8 @@ whole call) at wq, and B7 over 8 wq-shaped adapters (rows at random,
 skewed, all on one adapter, all out of range) and 64; B7's few-row path
 beside the BGMV kernel at the decode shapes of the served configs (8 rows,
 one adapter each, rank 8) and at 16-64 rows of qwen2-0.5b's wq over 8
-adapters. Prints each time beside its byte bound and, last, one JSON line
+adapters, and its split path beside BGMV at the served prefill shapes whose
+adapters do not stage (one adapter a 1024-token prompt). Prints each time beside its byte bound and, last, one JSON line
 with every number. With ``--repeat n`` every case is timed n times in
 turns, so that the spread within one card shows.
 
@@ -119,37 +120,52 @@ FEW_SHAPES = (("qwen2_wq", 896, 896), ("qwen2_wk", 896, 128), ("mamba2_in_proj",
               ("mamba2_out_proj", 4096, 2048), ("qwen3_wq", 1024, 2048), ("stablelm_wq", 2560, 2560),
               ("chatglm3_wq", 4096, 4096))
 FEW_ROWS = ((16, 8), (32, 8), (64, 8))
+# served prefill shapes whose adapters do not stage for SGMV: (name, rows,
+# K, N, adapters), one adapter a prompt of 1024 tokens
+PREFILL_SHAPES = (("mamba2_in_proj", 4096, 2048, 8512, 4), ("mamba2_out_proj", 4096, 4096, 2048, 4),
+                  ("zamba2_in_proj", 4096, 3584, 14576, 4), ("zamba2_out_proj", 4096, 7168, 3584, 4),
+                  ("llama4_wq", 2048, 5120, 5120, 2), ("granite_wq", 4096, 1536, 1536, 4),
+                  ("paligemma_wq", 4096, 2048, 2048, 4), ("stablelm_wq", 1024, 2560, 2560, 1),
+                  ("chatglm3_wq", 1024, 4096, 4096, 1))
 
 
-def few_cases(gen):
-    """B7 at few rows: the few-row path and the kernel it replaced on the
-    same inputs (copies of x, y and the adapters: more than the L2 holds)."""
+def path_cases(gen):
+    """B7 where it takes the few-row path (decode shapes, up to 64 rows) or
+    the split path (served prefills), each case named by the path its launch
+    takes, beside the L2 (BGMV) kernel those launches took before
+    (``bgmv_*``), on the same inputs (copies of x, y and the adapters: more
+    than the L2 holds)."""
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
     r, scale = 8, 2.0
     shapes = [(f"{name}_m8", 8, K, N, 8) for name, K, N in FEW_SHAPES]
     shapes += [(f"qwen2_wq_m{M}_a{A}", M, 896, 896, A) for M, A in FEW_ROWS]
+    shapes += [(f"{name}_m{M}", M, K, N, A) for name, M, K, N, A in PREFILL_SHAPES]
     cases = {}
     for name, M, K, N, A in shapes:
-        copies = max(2, min(16, int(4 * cs.L2_BYTES / (4 * A * (K * r + 2 * r * N)))))
+        per_copy = 2 * M * (K + N) + 4 * A * (K * r + 2 * r * N)
+        copies = max(2, min(16, int(4 * cs.L2_BYTES / per_copy)))
+        path = sparse_lora.batched_path(M, K, N, r, torch.bfloat16, A)
         ins = []
         for _ in range(copies):
             a, b = randn(A, K, r) * 0.05, randn(A, r, N) * 0.05
             ins.append((randn(M, K).bfloat16(), a, b, torch.ones(A, N, device="cuda"),
                         torch.empty(M, N, dtype=torch.bfloat16, device="cuda")))
-        idx = (torch.arange(M, device="cuda") % A).int()
-        for path in ("few", "old"):
-            def launch(i=0, path=path, ins=ins, idx=idx):
+        # a decode step's rows one a slot; a prefill's slot-contiguous
+        idx = (torch.arange(M, device="cuda") % A if M <= sparse_lora.FEW_MAX_ROWS
+               else torch.arange(M, device="cuda") // (M // A)).int()
+        for label in ({"few_rows": "few"}.get(path, path), "bgmv"):
+            def launch(i=0, label=label, ins=ins, idx=idx, path=path):
                 x, a, b, mask, y = ins[i % len(ins)]
-                if path == "few":
-                    assert sparse_lora.sparse_lora_launch(y, x, a, b, mask, idx, scale=scale) == "few_rows"
-                else:
+                if label == "bgmv":
                     cs.forced_b7_launch(sparse_lora, y, x, idx, a, b, mask, scale)
+                else:
+                    assert sparse_lora.sparse_lora_launch(y, x, a, b, mask, idx, scale=scale) == path
             launch()
             x, a, b, mask, y = ins[0]
-            err = cs.check_lora(y, ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, scale), f"{name} {path}")
+            err = cs.check_lora(y, ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, scale), f"{name} {label}")
             bound = cs.bound_of(2 * M * K + 2 * M * N + 4 * M + 4 * A * (K * r + r * N + N),
                                 2 * M * K * r + 2 * M * r * N)
-            cases[f"{'few' if path == 'few' else 'bgmv'}_{name}"] = (launch, bound, err)
+            cases[f"{label}_{name}"] = (launch, bound, err)
     return cases
 
 
@@ -182,7 +198,7 @@ def main() -> int:
         _, report = build.compile_cuda(module.SOURCE)
         print(f"{module.SOURCE.name}:\n" + "\n".join(cs.ptxas_summary(report)), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = {**ssd_cases(gen), **lora_cases(gen), **few_cases(gen), **flash_cases(gen)}
+    cases = {**ssd_cases(gen), **lora_cases(gen), **path_cases(gen), **flash_cases(gen)}
     torch.cuda.synchronize()
     results = {name: dict(max_abs_err=err, **bound, graph_ms=[], ms=[]) for name, (_, bound, err) in cases.items()}
     for _ in range(args.repeat):

@@ -34,7 +34,7 @@
 // do not depend on where in a tile the row sits, so every path that shares
 // the per-tile code gives a row the same bits.
 //
-// Two kernels:
+// The kernels:
 //
 // sparse_lora_resident_kernel: a and b ⊙ mask resident in shared memory.
 // It takes the single-adapter products (B5, B6) where r <= 16 and a,
@@ -104,11 +104,12 @@
 //     for the first tile and a, then to the two products of one tile per
 //     team with few warps to hide their latencies (PERF.md).
 //
-// sparse_lora_kernel: every other case, reading a and b from L2 per step:
-// ranks above 16, widths whose a and b do not fit, and the multi-adapter
-// product with more than kMaxSgmvAdapters adapters or fewer than 16 rows per
-// adapter, where staging each adapter would cost more than it saves. One
-// block owns 16 rows and all N columns. Phase 1 streams its x rows through
+// sparse_lora_kernel: the single-adapter products that the resident kernel
+// does not take (ranks above 16, widths whose a and b do not fit), reading
+// a and b from L2 per step; and a multi-adapter launch of the few-row or
+// split path's widths made without their scratch (chip_smoke.py times it
+// there beside them, as the kernel those launches took before). One block
+// owns 16 rows and all N columns. Phase 1 streams its x rows through
 // shared memory in 256-column chunks with 16-byte loads where the rows allow
 // them; the loads of the next chunk are issued before the current one is
 // multiplied. It accumulates xa in registers: a lane owns 4 rank components
@@ -150,13 +151,54 @@
 // memory; the least time is a, b and mask of the adapters in use, x and y
 // over the HBM rate; what is left is two dependent launches' latency.
 //
+// sparse_lora_split_xa_kernel + sparse_lora_split_y_kernel: the split path,
+// the multi-adapter product (the TPU kernel batched_sparse_lora_matmul) of
+// more than kFewMaxRows rows that the SGMV kernel does not take: a and
+// b ⊙ mask too wide to stage (a wide model's prefill: mamba2-1.3b's in_proj,
+// K 2048 and N 8512), more than kMaxSgmvAdapters adapters, or fewer than 16
+// rows an adapter. Bound: memory, x read once and y written once (86 MB at
+// mamba2's in_proj over 4096 bf16 rows, 26 µs at 3.35 TB/s); at rank 8 the
+// work is ~4 flops a byte, which the CUDA cores carry in f32 fmaf (x @ a
+// stays unrounded between the products, as in the plain version). No
+// tensor core or TMA is used: the products are f32 (bf16 or TF32 operands
+// would round a, b or xa), and x and y move as plain 16-byte loads and
+// stores. The L2 kernel that these launches took before reached 6-14% of
+// that bound: 64 blocks at 1024 rows, its two products one after the other
+// in each block, b ⊙ mask re-read from L2 across N, 2-byte stores. Two
+// launches over the whole card instead, no host sync:
+//   1. Shrink, xa = x @ a[idx] in f32 over (row tile, K-slice) blocks
+//      (32-row tiles at rank 8; as few slices of whole steps as give about
+//      four blocks an SM), f32 partials to a scratch from PyTorch's caching
+//      allocator. x is read from HBM once, with one 16-byte load a row and
+//      lane two steps ahead of its use, into registers; a is staged a step
+//      at a time for each adapter of the tile (one on the serve path, whose
+//      rows are slot-contiguous) by cp.async copies through a ring, read
+//      from L2, each staged value serving a warp's rows.
+//   2. Expand, y = scale · xa @ (b ⊙ mask) over (row chunk, 256-column)
+//      blocks, about four an SM, launched with programmatic stream
+//      serialization: before griddepcontrol.wait a block stages its column
+//      tile of b and the mask (8 KB at rank 8) for its first row's adapter
+//      and each warp takes its columns' b ⊙ mask into registers, while the
+//      shrink runs; then each warp sums its rows' partials (the next group's
+//      loading meanwhile) and writes y, each thread 8 neighbouring columns
+//      with one 16-byte store (bf16).
+// Sum order, fixed by the shapes alone (no atomics): a row's xa is, in each
+// K-slice, each lane's sum over its k's in step order, then a reduce-scatter
+// over the warp's 32 lanes; the slices are added in order; y's r products
+// are summed in rank order. So a launch gives the same bits every time, and
+// a CUDA graph captures both launches. The ring's depth, the grids' blocks
+// an SM and the expand's row groups are the best of an on-card sweep
+// (scripts/torch_split_sweep.py; PERF.md), which also times each
+// launch alone: neither reaches the HBM rate yet, and they do not overlap
+// (the expand waits for the whole shrink).
+//
 // C interface (loaded with ctypes): repro_sparse_lora picks the kernel and
 // launches it, returning cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments it does not take;
 // repro_sparse_lora_stages gives the resident kernel's ring depth (0 where
 // a launch reads a and b from L2), and repro_sparse_lora_path which kernel
-// a multi-adapter launch takes and the floats of the few-row path's
-// scratch.
+// a multi-adapter launch takes and the floats of the few-row or split
+// path's scratch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1440,18 +1482,558 @@ int launch_few(void* y, const void* x, const int* idx, const float* a, const flo
 #undef REPRO_FEW
 }
 
+// ---- many rows, widths that do not stage: the split path ----
+
+constexpr int kSplitThreads = 256;
+constexpr int kSplitMaxSplits = 8;  // K-slices of the shrink at most
+constexpr int kSplitStages = 3;     // the shrink's ring of a's steps (two at ranks above 16)
+constexpr int kSplitXaBlocks = 4;   // the shrink's grid: about this many blocks an SM
+constexpr int kSplitYBlocks = 4;    // the expand's grid: likewise
+constexpr int kSplitGroup = 8;      // rows an expand warp takes at a time (fewer above rank 8)
+
+// columns an expand thread owns: their b ⊙ mask stays in RP·CW <= 64 registers
+__host__ __device__ constexpr int split_cw(int RP) { return RP <= 8 ? 8 : 64 / RP; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows a shrink warp sums: RW x RP f32 accumulators a lane, 32 (64 at rank 64)
+__host__ __device__ constexpr int split_rw(int RP) { return RP >= 32 ? 1 : 32 / RP; }
+// k values of a shrink step: a lane's 16 bytes of each of its rows
+__host__ __device__ constexpr int split_ks(int size) { return 32 * (16 / size); }
+// ring stages of a: a step's a is RP x KS f32, 8 KB at rank 8 and bf16
+__host__ __device__ constexpr int split_stages(int RP) { return RP >= 32 ? 2 : kSplitStages; }
+
+// The shrink's K-slice: whole steps, as few slices as give about
+// kSplitXaBlocks blocks an SM over the row tiles, at most kSplitMaxSplits.
+int64_t split_slice(int64_t M, int64_t K, int RP, int size) {
+  const int64_t KS = split_ks(size);
+  const int64_t steps = K > 0 ? (K + KS - 1) / KS : 1;
+  const int64_t tiles = (M + 8 * split_rw(RP) - 1) / (8 * split_rw(RP));
+  const int64_t want = (kSplitXaBlocks * (int64_t)device_info().sms + tiles - 1) / tiles;
+  const int64_t most = steps < kSplitMaxSplits ? steps : kSplitMaxSplits;
+  const int64_t s = want < 1 ? 1 : want > most ? most : want;
+  return (steps + s - 1) / s * KS;
+}
+int split_count(int64_t M, int64_t K, int RP, int size) {
+  const int64_t kc = split_slice(M, K, RP, size);
+  const int64_t s = (K + kc - 1) / kc;
+  return (int)(s < 1 ? 1 : s);
+}
+// The expand's rows a block: a multiple of its warps' groups, so that the
+// grid holds about kSplitYBlocks blocks an SM.
+__host__ __device__ constexpr int split_group(int RP) {
+  return RP >= 64 ? 1 : 64 / RP < kSplitGroup ? 64 / RP : kSplitGroup;
+}
+int64_t split_rows(int64_t M, int64_t N, int RP) {
+  const int64_t cols = (N + 32 * split_cw(RP) - 1) / (32 * split_cw(RP));
+  const int64_t want = (kSplitYBlocks * (int64_t)device_info().sms + cols - 1) / cols;
+  const int64_t chunks = want < 1 ? 1 : want;
+  const int64_t unit = (kSplitThreads / 32) * split_group(RP);
+  const int64_t rows = (M + chunks - 1) / chunks;
+  return (rows + unit - 1) / unit * unit;
+}
+
+// 16 bytes of row p from k (VX values of T), or zeros where the row is not
+// read; element by element where vec does not hold
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* p, int64_t k, int64_t k_hi, bool live, bool vec) {
+  constexpr int VX = 16 / sizeof(T);
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  if (!live || k >= k_hi) return u;
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p + k));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < VX; ++i) {
+    if (k + i >= k_hi) break;
+    if constexpr (sizeof(T) == 4) {
+      w[i] = __float_as_uint(to_f32(p[k + i]));
+    } else {
+      w[i >> 1] |= (uint32_t)__bfloat16_as_ushort(p[k + i]) << (16 * (i & 1));
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+// value i of those 16 bytes, in f32
+template <typename T>
+__device__ __forceinline__ float value16(const uint4& u, int i) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(w[i]);
+  } else {
+    return __uint_as_float((i & 1) ? (w[i >> 1] & 0xffff0000u) : (w[i >> 1] << 16));
+  }
+}
+
+// Shrink: part[s][m][0..RP) = x[m, ks] @ a[idx[m], ks, :] over block
+// (t, s)'s 8·RW rows from 8·RW·t and K-slice ks = [s·kc, (s + 1)·kc), in
+// f32. Warp w owns rows 8·RW·t + RW·w .. + RW; a step covers KS = 32·VX
+// k's, lane l the VX = 16 / size neighbouring k's from VX·l, read from
+// device memory with one 16-byte load a row (element by element where K or
+// x do not allow it) two steps ahead of their use, straight into registers.
+// a is staged a step at a time in shared memory for the tile's first
+// adapter, by cp.async copies through a ring of split_stages(RP), laid out
+// [quad][i][lane] so that lane l's value i is contiguous across the warp;
+// another adapter in the tile (a mixed tile) is staged in its turn, and
+// each pass sums only its own rows. Each staged a value serves RW rows, and
+// a lane's RW·RP sums go, after the slice, through a reduce-scatter over
+// the warp's lanes (a fixed order) into the partials. Rows out of range are
+// neither read nor written.
+template <typename T, int RP>
+__global__ void __launch_bounds__(kSplitThreads, 2)
+    sparse_lora_split_xa_kernel(float* __restrict__ part, const T* __restrict__ x, const int* __restrict__ idx,
+                                const float* __restrict__ a, int64_t M, int64_t K, int r, int A, int64_t kc,
+                                int splits, bool x_vec, bool a_vec) {
+  pdl_trigger();
+  constexpr int VX = 16 / sizeof(T);
+  constexpr int KS = split_ks(sizeof(T));
+  constexpr int NQ = RP / 4;  // rank quads
+  constexpr int RW = split_rw(RP);
+  constexpr int ROWS = 8 * RW;
+  constexpr int S = split_stages(RP);
+  constexpr int V = RW * RP;  // a lane's sums
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  float4* as = reinterpret_cast<float4*>(split_smem);  // [S][NQ][VX][32]
+  __shared__ int ad_s[ROWS], dist_s[ROWS];
+  __shared__ int nd_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t tile = blockIdx.x / splits;  // a tile's slices on neighbouring blocks
+  const int slice = (int)(blockIdx.x % splits);
+  const int64_t m0 = tile * ROWS;
+  const int64_t k_lo = (int64_t)slice * kc, k_hi = K < k_lo + kc ? K : k_lo + kc;
+  if (tid < ROWS) {
+    const int64_t m = m0 + tid;
+    int ad = -1;
+    if (m < M) {
+      const int v = idx[m];
+      ad = (v >= 0 && v < A) ? v : -1;
+    }
+    ad_s[tid] = ad;
+  }
+  __syncthreads();
+  if (warp == 0) {  // the distinct adapters, in order of their first row
+    int base = 0;
+    for (int c = 0; c < ROWS; c += 32) {  // warp-uniform; the ballot outside any condition
+      bool first = false;
+      int ad = -1;
+      if (c + lane < ROWS) {
+        ad = ad_s[c + lane];
+        first = ad >= 0;
+        for (int j = 0; j < c + lane && first; ++j) first = ad_s[j] != ad;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, first);
+      if (first) dist_s[base + __popc(bal & ((1u << lane) - 1u))] = ad;
+      base += __popc(bal);
+    }
+    if (lane == 0) nd_s = base;
+  }
+  __syncthreads();
+  const int nd = nd_s;
+  if (nd == 0) return;  // every row out of range: the expand reads no partial of them
+
+  // a[ad] at k0..k0+KS into stage s: element (q, i, l) is a[k0 + VX·l + i]'s
+  // quad q; ranks >= r and k's past the slice are zeros (x there is 0, but
+  // 0 · garbage could be NaN)
+  auto load_a = [&](int ad, int64_t k0, int s, bool async) {
+    float4* dst = as + s * NQ * VX * 32;
+    const float* ap = a + (int64_t)ad * K * r;
+    for (int e = tid; e < KS * NQ; e += kSplitThreads) {
+      const int kk = e / NQ, q = e % NQ;
+      const int64_t k = k0 + kk;
+      float4* d = dst + (q * VX + kk % VX) * 32 + kk / VX;
+      if (a_vec) {
+        const bool ok = 4 * q < r && k < k_hi;
+        if (async)
+          cp_async16(d, ok ? ap + k * r + 4 * q : a, ok ? 16 : 0);
+        else
+          *d = ok ? *reinterpret_cast<const float4*>(ap + k * r + 4 * q) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else {
+        float v[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] = k < k_hi && 4 * q + c < r ? ap[k * r + 4 * q + c] : 0.0f;
+        *d = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  };
+
+  int my_ad[RW];
+  const T* xp[RW];
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    my_ad[j] = ad_s[RW * warp + j];
+    xp[j] = x + (m0 + RW * warp + j) * K;  // read only where the row is in range
+  }
+  float acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = 0.0f;
+
+  const int64_t steps = k_hi > k_lo ? (k_hi - k_lo + KS - 1) / KS : 0;
+  const int64_t kl = (int64_t)VX * lane;
+  uint4 x0[RW], x1[RW];  // this step's and the next one's 16 bytes a row
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    x0[j] = load16(xp[j], k_lo + kl, k_hi, my_ad[j] >= 0, x_vec);
+    x1[j] = load16(xp[j], k_lo + KS + kl, k_hi, my_ad[j] >= 0, x_vec);
+  }
+#pragma unroll
+  for (int p = 0; p < S - 1; ++p) {  // the ring's first steps of a in flight
+    if (p < steps) load_a(dist_s[0], k_lo + (int64_t)p * KS, p, true);
+    cp_async_commit();
+  }
+  for (int64_t c = 0; c < steps; ++c) {
+    const int s = (int)(c % S);
+    const int64_t k0 = k_lo + c * KS;
+    cp_async_wait<S - 2>();  // step c's a has landed
+    __syncthreads();         // ... for every thread, and step c - 1's stage is read
+    if (c + S - 1 < steps) load_a(dist_s[0], k0 + (int64_t)(S - 1) * KS, (int)((c + S - 1) % S), true);
+    cp_async_commit();
+    uint4 xc[RW];
+#pragma unroll
+    for (int j = 0; j < RW; ++j) {  // step c + 2's rows in flight while step c is multiplied
+      xc[j] = x0[j];
+      x0[j] = x1[j];
+      x1[j] = load16(xp[j], k0 + 2 * KS + kl, k_hi, my_ad[j] >= 0, x_vec);
+    }
+    const float4* aq = as + s * NQ * VX * 32 + lane;
+    for (int d = 0; d < nd; ++d) {  // block-uniform
+      if (d > 0) {  // a mixed tile: the next adapter's a over this step
+        __syncthreads();
+        load_a(dist_s[d], k0, s, false);
+        __syncthreads();
+      }
+      const int ad = dist_s[d];
+      bool use[RW], any = false;
+#pragma unroll
+      for (int j = 0; j < RW; ++j) {
+        use[j] = my_ad[j] == ad;
+        any = any || use[j];
+      }
+      if (!any) continue;
+#pragma unroll
+      for (int i = 0; i < VX; ++i) {
+        float xv[RW];
+#pragma unroll
+        for (int j = 0; j < RW; ++j) xv[j] = use[j] ? value16<T>(xc[j], i) : 0.0f;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float4 t = aq[(q * VX + i) * 32];
+#pragma unroll
+          for (int j = 0; j < RW; ++j) {
+            acc[j * RP + 4 * q] = fmaf(xv[j], t.x, acc[j * RP + 4 * q]);
+            acc[j * RP + 4 * q + 1] = fmaf(xv[j], t.y, acc[j * RP + 4 * q + 1]);
+            acc[j * RP + 4 * q + 2] = fmaf(xv[j], t.z, acc[j * RP + 4 * q + 2]);
+            acc[j * RP + 4 * q + 3] = fmaf(xv[j], t.w, acc[j * RP + 4 * q + 3]);
+          }
+        }
+      }
+    }
+  }
+
+  // the warp's lanes summed (a reduce-scatter, a fixed order): lane l then
+  // holds entries [P·l, P·l + P) of its rows x ranks
+  reduce_half<V / 2>(acc, lane, 16);
+  reduce_half<V / 4>(acc, lane, 8);
+  reduce_half<V / 8>(acc, lane, 4);
+  reduce_half<V / 16>(acc, lane, 2);
+  reduce_half<V / 32>(acc, lane, 1);
+  constexpr int P = V / 32;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int e = P * lane + p, j = e / RP, q = e % RP;
+    if (ad_s[RW * warp + j] >= 0) part[((int64_t)slice * M + m0 + RW * warp + j) * RP + q] = acc[p];
+  }
+}
+
+// CW neighbouring values of y from column n: one or two 16-byte stores
+// (fewer bytes where CW·size is less) where vec and the columns lie below
+// N, else one value at a time
+template <int CW, typename T>
+__device__ __forceinline__ void store_cols(T* p, const float (&v)[CW], int64_t n, int64_t N, bool vec) {
+  if (vec && n + CW <= N) {
+    if constexpr (CW == 8) {
+      store8(p, v);
+      return;
+    } else if constexpr (CW == 4) {
+      store4(p, v);
+      return;
+    } else if constexpr (CW == 2) {
+      if constexpr (sizeof(T) == 4) {
+        *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CW; ++c)
+    if (n + c < N) p[c] = from_f32<T>(v[c]);
+}
+
+// Expand: y = scale · xa @ (b ⊙ mask) over blocks of `rows` rows and
+// CT = 32·CW columns (a row chunk's column tiles on neighbouring blocks);
+// thread `lane` of every warp owns CW neighbouring columns and holds their
+// b ⊙ mask for one adapter in registers. Launched with programmatic stream
+// serialization: before its wait a block stages its column tile of b and
+// the mask for the adapter of its first row (RP x CT f32, 8 KB at rank 8)
+// in shared memory and each warp takes its copy into registers, while the
+// shrink runs. After it, each warp takes groups of G = split_group(RP)
+// rows (warp w the groups w, w + 8, ... of the block), with no barrier of
+// the block: the group's xa, each row's partials summed over the K-slices
+// in order (a lane a (row, rank)), goes through the warp's slice of shared
+// memory, the next group's partials already loading; then each row is
+// written with one 16-byte store a thread (bf16, CW 8). A row whose adapter differs from the one in registers (a mixed
+// tile, or a slot boundary) loads that adapter's columns from L2 first; a
+// row out of range is written as zeros. A row's sums do not depend on its
+// block, so the result is the same for every launch of these inputs.
+template <typename T, int RP>
+__global__ void __launch_bounds__(kSplitThreads)
+    sparse_lora_split_y_kernel(T* __restrict__ y, const float* __restrict__ part, const int* __restrict__ idx,
+                               const float* __restrict__ b, const float* __restrict__ mask, int64_t M, int64_t N,
+                               int r, int A, int splits, int64_t rows, int64_t col_blocks, float scale, bool b_vec,
+                               bool y_vec) {
+  constexpr int CW = split_cw(RP);
+  constexpr int CT = 32 * CW;
+  constexpr int G = split_group(RP);
+  __shared__ __align__(16) float b_s[RP][CT];
+  __shared__ __align__(16) float m_s[CT];
+  __shared__ __align__(16) float xa_s[kSplitThreads / 32][G][RP];
+  __shared__ int first_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t chunk = blockIdx.x / col_blocks, col = blockIdx.x % col_blocks;
+  const int64_t r_lo = chunk * rows, r_hi = M < r_lo + rows ? M : r_lo + rows;
+  const int64_t n0 = col * CT, n = n0 + (int64_t)lane * CW;
+
+  float bm[RP][CW];
+  int cur = -1;  // the adapter whose b ⊙ mask the registers hold
+  // this thread's columns of b[ad] ⊙ mask[ad], from L2
+  auto load_bm = [&](int ad) {
+    const float* bp = b + (int64_t)ad * r * N + n;
+    const float* mp = mask + (int64_t)ad * N + n;
+#pragma unroll
+    for (int c4 = 0; c4 < (CW + 3) / 4; ++c4) {
+      constexpr int V = CW < 4 ? CW : 4;
+      float mk[V], bv[RP][V];
+      if (b_vec && CW >= 4 && n + 4 * c4 + 4 <= N) {
+        const float4 t = *reinterpret_cast<const float4*>(mp + 4 * c4);
+        const float tv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int c = 0; c < V; ++c) mk[c] = tv[c];
+#pragma unroll
+        for (int rr = 0; rr < RP; ++rr) {
+          float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (rr < r) u = *reinterpret_cast<const float4*>(bp + (int64_t)rr * N + 4 * c4);
+          const float uv[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int c = 0; c < V; ++c) bv[rr][c] = uv[c];
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+          const bool in = n + 4 * c4 + c < N;
+          mk[c] = in ? mp[4 * c4 + c] : 0.0f;
+#pragma unroll
+          for (int rr = 0; rr < RP; ++rr) bv[rr][c] = in && rr < r ? bp[(int64_t)rr * N + 4 * c4 + c] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < RP; ++rr)
+#pragma unroll
+        for (int c = 0; c < V; ++c) bm[rr][4 * c4 + c] = bv[rr][c] * mk[c];
+    }
+  };
+
+  // before the wait: the first row's adapter, its columns staged once for
+  // the block and copied into every warp's registers
+  if (tid == 0) {
+    const int v = r_lo < r_hi ? idx[r_lo] : -1;
+    first_s = (v >= 0 && v < A) ? v : -1;
+  }
+  __syncthreads();
+  const int first = first_s;
+  if (first >= 0) {
+    const float* bp = b + (int64_t)first * r * N;
+    const float* mp = mask + (int64_t)first * N;
+    if (b_vec) {
+      for (int i = tid; i < (RP + 1) * (CT / 4); i += kSplitThreads) {
+        const int rr = i / (CT / 4), c = (i % (CT / 4)) * 4;  // rr == RP: the mask
+        const int64_t nn = n0 + c;
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (nn < N && rr < r) v = *reinterpret_cast<const float4*>(bp + (int64_t)rr * N + nn);
+        if (nn < N && rr == RP) v = *reinterpret_cast<const float4*>(mp + nn);
+        *reinterpret_cast<float4*>(rr < RP ? &b_s[rr][c] : &m_s[c]) = v;
+      }
+    } else {
+      for (int i = tid; i < (RP + 1) * CT; i += kSplitThreads) {
+        const int rr = i / CT, c = i % CT;
+        const int64_t nn = n0 + c;
+        if (rr < RP)
+          b_s[rr][c] = nn < N && rr < r ? bp[(int64_t)rr * N + nn] : 0.0f;
+        else
+          m_s[c] = nn < N ? mp[nn] : 0.0f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < RP; ++rr)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) bm[rr][c] = b_s[rr][lane * CW + c] * m_s[lane * CW + c];
+    cur = first;
+  }
+  pdl_wait();  // the shrink's partials have landed
+
+  // a group's rows: their adapters (-1 out of range, -2 past the block) and
+  // the partials of their xa over the K-slices, a lane (row, rank) entries
+  // of the group, loaded for the next group while this one is written
+  constexpr int NI = (G * RP + 31) / 32;
+  int ad_l = -2;
+  float pv[NI][kSplitMaxSplits];
+  auto load_group = [&](int64_t m0) {
+    ad_l = -2;
+    if (lane < G && m0 + lane < r_hi) {
+      const int v = idx[m0 + lane];
+      ad_l = (v >= 0 && v < A) ? v : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int e = lane + 32 * i, j = e / RP;
+      const bool live = e < G * RP && m0 + j < r_hi;
+      const float* p = part + (m0 + j) * RP + e % RP;
+#pragma unroll
+      for (int sp = 0; sp < kSplitMaxSplits; ++sp) pv[i][sp] = live && sp < splits ? p[(int64_t)sp * M * RP] : 0.0f;
+    }
+  };
+  const int64_t stride = (int64_t)(kSplitThreads / 32) * G;
+  int64_t m0 = r_lo + (int64_t)warp * G;
+  if (m0 < r_hi) load_group(m0);
+  while (m0 < r_hi) {  // warp-uniform
+    // this group's xa: each entry its partials summed over the slices in order
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int e = lane + 32 * i;
+      float sum = pv[i][0];
+#pragma unroll
+      for (int sp = 1; sp < kSplitMaxSplits; ++sp) sum += pv[i][sp];  // + 0.0 past the slices
+      if (e < G * RP) xa_s[warp][e / RP][e % RP] = sum;
+    }
+    const int ad_g = ad_l;
+    const int64_t next = m0 + stride;
+    if (next < r_hi) load_group(next);
+    __syncwarp();
+#pragma unroll 1
+    for (int j = 0; j < G; ++j) {
+      const int ad = __shfl_sync(0xffffffffu, ad_g, j);
+      if (ad == -2) break;  // warp-uniform: the block's rows end
+      float out[CW];
+#pragma unroll
+      for (int c = 0; c < CW; ++c) out[c] = 0.0f;
+      if (ad >= 0) {
+        if (ad != cur) {  // warp-uniform
+          load_bm(ad);
+          cur = ad;
+        }
+#pragma unroll
+        for (int q = 0; q < RP / 4; ++q) {
+          const float4 xv = *reinterpret_cast<const float4*>(&xa_s[warp][j][4 * q]);
+          const float xq[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int c = 0; c < CW; ++c) out[c] = fmaf(xq[u], bm[4 * q + u][c], out[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < CW; ++c) out[c] *= scale;
+      }
+      store_cols<CW>(y + (m0 + j) * N + n, out, n, N, y_vec);
+    }
+    __syncwarp();  // xa_s is read before the next group rewrites it
+    m0 = next;
+  }
+}
+
+template <typename T, int RP>
+int launch_split_rank(void* y, const void* x, const int* idx, const float* a, const float* b, const float* mask,
+                      float* part, int64_t M, int64_t K, int64_t N, int r, int A, float scale,
+                      cudaStream_t stream) {
+  constexpr int CW = split_cw(RP), ROWS = 8 * split_rw(RP);
+  const int64_t kc = split_slice(M, K, RP, (int)sizeof(T));
+  const int splits = split_count(M, K, RP, (int)sizeof(T));
+  const int bytes = split_stages(RP) * RP * split_ks((int)sizeof(T)) * 4;
+  static int opted_in = 0;  // the static shared memory counts against 48 KB too: always opt in
+  if (bytes > opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(sparse_lora_split_xa_kernel<T, RP>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = bytes;
+  }
+  const int64_t tiles = (M + ROWS - 1) / ROWS;
+  const int64_t rows = split_rows(M, N, RP);
+  const int64_t row_blocks = (M + rows - 1) / rows, col_blocks = (N + 32 * CW - 1) / (32 * CW);
+  if (tiles * splits > 2147483647LL || row_blocks * col_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const bool x_vec = (K * (int64_t)sizeof(T)) % 16 == 0 && aligned(x, 16);
+  const bool a_vec = r % 4 == 0 && aligned(a, 16);
+  sparse_lora_split_xa_kernel<T, RP><<<(unsigned)(tiles * splits), kSplitThreads, bytes, stream>>>(
+      part, (const T*)x, idx, a, M, K, r, A, kc, splits, x_vec, a_vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const bool b_vec = N % 4 == 0 && aligned(b, 16) && aligned(mask, 16);
+  const int64_t vbytes = CW * (int64_t)sizeof(T) < 16 ? CW * (int64_t)sizeof(T) : 16;
+  const bool y_vec = aligned(y, 16) && (N * (int64_t)sizeof(T)) % vbytes == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(row_blocks * col_blocks));
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, sparse_lora_split_y_kernel<T, RP>, (T*)y, (const float*)part, idx, b, mask, M, N,
+                           r, A, splits, rows, col_blocks, scale, b_vec, y_vec);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_split(void* y, const void* x, const int* idx, const float* a, const float* b, const float* mask,
+                 float* part, int64_t M, int64_t K, int64_t N, int r, int A, float scale, cudaStream_t stream) {
+#define REPRO_SPLIT(RP) \
+  return launch_split_rank<T, RP>(y, x, idx, a, b, mask, part, M, K, N, r, A, scale, stream)
+  switch (few_rank_pad(r)) {
+    case 4: REPRO_SPLIT(4);
+    case 8: REPRO_SPLIT(8);
+    case 16: REPRO_SPLIT(16);
+    case 32: REPRO_SPLIT(32);
+    default: REPRO_SPLIT(64);
+  }
+#undef REPRO_SPLIT
+}
+
 // The multi-adapter product's kernel at these widths: the resident (SGMV)
 // kernel where sgmv_stages > 0 (its ring depth in *stages), else the
-// few-row path at most kFewMaxRows rows (its scratch floats in *scratch),
-// else the L2 (BGMV) kernel.
-enum Path { kPathL2 = 0, kPathResident = 1, kPathFew = 2 };
+// few-row path at most kFewMaxRows rows, else the split path (either's
+// scratch floats in *scratch); the L2 (BGMV) kernel takes a launch of
+// those two paths' widths that is given no scratch.
+enum Path { kPathL2 = 0, kPathResident = 1, kPathFew = 2, kPathSplit = 3 };
 
 Path route(int64_t M, int64_t K, int64_t N, int r, int A, int size, int* stages, int64_t* scratch) {
   *stages = sgmv_stages(M, K, N, r, A, size);
   *scratch = 0;
   if (*stages > 0) return kPathResident;
-  if (M < 1 || M > kFewMaxRows || A < 1) return kPathL2;
+  if (M < 1 || A < 1) return kPathL2;
   const int RP = few_rank_pad(r);
+  if (M > kFewMaxRows) {
+    *scratch = (int64_t)split_count(M, K, RP, size) * M * RP;
+    return kPathSplit;
+  }
   *scratch = (int64_t)few_splits(K, RP) * M * RP;
   return kPathFew;
 }
@@ -1468,11 +2050,13 @@ int launch_any(void* y, const void* x, const int* idx, const float* a, const flo
     path = route(M, K, N, r, A, size, &stages, &floats);
   else
     stages = team_stages(K, N, r, size, 0);
-  // the scratch only on the few-row path; without it, that path's launch takes the L2 kernel
-  if (scratch != nullptr && (path != kPathFew || plan != nullptr || !aligned(scratch, 16)))
+  // the scratch only on the few-row and split paths; without it, their launches take the L2 kernel
+  if (scratch != nullptr && ((path != kPathFew && path != kPathSplit) || plan != nullptr || !aligned(scratch, 16)))
     return (int)cudaErrorInvalidValue;
   if (path == kPathFew && scratch != nullptr)
     return launch_few<T>(y, x, idx, a, b, mask, scratch, (int)M, K, N, r, A, scale, stream);
+  if (path == kPathSplit && scratch != nullptr)
+    return launch_split<T>(y, x, idx, a, b, mask, scratch, M, K, N, r, A, scale, stream);
   if (stages == 0) {
     if (plan != nullptr) return (int)cudaErrorInvalidValue;  // the L2 kernel makes no plan
     return launch<T>(y, x, idx, a, b, mask, M, K, N, r, idx ? A : 1, scale, packed, stream);
@@ -1505,8 +2089,8 @@ extern "C" {
 // path only): the rows in the order sorted by segment, then each segment's
 // first row in that order, and the end. scratch (16-byte aligned, the
 // floats repro_sparse_lora_path gives) or null (the multi-adapter product
-// on the few-row path only): that path's partials of x @ a; a launch of the
-// few-row path's widths without it takes the L2 kernel.
+// on the few-row and split paths only): that path's partials of x @ a; a
+// launch of those paths' widths without it takes the L2 kernel.
 int repro_sparse_lora(void* y, const void* x, const void* idx, const void* a, const void* b, const void* mask,
                       void* plan, void* scratch, int64_t M, int64_t K, int64_t N, int r, int n_adapters, int dtype,
                       int packed, float scale, void* stream) {
@@ -1537,8 +2121,8 @@ int repro_sparse_lora_stages(int64_t M, int64_t K, int64_t N, int r, int n_adapt
 
 // The kernel a multi-adapter launch of M rows takes at these widths on the
 // current device: 0 the L2 (BGMV) kernel, 1 the resident (SGMV) kernel, 2
-// the few-row path, which takes *scratch floats of scratch (0 on the
-// others); -1 for widths no launch takes.
+// the few-row path, 3 the split path; the last two take *scratch floats of
+// scratch (0 on the others); -1 for widths no launch takes.
 int repro_sparse_lora_path(int64_t M, int64_t K, int64_t N, int r, int n_adapters, int dtype, int64_t* scratch) {
   if (K < 0 || N <= 0 || M <= 0 || r < 1 || r > kMaxRank || n_adapters < 1 || dtype < 0 || dtype > 1 ||
       scratch == nullptr)

@@ -363,9 +363,12 @@ def _lora_product(x, a, b, mask, idx, scale, plain, counter, packed=False):
         return plain(x2).reshape(*lead, N)
     y = torch.empty((x2.shape[0], N), dtype=x.dtype, device=x.device)
     if y.numel():
-        if _sl.sparse_lora_launch(y, x2.contiguous(), _f32(a), _f32(b), _f32(mask), idx, scale=scale,
-                                  packed=packed) == "few_rows":
+        path = _sl.sparse_lora_launch(y, x2.contiguous(), _f32(a), _f32(b), _f32(mask), idx, scale=scale,
+                                      packed=packed)
+        if path == "few_rows":
             counter.few_row_launches += 1
+        elif path == "split":
+            counter.split_launches += 1
         else:
             counter.launches += 1
     return y.reshape(*lead, N)
@@ -386,10 +389,11 @@ def batched_sparse_lora_apply(x, idx, a, b, mask, scale: float = 1.0):
 
     On the card one launch groups the rows by adapter itself (no host sync,
     so a CUDA graph can capture the call), counted in ``launches``; a call
-    of at most ``sparse_lora.FEW_MAX_ROWS`` rows that the SGMV kernel does
-    not take (``sparse_lora.batched_path``) takes the few-row path instead
-    (two chained launches spread over the card, no host sync), counted once
-    in ``few_row_launches``."""
+    that the SGMV kernel does not take (``sparse_lora.batched_path``) takes
+    two chained launches spread over the card (no host sync) instead: the
+    few-row path at most ``sparse_lora.FEW_MAX_ROWS`` rows, counted once in
+    ``few_row_launches``, and the split path above, counted once in
+    ``split_launches``."""
     idx2 = idx.reshape(-1)
     if _on_cuda(idx2) and idx2.dtype != torch.int32:
         # clamped first, so that no index wraps into range as int32
@@ -481,5 +485,6 @@ sparse_lora_apply.launches = 0
 sparse_lora_apply_packed.launches = 0
 batched_sparse_lora_apply.launches = 0
 batched_sparse_lora_apply.few_row_launches = 0
+batched_sparse_lora_apply.split_launches = 0
 flash_attention.launches = 0
 ssd_chunk_intra.launches = 0

@@ -9,14 +9,17 @@ index into stacked adapters) are one launch with other arguments. A launch
 takes the kernel that keeps a and b ⊙ mask in shared memory where they fit
 (:func:`resident_stages`; for the multi-adapter product an SGMV kernel that
 plans on the device which rows go with which adapter), and the kernel that
-reads them from L2 otherwise. A multi-adapter product of at most
-``FEW_MAX_ROWS`` rows (a decode step) that the SGMV kernel does not take
-(fewer than 16 rows an adapter) takes the few-row path instead: two
-launches, x @ a split over K and the second product split over N, chained
-with programmatic dependent launch (:func:`batched_path` says which path a
-launch takes). The launcher checks the tensors, allocates nothing but the
-few-row path's small f32 scratch (through PyTorch's caching allocator),
-launches on PyTorch's current stream and raises if a launch is refused.
+reads them from L2 otherwise. A multi-adapter product that the SGMV
+kernel does not take (fewer than 16 rows an adapter, or a and b too wide
+to stage) takes one of two paths of two launches chained with
+programmatic dependent launch instead: at most ``FEW_MAX_ROWS`` rows (a
+decode step) the few-row path, x @ a split over K and the second product
+split over N; more rows (a prefill) the split path, x @ a over row tiles
+and K-slices and the second product over row and column tiles
+(:func:`batched_path` says which path a launch takes). The launcher checks
+the tensors, allocates nothing but those paths' small f32 scratch (through
+PyTorch's caching allocator), launches on PyTorch's current stream and
+raises if a launch is refused.
 The library is built and loaded at the first launch (``kernels/build.py``),
 never at import.
 """
@@ -48,14 +51,14 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-_PATHS = ("bgmv", "sgmv", "few_rows")  # repro_sparse_lora_path's codes
+_PATHS = ("bgmv", "sgmv", "few_rows", "split")  # repro_sparse_lora_path's codes
 
 
 @functools.lru_cache(maxsize=None)
 def _route(M: int, K: int, N: int, r: int, dtype_code: int, adapters: int, device: int) -> tuple[str, int]:
     """The kernel a multi-adapter launch takes on CUDA device ``device``
     (the current one) and the f32 values of its scratch (0 but on the
-    few-row path), asked once a shape."""
+    few-row and split paths), asked once a shape."""
     scratch = _I64(0)
     code = library().repro_sparse_lora_path(M, K, N, r, adapters, dtype_code, ctypes.byref(scratch))
     if code < 0:
@@ -67,7 +70,10 @@ def batched_path(M: int, K: int, N: int, r: int, dtype: torch.dtype, adapters: i
     """Which kernel a multi-adapter launch of these widths takes on the
     current CUDA device: ``"sgmv"`` (the resident kernel, where
     :func:`resident_stages` > 0), else ``"few_rows"`` (at most
-    ``FEW_MAX_ROWS`` rows) or ``"bgmv"`` (the L2 kernel)."""
+    ``FEW_MAX_ROWS`` rows) or ``"split"`` (more rows). The L2 kernel
+    (``"bgmv"``) takes only a launch of those two paths' widths made
+    without their scratch, which the C entry allows and this launcher
+    never makes."""
     return _route(M, K, N, r, _DTYPE_CODES[dtype], adapters, torch.cuda.current_device())[0]
 
 
@@ -78,9 +84,8 @@ def resident_stages(K: int, N: int, r: int, dtype: torch.dtype, adapters: int = 
     L2. ``adapters`` 0: the single-adapter products (rank above 16, or K and
     N too wide, take L2). Otherwise the multi-adapter product over ``rows``
     rows, whose SGMV path also needs at most 1024 adapters and at least 16
-    rows per adapter (a multi-adapter launch that this leaves on the L2
-    kernel takes the few-row path at most ``FEW_MAX_ROWS`` rows:
-    :func:`batched_path`)."""
+    rows per adapter (a multi-adapter launch that this leaves out takes
+    the few-row or the split path: :func:`batched_path`)."""
     stages = library().repro_sparse_lora_stages(rows, K, N, r, adapters, _DTYPE_CODES[dtype])
     if stages < 0:
         raise ValueError(f"no kernel for K {K}, N {N}, rank {r}, {adapters} adapters, {rows} rows")
@@ -120,7 +125,7 @@ def sparse_lora_launch(y, x, a, b, mask, idx=None, *, scale: float = 1.0, packed
     (A, K, r), ``b`` (A, r, N), ``mask`` (A, N), and a row whose index lies
     outside [0, A) comes out as zeros; ``plan``, an (M + A + 2,) int32
     tensor, receives the SGMV kernel's plan (:func:`sgmv_plan`), and a launch
-    on the L2 path or the few-row path refuses it. a, b and mask are f32;
+    on the few-row or split path refuses it. a, b and mask are f32;
     r is at most ``MAX_RANK``; everything is contiguous on x's device.
     Returns the multi-adapter launch's path (:func:`batched_path`), "" for
     a single adapter.
@@ -152,14 +157,14 @@ def sparse_lora_launch(y, x, a, b, mask, idx=None, *, scale: float = 1.0, packed
         raise ValueError("y must not alias x")
     if M == 0 or N == 0:
         raise ValueError("an empty output has nothing to launch")
-    path, few = _route(M, K, N, r, _DTYPE_CODES[x.dtype], lead[0], x.get_device()) if batched else ("", 0)
-    if few and plan is not None:
-        raise ValueError(f"the few-row path ({M} rows) makes no plan")
-    scratch = torch.empty(few, dtype=torch.float32, device=x.device) if few else None
+    path, floats = _route(M, K, N, r, _DTYPE_CODES[x.dtype], lead[0], x.get_device()) if batched else ("", 0)
+    if floats and plan is not None:
+        raise ValueError(f"the {path} path ({M} rows) makes no plan")
+    scratch = torch.empty(floats, dtype=torch.float32, device=x.device) if floats else None
     err = library().repro_sparse_lora(
         y.data_ptr(), x.data_ptr(), idx.data_ptr() if batched else None, a.data_ptr(), b.data_ptr(),
         mask.data_ptr(), plan.data_ptr() if plan is not None else None,
-        scratch.data_ptr() if few else None, M, K, N, r, lead[0] if batched else 1, _DTYPE_CODES[x.dtype],
+        scratch.data_ptr() if floats else None, M, K, N, r, lead[0] if batched else 1, _DTYPE_CODES[x.dtype],
         int(packed), scale, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

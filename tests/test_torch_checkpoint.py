@@ -30,6 +30,7 @@ from repro_torch.checkpoint import (
     save_checkpoint,
     save_tree,
 )
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 
 def _nested_tree():

@@ -28,6 +28,7 @@ from repro_torch.federated import compress as tcomp
 from repro_torch.kernels import ops as tops
 from repro_torch.lora import rank_mask_tree
 from repro_torch.utils.tree import tree_leaves
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 SHAPES = [(256, 128), (300, 130), (7, 5)]
 MODES = {  # (qmax, topk_ratio, use_thresh)

@@ -545,19 +545,22 @@ BATCHED_PATHS += [(4096, K, N, 8, 4) for K, N in ((3584, 14576), (7168, 3584), (
 
 
 def _b7_launches():
-    """B7's launches on both of its counters: the resident and L2 kernels'
-    (``launches``) and the few-row path's (``few_row_launches``)."""
+    """B7's launches on its three counters: the resident and L2 kernels'
+    (``launches``), the few-row path's (``few_row_launches``) and the split
+    path's (``split_launches``)."""
     fn = ops.batched_sparse_lora_apply
-    return fn.launches, fn.few_row_launches
+    return fn.launches, fn.few_row_launches, fn.split_launches
 
 
 def _b7_counted(before, M, K, N, r, A, dtype):
-    """One call since ``before``, on the counter of the path it took."""
-    few = sparse_lora.batched_path(M, K, N, r, dtype, A) == "few_rows"
+    """One call since ``before``, on the counter of the path it took: SGMV
+    where it stages, else the few-row path at most FEW_MAX_ROWS rows and
+    the split path above."""
+    path = sparse_lora.batched_path(M, K, N, r, dtype, A)
     sgmv = sparse_lora.resident_stages(K, N, r, dtype, adapters=A, rows=M) > 0
-    assert few == (M <= sparse_lora.FEW_MAX_ROWS and not sgmv)
-    launches, few_launches = _b7_launches()
-    assert (launches - before[0], few_launches - before[1]) == ((0, 1) if few else (1, 0))
+    assert path == ("sgmv" if sgmv else "few_rows" if M <= sparse_lora.FEW_MAX_ROWS else "split")
+    moved = tuple(n - b for n, b in zip(_b7_launches(), before))
+    assert moved == {"sgmv": (1, 0, 0), "few_rows": (0, 1, 0), "split": (0, 0, 1)}[path]
 
 
 def _batched(gen, M, K, N, r, A, dtype):
@@ -821,6 +824,141 @@ def test_decode_shapes_take_the_few_row_path(cuda):
         sparse_lora.sparse_lora_launch(torch.empty(8, 40, dtype=torch.bfloat16, device="cuda"), x, a, b, mask,
                                        torch.zeros(8, dtype=torch.int32, device="cuda"),
                                        plan=torch.empty(12, dtype=torch.int32, device="cuda"))
+
+
+# the split path (more than FEW_MAX_ROWS rows whose adapters do not stage
+# for SGMV): every width of BATCHED_PATHS that takes it, rows in every kind of
+# segment, x off a 16-byte boundary
+SPLIT_KINDS = ["random", "skewed", "empty", "all_out", "mixed_out", "on0", "slots"]
+
+
+def _split_rows(gen, kind, M, A):
+    """The segments of ``_segments``, every row on adapter 0, or the serve
+    path's slot-contiguous rows (M // A rows a slot, the rest out of range)."""
+    if kind == "on0" or (kind == "skewed" and A == 1):
+        return torch.zeros(M, dtype=torch.int32, device="cuda")
+    if kind == "slots":
+        return torch.clamp(torch.arange(M, device="cuda") // (M // A), max=A).int()
+    return _segments(gen, kind, M, A)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,r,A", BATCHED_PATHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_path_matches_plain(cuda, M, K, N, r, A, dtype):
+    """Where SGMV does not stage the adapters, the split path takes the
+    launch and matches the plain version in every kind of segment; rows out
+    of range are exact zeros, and so is each row's own frozen column."""
+    if _sgmv(M, K, N, r, A, dtype):
+        assert sparse_lora.batched_path(M, K, N, r, dtype, A) == "sgmv"
+        return
+    assert M > sparse_lora.FEW_MAX_ROWS and sparse_lora.batched_path(M, K, N, r, dtype, A) == "split"
+    x, a, b, mask = _batched(cuda, M, K, N, r, A, dtype)
+    for kind in SPLIT_KINDS:
+        idx = _split_rows(cuda, kind, M, A)
+        before = _b7_launches()
+        y = ops.batched_sparse_lora_apply(x, idx, a, b, mask, 0.5)
+        _b7_counted(before, M, K, N, r, A, dtype)
+        torch.cuda.synchronize()
+        assert_lora_close(y, ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, 0.5))
+        out = (idx < 0) | (idx >= A)
+        assert bool((y[out] == 0).all()), kind
+        frozen = mask[idx.clamp(0, A - 1)] == 0
+        assert bool((y[frozen & ~out[:, None]] == 0).all()), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,r,A", [(1000, 300, 250, 8, 64), (4096, 3584, 14576, 8, 4), (777, 301, 131, 64, 5),
+                                       (300, 1000, 2000, 12, 30)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_path_takes_misaligned_views(cuda, M, K, N, r, A, dtype):
+    """x, y and the adapters off a 16-byte boundary (element by element
+    copies and stores), against the plain version."""
+    x, a, b, mask = _batched(cuda, M, K, N, r, A, dtype)
+    idx = _split_rows(cuda, "mixed_out", M, A).int()
+
+    def off(t):
+        v = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:].view(t.shape)
+        return v.copy_(t)
+
+    y = torch.empty(M * N + 1, dtype=dtype, device="cuda")[1:].view(M, N)
+    assert sparse_lora.sparse_lora_launch(y, off(x), off(a), off(b), off(mask), idx, scale=0.5) == "split"
+    torch.cuda.synchronize()
+    assert_lora_close(y, ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,r,A", [(4096, 2048, 8512, 8, 4), (1024, 2560, 2560, 8, 1), (1000, 300, 250, 64, 8)])
+def test_split_path_is_the_same_every_run(cuda, M, K, N, r, A):
+    """No atomics and a fixed order of summation: two launches on the same
+    inputs give the same bits."""
+    x, a, b, mask = _batched(cuda, M, K, N, r, A, torch.bfloat16)
+    idx = _split_rows(cuda, "slots", M, A)
+    y1 = ops.batched_sparse_lora_apply(x, idx, a, b, mask, 2.0)
+    y2 = ops.batched_sparse_lora_apply(x, idx, a, b, mask, 2.0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [4, 8, 16, 64])
+def test_split_path_captures_in_a_cuda_graph(cuda, r):
+    """Both launches (the expand behind the shrink with programmatic stream
+    serialization) are captured and replayed on fresh inputs."""
+    M, K, N, A = 1024, 2048, 8512, 4
+    assert sparse_lora.batched_path(M, K, N, r, torch.bfloat16, A) == "split"
+    xb, ab, bb, mb = _batched(cuda, M, K, N, r, A, torch.bfloat16)
+    fresh = _batched(cuda, M, K, N, r, A, torch.bfloat16)
+    before = _b7_launches()
+    _replays_equal_eager(lambda x_, i_, a_, b_, m_: ops.batched_sparse_lora_apply(x_, i_, a_, b_, m_, 2.0),
+                         [xb, _split_rows(cuda, "slots", M, A), ab, bb, mb],
+                         [fresh[0], _split_rows(cuda, "mixed_out", M, A)] + list(fresh[1:]))
+    assert _b7_launches()[2] == before[2] + 3  # warm-up, capture, eager
+
+
+@pytest.mark.cuda
+def test_b7_entry_takes_the_split_path_with_its_scratch(cuda):
+    """At the split path's widths a launch without the scratch takes the L2
+    kernel (the kernel timed beside the path), and both match the plain
+    version."""
+    lib = sparse_lora.library()
+    M, K, N, r, A = 1024, 2048, 8512, 8, 4
+    x, a, b, mask = _batched(cuda, M, K, N, r, A, torch.bfloat16)
+    idx = _split_rows(cuda, "slots", M, A)
+    assert sparse_lora.batched_path(M, K, N, r, torch.bfloat16, A) == "split"
+    y = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+    assert lib.repro_sparse_lora(y.data_ptr(), x.data_ptr(), idx.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                 mask.data_ptr(), None, None, M, K, N, r, A, 1, 0, 1.5,
+                                 torch.cuda.current_stream().cuda_stream) == 0
+    y2 = ops.batched_sparse_lora_apply(x, idx, a, b, mask, 1.5)
+    torch.cuda.synchronize()
+    want = ref.batched_sparse_lora_matmul_ref(x, idx, a, b, mask, 1.5)
+    assert_lora_close(y, want)
+    assert_lora_close(y2, want)
+
+
+@pytest.mark.cuda
+def test_prefill_shapes_take_the_split_path(cuda):
+    """A served prefill's per-slot LoRA (1 x 1024, 4 x 128 and 4 x 1024 rows
+    over one adapter a prompt, rank 8) at every config's widths takes SGMV
+    where the adapters stage and the split path everywhere else: no served
+    shape is left on the L2 kernel."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.lora import init_lora
+
+    gen = torch.Generator().manual_seed(0)
+    split = 0
+    for name, cfg in ARCHS.items():
+        targets = [(t, ab) for group in init_lora(gen, cfg, "cpu").values() for t, ab in group.items()]
+        for target, ab in targets:
+            K, N = ab["a"].shape[-2], ab["b"].shape[-1]
+            for dtype in (torch.float32, torch.bfloat16):
+                for g, S in ((1, 1024), (4, 128), (4, 1024)):
+                    stages = sparse_lora.resident_stages(K, N, cfg.lora_rank, dtype, adapters=g, rows=g * S)
+                    path = sparse_lora.batched_path(g * S, K, N, cfg.lora_rank, dtype, g)
+                    assert path == ("sgmv" if stages else "split"), (name, target, g, S)
+                    split += path == "split"
+    assert split > 0
 
 
 # the single-adapter product's two kernels: a and b ⊙ mask resident in

@@ -52,6 +52,7 @@ from repro_torch.federated import make_runner as t_make_runner
 from repro_torch.kernels import ops as tops
 from repro_torch.models import build_model as t_build_model
 from repro_torch.utils.tree import tree_leaves
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 ATOL, RTOL = 2e-5, 1e-4
 NEW = ("qwen3-0.6b", "stablelm-3b", "chatglm3-6b")

@@ -44,6 +44,7 @@ from repro.configs import INPUT_SHAPES as J_SHAPES
 from repro.launch import analysis as j_ana
 from repro.models import build_model as j_build_model
 from repro.utils import tree_bytes as j_tree_bytes
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TIMEOUT_S = 420

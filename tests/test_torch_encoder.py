@@ -45,6 +45,7 @@ from repro_torch.serve import ServeEngine, make_prompt_batch
 from repro_torch.train import cls_loss
 from repro_torch.train import make_loss_fn as t_make_loss_fn
 from repro_torch.utils.tree import tree_items, tree_leaves
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 ATOL, RTOL = 2e-5, 1e-4
 CFG = ARCHS["roberta-large"].reduced()

@@ -38,6 +38,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ssd_chunk as tsc
 from repro_torch.models import attention as tattn
 from repro_torch.models import ssm as tssm
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 REL = 1e-5
 

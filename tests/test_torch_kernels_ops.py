@@ -28,6 +28,7 @@ from repro.kernels import ops as jops
 
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import sparse_lora
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 F32_REL = 1e-5  # of the output's largest |value|: f32 sums in another order
 
@@ -256,6 +257,50 @@ def test_batched_sparse_lora_apply_out_of_range_rows_are_zero(dtype):
     assert np.all(np.asarray(_np(want))[out] == 0)
     assert np.all(_np(got)[out] == 0) and np.any(_np(got)[~out] != 0)
     _assert_close(got, want, dtype)
+
+
+# B7 at small counterparts of the card's split path (more than 64 rows whose
+# adapters the SGMV kernel does not stage): rows slot-contiguous as a served
+# prefill gives them (a tail out of range where the slots do not divide the
+# rows) and mixed segments with indices out of range; K and N not multiples
+# of 16; the (slots, S, K) activations of the serve path's per-row LoRA
+SPLIT_CASES = [
+    pytest.param(4, 40, 200, 330, 8, "slots", id="4x40-200-330-8-slots"),
+    pytest.param(3, 43, 300, 250, 8, "slots_tail", id="3x43-300-250-8-slots-tail"),
+    pytest.param(2, 65, 90, 170, 4, "mixed", id="2x65-90-170-4-mixed"),
+    pytest.param(5, 26, 130, 60, 16, "mixed", id="5x26-130-60-16-mixed"),
+]
+
+
+def _split_rows(kind, A, S, rng):
+    """A batch of A·S rows: slot s owns rows s·S.., all but the last few
+    with ``slots_tail`` (indices A and -1: zeros); ``mixed`` draws every row's
+    index from -1..A."""
+    M = A * S
+    if kind == "mixed":
+        return rng.integers(-1, A + 1, M).astype(np.int32)
+    idx = np.repeat(np.arange(A, dtype=np.int32), S)
+    if kind == "slots_tail":
+        idx[-5:] = A
+        idx[-2] = -1
+    return idx
+
+
+@pytest.mark.parametrize("A,S,K,N,r,kind", SPLIT_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batched_sparse_lora_apply_split_shapes_match_jax(A, S, K, N, r, kind, dtype):
+    M = A * S
+    (jx, tx), _, (ja, ta), (jb, tb), (jm, tm) = _batched_inputs(M, K, N, r, A, dtype, seed=M + K + N)
+    idx = _split_rows(kind, A, S, np.random.default_rng(S))
+    assert M > 64 and np.any((idx < 0) | (idx >= A)) == (kind != "slots")
+    want = jops.batched_sparse_lora_apply(jx.reshape(A, S, K), jnp.asarray(idx.reshape(A, S)), ja, jb, jm, 0.5)
+    got = tops.batched_sparse_lora_apply(tx.reshape(A, S, K), torch.from_numpy(idx.reshape(A, S)), ta, tb, tm, 0.5)
+    assert got.dtype == tx.dtype and tuple(got.shape) == (A, S, N)
+    _assert_close(got.reshape(M, N), jnp.reshape(want, (M, N)), dtype)
+    out = (idx < 0) | (idx >= A)
+    assert np.all(_np(got).reshape(M, N)[out] == 0) and np.all(_np(want).reshape(M, N)[out] == 0)
+    frozen = tm.numpy()[np.clip(idx, 0, A - 1)] == 0
+    assert np.all(_np(got).reshape(M, N)[frozen & ~out[:, None]] == 0)
 
 
 # --- B7's plan: its plain twin against a numpy construction ---

@@ -64,6 +64,7 @@ from repro_torch.launch.steps import build_decode_step, build_prefill_step, buil
 from repro_torch.models import build_model as t_build_model
 from repro_torch.models import sharding_ctx
 from repro_torch.utils.tree import tree_items, tree_map, unflatten_dict
+from torch_jax_refs import jax_in_child, release_jax_programs  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -168,15 +169,7 @@ def test_make_train_state_matches_jax_tree():
 
 
 CACHE_LEN, DECODE_POSITIONS = 24, (16, 17)
-# the JAX side of the step tests: run in a child process for the three
-# reduced families (see _jax_reference), in this one for the tiny-lm
-REF_CHILD = r"""
-import sys
-import numpy as np
-import test_torch_launch as T
-np.savez(sys.argv[2], **T._reference(T._jax_world(sys.argv[1])))
-"""
-_REFS = {}
+_REFS = {}  # the JAX side of the step tests, by arch (see _jax_reference)
 
 
 def _reference(world):
@@ -209,6 +202,12 @@ def _reference(world):
     return out
 
 
+def _child_reference(arch):
+    """:func:`_reference` of ``arch``'s world, in the child process that
+    :func:`_jax_reference` starts."""
+    return _reference(_jax_world(arch))
+
+
 def _jax_reference(arch, tmp_dir):
     """:func:`_reference` of ``arch``'s world, once a process. The reduced
     families' JAX programs are compiled in a child process: a pytest worker
@@ -217,16 +216,8 @@ def _jax_reference(arch, tmp_dir):
     full run past the kernel's per-process limit (``vm.max_map_count``),
     where XLA segfaults."""
     if arch not in _REFS:
-        if arch == "tiny-lm":
-            _REFS[arch] = _reference(_jax_world(arch))
-        else:
-            path = tmp_dir / f"{arch}.npz"
-            env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT / 'tests'}", OMP_NUM_THREADS="1")
-            proc = subprocess.run([sys.executable, "-c", REF_CHILD, arch, str(path)], cwd=ROOT, env=env,
-                                  capture_output=True, text=True, timeout=300)
-            assert proc.returncode == 0, proc.stderr[-4000:]
-            with np.load(path) as z:
-                _REFS[arch] = {k: z[k] for k in z.files}
+        _REFS[arch] = (_reference(_jax_world(arch)) if arch == "tiny-lm" else
+                       jax_in_child("test_torch_launch", "_child_reference", arch, out=tmp_dir / f"{arch}.npz"))
     return _REFS[arch]
 
 

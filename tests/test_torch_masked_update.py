@@ -27,6 +27,7 @@ from repro_torch.kernels import masked_update, tree_launch
 from repro_torch.kernels import ops as tops
 from repro_torch.optim import adamw_init, make_optimizer
 from repro_torch.utils.tree import tree_leaves
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 SHAPES = [(48, 32), (300, 140), (2, 8, 17)]
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -31,6 +31,7 @@ from repro_torch.models import build_model as t_build_model
 from repro_torch.models.layers import apply_rope, layer_norm, rms_norm
 from repro_torch.train import make_loss_fn as t_make_loss_fn
 from repro_torch.utils import tree as ttree
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 TINY = ModelConfig(
     name="tiny-lm", family="dense", num_layers=2, d_model=32, num_heads=2,

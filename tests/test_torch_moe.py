@@ -56,6 +56,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.serve import Request, SamplingParams, ServeEngine
 from repro_torch.train import make_loss_fn as t_make_loss_fn
 from repro_torch.utils.tree import tree_items, tree_leaves
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 ATOL, RTOL = 2e-5, 1e-4
 WORLDS = {"granite": ARCHS["granite-moe-3b-a800m"].reduced(),

@@ -45,6 +45,7 @@ from repro_torch.serve import (
     SlotScheduler,
     make_prompt_batch,
 )
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 ATOL, RTOL = 2e-5, 1e-4
 CFG = ARCHS["qwen2-0.5b"].reduced()  # 2 layers, d 128, window 64: cache_len <= 64 is a ring

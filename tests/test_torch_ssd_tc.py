@@ -39,6 +39,7 @@ import torch
 from repro.kernels import ops as jops
 
 from repro_torch.kernels import ref as tref
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 SSD_REL, SSD_CS_REL = 1e-5, 1e-6
 LOG2E = float(np.float32(1.4426950408889634))

@@ -76,6 +76,7 @@ from repro_torch.models import ssm as tssm
 from repro_torch.serve import ReferenceEngine, Request, SamplingParams, ServeEngine
 from repro_torch.train import make_loss_fn as t_make_loss_fn
 from repro_torch.utils.tree import tree_items, tree_leaves
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 ATOL, RTOL = 2e-5, 1e-4
 BF16_ULPS = {"block": 1, "logits": 2, "conv": 2, "state": 6}

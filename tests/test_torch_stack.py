@@ -35,6 +35,7 @@ from repro_torch.data import bucket_size, stack_clients
 from repro_torch.models import build_model as t_build_model
 from repro_torch.train import make_loss_fn as t_make_loss_fn
 from repro_torch.utils.tree import tree_leaves
+from torch_jax_refs import release_jax_programs  # noqa: F401
 
 CFG = ModelConfig(
     name="tiny-lm", family="dense", num_layers=2, d_model=32, num_heads=2,

@@ -52,7 +52,8 @@ from repro_torch.lora import gather_adapter_slots, stack_adapter_trees
 from repro_torch.models import build_model as t_build_model
 from repro_torch.serve import Request, SamplingParams, ServeEngine
 from repro_torch.train import make_loss_fn as t_make_loss_fn
-from repro_torch.utils.tree import tree_items, tree_leaves
+from repro_torch.utils.tree import flatten_dict, tree_items, tree_leaves, unflatten_dict
+from torch_jax_refs import jax_in_child, release_jax_programs  # noqa: F401
 
 ATOL, RTOL = 2e-5, 1e-4
 CFG = ARCHS["paligemma-3b"].reduced()
@@ -65,17 +66,23 @@ def torch_config(cfg):
     return tconfig.ModelConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
 
 
-@pytest.fixture(scope="module")
-def world():
+def _jax_init():
+    """JAX's params of the world and its three adapters (b made non-zero),
+    flat: the world fixture computes them in a child process."""
     model = build_model(CFG)
     rng = jax.random.PRNGKey(0)
-    params = jax.tree.map(np.asarray, jax.jit(model.init_params)(rng))
     nrng = np.random.default_rng(0)
-    adapters = [
-        jax.tree.map(lambda x: (np.asarray(x) + 0.05 * nrng.standard_normal(x.shape)).astype(np.float32),
-                     model.init_lora(jax.random.fold_in(rng, i)))
-        for i in range(3)
-    ]
+    adapters = {f"adapter{i}": jax.tree.map(
+        lambda x: (np.asarray(x) + 0.05 * nrng.standard_normal(x.shape)).astype(np.float32),
+        model.init_lora(jax.random.fold_in(rng, i))) for i in range(3)}
+    return flatten_dict({"params": jax.jit(model.init_params)(rng), **adapters})
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    model = build_model(CFG)
+    init = unflatten_dict(jax_in_child("test_torch_vlm", "_jax_init", out=tmp_path_factory.mktemp("vlm") / "init.npz"))
+    params, adapters = init["params"], [init[f"adapter{i}"] for i in range(3)]
     t_model = t_build_model(torch_config(CFG))
     return model, params, adapters, t_model, params_from_numpy(params, t_model.cfg, "cpu"), \
         [lora_from_numpy(a, "cpu") for a in adapters]
