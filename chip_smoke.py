@@ -177,8 +177,8 @@ h. the rest of the dense family at full width (bf16, seeded init):
    controls, B8 against its plain version at every prefill group's shape;
    FedPrompt on qwen2-0.5b (1 round, evaluate, its exact comm bytes, the
    prefixed bf16 forward against its f32 twin); each decode step's time,
-   busy share and B7 share for phases 5d, f, h and i, and B7's share of
-   the first prefill group's kernel time (every prefill shape whose
+   busy share and B7 share for phases 5d, f, h and i, and B7's and B8's
+   shares of the first prefill group's kernel time (every prefill shape whose
    adapters do not stage takes the split path, timed beside the L2 kernel
    it replaced and two ``torch.bmm`` calls);
 i. the MoE family and the zamba2 hybrid at full width (bf16, seeded init):
@@ -1737,6 +1737,20 @@ def ssd_bound(x, a, b, heads):
     return dict(**bound_of(bytes_moved, flops, rate), gflop=flops / 1e9, mb=bytes_moved / 1e6)
 
 
+def log_b8_layout(flash_attention, D):
+    """B8's launch layout at head_dim ``D`` as the library reports it: query
+    rows a block, keys a tile, ring stages, the row width in shared memory,
+    threads, shared memory opted into, registers a thread at launch and
+    spilled bytes (bf16: the wgmma kernel, whose consumers raise their
+    registers to 240 with setmaxnreg; f32: the CUDA-core kernel)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        lay = flash_attention.layout(D, dtype)
+        log(f"B8 D {D} {str(dtype).split('.')[-1]}: {lay['query_rows']} query rows x {lay['key_tile']}-key tiles, "
+            f"{lay['stages']} stages, rows of {lay['smem_width']} in shared memory, {lay['threads']} threads, "
+            f"{lay['smem_bytes']} bytes of shared memory, {lay['registers']} registers at launch, "
+            f"{lay['local_bytes']} bytes spilled")
+
+
 def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
     """Phase 5c: B8 and B9 through ``repro_torch.kernels.ops`` against their
     plain versions. Returns the launch counts, the max abs errors and the
@@ -1767,25 +1781,21 @@ def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
             attention(name, *case, "flash_attention_d80")
     if run80.counts != only(flash_attention=len(d80)):
         raise AssertionError(f"phase 5c's D 80 cases did not launch B8 once each: {run80.counts}")
-    log(f"B8 D 80 shared memory opted into: bf16 {flash_attention.smem_bytes(80, torch.bfloat16)} bytes, "
-        f"f32 {flash_attention.smem_bytes(80, torch.float32)} (registers: the build's ptxas lines, "
-        f"flash_attention_tc_kernel<80> and flash_attention_kernel<float, 80>)")
+    log_b8_layout(flash_attention, 80)
     with Launches(ops) as run112:
         for name, case in d112.items():
             attention(name, *case, "flash_attention_d112")
     if run112.counts != only(flash_attention=len(d112)):
         raise AssertionError(f"phase 5c's D 112 cases did not launch B8 once each: {run112.counts}")
-    log(f"B8 D 112 shared memory opted into: bf16 {flash_attention.smem_bytes(112, torch.bfloat16)} bytes, "
-        f"f32 {flash_attention.smem_bytes(112, torch.float32)} (registers: the build's ptxas lines, "
-        f"flash_attention_tc_kernel<112> and flash_attention_kernel<float, 112>)")
+    log_b8_layout(flash_attention, 112)
     with Launches(ops) as run256:
         for name, case in d256.items():
             attention(name, *case, "flash_attention_d256")
     if run256.counts != only(flash_attention=len(d256)):
         raise AssertionError(f"phase 5c's D 256 cases did not launch B8 once each: {run256.counts}")
-    log(f"B8 D 256 shared memory opted into: bf16 {flash_attention.smem_bytes(256, torch.bfloat16)} bytes, "
-        f"f32 {flash_attention.smem_bytes(256, torch.float32)} (registers: the build's ptxas lines, "
-        f"flash_attention_tc_kernel<256> and flash_attention_kernel<float, 256>)")
+    log_b8_layout(flash_attention, 256)
+    for D in (64, 128):
+        log_b8_layout(flash_attention, D)
     with Launches(ops) as run:
         for name, case in cases.items():
             attention(name, *case, "flash_attention")
@@ -4781,7 +4791,8 @@ def main() -> int:
     for name, t in decode.items():
         (key, prof), = [(k, p) for k, p in t["profiles"].items() if k.startswith("prefill")]
         b7 = t["b7_prefill"]
-        log(f"{key}, {name}: B7 {prof['b7_share']:.1%} of {prof['kernel_ms']:.2f} ms of kernels; B7 {b7['path']} at "
+        log(f"{key}, {name}: B7 {prof['b7_share']:.1%} and B8 {prof['b8_share']:.1%} of {prof['kernel_ms']:.2f} ms "
+            f"of kernels; B7 {b7['path']} at "
             f"{b7['target']} {b7['rows']} rows {b7['graph_ms']:.4f} ms ({b7['bound_share']:.1%} of its bound), "
             f"the {b7.get('old_path')} kernel {b7.get('old_graph_ms')} ms, two bmm {b7['library_ms']:.4f} ms")
     done("j")

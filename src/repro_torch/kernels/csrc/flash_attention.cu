@@ -15,55 +15,87 @@
 // Scores, the running max and denominator and the output accumulator are
 // f32; the output is acc / max(l, 1e-30), as in the TPU kernel.
 //
-// Bound: operations. A query tile of 64 rows against a KV tile of 64 keys
-// does 2 * 64 * 64 * D multiply-adds for 2 * 64 * D values read, ~64 flops
-// per byte at D 64, far above the card's byte rate, so the bound is the
-// work over the bf16 tensor cores' 989 TFLOP/s (f32 inputs: the f32 line,
-// 67 TFLOP/s, for a kernel outside the tensor cores).
+// Bound: operations. Each visited (query, key) pair costs 4·D flops (q·k
+// and p·v), against 2·D bytes of q and o and 4·D bytes of k and v per row,
+// so at the served shapes the work over the bf16 tensor cores' 989 TFLOP/s
+// exceeds the bytes over 3.35 TB/s (f32 inputs: the f32 line, 67 TFLOP/s,
+// for a kernel outside the tensor cores).
 //
-// Two kernels share the launch geometry: one block of 128 threads per
-// (query tile of 64 rows, head, batch), the heaviest causal tiles first,
-// and only the KV tiles in [max(0, q0 - window + 1), min(S, q0 + 64)) are
-// visited (the masks leave nothing outside it: half of the tiles at S
-// 16384, window 8192). A row whose first visited tile is wholly masked for
-// it holds m = -1e30 and junk in l and acc until its first real score: then
-// alpha = exp(-1e30 - m) = 0 erases the junk, as on the TPU. Keys past S (a
-// ragged last tile) are read as zeros and masked; rows past S are not
-// written. Multiply-adds are explicit fmaf (the build turns off
-// contraction, which only the bit-exact kernels need).
+// Both kernels visit, for a query tile starting at q0, only the KV tiles in
+// [max(0, q0 - window + 1), min(S, q0 + rows)) (the masks leave nothing
+// outside it: half of the tiles at S 16384, window 8192), the heaviest
+// causal tiles first. A row whose first visited tile is wholly masked for
+// it holds m = -1e30 until its first real score, where alpha = 0 erases
+// whatever it summed, as on the TPU. Keys past S (a ragged last tile) are
+// read as zeros and masked; rows past S are not written. Multiply-adds are
+// explicit fmaf (the build turns off contraction, which only the bit-exact
+// kernels need).
 //
-// bf16 (q, k, v, out all bf16 and 16-byte aligned): the tensor cores, in
-// FlashAttention-2's shape. Each of the 4 warps owns 16 query rows. Q is
-// copied once into shared memory and held in registers as mma A fragments
-// (ldmatrix); K and V tiles of 64 keys come through a 2-stage ring of
-// cp.async.cg 16-byte copies (rows past S zero-filled), tile t+1's copies in
-// flight while tile t is computed. Shared rows are XOR-swizzled (16-byte
-// chunk c of row r at c ^ (r % 8)) so that ldmatrix reads 8 rows without
-// bank conflicts; V is read with ldmatrix.trans. q·kᵀ is mma.sync
-// m16n8k16 with bf16 operands and f32 accumulators: a product of two bf16
-// values is exact in f32, so a score is the TPU kernel's f32 dot product up
-// to the order of summation. The online softmax stays in registers (row
-// max over the 4 lanes of a quad with shuffles; l as per-thread partial
-// sums of the f32 p, reduced at the end), with scores in log2 units so
-// that exp(s - m) is one ex2.approx (relative error below 2^-22); only
-// tiles that straddle the diagonal, the window's edge or S compare
-// positions against the masks.
-// p·v keeps the TPU kernel's f32 p: the accumulator fragment of the scores
-// maps onto the A fragment of the next mma, and each p is split into
-// hi = bf16(p) and lo = bf16(p - hi), both multiplied by the exact bf16 v.
-// hi + lo is within 2^-18·p of p, so an output moves by at most 3.8e-6 of
-// max|v|; a single rounding of p to bf16 (2^-9) would not meet the
-// attention tolerance of 1e-5·max|v|. Shared memory: Q plus two stages of K
-// and V, 40 KB at D 64, 50 KB at D 80, 70 KB at D 112, 80 KB at D 128 and
-// 160 KB at D 256 (paligemma-3b; one block an SM). At D 256 the output
-// accumulator alone is 128 registers a thread, and Q's fragments would add
-// 64: Q stays in shared memory and each k-step of q·kᵀ ldmatrixes its
-// fragment there (FlashAttention-2's choice at large head dims).
-// D 80 (stablelm-3b) is 10 chunks of 16 bytes a row: 5 k-steps of 16 for
-// q·kᵀ and 10 output tiles of 8 for p·v; D 112 (zamba2-7b) 14 chunks: 7
-// k-steps and 14 output tiles. Both take the swizzle of rows whose chunk
-// count is 2 mod 4 (swz); nothing is padded to 128, which would move 60%
-// (D 80) or 14% (D 112) more bytes and do as much more work.
+// bf16 (q, k, v, out all bf16 and 16-byte aligned): FlashAttention-3's shape
+// on Hopper's tensor cores. A persistent grid, one block of 384 threads an
+// SM (at most one per query tile), in three warpgroups whose registers
+// setmaxnreg rebalances (24 a thread for the producer, 240 for the
+// consumers). A block walks query tiles of 128 rows (tile, head, batch) in
+// a snake over the tiles ordered heaviest first (near a longest-first
+// schedule), so that the next tile's Q and K/V loads run under this tile's
+// last products and its epilogue.
+// - the producer: one thread issues TMA loads of each tile's Q (once Q's
+//   empty barrier says both consumers' last q·kᵀ has read the previous one)
+//   and of its K and V tiles into a ring of kStages* stages, each with a
+//   full mbarrier (the copy's bytes) and an empty one (every consumer warp
+//   done with it). The tensor maps are 4-D over (D, heads, S, B), encoded
+//   on the host per launch and passed by value (__grid_constant__), so a
+//   CUDA graph of launches captures them; a box is 64 columns (128 bytes)
+//   by the tile's rows, 128-byte swizzled, rows past S zero-filled.
+// - two consumer warpgroups of 64 query rows each. q·kᵀ is wgmma
+//   m64nBKk16 with Q and K both read from shared memory (K-major
+//   descriptors; a k-step moves the start 32 bytes inside a swizzle atom).
+//   A product of two bf16 values is exact in f32, so a raw score is the TPU
+//   kernel's f32 dot product up to the order of summation. The online
+//   softmax runs on the accumulator fragments: the raw row max m (four
+//   partial maxima a row, then the 4 lanes of a quad), p = 2^(s·c - m·c)
+//   for c = scale·log2(e) as one fma into one ex2.approx (relative error
+//   below 2^-22), l as per-thread partial sums of the f32 p, reduced at the
+//   end; only tiles that straddle the diagonal, the window's edge or S
+//   compare positions against the masks.
+// - p·v keeps the TPU kernel's f32 p: the scores' accumulator fragment is
+//   the A register fragment of an RS wgmma, and each p is split into
+//   hi = bf16(p) and lo = bf16(p - hi), both multiplied by the exact bf16 v
+//   (V read from shared memory as a transposed, MN-major B operand: 8-key
+//   atoms 1024 bytes apart, 64-column blocks BK·128 apart). hi + lo is
+//   within 2^-18·p of p, so an output moves by at most 3.8e-6 of max|v|; a
+//   single rounding of p to bf16 (2^-9) would not meet the attention
+//   tolerance of 1e-5·max|v|. The split costs half again the tensor work
+//   that the 4·D-flops bound counts (6·D a pair) and 6 instructions a pair
+//   of scores.
+// - overlap: tile t+1's q·kᵀ is issued before tile t's p·v, and its
+//   softmax runs while that p·v is in flight (wgmma.wait_group 1; a
+//   barrier wait between the softmax and the next wait_group keeps ptxas
+//   from hoisting that wait above the softmax); O is rescaled just before
+//   the next p·v is issued. Two named barriers order the consumers' issues
+//   (ping-pong), so that one warpgroup's softmax runs under the other's
+//   products.
+// Key tiles (BK) are 128 keys at D 64-128 and 64 at D 256, where the output
+// accumulator alone is D/2 = 128 registers a thread, beside BK/2 of scores
+// and BK/2 of hi/lo fragments (64-key tiles at D 64-128 and 80 at D 256
+// were no faster, nor a third ring stage: scripts/torch_attention_sweep.py).
+// Shared memory: Q (128 rows) and two stages of K and V: 80 KB at D 64,
+// 160 KB at D 80-128 and 192 KB at D 256 (one block an SM).
+// D 80 (stablelm-3b) and D 112 (zamba2-7b): their rows (160 and 224 bytes)
+// are not a whole number of 128-byte swizzle atoms, so they are padded to
+// 128 columns in shared memory only: the tensor maps keep the true D
+// extent and TMA fills the columns past it with zeros, reading no more
+// bytes from device memory. q·kᵀ stops at the last k-step holding a real
+// column (5 of 8 at D 80, 7 at D 112) and p·v runs at N = D (an
+// instruction over one whole 64-column block and part of the next), so
+// the padding does no tensor work: it costs shared memory (160 KB where
+// unpadded tiles would take 100 KB at D 80 and 140 KB at D 112) and the
+// zero fill's writes.
+// What holds it back (NVIDIA H100 80GB HBM3, 700 W; the ablations of
+// scripts/torch_attention_sweep.py): at D 64 the softmax (S 4096 causal
+// 0.108 ms, 0.049 without it); the split's lo product 6-24% (0.082 without
+// it); at D 80-256 taking the softmax or p·v out does not shorten the run:
+// each warpgroup's chain of q·kᵀ, softmax and next issue bounds it.
 //
 // f32: the CUDA cores. The query tile is staged once in shared memory,
 // transposed; each KV tile in its range is staged in turn (k transposed, v
@@ -75,13 +107,14 @@
 // at D 112, 116 KB at D 128, 214 KB at D 256 (one block an SM).
 //
 // Both take their dynamic shared memory through the opt-in attribute.
-// Later: wgmma with P from registers, TMA-fed K/V tiles with mbarriers and a
-// producer warp (FlashAttention-3's shape).
 //
 // C interface (loaded with ctypes): returns cudaGetLastError() after the
-// launch, cudaErrorInvalidValue for a shape the kernel does not take, or
-// cudaErrorMisalignedAddress for a bf16 pointer off a 16-byte boundary.
+// launch, cudaErrorInvalidValue for a shape the kernel does not take (or a
+// tensor map cuTensorMapEncodeTiled refuses), cudaErrorMisalignedAddress for
+// a bf16 pointer off a 16-byte boundary, or cudaErrorNotSupported where
+// cuTensorMapEncodeTiled cannot be found.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,9 +129,7 @@ constexpr int kLdK = kBK + 1;  // kt[d][j]: lanes on neighbouring banks
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <int D>
 constexpr int smem_floats() {
@@ -244,50 +275,36 @@ int launch(void* out, const void* q, const void* k, const void* v, int B, int S,
   return (int)cudaGetLastError();
 }
 
-
-// ---- bf16 on the tensor cores (mma.sync m16n8k16, cp.async K/V ring) ----
+// ---- bf16 on Hopper's tensor cores (wgmma from TMA-fed shared memory) ----
 
 using bf16 = __nv_bfloat16;
-constexpr int kTcStages = 2;
+
+constexpr int kWgBQ = 128;         // query rows per block: two consumer warpgroups of 64
+constexpr int kWgThreads = 384;    // the producer warpgroup and the two consumers
+constexpr int kBkNarrow = 128;     // keys per K/V tile at D 64 to 128
+constexpr int kBkWide = 64;        // at D 256
+constexpr int kStagesNarrow = 2;   // K/V ring stages at D 64 to 128
+constexpr int kStagesWide = 2;     // at D 256
+constexpr int kPingPong = 1;       // order the two consumers' wgmma issues with named barriers
+constexpr int kProducerRegs = 24;  // setmaxnreg: 128 x 24 + 256 x 240 <= 65536
+constexpr int kConsumerRegs = 240;
 
 template <int D>
-constexpr int tc_smem_bytes() {
-  return (kBQ + 2 * kTcStages * kBK) * D * (int)sizeof(bf16);
-}
+struct Tiles {
+  static constexpr int DP = D <= 64 ? 64 : D <= 128 ? 128 : 256;  // the row width in shared memory
+  static constexpr int NB = DP / 64;                              // 128-byte column blocks of a row
+  static constexpr int BK = D <= 128 ? kBkNarrow : kBkWide;
+  static constexpr int ST = D <= 128 ? kStagesNarrow : kStagesWide;
+  static constexpr int KS = (D + 15) / 16;                // k-steps of q·kᵀ: none over the padding
+  static constexpr int Q_BYTES = kWgBQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;            // one K or V tile
+  static constexpr int BARRIERS = 2 + 4 * ST;             // Q full, Q empty; K/V full and empty per stage
+  // 1024 bytes of slack to align the tiles to the swizzle's 1024-byte period
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * ST * KV_BYTES + 8 * BARRIERS;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, bypassing L1; src_bytes 0 fills zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                              uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 2^x (MUFU.EX2; relative error below 2^-22, results below 2^-126 flushed to 0)
@@ -307,230 +324,674 @@ __device__ __forceinline__ void split_bf16x2(float p0, float p1, uint32_t& hi, u
   lo = bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
 }
 
-// element offset of 16-byte chunk c of row r in a tile with D values per
-// row. ldmatrix reads one chunk column of 8 neighbouring rows (the first a
-// multiple of 8); the swizzle puts those 8 chunks in 8 different groups of 4
-// banks, and keeps every chunk inside its own row. D 64 and 128 (8 and 16
-// chunks a row, rows of a multiple of 128 bytes): c ^ (r % 8). D 80 and 112
-// (C = 10 and 14 chunks, C = 2 mod 4): row r starts at bank group C·r mod 8,
-// which runs through the 4 even groups in rows 0-3 (0, 2, 4, 6 at D 80; 0,
-// 6, 4, 2 at D 112) and again in rows 4-7. c ^ ((r / 4) % 2) swaps the
-// chunks of each pair in rows 4-7 of 8, moving them to the 4 odd groups;
-// C is even, so the swapped chunk stays in its row.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  static_assert(D % 64 == 0 || (D % 16 == 0 && (D / 8) % 4 == 2), "no swizzle for this head_dim");
-  if constexpr (D % 64 == 0) return r * D + ((c ^ (r & 7)) << 3);
-  return r * D + ((c ^ ((r >> 2) & 1)) << 3);
-}
+// -- mbarriers and TMA --
 
-// cp.async copies of a 64-row tile from sequence position row0 (rows >= S: zeros)
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base, int64_t row_stride, int row0, int S) {
-  constexpr int C = D / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int i = 0; i < 64 * C / kThreads; ++i) {
-    const int e = (int)threadIdx.x + i * kThreads;
-    const int r = e / C, c = e % C;
-    const bool in = row0 + r < S;
-    cp_async16(smem_u32(tile + swz<D>(r, c)), base + (int64_t)(in ? row0 + r : 0) * row_stride + 8 * c,
-               in ? 16 : 0);
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+// until the phase of this parity has completed (a fresh barrier: parity 1 at once)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
   }
 }
 
+// a box of the 4-D tensor map at coordinates (column, head, row, batch) into
+// shared memory; its bytes complete the transaction on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// -- warpgroups --
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+// named barriers 1 and 2, one per consumer, each met by both consumers (256 threads)
+__device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void named_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accesses of registers that an in-flight
+// wgmma reads or writes across its issue or its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units). K-major tiles (Q, K): rows of 128
+// bytes, 8-row atoms 1024 bytes apart (stride), the leading offset unused.
+// MN-major (V as p·v's B): 8 keys of 128 bytes an atom, atoms along the keys
+// 1024 bytes apart (stride), 64-column blocks BK·128 bytes apart (leading).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t leading, uint32_t stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(leading >> 4) << 16) | ((uint64_t)(stride >> 4) << 32) |
+         (1ull << 62);
+}
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  // d (64 x 64 f32) = a . b (+ d if scale_d): a and b bf16, both from shared memory, K-major
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d (64 x 64 f32) = a . b (+ d if scale_d): a bf16 from registers (the accumulator layout of a
+  // 64 x 16 tile), b bf16 from shared memory, MN-major (transposed)
+  __device__ __forceinline__ static void rs(float (&d)[32], const uint32_t* a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<80> {
+  // d (64 x 80 f32) = a . b (+ d if scale_d): a and b bf16, both from shared memory, K-major
+  __device__ __forceinline__ static void ss(float (&d)[40], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d (64 x 80 f32) = a . b (+ d if scale_d): a bf16 from registers (the accumulator layout of a
+  // 64 x 16 tile), b bf16 from shared memory, MN-major (transposed)
+  __device__ __forceinline__ static void rs(float (&d)[40], const uint32_t* a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<112> {
+  // d (64 x 112 f32) = a . b (+ d if scale_d): a bf16 from registers (the accumulator layout of a
+  // 64 x 16 tile), b bf16 from shared memory, MN-major (transposed)
+  __device__ __forceinline__ static void rs(float (&d)[56], const uint32_t* a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55"
+        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d (64 x 128 f32) = a . b (+ d if scale_d): a and b bf16, both from shared memory, K-major
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d (64 x 128 f32) = a . b (+ d if scale_d): a bf16 from registers (the accumulator layout of a
+  // 64 x 16 tile), b bf16 from shared memory, MN-major (transposed)
+  __device__ __forceinline__ static void rs(float (&d)[64], const uint32_t* a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  // d (64 x 256 f32) = a . b (+ d if scale_d): a bf16 from registers (the accumulator layout of a
+  // 64 x 16 tile), b bf16 from shared memory, MN-major (transposed)
+  __device__ __forceinline__ static void rs(float (&d)[128], const uint32_t* a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87,"
+        "%88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103,"
+        "%104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119,"
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// The block: threads 0-127 the producer, 128-255 consumer 0 (query rows q0
+// to q0 + 63), 256-383 consumer 1 (q0 + 64 to q0 + 127).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_tc_kernel(bf16* __restrict__ out, const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, int S, int H, int KVH, int causal, int window,
-                          float scale) {
-  constexpr int KS = D / 16;  // k-steps of q.k^T
-  constexpr int DT = D / 8;   // 8-column tiles of the output
-  extern __shared__ float4 smem4[];
-  bf16* sq = reinterpret_cast<bf16*>(smem4);  // [kBQ][D]
-  bf16* sk = sq + kBQ * D;                    // [kTcStages][kBK][D]
-  bf16* sv = sk + kTcStages * kBK * D;        // [kTcStages][kBK][D]
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int B, int S, int H,
+                             int KVH, int causal, int window, float scale) {
+  using T = Tiles<D>;
+  constexpr int BK = T::BK, ST = T::ST;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // [NB][128 rows][64]
+  const uint32_t sk = sq + T::Q_BYTES;                        // [ST][NB][BK rows][64]
+  const uint32_t sv = sk + ST * T::KV_BYTES;                  // [ST][NB][BK rows][64]
+  const uint32_t bars = sv + ST * T::KV_BYTES;
+  const uint32_t bar_q = bars, bar_q_empty = bars + 8;
+  auto k_full = [&](int s) { return bars + 8 * (2 + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (2 + ST + s); };
+  auto v_full = [&](int s) { return bars + 8 * (2 + 2 * ST + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (2 + 3 * ST + s); };
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int h = blockIdx.y;
-  const int kvh = h / (H / KVH);
-  const int64_t q_row = (int64_t)H * D, kv_row = (int64_t)KVH * D;
-  const bf16* qb = q + (int64_t)blockIdx.z * S * q_row + (int64_t)h * D;
-  const bf16* kb = k + (int64_t)blockIdx.z * S * kv_row + (int64_t)kvh * D;
-  const bf16* vb = v + (int64_t)blockIdx.z * S * kv_row + (int64_t)kvh * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;  // a fragment's row (and row + 8) and column pair
-  const int qw = q0 + 16 * warp;          // the warp's first query row
+  // the block's work: query tiles w = blockIdx.x, then in passes of
+  // gridDim.x, forwards and backwards in turn (a snake over the tiles,
+  // heaviest causal tiles first: near a longest-first schedule)
+  const int n_q = (S + kWgBQ - 1) / kWgBQ, n_work = n_q * H * B;
+  auto work = [&](int pass) {
+    return pass * (int)gridDim.x + ((pass & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  };
+  int q0 = 0, h = 0, b = 0, kvh = 0, t_lo = 0, n_tiles = 0;
+  auto decode = [&](int w) {
+    q0 = (n_q - 1 - w / (H * B)) * kWgBQ;
+    h = w % (H * B) % H;
+    b = w % (H * B) / H;
+    kvh = h / (H / KVH);
+    int k_lo = 0, k_hi = S;
+    if (causal) k_hi = min(S, q0 + kWgBQ);
+    if (window > 0) k_lo = max(0, q0 - window + 1);
+    t_lo = k_lo / BK;
+    n_tiles = (k_hi + BK - 1) / BK - t_lo;
+  };
 
-  int k_lo = 0, k_hi = S;
-  if (causal) k_hi = min(S, q0 + kBQ);
-  if (window > 0) k_lo = max(0, q0 - window + 1);
-  const int t_lo = k_lo / kBK, t_hi = (k_hi + kBK - 1) / kBK;
-  // scores in log2 units: exp(x - m) = 2^(x·log2(e) - m·log2(e)), one
-  // multiply per score; -1e30 still marks a masked score (and m its row
-  // until the first real one, where x - m = 0 and alpha = 0 then erases the junk)
-  const float scale_log2 = scale * 1.4426950408889634f;
-
-  load_tile<D>(sq, qb, q_row, q0, S);
-  load_tile<D>(sk, kb, kv_row, t_lo * kBK, S);
-  load_tile<D>(sv, vb, kv_row, t_lo * kBK, S);
-  cp_async_commit();
-
-  // Q's A fragments stay in registers up to D 128; at D 256 they would take
-  // 64 registers beside the 128 of the output accumulator, so each k-step
-  // ldmatrixes its fragment from the staged Q tile instead
-  constexpr bool kQRegs = D <= 128;
-  uint32_t qf[kQRegs ? KS : 1][4];
-  float acc[DT][4];
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_q_empty, 8);  // one arrival from each consumer warp
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};  // rows qw + g and qw + g + 8
-  float l[2] = {0.f, 0.f};          // this thread's share of each row's sum
-
-  for (int tile = t_lo; tile < t_hi; ++tile) {
-    const int stage = (tile - t_lo) & 1;
-    if (tile + 1 < t_hi) {
-      load_tile<D>(sk + (stage ^ 1) * kBK * D, kb, kv_row, (tile + 1) * kBK, S);
-      load_tile<D>(sv + (stage ^ 1) * kBK * D, vb, kv_row, (tile + 1) * kBK, S);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(k_empty(s), 8);  // one arrival from each consumer warp
+      mbar_init(v_full(s), 1);
+      mbar_init(v_empty(s), 8);
     }
-    cp_async_commit();  // empty on the last tile: one group per tile all the same
-    cp_async_wait<1>();  // this tile's copies (and Q's, with the first) have landed
-    __syncthreads();
-    if constexpr (kQRegs) {
-      if (tile == t_lo) {
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks)
-          ldsm_x4(smem_u32(sq + swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))), qf[ks][0], qf[ks][1],
-                  qf[ks][2], qf[ks][3]);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // s = q.k^T: 8 fragments of 16 rows x 8 keys
-    const bf16* kt = sk + stage * kBK * D;
-    float s[8][4];
+  if (threadIdx.x < 128) {
+    // the producer: one thread keeps the ring full
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // K/V tiles through the ring so far
+      for (int pass = 0; work(pass) < n_work; ++pass) {
+        decode(work(pass));
+        mbar_wait(bar_q_empty, (pass & 1) ^ 1);  // the consumers are done with the last Q tile
+        mbar_expect_tx(bar_q, T::Q_BYTES);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        for (int c = 0; c < T::NB; ++c) tma_load(sq + c * kWgBQ * 128, &tq, bar_q, 64 * c, h, q0, b);
+        for (int i = 0; i < n_tiles; ++i, ++it) {
+          const int s = it % ST;
+          const uint32_t phase = (it / ST) & 1;
+          const int k0 = (t_lo + i) * BK;
+          mbar_wait(k_empty(s), phase ^ 1);
+          mbar_expect_tx(k_full(s), T::KV_BYTES);
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4];
-      if constexpr (kQRegs) {
-        qa[0] = qf[ks][0], qa[1] = qf[ks][1], qa[2] = qf[ks][2], qa[3] = qf[ks][3];
-      } else {
-        ldsm_x4(smem_u32(sq + swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))), qa[0], qa[1], qa[2], qa[3]);
-      }
+          for (int c = 0; c < T::NB; ++c)
+            tma_load(sk + s * T::KV_BYTES + c * BK * 128, &tk, k_full(s), 64 * c, kvh, k0, b);
+          mbar_wait(v_empty(s), phase ^ 1);
+          mbar_expect_tx(v_full(s), T::KV_BYTES);
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b0, b1, b2, b3;
-        const int key = 16 * np + (lane & 7) + ((lane >> 4) << 3);
-        ldsm_x4(smem_u32(kt + swz<D>(key, 2 * ks + ((lane >> 3) & 1))), b0, b1, b2, b3);
-        mma_bf16(s[2 * np], qa, b0, b1);
-        mma_bf16(s[2 * np + 1], qa, b2, b3);
-      }
-    }
-
-    // scale into log2 units, and the masks where the tile straddles an edge of them
-    const int k0 = tile * kBK;
-    const bool edge = (causal && k0 + kBK - 1 > qw) || (window > 0 && k0 <= qw + 15 - window) || k0 + kBK > S;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] *= scale_log2;
-        if (edge) {
-          const int row = qw + g + 8 * (e >> 1);
-          const int key = k0 + 8 * nt + 2 * t4 + (e & 1);
-          const bool ok = key < S && (!causal || key <= row) && (window <= 0 || key > row - window);
-          if (!ok) s[nt][e] = kNegInf;
+          for (int c = 0; c < T::NB; ++c)
+            tma_load(sv + s * T::KV_BYTES + c * BK * 128, &tv, v_full(s), 64 * c, kvh, k0, b);
         }
       }
     }
-
-    // online softmax: row max over the quad, p = exp(s - m), alpha rescales
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2_approx(m[r] - mx[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2_approx(s[nt][e] - m[e >> 1]);
-        sum[e >> 1] += s[nt][e];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], sum[r]);
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-
-    // acc += p.v, p = hi + lo in two bf16 products on the exact bf16 v
-    const bf16* vt = sv + stage * kBK * D;
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t hi[4], lo[4];
-      split_bf16x2(s[2 * ks][0], s[2 * ks][1], hi[0], lo[0]);
-      split_bf16x2(s[2 * ks][2], s[2 * ks][3], hi[1], lo[1]);
-      split_bf16x2(s[2 * ks + 1][0], s[2 * ks + 1][1], hi[2], lo[2]);
-      split_bf16x2(s[2 * ks + 1][2], s[2 * ks + 1][3], hi[3], lo[3]);
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {
-        uint32_t b0, b1, b2, b3;
-        const int key = 16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3);
-        ldsm_x4_trans(smem_u32(vt + swz<D>(key, 2 * dp + (lane >> 4))), b0, b1, b2, b3);
-        mma_bf16(acc[2 * dp], hi, b0, b1);
-        mma_bf16(acc[2 * dp], lo, b0, b1);
-        mma_bf16(acc[2 * dp + 1], hi, b2, b3);
-        mma_bf16(acc[2 * dp + 1], lo, b2, b3);
-      }
-    }
-    __syncthreads();  // this stage is consumed: the next tile's copies may refill it
+    return;
   }
 
+  // a consumer: 64 query rows, 16 a warp; this thread's rows qr + g and qr + g + 8
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  int qr = 0;
+  const uint32_t sq_mine = sq + cw * 64 * 128;
+  // exp(x·scale - m·scale) = 2^(x·c - m·c); -1e30 marks a masked raw score
+  // (and m its row until the first real one, where alpha = 0)
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  float o[D / 2];
+  float s[BK / 2];                          // a 64 x BK score tile: 8-key chunk i in s[4i .. 4i + 3]
+  uint32_t hi[BK / 4], lo[BK / 4];          // p split, as the A fragments of BK / 16 k-steps
+  float m[2], l[2], alpha[2];  // rows qr + g and qr + g + 8; l: this thread's share of each row's sum
+
+  // descriptors differ only in their start address (bits 0-13, in 16-byte
+  // units): a k-step or a stage adds its offset to a base
+  const uint64_t desc_q = smem_desc(sq_mine, 16, 1024);
+  const uint64_t desc_k = smem_desc(sk, 16, 1024);
+  const uint64_t desc_v = smem_desc(sv, BK * 128, 1024);
+  // s = q·kᵀ over the tile in stage st (issued, not waited for)
+  auto issue_qk = [&](int st) {
+    const uint64_t dk = desc_k + ((uint32_t)(st * T::KV_BYTES) >> 4);
+    fence_regs(s);
+    wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = qw + g + 8 * r;
-    if (row >= S) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    bf16* o = out + (int64_t)blockIdx.z * S * q_row + (int64_t)row * q_row + (int64_t)h * D + 2 * t4;
+    for (int kk = 0; kk < T::KS; ++kk) {
+      // the k-step's 32 bytes inside its 128-byte column block
+      const uint32_t col = (kk % 4) * 32;
+      Wgmma<BK>::ss(s, desc_q + (((kk / 4) * kWgBQ * 128 + col) >> 4), dk + (((kk / 4) * BK * 128 + col) >> 4),
+                    kk > 0);
+    }
+    wgmma_commit();
+  };
+  // o += hi·v + lo·v over the tile in stage st (issued, not waited for)
+  auto issue_pv = [&](int st) {
+    const uint64_t dv = desc_v + ((uint32_t)(st * T::KV_BYTES) >> 4);
+    fence_regs(o);
+    fence_regs(hi);
+    fence_regs(lo);
+    wgmma_fence();
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * dt) =
-          __floats2bfloat162_rn(acc[dt][2 * r] / denom, acc[dt][2 * r + 1] / denom);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      Wgmma<D>::rs(o, hi + 4 * kk, dv + ((kk * 16 * 128) >> 4), 1);
+      Wgmma<D>::rs(o, lo + 4 * kk, dv + ((kk * 16 * 128) >> 4), 1);
+    }
+    wgmma_commit();
+  };
+  // the online softmax on the raw scores of the tile at k0: p in s, alpha,
+  // m (the raw row max) and l updated. p = 2^(s·c - m·c), c = scale·log2(e),
+  // is one fma into one ex2; a row with no real score yet takes m·c = 0,
+  // so that its masked p are 0
+  auto softmax = [&](int k0) {
+    const bool edge = (causal && k0 + BK - 1 > qr) || (window > 0 && k0 <= qr + 15 - window) || k0 + BK > S;
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = qr + g + 8 * (e >> 1);
+          const int key = k0 + 8 * i + 2 * t4 + (e & 1);
+          const bool ok = key < S && (!causal || key <= row) && (window <= 0 || key > row - window);
+          if (!ok) s[4 * i + e] = kNegInf;
+        }
+      }
+    }
+    // four partial maxima and sums a row: short dependency chains
+    float part[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) part[r][0] = part[r][1] = part[r][2] = part[r][3] = m[r];
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      part[0][i % 4] = fmaxf(part[0][i % 4], fmaxf(s[4 * i], s[4 * i + 1]));
+      part[1][i % 4] = fmaxf(part[1][i % 4], fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+    float mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(fmaxf(part[r][0], part[r][1]), fmaxf(part[r][2], part[r][3]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[r] = exp2_approx((m[r] - mx) * scale_log2);
+      m[r] = mx;
+      mc[r] = mx == kNegInf ? 0.f : mx * scale_log2;
+      part[r][0] = part[r][1] = part[r][2] = part[r][3] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * i + e] = exp2_approx(fmaf(s[4 * i + e], scale_log2, -mc[e >> 1]));
+        part[e >> 1][i % 4] += s[4 * i + e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      l[r] = fmaf(l[r], alpha[r], (part[r][0] + part[r][1]) + (part[r][2] + part[r][3]));
+  };
+  // p's A fragments: k-step kk holds keys 16kk to 16kk + 15, chunks 2kk and 2kk + 1
+  auto split_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split_bf16x2(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], hi[4 * kk + j], lo[4 * kk + j]);
+    }
+  };
+  auto rescale_o = [&]() {
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[4 * i] *= alpha[0];
+      o[4 * i + 1] *= alpha[0];
+      o[4 * i + 2] *= alpha[1];
+      o[4 * i + 3] *= alpha[1];
+    }
+  };
+
+  // ping-pong: consumer c issues after barrier 1 + c and then lets the
+  // other one go (barrier 2 - c); consumer 1 lets consumer 0 go first, and
+  // skips its last arrival, so that every arrival meets a sync
+  if (kPingPong && cw == 1) named_arrive(1);
+  int it = 0;  // K/V tiles through the ring so far
+  for (int pass = 0; work(pass) < n_work; ++pass) {
+    decode(work(pass));
+    qr = q0 + 64 * cw + 16 * warp;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+    mbar_wait(bar_q, pass & 1);
+
+    mbar_wait(k_full(it % ST), (it / ST) & 1);
+    if (kPingPong) named_sync(1 + cw);
+    issue_qk(it % ST);
+    if (kPingPong) named_arrive(2 - cw);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) {
+      mbar_arrive(k_empty(it % ST));
+      if (n_tiles == 1) mbar_arrive(bar_q_empty);
+    }
+    softmax(t_lo * BK);
+    split_p();
+    if (n_tiles > 1) mbar_wait(k_full((it + 1) % ST), ((it + 1) / ST) & 1);
+
+    for (int i = 1; i < n_tiles; ++i) {
+      const int j = it + i, st = j % ST, prev = (j - 1) % ST;
+      if (kPingPong) named_sync(1 + cw);
+      issue_qk(st);
+      rescale_o();
+      mbar_wait(v_full(prev), ((j - 1) / ST) & 1);
+      issue_pv(prev);
+      if (kPingPong) named_arrive(2 - cw);
+      wgmma_wait<1>();  // q·kᵀ of tile i has landed; p·v of tile i - 1 runs on
+      fence_regs(s);
+      if (lane == 0) {
+        mbar_arrive(k_empty(st));
+        if (i + 1 == n_tiles) mbar_arrive(bar_q_empty);  // the last q·kᵀ: Q may be refilled
+      }
+      softmax((t_lo + i) * BK);
+      // the wait for the next K tile (or this V tile) is a loop, and so ends
+      // the softmax's basic block: ptxas hoists a wgmma wait to the top of
+      // its block, and the softmax would no longer run under the p·v
+      if (i + 1 < n_tiles)
+        mbar_wait(k_full((j + 1) % ST), ((j + 1) / ST) & 1);
+      else
+        mbar_wait(v_full(st), (j / ST) & 1);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(hi);
+      fence_regs(lo);
+      if (lane == 0) mbar_arrive(v_empty(prev));
+      split_p();
+    }
+
+    const int j = it + n_tiles - 1, last = j % ST;
+    rescale_o();
+    mbar_wait(v_full(last), (j / ST) & 1);
+    if (kPingPong) named_sync(1 + cw);
+    issue_pv(last);
+    // consumer 1's last arrival of the block would meet no sync
+    if (kPingPong && (cw == 0 || work(pass + 1) < n_work)) named_arrive(2 - cw);
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(v_empty(last));
+    it += n_tiles;
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = qr + g + 8 * r;
+      if (row >= S) continue;
+      const float denom = fmaxf(l[r], 1e-30f);
+      bf16* op = out + ((int64_t)b * S + row) * H * D + (int64_t)h * D + 2 * t4;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * i) =
+            __floats2bfloat162_rn(o[4 * i + 2 * r] / denom, o[4 * i + 2 * r + 1] / denom);
+    }
   }
 }
 
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (the build
+// links no libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the 4-D map of a contiguous bf16 (B, S, heads, D) tensor: boxes of 64
+// columns by `rows` sequence positions of one head and batch, 128-byte
+// swizzled; columns past D and rows past S read as zeros
+bool encode_bshd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2, (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
-int launch_tc(void* out, const void* q, const void* k, const void* v, int B, int S, int H, int KVH, int causal,
-              int window, float scale, cudaStream_t stream) {
-  constexpr int bytes = tc_smem_bytes<D>();
+int launch_wgmma(void* out, const void* q, const void* k, const void* v, int B, int S, int H, int KVH,
+                 int causal, int window, float scale, cudaStream_t stream) {
+  using T = Tiles<D>;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!encode_bshd(encode, &tq, q, B, S, H, D, kWgBQ) || !encode_bshd(encode, &tk, k, B, S, KVH, D, T::BK) ||
+      !encode_bshd(encode, &tv, v, B, S, KVH, D, T::BK))
+    return (int)cudaErrorInvalidValue;
   static bool opted_in = false;
   if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_attention_tc_kernel<D>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    const cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_tc_kernel<D><<<grid, kThreads, bytes, stream>>>((bf16*)out, (const bf16*)q, (const bf16*)k,
-                                                                  (const bf16*)v, S, H, KVH, causal, window,
-                                                                  scale);
+  static int sms = 0;  // one block an SM, each walking its share of the query tiles
+  if (!sms) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int work = ((S + kWgBQ - 1) / kWgBQ) * H * B, blocks = work < sms ? work : sms;
+  flash_attention_wgmma_kernel<D><<<blocks, kWgThreads, T::SMEM, stream>>>(tq, tk, tv, (bf16*)out, B, S, H, KVH,
+                                                                        causal, window, scale);
   return (int)cudaGetLastError();
+}
+
+// the launch layout of a head_dim and dtype: query rows a block, keys a
+// tile, ring stages, the row width in shared memory, threads a block,
+// dynamic shared memory (bytes), and the compiled kernel's registers a
+// thread at launch and local (spilled) bytes
+template <int D>
+int layout_bf16(int* outv) {
+  using T = Tiles<D>;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, flash_attention_wgmma_kernel<D>);
+  if (err != cudaSuccess) return (int)err;
+  const int vals[8] = {kWgBQ, T::BK, T::ST, T::DP, kWgThreads, T::SMEM, attr.numRegs, (int)attr.localSizeBytes};
+  for (int i = 0; i < 8; ++i) outv[i] = vals[i];
+  return 0;
+}
+
+template <int D>
+int layout_f32(int* outv) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, flash_attention_kernel<float, D>);
+  if (err != cudaSuccess) return (int)err;
+  const int vals[8] = {kBQ, kBK, 1, D, kThreads, smem_floats<D>() * (int)sizeof(float), attr.numRegs,
+                       (int)attr.localSizeBytes};
+  for (int i = 0; i < 8; ++i) outv[i] = vals[i];
+  return 0;
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
@@ -559,28 +1020,28 @@ int repro_flash_attention(void* out, const void* q, const void* k, const void* v
     return launch<float, 256>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
   }
   if (!(aligned16(out) && aligned16(q) && aligned16(k) && aligned16(v))) return (int)cudaErrorMisalignedAddress;
-  if (D == 64) return launch_tc<64>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
-  if (D == 80) return launch_tc<80>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
-  if (D == 112) return launch_tc<112>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
-  if (D == 128) return launch_tc<128>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
-  return launch_tc<256>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
+  if (D == 64) return launch_wgmma<64>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
+  if (D == 80) return launch_wgmma<80>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
+  if (D == 112) return launch_wgmma<112>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
+  if (D == 128) return launch_wgmma<128>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
+  return launch_wgmma<256>(out, q, k, v, B, S, H, KVH, causal, window, scale, s);
 }
 
-// The dynamic shared memory a launch at this head_dim and dtype opts into,
-// in bytes, or -1 for a head_dim without a kernel.
-int repro_flash_attention_smem(int D, int dtype) {
+// The launch layout of this head_dim and dtype into out[8] (see layout_bf16);
+// returns 0, a CUDA error, or -1 for a head_dim without a kernel.
+int repro_flash_attention_layout(int D, int dtype, int* out) {
   if (dtype == 0) {
-    if (D == 64) return smem_floats<64>() * (int)sizeof(float);
-    if (D == 80) return smem_floats<80>() * (int)sizeof(float);
-    if (D == 112) return smem_floats<112>() * (int)sizeof(float);
-    if (D == 128) return smem_floats<128>() * (int)sizeof(float);
-    if (D == 256) return smem_floats<256>() * (int)sizeof(float);
+    if (D == 64) return layout_f32<64>(out);
+    if (D == 80) return layout_f32<80>(out);
+    if (D == 112) return layout_f32<112>(out);
+    if (D == 128) return layout_f32<128>(out);
+    if (D == 256) return layout_f32<256>(out);
   } else if (dtype == 1) {
-    if (D == 64) return tc_smem_bytes<64>();
-    if (D == 80) return tc_smem_bytes<80>();
-    if (D == 112) return tc_smem_bytes<112>();
-    if (D == 128) return tc_smem_bytes<128>();
-    if (D == 256) return tc_smem_bytes<256>();
+    if (D == 64) return layout_bf16<64>(out);
+    if (D == 80) return layout_bf16<80>(out);
+    if (D == 112) return layout_bf16<112>(out);
+    if (D == 128) return layout_bf16<128>(out);
+    if (D == 256) return layout_bf16<256>(out);
   }
   return -1;
 }

@@ -2,12 +2,15 @@
 
 Ports the TPU kernel ``repro/kernels/flash_attention.py::flash_attention_bhsd``;
 the CUDA source, with its bound and design, is ``csrc/flash_attention.cu``:
-bf16 runs on the tensor cores (``mma.sync`` with cp.async-fed K/V tiles),
+bf16 runs on Hopper's tensor cores in FlashAttention-3's shape (``wgmma``
+from shared memory that a producer warp fills with TMA loads, two consumer
+warpgroups in ping-pong, p kept in f32 as a hi/lo pair of bf16 products),
 f32 on the CUDA cores. The kernels read q, k and v in their (B, S, H, D) /
 (B, S, KVH, D) layouts, GQA and a ragged S included, so nothing is
 repeated, transposed or padded.
 The launcher checks the tensors, allocates nothing, launches on PyTorch's
-current stream and raises if the launch is refused. The library is built and
+current stream and raises if the launch is refused (the bf16 kernel's TMA
+tensor maps are encoded on the host at each launch and passed by value). The library is built and
 loaded at the first launch (``kernels/build.py``), never at import.
 """
 from __future__ import annotations
@@ -32,18 +35,29 @@ def library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     lib.repro_flash_attention.argtypes = [_P] * 4 + [_I] * 8 + [_F, _P]
     lib.repro_flash_attention.restype = _I
-    lib.repro_flash_attention_smem.argtypes = [_I, _I]
-    lib.repro_flash_attention_smem.restype = _I
+    lib.repro_flash_attention_layout.argtypes = [_I, _I, _P]
+    lib.repro_flash_attention_layout.restype = _I
     return lib
 
 
-def smem_bytes(D: int, dtype: torch.dtype) -> int:
-    """The dynamic shared memory a launch at head_dim ``D`` in ``dtype``
-    opts into (bytes)."""
-    n = library().repro_flash_attention_smem(D, DTYPE_CODES[dtype])
-    if n < 0:
+LAYOUT_KEYS = ("query_rows", "key_tile", "stages", "smem_width", "threads", "smem_bytes", "registers",
+               "local_bytes")
+
+
+def layout(D: int, dtype: torch.dtype) -> dict:
+    """The launch layout of head_dim ``D`` in ``dtype``: query rows a block,
+    keys a K/V tile, ring stages, the row width in shared memory (bf16: D
+    80 and 112 padded to 128), threads a block, dynamic shared memory
+    (bytes), and the compiled kernel's registers a thread at launch and
+    local (spilled) bytes, as the runtime reports them (the bf16 kernel's
+    consumers raise their registers to 240 with ``setmaxnreg``)."""
+    vals = (ctypes.c_int * len(LAYOUT_KEYS))()
+    err = library().repro_flash_attention_layout(D, DTYPE_CODES[dtype], ctypes.cast(vals, _P))
+    if err < 0:
         raise ValueError(f"head_dim {D} has no kernel (only {HEAD_DIMS})")
-    return n
+    if err:
+        raise RuntimeError(f"flash-attention layout query failed with CUDA error {err}")
+    return dict(zip(LAYOUT_KEYS, vals))
 
 
 def check_shape(q_shape, kv_shape) -> None:

@@ -421,7 +421,7 @@ def sparse_lora_apply_packed(x, a, b, mask, scale: float = 1.0):
 
 def _fa_input(t):
     # contiguous, and a bf16 view off a 16-byte boundary copied to fresh
-    # (aligned) storage: the tensor-core kernel's cp.async reads 16 bytes
+    # (aligned) storage: the tensor-core kernel's TMA maps need 16 bytes
     t = t.contiguous()
     return t.clone() if t.dtype == torch.bfloat16 and t.data_ptr() % 16 else t
 
@@ -433,9 +433,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     On the card one kernel launch reads the three tensors in place, for any
     S (a ragged last tile is masked in the kernel); D must be 64, 80, 112,
     128 or 256.
-    bf16 inputs run on the tensor cores (a bf16 view off a 16-byte boundary
-    is first copied), f32 on the CUDA cores; both keep the scores and p in
-    f32.
+    bf16 inputs run on Hopper's tensor cores (``wgmma`` on K/V tiles that a
+    producer warp brings in with TMA, two consumer warpgroups in ping-pong;
+    a bf16 view off a 16-byte boundary is first copied), f32 on the CUDA
+    cores; both keep the scores and p in f32 (bf16: p as hi + lo, two bf16
+    products).
     Mixed dtypes, or a dtype other than f32/bf16, run in f32 and the output
     is cast to q's dtype, as the plain version does. On the CPU the heads are
     folded as the JAX wrapper folds them and the plain version runs.

@@ -1063,6 +1063,16 @@ FLASH_CASES = [  # B, S, H, KVH, D, causal, window
     (1, 300, 4, 4, 112, True, None),
     (2, 256, 4, 2, 112, True, 100),
     (1, 200, 4, 4, 112, False, None),
+    # ragged S of 100, 200 and 1000, windows that cut a 128-key tile (1, 63,
+    # 129), GQA ratios of 7 and 8, bidirectional, at every head_dim
+    (1, 100, 7, 1, 64, True, 1),
+    (2, 200, 8, 1, 128, True, 63),
+    (1, 1000, 14, 2, 64, True, 129),
+    (1, 1000, 8, 1, 80, False, None),
+    (2, 200, 4, 4, 112, True, 63),
+    (1, 100, 4, 4, 112, False, 129),
+    (1, 1000, 8, 1, 256, True, 129),
+    (2, 200, 7, 1, 256, False, 63),
 ]
 
 
@@ -1092,28 +1102,46 @@ def test_flash_attention_query_slices_match_whole(cuda):
     assert torch.equal(torch.cat(parts, dim=1), whole)
 
 
+def wgmma_smem(D):
+    """The bf16 kernel's shared memory: 1024 bytes of alignment slack, Q
+    (128 rows), two stages of K and V tiles (128 keys, 64 at D 256), rows
+    of D padded to 64, 128 or 256 columns, and 10 mbarriers of 8 bytes."""
+    width = 64 if D <= 64 else 128 if D <= 128 else 256
+    keys = 128 if D <= 128 else 64
+    return 1024 + (128 + 2 * 2 * keys) * width * 2 + 8 * 10
+
+
+def f32_smem(D):
+    return (D * 68 + D * 65 + 64 * D + 64 * 68) * 4
+
+
 @pytest.mark.cuda
 def test_flash_attention_head_dim_80_opts_into_its_shared_memory(cuda):
-    """D 80 stages Q and two K/V stages of 64 rows x 160 bytes (bf16: 51200
-    bytes, over the 48 KB default) and the f32 kernel's tiles (80448)."""
-    assert flash_attention.smem_bytes(80, torch.bfloat16) == (64 + 4 * 64) * 80 * 2
-    assert flash_attention.smem_bytes(80, torch.float32) == (80 * 68 + 80 * 65 + 64 * 80 + 64 * 68) * 4
+    """D 80 pads its 160-byte rows to 128 columns in shared memory only (bf16:
+    Q and two K/V stages, 164944 bytes, over the 48 KB default) and the f32
+    kernel's tiles (80448)."""
+    lay = flash_attention.layout(80, torch.bfloat16)
+    assert lay["smem_bytes"] == wgmma_smem(80) == 164944
+    assert flash_attention.layout(80, torch.float32)["smem_bytes"] == f32_smem(80)
+    assert (lay["query_rows"], lay["key_tile"], lay["stages"], lay["smem_width"], lay["threads"]) == (128, 128, 2, 128, 384)
+    assert lay["local_bytes"] == 0
     q = torch.randn(1, 1024, 32, 80, generator=cuda, device="cuda").bfloat16()
     k, v = (torch.randn(1, 1024, 32, 80, generator=cuda, device="cuda").bfloat16() for _ in range(2))
     out = ops.flash_attention(q, k, v, causal=True, window=8192)
     torch.cuda.synchronize()
     assert_attention_close(out, ref.flash_attention_gqa_ref(q, k, v, causal=True, window=8192), v)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention.smem_bytes(96, torch.bfloat16)
+        flash_attention.layout(96, torch.bfloat16)
 
 
 @pytest.mark.cuda
 def test_flash_attention_head_dim_112_opts_into_its_shared_memory(cuda):
-    """D 112 stages Q and two K/V stages of 64 rows x 224 bytes (bf16: 71680
-    bytes) and the f32 kernel's tiles (105664); zamba2-7b's prefill shape
-    (32 heads, causal, no window) in bf16 and f32."""
-    assert flash_attention.smem_bytes(112, torch.bfloat16) == (64 + 4 * 64) * 112 * 2
-    assert flash_attention.smem_bytes(112, torch.float32) == (112 * 68 + 112 * 65 + 64 * 112 + 64 * 68) * 4
+    """D 112 pads its 224-byte rows to 128 columns in shared memory (bf16:
+    164944 bytes) beside the f32 kernel's tiles (105664); zamba2-7b's prefill
+    shape (32 heads, causal, no window) in bf16 and f32."""
+    lay = flash_attention.layout(112, torch.bfloat16)
+    assert lay["smem_bytes"] == wgmma_smem(112) == 164944 and lay["smem_width"] == 128
+    assert flash_attention.layout(112, torch.float32)["smem_bytes"] == f32_smem(112)
     for dtype, S in ((torch.bfloat16, 1024), (torch.float32, 333)):
         q = torch.randn(2, S, 32, 112, generator=cuda, device="cuda").to(dtype)
         k, v = (torch.randn(2, S, 32, 112, generator=cuda, device="cuda").to(dtype) for _ in range(2))
@@ -1124,13 +1152,14 @@ def test_flash_attention_head_dim_112_opts_into_its_shared_memory(cuda):
 
 @pytest.mark.cuda
 def test_flash_attention_head_dim_256_opts_into_its_shared_memory(cuda):
-    """D 256 stages Q and two K/V stages of 64 rows x 512 bytes (bf16:
-    163840 bytes, Q's fragments read from shared memory at each k-step) and
-    the f32 kernel's tiles (219136); paligemma-3b's heads (8 over 1 KV
-    head) causal in bf16 under the model's window, f32 at a ragged S with a
-    window, and bidirectional."""
-    assert flash_attention.smem_bytes(256, torch.bfloat16) == (64 + 4 * 64) * 256 * 2
-    assert flash_attention.smem_bytes(256, torch.float32) == (256 * 68 + 256 * 65 + 64 * 256 + 64 * 68) * 4
+    """D 256 stages Q and two K/V stages of 64 keys x 512 bytes (bf16:
+    197712 bytes) beside the f32 kernel's tiles (219136); paligemma-3b's
+    heads (8 over 1 KV head) causal in bf16 under the model's window, f32 at
+    a ragged S with a window, and bidirectional."""
+    lay = flash_attention.layout(256, torch.bfloat16)
+    assert lay["smem_bytes"] == wgmma_smem(256) == 197712
+    assert flash_attention.layout(256, torch.float32)["smem_bytes"] == f32_smem(256)
+    assert (lay["key_tile"], lay["smem_width"], lay["local_bytes"]) == (64, 256, 0)
     for dtype, S, causal, window in ((torch.bfloat16, 1280, True, 8192), (torch.float32, 333, True, 100),
                                      (torch.bfloat16, 300, False, None)):
         q = torch.randn(2, S, 8, 256, generator=cuda, device="cuda").to(dtype)
@@ -1164,13 +1193,21 @@ def test_flash_attention_mixed_dtypes_and_refusals(cuda):
 
 
 # the bf16 tensor-core kernel: every case above, ragged S off the tile grid
-# (17, 129), H 14 over one KV head, a non-causal window with B 2, D 128 at S 1000
+# (17, 129), H 14 over one KV head, a non-causal window with B 2, D 128 at S
+# 1000; and more query tiles than the card has SMs, so that each block of
+# the persistent grid walks several (its K/V ring and Q buffer reused from
+# tile to tile)
 FLASH_TC_CASES = FLASH_CASES + [
     (2, 17, 4, 2, 64, True, None),
     (1, 129, 4, 2, 128, True, 100),
     (1, 300, 14, 1, 64, True, None),
     (2, 300, 4, 2, 64, False, 100),
     (1, 1000, 4, 2, 128, True, None),
+    (4, 1000, 16, 2, 64, True, 129),
+    (3, 700, 32, 4, 128, False, None),
+    (2, 1300, 8, 1, 256, True, None),
+    (4, 600, 24, 24, 80, True, 63),
+    (4, 600, 24, 24, 112, False, None),
 ]
 
 
@@ -1187,7 +1224,11 @@ def test_flash_attention_tensor_core_kernel_matches_plain(cuda, B, S, H, KVH, D,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,KVH,D,causal,window", [FLASH_TC_CASES[i] for i in (0, 1, 2, 6, 17, 19, 10, 13)])
+@pytest.mark.parametrize("B,S,H,KVH,D,causal,window", [
+    (2, 256, 4, 2, 64, True, None), (2, 256, 8, 1, 128, True, 128), (1, 300, 14, 2, 64, True, 100),
+    (1, 200, 4, 2, 64, False, 50), (1, 300, 14, 1, 64, True, None), (1, 1000, 4, 2, 128, True, None),
+    (2, 256, 4, 2, 80, True, 100), (2, 256, 4, 2, 112, True, 100),
+])
 def test_flash_attention_kernels_agree(cuda, B, S, H, KVH, D, causal, window):
     """The same bf16 inputs through the tensor-core kernel and, cast to
     f32, through the CUDA-core kernel agree within the attention tolerance."""
@@ -1214,6 +1255,74 @@ def test_flash_attention_unaligned_bf16_matches_plain(cuda):
     assert_attention_close(out, ref.flash_attention_gqa_ref(q, k, v, causal=True, window=50), v)
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention.flash_attention_launch(torch.empty_like(q), q, k, v, causal=True, window=50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", flash_attention.HEAD_DIMS)
+def test_flash_attention_reruns_are_bit_identical(cuda, D):
+    """The bf16 kernel sums in a fixed order: a second launch on the same
+    inputs gives the same bits (causal with a window, and bidirectional)."""
+    q = torch.randn(2, 700, 8, D, generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn(2, 700, 2, D, generator=cuda, device="cuda").bfloat16() for _ in range(2))
+    for causal, window in ((True, 300), (False, None)):
+        first = ops.flash_attention(q, k, v, causal=causal, window=window)
+        second = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 112, 256])
+def test_flash_attention_graph_of_two_launches_on_different_buffers(cuda, D):
+    """A CUDA graph captures each launch's tensor maps by value: two launches
+    on different inputs and outputs replay into their own results, equal to
+    eager launches bit for bit."""
+    shapes = ((1, 300, 4, 2), (2, 129, 8, 1))
+    ins = [tuple(torch.randn(B, S, h, D, generator=cuda, device="cuda").bfloat16() for h in (H, KVH, KVH))
+           for B, S, H, KVH in shapes]
+    outs = [torch.empty_like(q) for q, _, _ in ins]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for (q, k, v), out in zip(ins, outs):
+            flash_attention.flash_attention_launch(out, q, k, v, causal=True, window=None)
+    for out in outs:
+        out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for (q, k, v), out in zip(ins, outs):
+        assert torch.equal(out, ops.flash_attention(q, k, v, causal=True))
+        assert_attention_close(out, ref.flash_attention_gqa_ref(q, k, v, causal=True), v)
+
+
+def sass_by_function(lib_path):
+    """``cuobjdump -sass`` of a built library, as function name -> its SASS."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
+    functions, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            functions[name] = []
+        elif name is not None:
+            functions[name].append(line)
+    return {n: "\n".join(lines) for n, lines in functions.items()}
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_kernels_run_wgmma_on_tma_tiles(cuda):
+    """Every bf16 instantiation (one per head_dim) issues HGMMA (wgmma) and
+    UTMALDG (TMA tile loads) in its SASS."""
+    from repro_torch.kernels import build
+
+    flash_attention.library()
+    sass = sass_by_function(build.library_path(flash_attention.SOURCE))
+    wgmma = {n: body for n, body in sass.items() if "flash_attention_wgmma_kernel" in n}
+    assert sorted(int(n.split("ILi", 1)[1].split("E", 1)[0]) for n in wgmma) == sorted(flash_attention.HEAD_DIMS)
+    for name, body in wgmma.items():
+        assert "HGMMA" in body and "UTMALDG" in body, name
 
 
 # --- B9: the SSD intra-chunk scan ---

@@ -109,22 +109,35 @@ def test_flash_attention_not_causal_matches_jax(window):
     _check_flash(11, 2, 256, 4, 2, 64, causal=False, window=window)
 
 
-def _tensor_core_emulation(q, k, v, *, causal, window, tile=64):
+def key_tile(D):
+    """The card's bf16 kernel's keys a K/V tile: 128 up to D 128, 64 at D
+    256 (where the output accumulator takes 128 registers a thread)."""
+    return 128 if D <= 128 else 64
+
+
+def _tensor_core_emulation(q, k, v, *, causal, window):
     """The arithmetic of the card's bf16 flash-attention kernel, in torch:
-    scores as sums in f32 of exact bf16 products, scaled into log2 units,
-    the online softmax over 64-key tiles with p = 2^(s - m), each f32 p
-    split into hi = bf16(p) and lo = bf16(p - hi) with hi·v + lo·v summed
-    in f32, and l the sum of the f32 p's."""
+    raw scores as sums in f32 of exact bf16 products, the online softmax
+    over the kernel's key tiles (``key_tile``, aligned to multiples of
+    their width from key 0, as the kernel's are) on the raw row max m, with
+    p = 2^(s·c - m·c) for c = scale·log2(e) (one fma: s·c exact, one
+    rounding; m·c taken as 0 while a row has no real score) and
+    alpha = 2^((m_old - m)·c), each f32 p split into hi = bf16(p) and
+    lo = bf16(p - hi) with hi·v + lo·v summed in f32, and l the sum of the
+    f32 p's. D 80 and 112, padded to 128 columns in the kernel's shared
+    memory, add only exact zero products there, so they take the same
+    arithmetic."""
     B, S, H, D = q.shape
+    tile = key_tile(D)
     qf, kf, vf = (t.to(torch.float32).repeat_interleave(H // t.shape[2], dim=2).transpose(1, 2)
                   for t in (q, k, v))
-    scale = float(np.float32(np.float32(1.0) / np.sqrt(np.float32(D))) * np.float32(1.4426950408889634))
+    c = np.float32(np.float32(np.float32(1.0) / np.sqrt(np.float32(D))) * np.float32(1.4426950408889634))
     m = torch.full((B, H, S, 1), -1e30)
     l = torch.zeros((B, H, S, 1))
     acc = torch.zeros((B, H, S, D))
     pos = torch.arange(S)
     for k0 in range(0, S, tile):
-        s = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * scale
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)
         kp, qp = pos[None, k0:k0 + tile], pos[:, None]
         ok = torch.ones_like(kp <= qp)
         if causal:
@@ -133,7 +146,10 @@ def _tensor_core_emulation(q, k, v, *, causal, window, tile=64):
             ok = ok & (kp > qp - window)
         s = torch.where(ok, s, -1e30)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+        alpha = torch.exp2((m - m_new) * float(c))
+        mc = torch.where(m_new == -1e30, 0.0, m_new * float(c))
+        # fma(s, c, -mc): the product exact in f64, one rounding to f32
+        p = torch.exp2((s.double() * float(c) - mc.double()).float())
         l = l * alpha + p.sum(-1, keepdim=True)
         hi = p.to(torch.bfloat16).to(torch.float32)
         lo = (p - hi).to(torch.bfloat16).to(torch.float32)
@@ -148,9 +164,14 @@ def _tensor_core_emulation(q, k, v, *, causal, window, tile=64):
     (256, 4, 2, 64, True, 128), (256, 8, 1, 128, True, None), (256, 8, 1, 128, True, 128),
     (100, 4, 2, 64, True, None), (200, 4, 2, 64, True, 64), (256, 4, 2, 64, False, None),
     (256, 4, 2, 64, False, 64),
-    # paligemma-3b's head_dim 256 over one KV head (Q read from shared memory
-    # at each k-step on the card: the same arithmetic), causal and bidirectional
+    # paligemma-3b's head_dim 256 over one KV head, causal and bidirectional
     (256, 8, 1, 256, True, None), (100, 4, 1, 256, False, None),
+    # D 80 and 112 (padded in the kernel's shared memory), ragged S, windows
+    # that cut a 128-key tile (1, 63, 129), GQA ratios 7 and 8, bidirectional
+    (256, 4, 4, 80, True, None), (1000, 4, 4, 80, False, None), (100, 4, 4, 80, True, 1),
+    (256, 4, 4, 112, True, None), (200, 4, 2, 112, True, 63), (200, 4, 4, 112, False, None),
+    (1000, 7, 1, 64, True, None), (200, 14, 2, 64, True, 1), (1000, 8, 1, 128, True, 129),
+    (256, 8, 1, 64, False, 63), (100, 8, 1, 256, True, 63), (200, 16, 2, 256, False, 129),
 ])
 def test_flash_tensor_core_arithmetic_matches_jax(S, H, KVH, D, causal, window):
     """The hi/lo split of p keeps the bf16 kernel within the unchanged bf16
