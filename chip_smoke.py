@@ -6,8 +6,10 @@ device and exits non-zero without one, or if any phase fails:
 
 1. device: the card's name and power limit;
 2. build: compile the hand-written CUDA sources from ``src/repro_torch``, one
-   ``nvcc`` per source, all started together; each kernel's registers,
-   shared memory and spills as ``ptxas`` reports them;
+   ``nvcc`` per source, all started together; B1-B3's are waited for here,
+   the others compile under phases 3-5 and are waited for before phase 5b;
+   each source's compile seconds, and each kernel's registers, shared
+   memory and spills as ``ptxas`` reports them;
 3. kernels against their plain PyTorch versions, on the card, at every LoRA
    leaf shape of full qwen2-0.5b, bit for bit: masked AdamW/SGD (B1/B2) per
    client and stacked over 4 clients with per-client scalars, moments f32
@@ -59,7 +61,10 @@ device and exits non-zero without one, or if any phase fails:
    4x1024 under the 8192 window, f32 S 2000 window 1000) and at zamba2-7b's
    head_dim 112 (32 heads: bf16 4x1024 causal, f32 S 2000 window 1000); B9
    at zamba2-7b's 4x1024 (112 heads sharing b and c, head_dim 64, state 64;
-   f32 and bf16); each within a
+   f32 and bf16) and at mamba2-1.3b's serve prefill (4x1024, 64 heads
+   sharing b and c, bf16) in the model's layout (x (B, S, nh, hd) and b, c
+   column slices of the conv's output, read in place), all of these on the
+   TMA route (none counted by ``ssd_chunk.copy_route_launches``); each within a
    stated tolerance of its plain version; then their times beside their bounds and shares of them and,
    for B8 (bf16 on the tensor cores, f32 on the CUDA cores), its TFLOP/s
    and ``scaled_dot_product_attention``'s time;
@@ -108,9 +113,8 @@ k. the async engine on phase 4's world (FibecFed/AdamW fused unless said):
    global, put in place of the async merge 0), each merge within f32
    reassociation of the loop's FedAvg, the final global within phase 6's
    limits, the same comm bytes (and the wire format's), staleness and
-   drops 0, B1 once per step; then a witness, unchecked and logged: one
-   round-1 client trained again from the async merge 0 itself, with AdamW
-   and with SGD; (ii) the straggler scenario
+   drops 0, B1 once per step; (ii) the straggler scenario, its init
+   restored from k(i)'s (the same world and init settings),
    with every adaptive policy (delta merges at server lr 0.8, cutoff 2,
    adaptive buffer and steps, sampling bias 2), 4 merges with telemetry:
    finite losses, staleness within the cutoff and above 0 somewhere, the
@@ -122,7 +126,7 @@ k. the async engine on phase 4's world (FibecFed/AdamW fused unless said):
    and through two edges: equal decisions and bytes, globals within phase
    6's limits, B2 once per valid step and B3 once per upload, low-rank
    clients untouched beyond their rank, the wire format's bytes;
-l. client stores and run checkpoints (after k, on phase 4's world): (i)
+l. client stores and run checkpoints (on phase 4's world): (i)
    phase 4's loop run and phase 5's vectorized run each saved a run
    snapshot (``save_run_checkpoint``) after round 0, and k(ii)'s straggler
    run after merge 2 (clients in flight, their trained payloads on the
@@ -140,8 +144,9 @@ l. client stores and run checkpoints (after k, on phase 4's world): (i)
    client on its own, as the loop engine does, where phase 5's scores them
    under the vmap and may order near-tied batches apart), and where the
    orders equal phase 5's, its global within phase 6's limits of phase
-   5's; an in-memory twin of phase 5's configuration given those decisions
-   equal to it bit for bit; a cold file for every client, the peak memory
+   5's; an in-memory twin of phase 5's configuration (its init restored
+   from phase 5's snapshot after init) given those decisions equal to it
+   bit for bit; a cold file for every client, the peak memory
    beside phase 5's; then a fresh runner on a fresh store directory restores
    ``round_00000001`` (its hardlinked cold files included) and reruns
    round 1 bit for bit the service's; each part's restore s, round or
@@ -208,7 +213,7 @@ j. the last families at full width (bf16, seeded init): whisper-large-v3
    its class accuracy from ``evaluate``; phase 5c also holds and times B8
    at D 256 (paligemma's 4x1280, f32 S 2000) and bidirectional at
    whisper's encoder and roberta's widths;
-n. (after 7) the launch layer at full qwen2-0.5b width: (i) the FibecFed
+n. the launch layer at full qwen2-0.5b width: (i) the FibecFed
    train step of ``launch/steps.py`` through ``launch/train.py``'s
    ``init_run`` and ``train_loop`` (GAL on the first 75% of the layers,
    local masks of ones, 4 client groups of a 16 x 128-token batch, 4 steps),
@@ -223,7 +228,7 @@ n. (after 7) the launch layer at full qwen2-0.5b width: (i) the FibecFed
    peak memory) and its counter (flops, bytes written), its model flops
    and their share of the card's bf16 peak, and its roofline terms on
    H100_SXM (``launch/analysis.py``);
-o. (after n) the launch layer for the SSM, hybrid and encoder-decoder
+o. the launch layer for the SSM, hybrid and encoder-decoder
    families: (i) mamba2-1.3b at 4 layers, zamba2-7b at 6 (one application
    of its shared block) and whisper-large-v3 at 4 + 4, full width, no mesh:
    2 train steps of n's 4 groups x 4 x 128 tokens (B1 twice a step) held to
@@ -244,17 +249,28 @@ o. (after n) the launch layer for the SSM, hybrid and encoder-decoder
    functional all-gather of a CUDA tensor segfaults on torch 2.11;
 8. one JSON line listing the kernels; last, the ok line.
 
+The run goes 2-5d, n, o, f, h, i, j: every phase that times the device, each
+alone on the card. Then phases k and l(i) run in a second process on the
+card (``python3 chip_smoke.py --phases-k-l STATE``, from phase 4's records
+and the snapshots of phases 4 and 5), beside 5e, 6, m, 7, g and l(ii) in
+this one: all of these check and time nothing on the device, and their
+host seconds are taken beside each other. The second process's log follows
+l(ii)'s.
+
 Each path of phases 4-6, 5b-5d, m, n, o, k, l, f, g, h, i and j included, is driven with the kernels' launch
 counts set to 0 just before it and read just after. Float32 matmuls run in
 full f32 (TF32 off for matmuls and cuDNN alike). The end of each phase, with
 the seconds since the start, also goes to standard error.
 """
+import atexit
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -382,6 +398,9 @@ ATTN_SLICE = 1024  # query rows per slice of the plain version at S 16384
 SSD_WIDTHS = dict(S=2048, chunk=128, nh=64, hd=64, N=128)  # mamba2-1.3b, one sequence
 # zamba2-7b's Mamba layers at its 4x1024 serve prefill: 112 heads of 64 sharing b and c, state 64
 ZAMBA2_SSD = dict(B=4, S=1024, chunk=128, nh=112, hd=64, N=64)
+# mamba2-1.3b's serve prefill group (4 prompts of 1024: 32 rows of 64 heads sharing b and c), bf16, in
+# the model's layout as its prefill launches it
+SSD_SERVE = dict(B=4, S=1024)
 SSD_SMALL = ((128, 64, 32), (128, 128, 128), (64, 32, 16))  # the JAX tests' (Q, hd, N)
 # B9 off the main shape: Q, hd and N with and without padding to the kernel's tiles
 SSD_RAGGED = tuple((Q, hd, N) for Q in (8, 24, 64, 128) for hd in (4, 20, 64, 128) for N in (1, 5, 128))
@@ -415,6 +434,9 @@ SERVE_REQUESTS = (
     (1024, 8, 1), (1024, 16, 2), (128, 8, 3), (128, 16, 0),
 )
 SERVE_SLOTS, SERVE_CACHE = 8, 1152
+# decode steps timed after the serve runs (the busy share's wall time; the
+# runs' own spans give the mean over every step): a host-bound step, ~15-150 ms
+SERVE_STEP_ITERS = 8
 SERVE_EOS = 5  # stopped by an EOS taken from its own greedy stream
 SERVE_SAMPLED, SERVE_TEMPERATURE = 7, 0.8
 # Each completion is held to the training forward (``decoder_forward``: no
@@ -584,10 +606,7 @@ ENGINE_LOSS_RTOL = 1e-2
 # at each entry. So that round 1 is held as exactly as round 0, the async
 # run's round 1 pulls phase 4's round-0 global, put in place of its own
 # merge 0 (which was checked first); its final global is then held to
-# phase 6's limits. A witness, logged and not checked, trains one round-1
-# client again from the async merge 0 itself, with AdamW and with SGD, and
-# reads how far a start a few ulp away moves it on engine_disagreement's
-# measure. k(ii) is the JAX package's straggler run with every adaptive
+# phase 6's limits. k(ii) is the JAX package's straggler run with every adaptive
 # policy
 # (tests/test_engine_equivalence.py::test_async_adaptive_policies_straggler_run),
 # for ASYNC_MERGES merges (the JAX test's 6 cut to 4 for the script's time).
@@ -1724,6 +1743,19 @@ def ssd_inputs(gen, dtype, B=1, S=SSD_WIDTHS["S"], heads=1, widths=SSD_WIDTHS):
     return x.to(dtype), a, b.to(dtype), c.to(dtype)
 
 
+def ssd_model_layout(x, a, b, c, B, S, heads, Q):
+    """``ssd_inputs``' groups as the model holds them: x (B, S, nh, hd), the
+    decays (B, S, nh), b and c column slices of one (B, S, 8 + 2N) tensor
+    (the conv's output holds x's channels before them)."""
+    nc, hd, N = S // Q, x.shape[-1], b.shape[-1]
+    xs = x.reshape(B, nc, heads, Q, hd).permute(0, 1, 3, 2, 4).reshape(B, S, heads, hd).contiguous()
+    a_s = a.reshape(B, nc, heads, Q).permute(0, 1, 3, 2).reshape(B, S, heads).contiguous()
+    bc = torch.zeros(B, S, 8 + 2 * N, dtype=b.dtype, device=b.device)
+    bc[..., 8:8 + N] = b.reshape(B, S, N)
+    bc[..., 8 + N:] = c.reshape(B, S, N)
+    return xs, a_s, bc[..., 8:8 + N], bc[..., 8 + N:]
+
+
 def ssd_bound(x, a, b, heads):
     """B9's bound: x, a, b and c read once (b and c once a row: shared by
     ``heads`` groups), y written in f32; c·b once a row, exp·score and M·x
@@ -1751,7 +1783,18 @@ def log_b8_layout(flash_attention, D):
             f"{lay['local_bytes']} bytes spilled")
 
 
-def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
+def log_b9_layout(ssd_chunk, name, dtype, rows, heads):
+    """B9's launch layout for ``rows`` rows of ``heads`` heads as the
+    library reports it."""
+    lay = ssd_chunk.layout(dtype, rows, heads)
+    log(f"B9 {name} layout: {lay['rows']}-row tiles, {lay['state_columns']} state columns a b/c stage, "
+        f"{lay['bc_stages']} b/c and {lay['x_stages']} x stages a consumer, head block {lay['head_block']} "
+        f"({lay['units']} units on {lay['blocks']} blocks), {lay['threads']} threads, {lay['smem_bytes']} bytes "
+        f"of shared memory, {lay['registers']} registers at launch, {lay['local_bytes']} bytes spilled")
+    return lay
+
+
+def phase_attention_ssd(ops, ref, flash_attention, ssd_chunk, vec, cfg, gen):
     """Phase 5c: B8 and B9 through ``repro_torch.kernels.ops`` against their
     plain versions. Returns the launch counts, the max abs errors and the
     inputs of the timed cases."""
@@ -1768,6 +1811,11 @@ def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
            "zamba2_f32": ssd_inputs(gen, torch.float32, B=zb, S=ZAMBA2_SSD["S"], heads=znh, widths=ZAMBA2_SSD) + (znh,),
            "zamba2_bf16": ssd_inputs(gen, torch.bfloat16, B=zb, S=ZAMBA2_SSD["S"], heads=znh, widths=ZAMBA2_SSD)
            + (znh,)}
+    # mamba2-1.3b's serve prefill in the model's layout: (groups' x, a, b, c,
+    # heads) for the bound and the check's |cs|, and the model's views
+    sb, ss, snh = SSD_SERVE["B"], SSD_SERVE["S"], SSD_WIDTHS["nh"]
+    serve = ssd_inputs(gen, torch.bfloat16, B=sb, S=ss, heads=snh) + (snh,)
+    serve_views = ssd_model_layout(*serve[:4], sb, ss, snh, SSD_WIDTHS["chunk"])
 
     def attention(name, q, k, v, causal, window, key):
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -1799,12 +1847,23 @@ def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
     with Launches(ops) as run:
         for name, case in cases.items():
             attention(name, *case, "flash_attention")
+        copies = ssd_chunk.copy_route_launches()
         for name, (x, a, b, c, heads) in ssd.items():
             y = ops.ssd_chunk_intra(x, a, b, c, heads=heads)
             e = check_ssd(y, ref.ssd_chunk_intra_ref(x, a, b, c, heads),
                           ref.ssd_chunk_intra_ref(x.abs(), a, b.abs(), c.abs(), heads), a, f"B9 {name}")
             log(f"B9 {name}: x {tuple(x.shape)}, b/c {tuple(b.shape)}, heads {heads}: max abs err {e:.3g}")
             errs["ssd_chunk_intra"] = max(errs["ssd_chunk_intra"], e)
+        Q = SSD_WIDTHS["chunk"]
+        y = ops.ssd_chunk_intra_seq(*serve_views, Q)
+        e = check_ssd(y, ref.ssd_chunk_intra_seq_ref(*serve_views, Q),
+                      ref.ssd_chunk_intra_seq_ref(serve_views[0].abs(), serve_views[1], serve_views[2].abs(),
+                                                  serve_views[3].abs(), Q), serve[1], "B9 serve_prefill")
+        log(f"B9 serve_prefill (the model's layout, b and c column slices): x {tuple(serve_views[0].shape)}, "
+            f"b/c {tuple(serve_views[2].shape)} at row stride {serve_views[2].stride(1)}: max abs err {e:.3g}")
+        errs["ssd_chunk_intra"] = max(errs["ssd_chunk_intra"], e)
+        if ssd_chunk.copy_route_launches() != copies:
+            raise AssertionError("B9: a main or served shape did not take the TMA route")
         for Q, hd, N in SSD_SMALL + SSD_RAGGED:
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn(4, Q, hd, generator=gen, device="cuda").to(dtype)
@@ -1817,12 +1876,13 @@ def phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen):
                 errs["ssd_chunk_intra"] = max(errs["ssd_chunk_intra"], e)
     torch.cuda.synchronize()
     log(f"B8/B9 vs plain: within tolerance; max abs err {errs}; launches, phase 5c: {run.counts}")
-    if run.counts != only(flash_attention=len(cases), ssd_chunk_intra=len(ssd) + 2 * len(SSD_SMALL + SSD_RAGGED)):
+    if run.counts != only(flash_attention=len(cases), ssd_chunk_intra=len(ssd) + 1 + 2 * len(SSD_SMALL + SSD_RAGGED)):
         raise AssertionError(f"phase 5c did not launch each of its kernels once per case: {run.counts}")
     counts = {name: run.counts[name] for name in ("flash_attention", "ssd_chunk_intra")}
     counts["flash_attention_d80"] = run80.counts["flash_attention"]
     counts["flash_attention_d112"] = run112.counts["flash_attention"]
     counts["flash_attention_d256"] = run256.counts["flash_attention"]
+    ssd["serve_prefill"] = serve + (serve_views,)
     return counts, errs, {**cases, **d80, **d112, **d256}, ssd
 
 
@@ -1906,16 +1966,28 @@ def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd)
         times["flash_attention"][name] = entries[name]
 
     ssd_entries = {}
-    for name, (x, a, b, c, heads) in ssd.items():
-        y = torch.empty(x.shape, dtype=torch.float32, device="cuda")
-        launch = lambda _=0: ssd_chunk.ssd_chunk_launch(y, x, a, b, c, heads)  # noqa: E731
-        G = x.shape[0]
+    for name, (x, a, b, c, heads, *views) in ssd.items():
+        G, Q = x.shape[:2]
+        if views:  # the model's layout (the serve prefill): the views the prefill hands the kernel
+            (xs, a_s, bs, cs_), = views
+            ys = torch.empty(xs.shape, dtype=torch.float32, device="cuda")
+            rows = lambda t: t.unflatten(1, (t.shape[1] // Q, Q)).flatten(0, 1)  # noqa: E731
+            args = (rows(ys).transpose(1, 2), rows(xs).transpose(1, 2), rows(a_s).transpose(1, 2), rows(bs), rows(cs_))
+            launch = lambda _=0: ssd_chunk.ssd_chunk_launch_views(*args)  # noqa: E731
+            wrapper = lambda: ops.ssd_chunk_intra_seq(xs, a_s, bs, cs_, Q)  # noqa: E731
+            plain = lambda: ref.ssd_chunk_intra_seq_ref(xs, a_s, bs, cs_, Q)  # noqa: E731
+        else:
+            y = torch.empty(x.shape, dtype=torch.float32, device="cuda")
+            launch = lambda _=0: ssd_chunk.ssd_chunk_launch(y, x, a, b, c, heads)  # noqa: E731
+            wrapper = lambda: ops.ssd_chunk_intra(x, a, b, c, heads=heads)  # noqa: E731
+            plain = lambda: ref.ssd_chunk_intra_ref(x, a, b, c, heads)  # noqa: E731
+        lay = log_b9_layout(ssd_chunk, name, x.dtype, G // heads, heads)
         ssd_entries[name] = dict(
-            ms=cuda_ms(launch), graph_ms=graph_ms(launch, calls=5, replays=3),
-            wrapper_ms=cuda_ms(lambda: ops.ssd_chunk_intra(x, a, b, c, heads=heads)),
-            plain_ms=cuda_ms(lambda: ref.ssd_chunk_intra_ref(x, a, b, c, heads), iters=10, warmup=1),
+            ms=cuda_ms(launch), graph_ms=graph_ms(launch, calls=5, replays=3), wrapper_ms=cuda_ms(wrapper),
+            plain_ms=cuda_ms(plain, iters=10, warmup=1),
             # no single call; the plain version is the nearest einsum chain
-            library_ms=None, heads=heads, state=b.shape[-1], **ssd_bound(x, a, b, heads),
+            library_ms=None, heads=heads, state=b.shape[-1], head_block=lay["head_block"],
+            **ssd_bound(x, a, b, heads),
         )
         e = ssd_entries[name]
         e["bound_share"] = e["bound_ms"] / e["graph_ms"]
@@ -1923,7 +1995,7 @@ def phase_attention_ssd_timing(ops, ref, flash_attention, ssd_chunk, cases, ssd)
             f"{e['bound_share']:.1%} of its bound ({e['bound_ms']:.4f} ms, {e['bound_by']}); launcher {e['ms']:.4f}, "
             f"plain {e['plain_ms']:.4f}")
     times["ssd_chunk_intra"] = dict(ssd_entries["f32"], bf16=ssd_entries["bf16"], zamba2_f32=ssd_entries["zamba2_f32"],
-                                    zamba2_bf16=ssd_entries["zamba2_bf16"])
+                                    zamba2_bf16=ssd_entries["zamba2_bf16"], serve_prefill=ssd_entries["serve_prefill"])
     log("B8/B9 times:", json.dumps(times))
     return times
 
@@ -2280,7 +2352,7 @@ def serve_phase(ops, ref, sparse_lora, model, params, adapters, make_reqs, *, ca
     cache = tree_clone(st["cache"])  # decode writes its cache in place
     with torch.no_grad():
         step = lambda: model.decode_step(eng.params, lora_t, st["token"], cache, st["pos"])  # noqa: E731
-        step_ms = cuda_ms(step, iters=20, warmup=3)
+        step_ms = cuda_ms(step, iters=SERVE_STEP_ITERS, warmup=2)
         prefill = lambda: model.prefill(eng.params, lora_g0, first, cache_len)  # noqa: E731
         group0_ms = cuda_ms(prefill, iters=3, warmup=1)
         profiles = {"decode": profiled(step, step_ms), f"prefill {g0}x{S0}": profiled(prefill, group0_ms)}
@@ -2530,10 +2602,10 @@ def phase_sharded(ops, make_runner, CompressionConfig, model, loss_fn, fl, clien
     return counts
 
 
-def phase_runner_telemetry(make_runner, model, loss_fn, fl, clients, vec, vec_round0, tree_leaves):
+def phase_runner_telemetry(make_runner, model, loss_fn, fl, clients, vec_round0, tree_leaves):
     """Phase 5e: phase 5's vectorized run again with ``telemetry=``: its
-    decisions, round-0 stats, comm bytes and global LoRA equal phase 5's bit
-    for bit, and its trace is well formed."""
+    decisions, round-0 stats, comm bytes and global LoRA equal phase 5's
+    (``vec_round0``) bit for bit, and its trace is well formed."""
     from repro_torch.obs import Telemetry, check_spans
 
     tel = Telemetry(run_id="vectorized")
@@ -2541,10 +2613,10 @@ def phase_runner_telemetry(make_runner, model, loss_fn, fl, clients, vec, vec_ro
                      telemetry=tel)
     vt.init_phase()
     stats = vt.run_round(0)
-    stats0, comm0, lora0 = vec_round0
+    stats0, comm0, lora0, gal_layers, orders = vec_round0
     same = (stats == stats0 and vt.comm_bytes_per_round == comm0[:1]
-            and np.array_equal(vt.gal_layers, vec.gal_layers)
-            and all(np.array_equal(a.order, b.order) for a, b in zip(vt.clients, vec.clients))
+            and np.array_equal(vt.gal_layers, gal_layers)
+            and all(np.array_equal(c.order, o) for c, o in zip(vt.clients, orders))
             and all(torch.equal(a, b) for a, b in zip(tree_leaves(vt.global_lora), tree_leaves(lora0))))
     check_spans(tel.tracer.events)
     names = [e["name"] for e in tel.tracer.events if e["type"] == "span"]
@@ -3386,6 +3458,61 @@ def phase_last_families(ops, ref, sparse_lora, flash_attention, make_runner, dat
     return counts, errs, times
 
 
+def full_f32():
+    """Float32 matmuls in full f32: TF32 off for matmuls and cuDNN alike."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def qwen2_world(ARCHS, FibecFedConfig, data_mod, build_model, make_loss_fn):
+    """Phase 4's world, the same in either process: qwen2-0.5b at full width
+    and depth, the keyword task over 8 clients, 2 rounds of 4."""
+    cfg = ARCHS["qwen2-0.5b"]
+    model = build_model(cfg)
+    fl = FibecFedConfig(num_devices=8, devices_per_round=4, rounds=2, batch_size=4)
+    return cfg, model, make_loss_fn(model), fl, keyword_world(cfg.vocab_size, data_mod, fl)
+
+
+class SecondProcess:
+    """Phases k and l(i) in a second process on this card (``chip_smoke.py
+    --phases-k-l STATE``), started after phase j, the last phase that times
+    the device, from phase 4's records (``loop``) and the snapshots of
+    phases 4 and 5 (``snaps``), handed over in ``STATE`` beside the
+    snapshots. It runs beside phases 5e, 6, m, 7, g and l(ii) of this
+    process, which check and time nothing on the device either. Its standard
+    error is this process's; its standard output goes to a file that
+    ``join`` copies into this one's. It ends with this process, whichever
+    way this one ends."""
+
+    def __init__(self, root, state, t_start):
+        self.root = root
+        path = os.path.join(root, "phases_k_l.pt")
+        since = time.time() - (time.perf_counter() - t_start)  # the first process's start, on the wall clock
+        torch.save(dict(state, since=since, parent=os.getpid()), path)
+        self.out = open(os.path.join(root, "phases_k_l.log"), "w+")
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phases-k-l", path],
+                                     stdout=self.out)
+        atexit.register(self.stop)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def join(self):
+        """Wait for the process; copy its log; its launches, or raise if it
+        failed (its traceback is on standard error)."""
+        rc = self.proc.wait()
+        self.out.seek(0)
+        sys.stdout.write(self.out.read())
+        sys.stdout.flush()
+        self.out.close()
+        if rc != 0:
+            raise AssertionError(f"phases k and l(i) failed in their process (exit code {rc})")
+        with open(os.path.join(self.root, "phases_k_l.json")) as f:
+            return json.load(f)
+
+
 def free_memory():
     """Collect the reference cycles a served engine leaves (its model's
     prefill and decode hooks refer back to it), then return the cached
@@ -3473,15 +3600,28 @@ def recording_train(runner):
     return trained
 
 
-def drive_async(ops, make_runner, label, rounds, args, after_round=None, **kw):
+def drive_async(ops, make_runner, label, rounds, args, after_round=None, init_from=None, keep_init=None, **kw):
     """Build an async runner, init it and run ``rounds`` merges with the
     launch counts zeroed around it. Logs init s, wall s per merge, virtual
-    time, staleness, peak memory and launches."""
+    time, staleness, peak memory and launches. ``init_from``: a snapshot
+    taken right after an earlier async run's init on the same world with the
+    same init settings (the scenario, the async policies and the edges do
+    not enter the init), restored through the port's ``restore_runner`` in
+    place of the init; ``keep_init`` = (root, name): snapshot this run right
+    after its init, for such a run."""
+    from repro_torch.checkpoint import restore_runner
+
     torch.cuda.reset_peak_memory_stats()
+    init_snap = None
     with Launches(ops) as run:
         r = make_runner(*args, engine="async", seed=0, **kw)
         trained = recording_train(r)
-        _, init_s = timed(r.init_phase)
+        if init_from is None:
+            _, init_s = timed(r.init_phase)
+        else:
+            _, init_s = timed(lambda: restore_runner(r, init_from["path"]))
+        if keep_init is not None:
+            init_snap = take_snapshot(*keep_init, r, 0)
         hist, walls, chosen = [], [], []
         for t in range(rounds):
             stats, secs = timed(lambda: r.run_round(t))
@@ -3491,13 +3631,14 @@ def drive_async(ops, make_runner, label, rounds, args, after_round=None, **kw):
             if after_round is not None:
                 after_round(t, r)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"async {label}: init {init_s:.2f} s; wall s per merge {[round(w, 3) for w in walls]}; virtual time "
+    how = "init" if init_from is None else "the init restored from its snapshot in"
+    log(f"async {label}: {how} {init_s:.2f} s; wall s per merge {[round(w, 3) for w in walls]}; virtual time "
         f"{[h['virtual_time'] for h in hist]}; staleness {[h['staleness_mean'] for h in hist]}; merged "
         f"{[int(h['merged_clients']) for h in hist]}; buffer {[int(h['buffer_size']) for h in hist]}; losses "
         f"{[h['loss'] for h in hist]}; peak {peak:.2f} GiB; launches {run.counts}; local rounds {len(trained)}, "
         f"steps {sum(n for _, n, _, _ in trained)}")
     return dict(runner=r, hist=hist, walls=walls, chosen=chosen, trained=trained, counts=run.counts,
-                init_s=init_s, peak=peak)
+                init_s=init_s, peak=peak, init_snap=init_snap)
 
 
 def phase_async(ops, make_runner, AsyncAggConfig, CompressionConfig, model, loss_fn, fl, clients, cfg, loop,
@@ -3513,8 +3654,6 @@ def phase_async(ops, make_runner, AsyncAggConfig, CompressionConfig, model, loss
     args = ("fibecfed", model, loss_fn, fl, clients)
     # --- k(i): uniform scenario, the cohort as buffer: the loop round ---
     from repro_torch.core import curriculum as curr
-    from repro_torch.core import engine as eng
-    from repro_torch.optim import make_optimizer
     from repro_torch.utils.tree import tree_clone
 
     eps = torch.finfo(torch.float32).eps
@@ -3531,22 +3670,19 @@ def phase_async(ops, make_runner, AsyncAggConfig, CompressionConfig, model, loss
                              zip(tree_leaves(r.clients[ci].lora), tree_leaves(loop_clients[int(ci)])))
                 for ci in r.last_round_info["chosen"]}
 
-    readings, witness = [], {}
-    wit = int(loop["chosen"][1][0])  # a client of round 1
+    readings = []
 
     def keep_round(t, r):
         clients = loop["clients0" if t == 0 else "clients1"]
         g_loop = loop["global0"] if t == 0 else loop["global_lora"]
         readings.append((lora_diff(r, clients), reassoc(r.global_lora, g_loop, clients.values())))
-        if t == 0:
-            # the witness client's state before round 1 (no update writes
-            # in place), the async merge 0, then round 1 pulls the loop's
-            c = r.clients[wit]
-            witness.update(lora=c.lora, opt=c.opt_state, global0=r.global_lora)
+        if t == 0:  # round 1 pulls the loop's round-0 global in place of the async merge 0
             r._global.front = r.global_lora = tree_clone(loop["global0"])
 
+    # k(i) keeps its own init (held to phase 4's below); k(ii) restores it
     k1 = drive_async(ops, make_runner, "k(i) degenerate", fl.rounds, args, after_round=keep_round,
-                     optimizer="adamw", fused_optimizer=True)
+                     keep_init=(ckpt_root, "async_init"), optimizer="adamw", fused_optimizer=True)
+    async_init = k1["init_snap"]
     r, hist = k1["runner"], k1["hist"]
     if not (all(np.array_equal(a, c.order) for a, c in zip(loop["orders"], r.clients))
             and np.array_equal(loop["gal_layers"], r.gal_layers)):
@@ -3585,29 +3721,6 @@ def phase_async(ops, make_runner, AsyncAggConfig, CompressionConfig, model, loss
     if k1["counts"] != only(masked_adamw_update=steps) or steps != loop["steps"]:
         raise AssertionError(f"k(i): B1 launches {k1['counts']} for {steps} valid steps (loop {loop['steps']})")
 
-    # the witness: client wit's round 1 again, from the async merge 0 (a few
-    # ulp from phase 4's round-0 global) and, with SGD, from both globals
-    c = r.clients[wit]
-    batch_idx, step_valid = curr.step_plan(r.schedule, 1, [c.order], fl.local_epochs)
-    start = eng.merge_in(loop["global0"], witness["lora"], r._gal_mask_tree)
-
-    def local_round(opt_update, opt, pulled):
-        train = eng.build_client_train_fn(r.loss_fn, opt_update)
-        return train(r.params, pulled, witness["lora"], opt, c.neuron_mask, r._gal_mask_tree,
-                     lambda j: r._client_batch(c, c.batches[j]), batch_idx[0], step_valid[0], fl.learning_rate)[0]
-
-    def measure(ref, other):
-        return [round(f, 6) for f, _ in (engine_disagreement(a, b, g0) for a, b, g0 in
-                                         zip(tree_leaves(ref), tree_leaves(other), tree_leaves(start)))]
-
-    adamw = measure(loop["clients1"][wit], local_round(r.opt_update, witness["opt"], witness["global0"]))
-    sgd_init, sgd_update = make_optimizer("sgd", fused=True)
-    sgd = measure(local_round(sgd_update, sgd_init(witness["lora"]), loop["global0"]),
-                  local_round(sgd_update, sgd_init(witness["lora"]), witness["global0"]))
-    log(f"k(i) witness, client {wit}'s round 1 ({int(step_valid.sum())} steps) from the async merge 0 against "
-        f"from phase 4's round-0 global (merge 0 {readings[0][1]:.3g} of {MERGE_REASSOC_ULPS} ulp apart): fraction "
-        f"of entries disagreeing per leaf, AdamW {adamw}, SGD {sgd}")
-    witness.clear()
     launches = {"masked_adamw_update": k1["counts"]["masked_adamw_update"]}
     del r, k1
     free_memory()  # the recording wrapper makes each runner a reference cycle
@@ -3625,7 +3738,7 @@ def phase_async(ops, make_runner, AsyncAggConfig, CompressionConfig, model, loss
                                   buffered=len(sched.buffer))
 
     k2 = drive_async(ops, make_runner, "k(ii) straggler", ASYNC_MERGES, args, after_round=snapshot,
-                     optimizer="adamw", fused_optimizer=True, scenario="straggler",
+                     init_from=async_init, optimizer="adamw", fused_optimizer=True, scenario="straggler",
                      async_cfg=AsyncAggConfig(**STRAGGLER_POLICIES), telemetry=tel)
     r, hist = k2["runner"], k2["hist"]
     if not all(math.isfinite(h["loss"]) for h in hist):
@@ -3669,12 +3782,14 @@ def phase_async(ops, make_runner, AsyncAggConfig, CompressionConfig, model, loss
     # --- k(iii): compressed uploads, ranks from the constrained scenario,
     # the edge tier against the flat merge ---
     comp = CompressionConfig(**COMPRESSION)
-    runs = {}
-    for hierarchy in (2, None):
+    runs, k3_init = {}, None
+    for hierarchy in (2, None):  # the flat run restores the edge run's init (the edges do not enter it)
         k3 = drive_async(ops, make_runner, f"k(iii) constrained, compressed, hierarchy={hierarchy}", 2,
                          (PHASE6_BASELINE,) + args[1:], optimizer="sgd", fused_optimizer=True,
                          scenario="constrained", compression=comp, async_cfg=AsyncAggConfig(buffer_size=2),
-                         hierarchy=hierarchy)
+                         hierarchy=hierarchy, init_from=k3_init,
+                         keep_init=(ckpt_root, "async_compressed_init") if k3_init is None else None)
+        k3_init = k3_init or k3["init_snap"]
         r, ranks = k3["runner"], k3["runner"].client_ranks
         if ranks is None or not (ranks < cfg.lora_rank).any():
             raise AssertionError(f"k(iii): the constrained scenario derived no low ranks: {ranks}")
@@ -4147,23 +4262,19 @@ def phase_launch_heads(ops, smi, dev):
     return counts
 
 
-def phase_checkpoints(ops, make_runner, AsyncAggConfig, model, loss_fn, fl, clients, snaps, ckpt_root, tree_leaves):
-    """Phase l: (i) phases 4, 5 and k(ii) resumed from their snapshots by
-    fresh runners; (ii) phase 5's configuration through the service on an
-    out-of-core store, and its round 1 again from the service's snapshot.
-    Returns the launches."""
-    from repro_torch.federated import FederationService, OutOfCoreStore
-    from repro_torch.obs import Telemetry
+def bit_equal(a, b, tree_leaves):
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
+
+def phase_resume(ops, make_runner, AsyncAggConfig, model, loss_fn, fl, clients, snaps, tree_leaves):
+    """Phase l(i): phases 4, 5 and k(ii) resumed from their snapshots by
+    fresh runners. Returns the launches."""
     t_phase = time.perf_counter()
     free_memory()
     args = ("fibecfed", model, loss_fn, fl, clients)
     launches = {"masked_adamw_update": 0, "masked_adamw_update_stacked": 0}
 
-    def bit_equal(a, b):
-        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
-
-    # --- l(i): the loop and vectorized runs, bit for bit ---
+    # --- the loop and vectorized runs, bit for bit ---
     for name in ("loop", "vectorized"):
         s = snaps[name]
         res = resume(ops, make_runner, args, s, fl.rounds, engine=name, optimizer="adamw", fused_optimizer=True)
@@ -4176,7 +4287,8 @@ def phase_checkpoints(ops, make_runner, AsyncAggConfig, model, loss_fn, fl, clie
             f"{s['save_s']:.3f} s; restore {res['restore_s']:.3f} s; rounds after it {res['walls']} s; losses "
             f"{losses[0]} (uninterrupted {losses[1]}); comm bytes {comm[0]}; global LoRA max abs diff {diff}; "
             f"launches {res['counts']} over {res['steps']} steps")
-        if losses[0] != losses[1] or comm != (s["comm"], s["upload"]) or not bit_equal(r.global_lora, s["global_lora"]):
+        if losses[0] != losses[1] or comm != (s["comm"], s["upload"]) or \
+                not bit_equal(r.global_lora, s["global_lora"], tree_leaves):
             raise AssertionError(f"l(i): the resumed {name} run is not the uninterrupted one bit for bit")
         if res["counts"] != only(masked_adamw_update=res["steps"]) or res["steps"] == 0:
             raise AssertionError(f"l(i): the resumed {name} run did not launch B1 once per step: {res['counts']}")
@@ -4184,7 +4296,7 @@ def phase_checkpoints(ops, make_runner, AsyncAggConfig, model, loss_fn, fl, clie
         del r, res
         free_memory()
 
-    # --- l(i): the straggler run, accounting identical ---
+    # --- the straggler run, accounting identical ---
     s = snaps["async"]
     res = resume(ops, make_runner, args, s, ASYNC_MERGES, engine="async", optimizer="adamw", fused_optimizer=True,
                  scenario="straggler", async_cfg=AsyncAggConfig(**STRAGGLER_POLICIES))
@@ -4208,8 +4320,21 @@ def phase_checkpoints(ops, make_runner, AsyncAggConfig, model, loss_fn, fl, clie
     launches["masked_adamw_update"] += res["steps"]
     del r, res
     free_memory()
+    log(f"phase l(i): {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
-    # --- l(ii): phase 5 through the service on an out-of-core store ---
+
+def phase_out_of_core(ops, make_runner, model, loss_fn, fl, clients, snaps, ckpt_root, tree_leaves):
+    """Phase l(ii): phase 5's configuration through the service on an
+    out-of-core store, its round 1 again from the service's snapshot, and
+    its in-memory twin. Returns the launches."""
+    from repro_torch.checkpoint import restore_runner
+    from repro_torch.federated import FederationService, OutOfCoreStore
+    from repro_torch.obs import Telemetry
+
+    t_phase = time.perf_counter()
+    free_memory()
+    args = ("fibecfed", model, loss_fn, fl, clients)
     s5 = snaps["vectorized"]
     torch.cuda.reset_peak_memory_stats()
     store = OutOfCoreStore(os.path.join(ckpt_root, "ooc_store"), hot_slots=OOC_HOT_SLOTS)
@@ -4267,7 +4392,7 @@ def phase_checkpoints(ops, make_runner, AsyncAggConfig, model, loss_fn, fl, clie
     log(f"l(ii) round 1 from round_00000001 ({snap_bytes} bytes, {n_cold} hardlinked cold files): restore {res['restore_s']:.3f} s; round {res['walls']} s; loss "
         f"{res['hist'][0]['loss']} (service {hist[1]['loss']}); global LoRA max abs diff {diff}; launches "
         f"{res['counts']} over {res['steps']} steps")
-    if res["hist"][0]["loss"] != hist[1]["loss"] or not bit_equal(rr.global_lora, r.global_lora) or \
+    if res["hist"][0]["loss"] != hist[1]["loss"] or not bit_equal(rr.global_lora, r.global_lora, tree_leaves) or \
             rr.comm_bytes_per_round != r.comm_bytes_per_round:
         raise AssertionError("l(ii): round 1 from the service's snapshot is not the service's round 1 bit for bit")
     if res["counts"] != only(masked_adamw_update=res["steps"]):
@@ -4277,7 +4402,8 @@ def phase_checkpoints(ops, make_runner, AsyncAggConfig, model, loss_fn, fl, clie
     orders, masks = [c.order.copy() for c in r.clients], [c.neuron_mask for c in r.clients]
     with Launches(ops) as twin_run:
         twin = make_runner(*args, optimizer="adamw", fused_optimizer=True, seed=0)
-        twin.init_phase()
+        # its init is phase 5's, the same world and settings: restored, not run again
+        restore_runner(twin, snaps["vectorized_init"]["path"])
         adopt_decisions(twin, orders, masks, r.gal_layers)
         twin_hist = [twin.run_round(t) for t in range(fl.rounds)]
     twin_steps = sum(int(h["padded_steps"]) for h in twin_hist)
@@ -4285,15 +4411,16 @@ def phase_checkpoints(ops, make_runner, AsyncAggConfig, model, loss_fn, fl, clie
     log(f"l(ii) the in-memory twin with the out-of-core decisions: losses {[h['loss'] for h in twin_hist]} (out of "
         f"core {[h['loss'] for h in hist]}); global LoRA max abs diff {diff}; launches {twin_run.counts} over "
         f"{twin_steps} padded steps")
-    if [h["loss"] for h in twin_hist] != [h["loss"] for h in hist] or not bit_equal(twin.global_lora, r.global_lora) \
+    if [h["loss"] for h in twin_hist] != [h["loss"] for h in hist] or \
+            not bit_equal(twin.global_lora, r.global_lora, tree_leaves) \
             or twin.comm_bytes_per_round != r.comm_bytes_per_round:
         raise AssertionError("l(ii): the out-of-core run is not its in-memory twin bit for bit")
     if twin_run.counts != only(masked_adamw_update=twin_steps):
         raise AssertionError(f"l(ii): the twin did not launch B1 once per step: {twin_run.counts}")
-    launches["masked_adamw_update_stacked"] += steps + res["steps"] + twin_steps
+    launches = {"masked_adamw_update_stacked": steps + res["steps"] + twin_steps}
     del r, rr, res, svc, fed, store, tel, twin
     free_memory()
-    log(f"phase l: {time.perf_counter() - t_phase:.1f} s")
+    log(f"phase l(ii): {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4413,8 +4540,7 @@ def main() -> int:
     from repro_torch.train import make_loss_fn
     from repro_torch.utils.tree import tree_clone, tree_leaves, tree_map
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()
     t_start = time.perf_counter()
 
     def done(phase):
@@ -4428,16 +4554,29 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log("device:", kind, "|", smi, "| torch", torch.__version__, "cuda", torch.version.cuda)
 
-    # --- 2. build: one nvcc per source, all at once ---
+    # --- 2. build: one nvcc per source, all started at once; phases 3-5 need
+    # only B1-B3, so the rest compile in the background until phase 5b ---
     t0 = time.perf_counter()
     sources = (masked_update, compress, fisher_diag, sparse_lora, flash_attention, ssd_chunk)
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        reports = list(pool.map(lambda m: build.compile_cuda(m.SOURCE)[1], sources))
-    for module in sources:
-        module.library()
-    log(f"build: {time.perf_counter() - t0:.2f} s")
-    for module, report in zip(sources, reports):
-        log(f"{Path(module.SOURCE).name}:\n" + "\n".join(ptxas_summary(report)))
+    pool = ThreadPoolExecutor(max_workers=len(sources))
+
+    def compile_timed(module):
+        start = time.perf_counter()
+        report = build.compile_cuda(module.SOURCE)[1]
+        return report, time.perf_counter() - start
+
+    builds = {module: pool.submit(compile_timed, module) for module in sources}
+
+    def built(*modules):
+        """Wait for the modules' builds (a failed build raises here), load
+        them, log each one's compile seconds and ptxas report."""
+        for module in modules:
+            report, secs = builds.pop(module).result()
+            module.library()
+            log(f"{Path(module.SOURCE).name}: compiled in {secs:.1f} s, ready {time.perf_counter() - t0:.1f} s "
+                f"after the builds started\n" + "\n".join(ptxas_summary(report)))
+
+    built(masked_update, compress)
     done("2")
 
     # --- 3. kernels against their plain versions, and their times ---
@@ -4449,14 +4588,10 @@ def main() -> int:
     errs.update(phase_compress_kernel(ops, ref, gen, tree_map))
     times = phase_timing(ops, ref, gen, tree_leaves, tree_map)
 
-    cfg = ARCHS["qwen2-0.5b"]
-    model = build_model(cfg)
-    loss_fn = make_loss_fn(model)
-    fl = FibecFedConfig(num_devices=8, devices_per_round=4, rounds=2, batch_size=4)
-    clients = keyword_world(cfg.vocab_size, data_mod, fl)
+    cfg, model, loss_fn, fl, clients = qwen2_world(ARCHS, FibecFedConfig, data_mod, build_model, make_loss_fn)
     log("clients' samples:", [len(c["tokens"]) for c in clients])
     launches = {name: 0 for name in KERNELS}
-    # run snapshots taken by phases 4, 5 and k(ii), resumed in phase l
+    # run snapshots taken by phases 4, 5 and k, restored in phases 7, k and l
     snaps, ckpt_dir = {}, tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
     ckpt_root = ckpt_dir.name
     done("3")
@@ -4524,6 +4659,7 @@ def main() -> int:
         if vec.engine != "vectorized":
             raise AssertionError(f"the default engine is {vec.engine!r}")
         _, vec_init_s = timed(vec.init_phase)
+        snaps["vectorized_init"] = take_snapshot(ckpt_root, "vectorized_init", vec, 0)  # what l(ii)'s twin restores
         log(f"vectorized fibecfed init_phase: {vec_init_s:.2f} s; "
             f"gal layers {np.flatnonzero(vec.gal_layers).tolist()}")
         gap, swaps, spread = difficulty_gap(loop_difficulty, [c.difficulty for c in vec.clients])
@@ -4543,6 +4679,7 @@ def main() -> int:
                 vec_round0 = (stats, list(vec.comm_bytes_per_round), tree_clone(vec.global_lora))
                 snaps["vectorized"] = take_snapshot(ckpt_root, "vectorized", vec, 1)  # what phase l resumes
     sharded_refs = {"vectorized": run_record(vec, vec_hist, tree_clone)}  # what phase m holds its run to
+    vec_round0 += (vec.gal_layers.copy(), [c.order.copy() for c in vec.clients])  # what phase 5e holds its run to
     same = all(np.array_equal(a, c.order) for a, c in zip(fused_decisions[0], vec.clients))
     log(f"vectorized curriculum orders equal to the loop engine's: {same}; GAL layers equal: "
         f"{np.array_equal(fused_decisions[1], vec.gal_layers)}")
@@ -4558,6 +4695,9 @@ def main() -> int:
     done("5")
 
     # --- 5b. the public kernel entry point on the vectorized run's data ---
+    built(fisher_diag, sparse_lora, flash_attention, ssd_chunk)
+    pool.shutdown()
+    done("2 (the background builds)")
     ops_counts, ops_errs = phase_ops(ops, ref, sparse_lora, vec, cfg, gen, tree_leaves, tree_map)
     for name in ops_counts:
         launches[name] += ops_counts[name]
@@ -4566,7 +4706,7 @@ def main() -> int:
     done("5b")
 
     # --- 5c. attention (B8) and the SSD intra-chunk scan (B9) ---
-    attn_counts, attn_errs, cases, ssd = phase_attention_ssd(ops, ref, flash_attention, vec, cfg, gen)
+    attn_counts, attn_errs, cases, ssd = phase_attention_ssd(ops, ref, flash_attention, ssd_chunk, vec, cfg, gen)
     for name in attn_counts:
         launches[name] += attn_counts[name]
     errs.update(attn_errs)
@@ -4582,11 +4722,131 @@ def main() -> int:
     b7_prefill_times(times, "serve_prefill", serve_times["b7_prefill"])
     times["batched_sparse_lora_few_rows"] = {k: v for k, v in serve_times["b7_decode"].items() if k != "max_abs_err"}
     times["flash_attention"]["serve_prefill"] = serve_times["b8_prefill"]
+    del vec
     done("5d")
 
+    # --- n. the launch layer: the FibecFed train step (B1 twice a step)
+    # held to its B1-plain twin, the prefill (B8) and decode steps against
+    # the training forward, one step profiled and set against its roofline ---
+    launch_counts, b8_err = phase_launch(ops, ref, smi, tree_clone, tree_leaves)
+    for name, n in launch_counts.items():
+        launches[name] += n
+    errs["flash_attention"] = max(errs["flash_attention"], b8_err)
+    done("n")
+
+    # --- o. the launch layer's steps for mamba2, zamba2 and whisper: (i) at
+    # full width without a mesh, (ii) one layer of each kind as the ranks
+    # of a (1, 2) mesh run it, each on its half of the heads ---
+    t_o = time.perf_counter()
+    dev = torch.device("cuda")
+    family_counts, b8_err = phase_launch_families(ops, ref, smi, tree_clone, tree_leaves, dev)
+    errs["flash_attention"] = max(errs["flash_attention"], b8_err)
+    for name, n in family_counts.items():
+        launches[name] += n
+    for name, n in phase_launch_heads(ops, smi, dev).items():
+        launches[name] += n
+    log(f"phase o: {time.perf_counter() - t_o:.1f} s")
+    done("o")
+
+    # --- f. the Mamba2 family at full width: training, then serving (B9 on
+    # the prefill scan, B7 on the per-slot LoRA of in_proj/out_proj) ---
+    ssm_counts, ssm_errs, ssm_times = phase_ssm(ops, ref, sparse_lora, ssd_chunk, make_runner, data_mod,
+                                                FibecFedConfig, ARCHS, build_model, make_loss_fn)
+    for name, n in ssm_counts.items():
+        launches[name] += n
+    for name, e in ssm_errs.items():
+        errs[name] = max(errs[name], e)
+    times["ssd_chunk_intra"]["ssm_serve_prefill"] = ssm_times["b9_prefill"]
+    b7_prefill_times(times, "ssm_serve_prefill", ssm_times["b7_prefill"])
+    times["batched_sparse_lora_few_rows"]["ssm_serve_decode"] = ssm_times["b7_decode"]
+    done("f")
+
+    # --- h. the rest of the dense family: qwen3-0.6b trained and served,
+    # stablelm-3b (B8 at D 80) and chatglm3-6b served, FedPrompt ---
+    dense_counts, dense_errs, dense_times = phase_dense_family(
+        ops, ref, sparse_lora, flash_attention, make_runner, data_mod, FibecFedConfig, ARCHS, build_model,
+        make_loss_fn, FedPrompt)
+    for name, n in dense_counts.items():
+        launches[name] += n
+    for name, e in dense_errs.items():
+        errs[name] = max(errs[name], e)
+    for name in ("qwen3-0.6b", "stablelm-3b", "chatglm3-6b"):
+        times["batched_sparse_lora_few_rows"][f"{name}_serve_decode"] = dense_times[name]["b7_decode"]
+        b7_prefill_times(times, f"{name}_serve_prefill", dense_times[name]["b7_prefill"])
+    times["flash_attention"]["qwen3-0.6b_serve_prefill"] = dense_times["qwen3-0.6b"]["b8_prefill"]
+    times["flash_attention"]["chatglm3-6b_serve_prefill"] = dense_times["chatglm3-6b"]["b8_prefill"]
+    times["flash_attention_d80"]["stablelm-3b_serve_prefill"] = dense_times["stablelm-3b"]["b8_prefill"]
+    log("phase h times:", json.dumps(dense_times))
+    done("h")
+
+    # --- i. the MoE family (granite-moe-3b-a800m trained and served,
+    # llama4-maverick-400b-a17b served at one layer) and the zamba2 hybrid
+    # (served at 15 layers: B9, B8 at D 112 and B7 on one path; trained at
+    # 12 layers over the unstacked shared group) ---
+    mh_counts, mh_errs, mh_times = phase_moe_hybrid(
+        ops, ref, sparse_lora, flash_attention, ssd_chunk, make_runner, data_mod, FibecFedConfig, ARCHS, build_model,
+        make_loss_fn)
+    for name, n in mh_counts.items():
+        launches[name] += n
+    for name, e in mh_errs.items():
+        errs[name] = max(errs[name], e)
+    for name in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "zamba2-7b"):
+        times["batched_sparse_lora_few_rows"][f"{name}_serve_decode"] = mh_times[name]["b7_decode"]
+        b7_prefill_times(times, f"{name}_serve_prefill", mh_times[name]["b7_prefill"])
+    times["flash_attention"]["granite-moe-3b-a800m_serve_prefill"] = mh_times["granite-moe-3b-a800m"]["b8_prefill"]
+    times["flash_attention"]["llama4-maverick-400b-a17b_serve_prefill"] = \
+        mh_times["llama4-maverick-400b-a17b"]["b8_prefill"]
+    times["flash_attention_d112"]["zamba2-7b_serve_prefill"] = mh_times["zamba2-7b"]["b8_prefill"]
+    log("phase i times:", json.dumps(mh_times))
+    done("i")
+
+    # --- j. the last families: whisper-large-v3 (B8 bidirectional on the
+    # encoder, causal on the prompt, B7 on both LoRA groups) and paligemma-3b
+    # (B8 at D 256) served and trained at a cut depth; roberta-large trained ---
+    last_counts, last_errs, last_times = phase_last_families(
+        ops, ref, sparse_lora, flash_attention, make_runner, data_mod, FibecFedConfig, ARCHS, build_model,
+        make_loss_fn)
+    for name, n in last_counts.items():
+        launches[name] += n
+    for name, e in last_errs.items():
+        errs[name] = max(errs[name], e)
+    for name in ("whisper-large-v3", "paligemma-3b"):
+        times["batched_sparse_lora_few_rows"][f"{name}_serve_decode"] = last_times[name]["b7_decode"]
+        b7_prefill_times(times, f"{name}_serve_prefill", last_times[name]["b7_prefill"])
+    times["flash_attention"]["whisper-large-v3_serve_prefill"] = last_times["whisper-large-v3"]["b8_prefill"]
+    times["flash_attention"]["whisper-large-v3_serve_encoder"] = last_times["whisper-large-v3"]["b8_encoder"]
+    times["flash_attention_d256"]["paligemma-3b_serve_prefill"] = last_times["paligemma-3b"]["b8_prefill"]
+    log("phase j times:", json.dumps(last_times))
+    decode = {"qwen2-0.5b (5d)": serve_times, "mamba2-1.3b (f)": ssm_times,
+              **{f"{n} (h)": dense_times[n] for n in ("qwen3-0.6b", "stablelm-3b", "chatglm3-6b")},
+              **{f"{n} (i)": mh_times[n] for n in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "zamba2-7b")},
+              **{f"{n} (j)": last_times[n] for n in ("whisper-large-v3", "paligemma-3b")}}
+    for name, t in decode.items():
+        prof, b7 = t["profiles"]["decode"], t["b7_decode"]
+        log(f"decode step, {name}: {t['decode_step_ms']:.2f} ms, busy {prof['busy_share']:.1%}, B7 "
+            f"{prof['b7_share']:.1%} of {prof['kernel_ms']:.2f} ms of kernels; B7 few-row at its decode shape "
+            f"{b7['graph_ms']:.4f} ms, the {b7.get('old_path')} kernel {b7.get('old_graph_ms')} ms")
+    for name, t in decode.items():
+        (key, prof), = [(k, p) for k, p in t["profiles"].items() if k.startswith("prefill")]
+        b7 = t["b7_prefill"]
+        log(f"{key}, {name}: B7 {prof['b7_share']:.1%}, B8 {prof['b8_share']:.1%} and B9 {prof['b9_share']:.1%} of "
+            f"{prof['kernel_ms']:.2f} ms "
+            f"of kernels; B7 {b7['path']} at "
+            f"{b7['target']} {b7['rows']} rows {b7['graph_ms']:.4f} ms ({b7['bound_share']:.1%} of its bound), "
+            f"the {b7.get('old_path')} kernel {b7.get('old_graph_ms')} ms, two bmm {b7['library_ms']:.4f} ms")
+    done("j")
+
+    # --- k and l(i) (the async engine; runs resumed from their snapshots)
+    # check and time nothing on the device: a second process on this card
+    # runs them from phase 4's records and the snapshots of phases 4 and 5,
+    # beside 5e, 6, m, 7, g and l(ii), which check and time nothing either ---
+    second = SecondProcess(ckpt_root, dict(loop=loop, snaps={k: snaps[k] for k in ("loop", "vectorized")}),
+                           t_start)
+    del loop
+
     # --- 5e. the runner's telemetry= changes no bit of a vectorized round ---
-    phase_runner_telemetry(make_runner, model, loss_fn, fl, clients, vec, vec_round0, tree_leaves)
-    del vec
+    phase_runner_telemetry(make_runner, model, loss_fn, fl, clients, vec_round0, tree_leaves)
+    del vec_round0
     done("5e")
 
     # --- 6. compressed uploads and per-client ranks, on both engines ---
@@ -4664,138 +4924,23 @@ def main() -> int:
     del plain
     done("7")
 
-    # --- n. the launch layer: the FibecFed train step (B1 twice a step)
-    # held to its B1-plain twin, the prefill (B8) and decode steps against
-    # the training forward, one step profiled and set against its roofline ---
-    launch_counts, b8_err = phase_launch(ops, ref, smi, tree_clone, tree_leaves)
-    for name, n in launch_counts.items():
-        launches[name] += n
-    errs["flash_attention"] = max(errs["flash_attention"], b8_err)
-    done("n")
-
-    # --- o. the launch layer's steps for mamba2, zamba2 and whisper: (i) at
-    # full width without a mesh, (ii) one layer of each kind as the ranks
-    # of a (1, 2) mesh run it, each on its half of the heads ---
-    t_o = time.perf_counter()
-    dev = torch.device("cuda")
-    family_counts, b8_err = phase_launch_families(ops, ref, smi, tree_clone, tree_leaves, dev)
-    errs["flash_attention"] = max(errs["flash_attention"], b8_err)
-    for name, n in family_counts.items():
-        launches[name] += n
-    for name, n in phase_launch_heads(ops, smi, dev).items():
-        launches[name] += n
-    log(f"phase o: {time.perf_counter() - t_o:.1f} s")
-    done("o")
-
-    # --- k. the async engine on phase 4's world: the degenerate run against
-    # the loop engine, stragglers, compression with derived ranks and edges ---
-    for name, n in phase_async(ops, make_runner, AsyncAggConfig, CompressionConfig, model, loss_fn, fl, clients,
-                               cfg, loop, tree_leaves, snaps, ckpt_root).items():
-        launches[name] += n
-    del loop
-    done("k")
-
-    # --- l. run checkpoints: phases 4, 5 and k(ii) resumed from their
-    # snapshots; phase 5 through the service on an out-of-core store ---
-    for name, n in phase_checkpoints(ops, make_runner, AsyncAggConfig, model, loss_fn, fl, clients, snaps, ckpt_root,
-                                     tree_leaves).items():
-        launches[name] += n
-    del snaps
-    ckpt_dir.cleanup()
-    done("l")
-
-    # --- f. the Mamba2 family at full width: training, then serving (B9 on
-    # the prefill scan, B7 on the per-slot LoRA of in_proj/out_proj) ---
-    ssm_counts, ssm_errs, ssm_times = phase_ssm(ops, ref, sparse_lora, ssd_chunk, make_runner, data_mod,
-                                                FibecFedConfig, ARCHS, build_model, make_loss_fn)
-    for name, n in ssm_counts.items():
-        launches[name] += n
-    for name, e in ssm_errs.items():
-        errs[name] = max(errs[name], e)
-    times["ssd_chunk_intra"]["ssm_serve_prefill"] = ssm_times["b9_prefill"]
-    b7_prefill_times(times, "ssm_serve_prefill", ssm_times["b7_prefill"])
-    times["batched_sparse_lora_few_rows"]["ssm_serve_decode"] = ssm_times["b7_decode"]
-    done("f")
-
     # --- g. the lossless criteria (gal_fraction = sparse_ratio = None) ---
     for name, n in phase_lossless(ops, make_runner, data_mod, FibecFedConfig, ARCHS, build_model,
                                   make_loss_fn).items():
         launches[name] += n
     done("g")
 
-    # --- h. the rest of the dense family: qwen3-0.6b trained and served,
-    # stablelm-3b (B8 at D 80) and chatglm3-6b served, FedPrompt ---
-    dense_counts, dense_errs, dense_times = phase_dense_family(
-        ops, ref, sparse_lora, flash_attention, make_runner, data_mod, FibecFedConfig, ARCHS, build_model,
-        make_loss_fn, FedPrompt)
-    for name, n in dense_counts.items():
+    # --- l(ii). phase 5 through the service on an out-of-core store ---
+    for name, n in phase_out_of_core(ops, make_runner, model, loss_fn, fl, clients, snaps, ckpt_root,
+                                     tree_leaves).items():
         launches[name] += n
-    for name, e in dense_errs.items():
-        errs[name] = max(errs[name], e)
-    for name in ("qwen3-0.6b", "stablelm-3b", "chatglm3-6b"):
-        times["batched_sparse_lora_few_rows"][f"{name}_serve_decode"] = dense_times[name]["b7_decode"]
-        b7_prefill_times(times, f"{name}_serve_prefill", dense_times[name]["b7_prefill"])
-    times["flash_attention"]["qwen3-0.6b_serve_prefill"] = dense_times["qwen3-0.6b"]["b8_prefill"]
-    times["flash_attention"]["chatglm3-6b_serve_prefill"] = dense_times["chatglm3-6b"]["b8_prefill"]
-    times["flash_attention_d80"]["stablelm-3b_serve_prefill"] = dense_times["stablelm-3b"]["b8_prefill"]
-    log("phase h times:", json.dumps(dense_times))
-    done("h")
+    done("l(ii)")
 
-    # --- i. the MoE family (granite-moe-3b-a800m trained and served,
-    # llama4-maverick-400b-a17b served at one layer) and the zamba2 hybrid
-    # (served at 15 layers: B9, B8 at D 112 and B7 on one path; trained at
-    # 12 layers over the unstacked shared group) ---
-    mh_counts, mh_errs, mh_times = phase_moe_hybrid(
-        ops, ref, sparse_lora, flash_attention, ssd_chunk, make_runner, data_mod, FibecFedConfig, ARCHS, build_model,
-        make_loss_fn)
-    for name, n in mh_counts.items():
+    # --- k and l(i)'s launches, once their process has ended ---
+    for name, n in second.join().items():
         launches[name] += n
-    for name, e in mh_errs.items():
-        errs[name] = max(errs[name], e)
-    for name in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "zamba2-7b"):
-        times["batched_sparse_lora_few_rows"][f"{name}_serve_decode"] = mh_times[name]["b7_decode"]
-        b7_prefill_times(times, f"{name}_serve_prefill", mh_times[name]["b7_prefill"])
-    times["flash_attention"]["granite-moe-3b-a800m_serve_prefill"] = mh_times["granite-moe-3b-a800m"]["b8_prefill"]
-    times["flash_attention"]["llama4-maverick-400b-a17b_serve_prefill"] = \
-        mh_times["llama4-maverick-400b-a17b"]["b8_prefill"]
-    times["flash_attention_d112"]["zamba2-7b_serve_prefill"] = mh_times["zamba2-7b"]["b8_prefill"]
-    log("phase i times:", json.dumps(mh_times))
-    done("i")
-
-    # --- j. the last families: whisper-large-v3 (B8 bidirectional on the
-    # encoder, causal on the prompt, B7 on both LoRA groups) and paligemma-3b
-    # (B8 at D 256) served and trained at a cut depth; roberta-large trained ---
-    last_counts, last_errs, last_times = phase_last_families(
-        ops, ref, sparse_lora, flash_attention, make_runner, data_mod, FibecFedConfig, ARCHS, build_model,
-        make_loss_fn)
-    for name, n in last_counts.items():
-        launches[name] += n
-    for name, e in last_errs.items():
-        errs[name] = max(errs[name], e)
-    for name in ("whisper-large-v3", "paligemma-3b"):
-        times["batched_sparse_lora_few_rows"][f"{name}_serve_decode"] = last_times[name]["b7_decode"]
-        b7_prefill_times(times, f"{name}_serve_prefill", last_times[name]["b7_prefill"])
-    times["flash_attention"]["whisper-large-v3_serve_prefill"] = last_times["whisper-large-v3"]["b8_prefill"]
-    times["flash_attention"]["whisper-large-v3_serve_encoder"] = last_times["whisper-large-v3"]["b8_encoder"]
-    times["flash_attention_d256"]["paligemma-3b_serve_prefill"] = last_times["paligemma-3b"]["b8_prefill"]
-    log("phase j times:", json.dumps(last_times))
-    decode = {"qwen2-0.5b (5d)": serve_times, "mamba2-1.3b (f)": ssm_times,
-              **{f"{n} (h)": dense_times[n] for n in ("qwen3-0.6b", "stablelm-3b", "chatglm3-6b")},
-              **{f"{n} (i)": mh_times[n] for n in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "zamba2-7b")},
-              **{f"{n} (j)": last_times[n] for n in ("whisper-large-v3", "paligemma-3b")}}
-    for name, t in decode.items():
-        prof, b7 = t["profiles"]["decode"], t["b7_decode"]
-        log(f"decode step, {name}: {t['decode_step_ms']:.2f} ms, busy {prof['busy_share']:.1%}, B7 "
-            f"{prof['b7_share']:.1%} of {prof['kernel_ms']:.2f} ms of kernels; B7 few-row at its decode shape "
-            f"{b7['graph_ms']:.4f} ms, the {b7.get('old_path')} kernel {b7.get('old_graph_ms')} ms")
-    for name, t in decode.items():
-        (key, prof), = [(k, p) for k, p in t["profiles"].items() if k.startswith("prefill")]
-        b7 = t["b7_prefill"]
-        log(f"{key}, {name}: B7 {prof['b7_share']:.1%} and B8 {prof['b8_share']:.1%} of {prof['kernel_ms']:.2f} ms "
-            f"of kernels; B7 {b7['path']} at "
-            f"{b7['target']} {b7['rows']} rows {b7['graph_ms']:.4f} ms ({b7['bound_share']:.1%} of its bound), "
-            f"the {b7.get('old_path')} kernel {b7.get('old_graph_ms')} ms, two bmm {b7['library_ms']:.4f} ms")
-    done("j")
+    del snaps
+    ckpt_dir.cleanup()
 
     # --- 8. kernel list, card, ok ---
     if any(n == 0 for n in launches.values()):
@@ -4813,5 +4958,45 @@ def main() -> int:
     return 0
 
 
+def phases_k_l(state_path) -> int:
+    """The second process: phases k and l(i) on phase 4's world, rebuilt as
+    the first process built it, from the state it handed over; writes their
+    launches beside the state."""
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG: end with the first process
+    state = torch.load(state_path, map_location="cuda", weights_only=False)
+    if os.getppid() != state["parent"]:
+        return 1
+    from repro_torch import data as data_mod
+    from repro_torch.config import FibecFedConfig
+    from repro_torch.configs import ARCHS
+    from repro_torch.federated import AsyncAggConfig, CompressionConfig, make_runner
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train import make_loss_fn
+    from repro_torch.utils.tree import tree_leaves
+
+    full_f32()
+    root, snaps = os.path.dirname(state_path), state["snaps"]
+    cfg, model, loss_fn, fl, clients = qwen2_world(ARCHS, FibecFedConfig, data_mod, build_model, make_loss_fn)
+
+    def done(phase):
+        print(f"chip_smoke: phase {phase} done at {time.time() - state['since']:.1f} s", file=sys.stderr, flush=True)
+
+    # --- k. the async engine on phase 4's world: the degenerate run against
+    # the loop engine, stragglers, compression with derived ranks and edges ---
+    launches = phase_async(ops, make_runner, AsyncAggConfig, CompressionConfig, model, loss_fn, fl, clients, cfg,
+                           state["loop"], tree_leaves, snaps, root)
+    done("k")
+    # --- l(i). run checkpoints: phases 4, 5 and k(ii) resumed from their
+    # snapshots ---
+    for name, n in phase_resume(ops, make_runner, AsyncAggConfig, model, loss_fn, fl, clients, snaps,
+                                tree_leaves).items():
+        launches[name] = launches.get(name, 0) + n
+    done("l(i)")
+    with open(os.path.join(root, "phases_k_l.json"), "w") as f:
+        json.dump(launches, f)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phases_k_l(sys.argv[2]) if sys.argv[1:2] == ["--phases-k-l"] else main())

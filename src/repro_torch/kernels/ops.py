@@ -479,6 +479,43 @@ def ssd_chunk_intra(x, a, b, c, heads: int = 1):
     return y
 
 
+def _last_contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def ssd_chunk_intra_seq(x, a, b, c, chunk: int):
+    """The intra-chunk SSD in the model's sequence layout: x (B, S, nh, hd),
+    a (B, S, nh) log decays, b/c (B, S, N) shared by the heads, S a multiple
+    of ``chunk`` -> y (B, S, nh, hd) f32, where position i of a chunk gets
+    ``Σ_{j≤i} exp(cs_i - cs_j)·(c_i·b_j)·x_j`` over the chunk's positions j,
+    ``cs`` the cumsum of a within the chunk, head by head. One launch of the
+    kernel behind :func:`ssd_chunk_intra` (counted there), reading x, a, b
+    and c where they lie (b and c may be column slices of a wider tensor):
+    nothing is permuted or copied first. The same dtypes as
+    :func:`ssd_chunk_intra`."""
+    B, S, nh, hd = x.shape
+    if S % chunk or a.shape != (B, S, nh) or b.shape[:2] != (B, S) or c.shape != b.shape:
+        raise ValueError(f"x {tuple(x.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)} "
+                         f"are not one sequence in chunks of {chunk}")
+    if not _on_cuda(x):
+        return _ref.ssd_chunk_intra_seq_ref(x, a, b, c, chunk)
+    if not (x.dtype == b.dtype == c.dtype and x.dtype in _sc.DTYPE_CODES):
+        x, b, c = _f32(x), _f32(b), _f32(c)
+    if a.dtype not in _sc.DTYPE_CODES:
+        a = a.to(torch.float32)
+    x, b, c = _last_contiguous(x), _last_contiguous(b), _last_contiguous(c)
+    nc = S // chunk
+
+    def rows(t):  # (B, S, ...) -> (B·nc, chunk, ...): a view wherever the batch stride allows
+        return t.unflatten(1, (nc, chunk)).flatten(0, 1)
+
+    y = torch.empty((B, S, nh, hd), dtype=torch.float32, device=x.device)
+    _sc.ssd_chunk_launch_views(rows(y).transpose(1, 2), rows(x).transpose(1, 2), rows(a).transpose(1, 2),
+                               rows(b), rows(c))
+    ssd_chunk_intra.launches += 1
+    return y
+
+
 masked_sgd_update.launches = 0
 masked_adamw_update.launches = 0
 fake_compress.launches = 0

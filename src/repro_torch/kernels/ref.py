@@ -230,3 +230,16 @@ def ssd_chunk_intra_ref(x, a, b, c, heads: int = 1):
     scores = torch.einsum("gis,gjs->gij", c.to(torch.float32), b.to(torch.float32))
     y = torch.einsum("ghij,ghjd->ghid", L * scores[:, None], x.to(torch.float32).reshape(G // heads, heads, Q, hd))
     return y.reshape(G, Q, hd)
+
+
+def ssd_chunk_intra_seq_ref(x, a, b, c, chunk: int):
+    """The plain version of ``ops.ssd_chunk_intra_seq``: x (B, S, nh, hd), a
+    (B, S, nh), b/c (B, S, N) -> (B, S, nh, hd) f32, through
+    :func:`ssd_chunk_intra_ref` on the chunks' groups (batch, chunk, head),
+    the heads of a chunk sharing its b and c."""
+    B, S, nh, hd = x.shape
+    nc, N = S // chunk, b.shape[-1]
+    xg = x.reshape(B, nc, chunk, nh, hd).permute(0, 1, 3, 2, 4).reshape(B * nc * nh, chunk, hd)
+    ag = a.reshape(B, nc, chunk, nh).permute(0, 1, 3, 2).reshape(B * nc * nh, 1, chunk)
+    y = ssd_chunk_intra_ref(xg, ag, b.reshape(B * nc, chunk, N), c.reshape(B * nc, chunk, N), heads=nh)
+    return y.reshape(B, nc, nh, chunk, hd).permute(0, 1, 3, 2, 4).reshape(B, S, nh, hd)

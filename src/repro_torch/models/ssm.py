@@ -10,8 +10,9 @@ group, as in the paper).
 The training forward (:func:`mamba2_block`) is plain PyTorch, as the JAX
 package's is. Serving's prefill (:func:`mamba2_prefill`) computes the
 intra-chunk term on the card with the hand-written kernel (B9,
-``repro_torch.kernels.ops.ssd_chunk_intra``), the heads sharing one b and c
-per chunk; on the CPU it runs the same einsums as training. The inter-chunk
+``repro_torch.kernels.ops.ssd_chunk_intra_seq``: x, the decays, b and c read
+where the mixer holds them), the heads sharing one b and c per chunk; on
+the CPU it runs the same einsums as training. The inter-chunk
 recurrence stays in PyTorch.
 """
 from __future__ import annotations
@@ -154,14 +155,12 @@ def ssd_chunked(
 def ssd_intra(x: torch.Tensor, af: torch.Tensor, b: torch.Tensor, c: torch.Tensor, chunk: int) -> torch.Tensor:
     """The intra-chunk term as one B9 launch: x (B, S, nh, hd) in its own
     dtype, af (B, nc, Q, nh) f32 log decays, b/c (B, S, N) -> (B, nc, Q, nh,
-    hd) f32. Groups run in (batch, chunk, head) order, so the heads of a
-    chunk read its one b and c (``heads=nh``): (B·nc, Q, N) is a view."""
+    hd) f32. The kernel reads x, the decays, b and c where they lie (b and c
+    are column slices of the conv's output), the heads of a chunk sharing
+    its b and c: nothing is copied before the launch."""
     B, S, nh, hd = x.shape
-    nc, N = S // chunk, b.shape[-1]
-    xg = x.reshape(B, nc, chunk, nh, hd).permute(0, 1, 3, 2, 4).reshape(B * nc * nh, chunk, hd)
-    ag = af.permute(0, 1, 3, 2).reshape(B * nc * nh, 1, chunk)
-    y = kops.ssd_chunk_intra(xg, ag, b.reshape(B * nc, chunk, N), c.reshape(B * nc, chunk, N), heads=nh)
-    return y.reshape(B, nc, nh, chunk, hd).permute(0, 1, 3, 2, 4)
+    y = kops.ssd_chunk_intra_seq(x, af.reshape(B, S, nh), b, c, chunk)
+    return y.reshape(B, S // chunk, chunk, nh, hd)
 
 
 def ssd_decode_step(

@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import flash_attention, ops, ref, sparse_lora  # noqa: E402
+from repro_torch.kernels import flash_attention, ops, ref, sparse_lora, ssd_chunk  # noqa: E402
 
 SHAPES = [(24, 896, 8), (24, 8, 128), (1000, 3)]  # LoRA a, b of wk/wv; a ragged size
 
@@ -1390,6 +1390,176 @@ def test_ssd_chunk_kernel_unaligned_views(cuda, dtype):
     torch.cuda.synchronize()
     assert_ssd_close(y, x, a, b, c)
     assert torch.equal(y, ops.ssd_chunk_intra(x.clone(), a, b.clone(), c.clone()))
+
+
+def _offset(t):
+    """``t``'s values in a view one element past a 16-byte boundary: TMA
+    cannot take it, so the kernel copies its tiles itself."""
+    v = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)[1:].view(t.shape)
+    return v.copy_(t)
+
+
+# phase 5c's small and ragged B9 shapes (chip_smoke.py SSD_SMALL, SSD_RAGGED)
+SSD_ROUTE_CASES = [(128, 64, 32), (128, 128, 128), (64, 32, 16)] + [
+    (Q, hd, N) for Q in (8, 24, 64, 128) for hd in (4, 20, 64, 128) for N in (1, 5, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,hd,N", SSD_ROUTE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_both_load_routes(cuda, Q, hd, N, dtype):
+    """Each shape through TMA where the shape allows it (rows of x, b and c
+    whole multiples of 16 bytes) and through the kernel's own copies (inputs
+    off a 16-byte boundary): each launch on the route it should take, both
+    within the tolerance of the plain version, and the same bits."""
+    G = 4
+    x = torch.randn(G, Q, hd, generator=cuda, device="cuda").to(dtype)
+    b, c = (torch.randn(G, Q, N, generator=cuda, device="cuda").to(dtype) for _ in range(2))
+    a = mamba_decays(cuda, G, Q, 2)
+    tma = hd * x.element_size() % 16 == 0 and N * x.element_size() % 16 == 0
+    copies = ssd_chunk.copy_route_launches()
+    y = ops.ssd_chunk_intra(x, a, b, c)
+    assert ssd_chunk.copy_route_launches() == copies + (not tma)
+    xo, bo, co = _offset(x), _offset(b), _offset(c)
+    assert xo.data_ptr() % 16 and bo.data_ptr() % 16 and co.data_ptr() % 16
+    y_copy = ops.ssd_chunk_intra(xo, a, bo, co)
+    assert ssd_chunk.copy_route_launches() == copies + (not tma) + 1
+    torch.cuda.synchronize()
+    assert_ssd_close(y, x, a, b, c)
+    assert torch.equal(y, y_copy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_same_bits_twice(cuda, dtype):
+    """Two launches on the same inputs, and a CUDA graph of two launches,
+    give the same bits (no atomics, no order that depends on the run)."""
+    x, a, b, c = _ssd_heads_inputs(cuda, 8, 64, 128, 64, 128, dtype)
+    y1 = ops.ssd_chunk_intra(x, a, b, c, heads=64)
+    y2 = ops.ssd_chunk_intra(x, a, b, c, heads=64)
+    outs = [torch.empty_like(y1) for _ in range(2)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for out in outs:
+            ssd_chunk.ssd_chunk_launch(out, x, a, b, c, 64)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(outs[0], y1) and torch.equal(outs[1], y1)
+
+
+def _ssd_heads_inputs(gen, R, heads, Q, hd, N, dtype):
+    G = R * heads
+    x = torch.randn(G, Q, hd, generator=gen, device="cuda").to(dtype)
+    b, c = (torch.randn(R, Q, N, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    return x, mamba_decays(gen, G, Q, heads), b, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_head_blocks_that_do_not_divide(cuda, dtype):
+    """40 rows of zamba2-7b's 112 heads: the launch's head block leaves a
+    short last block a row; each group's bits equal the ``heads=1`` launch
+    on b and c expanded, and the plain version holds it."""
+    R, heads, Q, hd, N = 40, 112, 128, 64, 64
+    lay = ssd_chunk.layout(dtype, R, heads)
+    assert heads % lay["head_block"], lay
+    x, a, b, c = _ssd_heads_inputs(cuda, R, heads, Q, hd, N, dtype)
+    y = ops.ssd_chunk_intra(x, a, b, c, heads=heads)
+    bx, cx = (t.repeat_interleave(heads, 0) for t in (b, c))
+    torch.cuda.synchronize()
+    assert_ssd_close(y, x, a, bx, cx)
+    assert torch.equal(y, ops.ssd_chunk_intra(x, a, bx, cx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_single_head(cuda, dtype):
+    """One group (the JAX layout), and a sequence of one head (the model's
+    layout): both held to the plain version."""
+    x = torch.randn(1, 128, 64, generator=cuda, device="cuda").to(dtype)
+    b, c = (torch.randn(1, 128, 128, generator=cuda, device="cuda").to(dtype) for _ in range(2))
+    a = mamba_decays(cuda, 1, 128, 1)
+    y = ops.ssd_chunk_intra(x, a, b, c)
+    torch.cuda.synchronize()
+    assert_ssd_close(y, x, a, b, c)
+    xs = torch.randn(2, 256, 1, 64, generator=cuda, device="cuda").to(dtype)
+    bs, cs = (torch.randn(2, 256, 128, generator=cuda, device="cuda").to(dtype) for _ in range(2))
+    as_ = seq_decays(cuda, 2, 256, 1)
+    ys = ops.ssd_chunk_intra_seq(xs, as_, bs, cs, 128)
+    torch.cuda.synchronize()
+    assert_ssd_seq_close(ys, xs, as_, bs, cs, 128)
+
+
+def seq_decays(gen, B, S, nh):
+    """:func:`mamba_decays` in the model's (B, S, nh) layout."""
+    A = torch.linspace(1.0, 16.0, nh, device="cuda")
+    u = torch.rand(B, S, nh, generator=gen, device="cuda")
+    return -A * torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+
+
+def assert_ssd_seq_close(y, x, a, b, c, chunk):
+    """:func:`assert_ssd_close` for the model's layout."""
+    plain = ref.ssd_chunk_intra_seq_ref(x, a, b, c, chunk)
+    assert y.dtype == torch.float32 and y.shape == plain.shape
+    terms = ref.ssd_chunk_intra_seq_ref(x.abs(), a, b.abs(), c.abs(), chunk)
+    B, S, nh = a.shape
+    cs_max = float(a.float().reshape(B, S // chunk, chunk, nh).sum(dim=2).abs().max())
+    allowed = (1e-5 + 1e-6 * cs_max) * terms
+    assert bool(((y - plain).abs() <= allowed).all()), float(((y - plain).abs() / terms.clamp_min(1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ssd_chunk_kernel_reads_the_model_layout(cuda, dtype, offset):
+    """The model's layout read in place: x (B, S, nh, hd), the decays (B,
+    S, nh), b and c column slices of the conv's output (offset 1: off a
+    16-byte boundary, the copy route); one launch, held to the plain
+    version and equal to the JAX layout's launch on permuted copies."""
+    B, S, nh, hd, N, Q = 2, 384, 8, 64, 128, 128
+    xbc = torch.randn(B, S, offset + nh * hd + 2 * N, generator=cuda, device="cuda").to(dtype)
+    x = xbc[..., offset:offset + nh * hd].reshape(B, S, nh, hd).contiguous()
+    b, c = xbc[..., offset + nh * hd:offset + nh * hd + N], xbc[..., offset + nh * hd + N:]
+    a = seq_decays(cuda, B, S, nh)
+    before, copies = ops.ssd_chunk_intra.launches, ssd_chunk.copy_route_launches()
+    y = ops.ssd_chunk_intra_seq(x, a, b, c, Q)
+    assert ops.ssd_chunk_intra.launches == before + 1
+    assert ssd_chunk.copy_route_launches() == copies + offset  # TMA where the slices are aligned
+    torch.cuda.synchronize()
+    assert_ssd_seq_close(y, x, a, b, c, Q)
+    nc = S // Q
+    xg = x.reshape(B, nc, Q, nh, hd).permute(0, 1, 3, 2, 4).reshape(B * nc * nh, Q, hd)
+    ag = a.reshape(B, nc, Q, nh).permute(0, 1, 3, 2).reshape(B * nc * nh, 1, Q)
+    yg = ops.ssd_chunk_intra(xg, ag, b.reshape(B * nc, Q, N), c.reshape(B * nc, Q, N), heads=nh)
+    assert torch.equal(y, yg.reshape(B, nc, nh, Q, hd).permute(0, 1, 3, 2, 4).reshape(B, S, nh, hd))
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernels_run_wgmma_on_tma_tiles(cuda):
+    """Both routes' kernels (bf16 and f32) issue HGMMA (wgmma) and UTMALDG
+    (TMA tile loads) in their SASS."""
+    from repro_torch.kernels import build
+
+    ssd_chunk.library()
+    sass = sass_by_function(build.library_path(ssd_chunk.SOURCE))
+    kernels = {n: body for n, body in sass.items() if "ssd_chunk_kernel" in n}
+    assert len(kernels) == 2, sorted(sass)
+    for name, body in kernels.items():
+        assert "HGMMA" in body and "UTMALDG" in body, name
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_layout_reports_the_launch(cuda):
+    """mamba2-1.3b's serve prefill (32 rows of 64 heads) fills the card in
+    one wave of units, on either route; the bf16 route (the served one)
+    spills nothing, the f32 route (64 bytes with CUDA 12.8's ptxas) no more
+    than 128 bytes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        lay = ssd_chunk.layout(dtype, 32, 64)
+        assert lay["threads"] == 384 and lay["rows"] == 128, lay
+        assert lay["units"] <= 2 * lay["blocks"] and 64 % lay["head_block"] == 0, lay
+    assert ssd_chunk.layout(torch.bfloat16, 32, 64)["local_bytes"] == 0
+    assert ssd_chunk.layout(torch.float32, 32, 64)["local_bytes"] <= 128
 
 
 @pytest.mark.cuda

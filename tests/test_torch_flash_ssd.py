@@ -286,6 +286,63 @@ def test_ssd_chunk_matches_model_path():
     _assert_close(y_kernel, y_model, float(y_model.abs().max()))
 
 
+def _groups(x, a, b, c, chunk):
+    """The model's layout (x (B, S, nh, hd), a (B, S, nh), b/c (B, S, N))
+    as the JAX kernel's groups (batch, chunk, head), b and c per group."""
+    B, S, nh, hd = x.shape
+    nc, N = S // chunk, b.shape[-1]
+    xg = x.reshape(B, nc, chunk, nh, hd).transpose(0, 1, 3, 2, 4).reshape(B * nc * nh, chunk, hd)
+    ag = a.reshape(B, nc, chunk, nh).transpose(0, 1, 3, 2).reshape(B * nc * nh, 1, chunk)
+    bg, cg = (np.repeat(t.reshape(B * nc, chunk, N), nh, axis=0) for t in (b, c))
+    return xg, ag, bg, cg
+
+
+@pytest.mark.parametrize("S,chunk,nh,hd,N", [(256, 64, 3, 16, 8), (128, 128, 2, 32, 16), (96, 32, 1, 20, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_intra_seq_matches_jax(S, chunk, nh, hd, N, dtype):
+    """The strided entry (the model's layout, b and c column slices of a
+    wider tensor, read where they lie) on the CPU takes its plain version,
+    which agrees with JAX's ``ssd_chunk_intra`` on the same values laid out
+    as its groups; no launch is counted."""
+    B = 2
+    rng = np.random.default_rng(S + nh + hd + N)
+    xbc = rng.standard_normal((B, S, nh * hd + 2 * N + 3), dtype=np.float32)
+    a = -np.abs(rng.standard_normal((B, S, nh), dtype=np.float32)) * 0.1
+    (jw, tw), (ja, ta) = _pair(xbc, dtype), _pair(a)
+    w = _np(jw)  # the values both sides see
+    x, b, c = w[..., :nh * hd].reshape(B, S, nh, hd), w[..., nh * hd:nh * hd + N], w[..., nh * hd + N:-3]
+    tx = tw[..., :nh * hd].reshape(B, S, nh, hd)
+    tb, tc = tw[..., nh * hd:nh * hd + N], tw[..., nh * hd + N:-3]
+    assert tb.stride(1) == nh * hd + 2 * N + 3  # column slices, not copies
+    xg, ag, bg, cg = _groups(x, a, b, c, chunk)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = jops.ssd_chunk_intra(jnp.asarray(xg, jdt), jnp.asarray(ag), jnp.asarray(bg, jdt), jnp.asarray(cg, jdt))
+    before = tops.ssd_chunk_intra.launches
+    got = tops.ssd_chunk_intra_seq(tx, ta, tb, tc, chunk)
+    assert tops.ssd_chunk_intra.launches == before
+    assert got.dtype == torch.float32 and got.shape == (B, S, nh, hd)
+    nc = S // chunk
+    want = np.asarray(want).reshape(B, nc, nh, chunk, hd).transpose(0, 1, 3, 2, 4).reshape(B, S, nh, hd)
+    _assert_close(got, want, float(np.max(np.abs(want))))
+
+
+def test_ssd_chunk_intra_seq_is_the_model_path():
+    """The model's intra-chunk term through the strided entry equals the
+    plain einsums of ``ssd_chunked`` (one chunk, no state: the whole term)."""
+    B, S, nh, hd, N = 2, 64, 2, 32, 16
+    (_, x), (_, a), (_, b), (_, c) = _ssd_model_inputs(11, B, S, nh, hd, N)
+    y_model, _ = tssm.ssd_chunked(x, a, b, c, chunk=S)
+    _assert_close(tops.ssd_chunk_intra_seq(x, a, b, c, S), y_model, float(y_model.abs().max()))
+
+
+def test_ssd_chunk_intra_seq_refuses_what_is_not_one_sequence():
+    x, a, bc = torch.zeros(1, 96, 2, 8), torch.zeros(1, 96, 2), torch.zeros(1, 96, 4)
+    for args in ((x, a, bc, bc, 64), (x, a[:, :64], bc, bc, 32), (x, a, bc[:, :64], bc[:, :64], 32),
+                 (x, a, bc, bc[..., :3], 32)):
+        with pytest.raises(ValueError):
+            tops.ssd_chunk_intra_seq(*args)
+
+
 def _calls(device):
     q, k = torch.randn(1, 8, 4, 64, device=device), torch.randn(1, 8, 2, 64, device=device)
     x, a, bc = torch.randn(2, 8, 4, device=device), -torch.rand(2, 1, 8, device=device), \

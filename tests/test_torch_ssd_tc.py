@@ -1,20 +1,29 @@
 """The arithmetic of the tensor-core SSD intra-chunk kernel (B9) meets the
 JAX package's ``ssd_chunk_intra`` before any card runs it.
 
-``csrc/ssd_chunk.cu`` computes both of its products on the tensor cores:
+``csrc/ssd_chunk.cu`` computes both of its products on Hopper's tensor
+cores (``wgmma``), the scores ``c·bᵀ`` once a row for all the heads that
+share its b and c (each head's ``M`` is formed from the same scores: the
+emulation computes them once a row, as the kernel does):
 - f32 inputs: 3xTF32. Each operand is split into a TF32 ``hi`` (round to
   nearest, ties away, to a 10-bit mantissa: ``cvt.rna.tf32.f32``) and a TF32
-  ``lo`` of the rest; each m16n8k8 step adds ``lo·hi``, ``hi·lo`` and
-  ``hi·hi`` to the f32 accumulator. One TF32 product keeps about three
-  decimal digits, which the tolerance below does not allow.
+  ``lo`` of the rest; each k-step of 8 adds ``lo·hi``, ``hi·lo`` and
+  ``hi·hi`` to the f32 accumulator, the scores on SS ``wgmma`` (c and b
+  split in shared memory), ``M·x`` on RS ``wgmma`` (M's split fragments in
+  registers, x transposed and split in shared memory: TF32 ``wgmma`` reads
+  its B operand K-major only). One TF32 product keeps about three decimal
+  digits, which the tolerance below does not allow.
 - bf16 inputs: ``c·bᵀ`` from the exact bf16 values (a product of two bf16
   values is exact in f32), and ``M·x`` with the f32 ``M = exp(cs_i − cs_j)
   ·score`` split into ``hi = bf16(M)`` and ``lo = bf16(M − hi)``, both
-  multiplied by the exact bf16 x.
+  multiplied by the exact bf16 x, each k-step of 16 adding ``hi·x`` then
+  ``lo·x``.
 The emulation below sums as the kernel does: the scores over N in steps of
 8 (f32) or 16 (bf16), ``M·x`` over j in the same steps, each step's
 products summed exactly and added to the f32 accumulator with one rounding
-(what an ``mma.sync`` does, up to the order within a step). The scan
+(what a tensor-core step does, up to the order within a step). Steps that
+the kernel skips or pads (past N, above the diagonal, the 64-row tiles'
+columns past a row's diagonal) add exact zeros. The scan
 ``cs = cumsum(a)`` stays in f32 and is scaled into log2 units, so that a
 decay is one ``2^(cs2_i − cs2_j)`` (``ex2.approx`` on the card, within 2^-22
 of it); entries above the diagonal are exactly 0.
@@ -79,10 +88,11 @@ def pad_to(t, dim, size):
     return torch.nn.functional.pad(t, pad)
 
 
-def kernel_emulation(x, a, b, c, *, terms=3):
+def kernel_emulation(x, a, b, c, *, terms=3, heads=1):
     """The card kernel's arithmetic on CPU tensors. ``terms``: 3 for the
     kernel (3xTF32, or bf16 ``hi + lo``); 1 for a single TF32 / bf16 product
-    (the design it replaces the split with)."""
+    (the design it replaces the split with). b and c hold one row for each
+    ``heads`` groups; the scores are computed once a row."""
     G, Q, hd = x.shape
     N = b.shape[-1]
     Qp, Np = -(-Q // 16) * 16, -(-N // 32) * 32
@@ -91,13 +101,14 @@ def kernel_emulation(x, a, b, c, *, terms=3):
     xf, bf, cf = pad_to(xf, 1, Qp), pad_to(pad_to(bf, 1, Qp), 2, Np), pad_to(pad_to(cf, 1, Qp), 2, Np)
     cs = torch.from_numpy(np.cumsum(a[:, 0].to(torch.float32).numpy(), axis=-1, dtype=np.float32))
     cs = pad_to(cs * LOG2E, 1, Qp)
-    zero = torch.zeros(G, Qp, Qp)
+    zero = torch.zeros(G // heads, Qp, Qp)
     if bf16:
         score = mma_steps(zero, [(cf, bf.transpose(1, 2))], 16)
     else:
         (ch, cl), (bh, bl) = split_tf32(cf), split_tf32(bf.transpose(1, 2))
         pairs = [(cl, bh), (ch, bl), (ch, bh)] if terms == 3 else [(ch, bh)]
         score = mma_steps(zero, pairs, 8)
+    score = score.repeat_interleave(heads, 0)  # the row's scores, each of its heads
     i = torch.arange(Qp)
     live = (i[None, :] <= i[:, None]) & (i[:, None] < Q)
     decay = torch.exp2(torch.where(live, cs[:, :, None] - cs[:, None, :], torch.zeros(())))
@@ -154,6 +165,24 @@ def test_tensor_core_arithmetic_matches_jax(Q, hd, N, dtype, decays):
     got = kernel_emulation(x, a, b, c)
     assert got.dtype == torch.float32 and got.shape == (4, Q, hd)
     excess = _excess(got, want, x, a, b, c)
+    assert bool((excess <= 0).all()), f"beyond tolerance by up to {float(excess.max())}"
+
+
+@pytest.mark.parametrize("Q,hd,N,heads", [(128, 64, 128, 4), (64, 32, 16, 3), (24, 20, 5, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scores_shared_by_the_heads_match_jax(Q, hd, N, heads, dtype):
+    """One c·bᵀ a row for the heads sharing b and c: the same bits as the
+    ``heads=1`` emulation on b and c expanded to every group, within the
+    card's tolerance of the JAX kernel on those expanded inputs (Mamba2's
+    decays)."""
+    G = 2 * heads
+    (jx, x), (ja, a), (jb, b), (jc, c) = _inputs(Q + hd + N + heads, G, Q, hd, N, dtype, "mamba2")
+    b, c = b[::heads].contiguous(), c[::heads].contiguous()  # one row a chunk
+    bx, cx = (t.repeat_interleave(heads, 0) for t in (b, c))
+    got = kernel_emulation(x, a, b, c, heads=heads)
+    assert torch.equal(got, kernel_emulation(x, a, bx, cx))
+    jb, jc = (jnp.repeat(t[::heads], heads, axis=0) for t in (jb, jc))
+    excess = _excess(got, jops.ssd_chunk_intra(jx, ja, jb, jc), x, a, bx, cx)
     assert bool((excess <= 0).all()), f"beyond tolerance by up to {float(excess.max())}"
 
 
